@@ -1,0 +1,115 @@
+"""Build the CUDA kernels with nvcc at first use and load them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into one
+shared library with a plain C interface, named by a hash of the sources
+and flags, under ``fastvim_tpu_torch/build/``. A missing ``nvcc`` or a
+failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: name → argument types. Each returns a cudaError_t.
+SIGNATURES = {
+    # u, delta, A, B, C, bias, D, out, batch, L, d, n, dtype, softplus,
+    # reverse, stream
+    "fv_selective_scan_fwd": [_P] * 8 + [_I] * 7 + [_P],
+    # x, w_x, b_x, w_cf, b_cf, w_ab, b_ab, xc_f, xc_b, pf, pb, batch, H, W,
+    # dm, di, transposed, dtype, scaling, stream
+    "fv_pass_a_fwd": [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P],
+    # x, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b, w_out, b_out,
+    # out, batch, H, W, dm, di, transposed, dtype, use_ln, eps, stream
+    "fv_pass_b_fwd": [_P] * 14 + [_I] * 8 + [ctypes.c_float, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, $PATH or the default toolkit location."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(DEFAULT_CUDA_HOME / "bin" / "nvcc")
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError(
+        "cannot build the fastvim_tpu_torch CUDA kernels: nvcc not found "
+        "(looked in $CUDA_HOME/bin, $PATH and "
+        f"{DEFAULT_CUDA_HOME / 'bin'}). CUDA tensors need the kernels; "
+        "there is no fallback.")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfastvim_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.fv_error_string.argtypes = [ctypes.c_int]
+            lib.fv_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().fv_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: cudaError {err} ({msg})")

@@ -1,0 +1,3 @@
+from fastvim_tpu_torch.utils.convert import from_jax_params
+
+__all__ = ["from_jax_params"]
