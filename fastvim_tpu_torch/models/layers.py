@@ -82,18 +82,29 @@ def lecun_normal_init_(t: torch.Tensor, fan_in: int,
 
 
 class DropPath(nn.Module):
-    """Stochastic depth on the residual branch; identity in eval mode."""
+    """Stochastic depth on the residual branch, per sample, kept samples
+    rescaled by 1/keep; identity in eval mode or at rate 0. In training
+    mode the mask is drawn from ``generator``, a ``torch.Generator`` on
+    the input's device that the caller sets (see
+    ``VisionMamba.set_drop_path_generator``); the global generator is
+    never used."""
 
-    def __init__(self, rate: float = 0.0):
+    def __init__(self, rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.rate = rate
+        self.generator = generator
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        if self.generator is None:
+            raise RuntimeError("DropPath in training mode needs a generator "
+                               "(set_drop_path_generator)")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = torch.rand(shape, device=x.device,
+                          generator=self.generator) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

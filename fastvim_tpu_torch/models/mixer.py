@@ -19,7 +19,11 @@ whole layer runs as pass A (K3) → pooled scans (K1) → pass B (K4);
 otherwise the unfused path below, whose scans still go through
 :func:`~fastvim_tpu_torch.ops.scan.selective_scan`. ``scan_impl="ref"``
 forces the sequential reference scan; any other value ("auto", and the
-JAX package's "assoc"/"pallas") dispatches on the device.
+JAX package's "assoc"/"pallas") dispatches on the device. When a gradient
+is needed, ``layer_fused_bwd`` picks the fused layer's backward: "fused"
+(the K5 and K6 adjoint kernels, scans by K2) or "remat" (autograd through
+the unfused math, recomputed); the unfused path's scans differentiate
+through K2 either way.
 
 Parameters have the torch reference's names and layouts; they stay
 float32 and are cast to the module ``dtype`` where they are used.
@@ -66,11 +70,15 @@ class MambaMixer(nn.Module):
                  collapse_method: str = "mean", scaling_factor: float = 1.0,
                  n_layer: int = 24, norm_eps: float = 1e-5,
                  scan_impl: str = "auto", layer_fused: str = "auto",
+                 layer_fused_bwd: str = "fused",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if layer_fused not in ("auto", "on", "off"):
             raise ValueError(f"layer_fused must be auto|on|off, got "
                              f"{layer_fused!r}")
+        if layer_fused_bwd not in ("fused", "remat"):
+            raise ValueError(f"layer_fused_bwd must be fused|remat, got "
+                             f"{layer_fused_bwd!r}")
         if collapse_method not in ("mean", "max", "none"):
             raise ValueError(f"unknown collapse method {collapse_method!r}")
         self.d_model = d_model
@@ -89,6 +97,7 @@ class MambaMixer(nn.Module):
         self.norm_eps = norm_eps
         self.scan_impl = scan_impl
         self.layer_fused = layer_fused
+        self.layer_fused_bwd = layer_fused_bwd
         self.dtype = dtype
 
         di, n, r = self.d_inner, d_state, self.dt_rank
@@ -189,7 +198,7 @@ class MambaMixer(nn.Module):
             return fused_mixer_core(
                 x, self.fused_params(), grid_shape, transposed,
                 self.scaling_factor, self.norm_eps, self.use_norm_after_ssm,
-                dtype, self.scan_impl)
+                dtype, self.scan_impl, bwd_mode=self.layer_fused_bwd)
         return self._unfused(x, grid_shape, pool_axes, transposed)
 
     def _unfused(self, x, grid_shape, pool_axes, transposed):

@@ -61,17 +61,23 @@ def create_model(name: str, *, device: Union[str, torch.device, None] = None,
                  **kwargs) -> VisionMamba:
     """Build a registered model, initialize it on the CPU from
     ``generator`` (seed 0 if None), move it to ``device`` and return it
-    in eval mode. Other keyword arguments override the model's fields
-    (``dtype``, ``img_size``, ``layer_fused``, ...)."""
+    in eval mode. ``device=None`` means the first CUDA device, and raises
+    where there is none: the CPU is used only when asked for
+    (``device="cpu"``). Other keyword arguments override the model's
+    fields (``dtype``, ``img_size``, ``layer_fused``, ...)."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: "
                        f"{sorted(_REGISTRY)}")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "create_model: no CUDA device; pass device='cpu' to build "
+                "the model on the CPU")
+        device = torch.device("cuda", 0)
     model = _REGISTRY[name](**kwargs)
     model.reset_parameters(generator if generator is not None
                            else torch.Generator().manual_seed(0))
-    if device is not None:
-        model = model.to(device)
-    return model.eval()
+    return model.to(device).eval()
 
 
 def list_models():

@@ -5,7 +5,8 @@ Counterpart of the classification path of
 ``fastvim_tpu/models/vision_mamba.py``, including the Vim baseline's
 (middle) cls token. Images are NHWC. The input grid must be the one
 ``img_size`` gives: there is no pos-embed resize and no ``out_indices``
-feature-map mode here.
+feature-map mode here. ``model.train()`` / ``model.eval()`` take the place
+of the JAX package's ``deterministic`` argument: they switch DropPath.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ class VisionMamba(nn.Module):
                  rotate_every_block: bool = True,
                  collapse_method: str = "mean", scaling_factor: float = 1.0,
                  scan_impl: str = "auto", layer_fused: str = "auto",
+                 layer_fused_bwd: str = "fused",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if if_cls_token and (collapse_method != "none" or rotate_every_block):
@@ -62,7 +64,7 @@ class VisionMamba(nn.Module):
             use_norm_after_ssm=use_norm_after_ssm,
             collapse_method=collapse_method, scaling_factor=scaling_factor,
             n_layer=depth, scan_impl=scan_impl, layer_fused=layer_fused,
-            **(ssm_cfg or {}))
+            layer_fused_bwd=layer_fused_bwd, **(ssm_cfg or {}))
         dpr = [float(r) for r in np.linspace(0, drop_path_rate, depth)]
         inter_dpr = [0.0] + dpr[:-1] if depth > 1 else [0.0]
         self.layers = nn.ModuleList(
@@ -103,6 +105,14 @@ class VisionMamba(nn.Module):
         if self.head is not None:
             trunc_normal_init_(self.head.weight, 0.02, generator)
             nn.init.zeros_(self.head.bias)
+
+    def set_drop_path_generator(
+            self, generator: Optional[torch.Generator]) -> None:
+        """Hand every DropPath the generator its training-mode masks are
+        drawn from (on the model's device)."""
+        for m in self.modules():
+            if isinstance(m, DropPath):
+                m.generator = generator
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (batch, H, W, C) images. Returns logits (batch, num_classes),

@@ -6,14 +6,22 @@ version.
 =====  ===========================  ======================================
  K1    selective_scan.selective_    selective_scan.py ``_scan_kernel``
        scan_fwd
+ K2    selective_scan.selective_    selective_scan.py ``_bwd_kernel``
+       scan_bwd
  K3    layer_fused.pass_a           layer_fused.py ``_pass_a_even_kernel``
                                     / ``_pass_a_odd_kernel``
  K4    layer_fused.pass_b           layer_fused.py ``_pass_b_mat_kernel``
+ K5    layer_fused.pass_b_bwd       layer_fused.py ``_pass_b_bwd_kernel``
+ K6    layer_fused.pass_a_bwd       layer_fused.py
+                                    ``_pass_a_bwd_even_kernel`` /
+                                    ``_pass_a_bwd_odd_kernel``
 =====  ===========================  ======================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (built on first use by ``_build``) or raises. Each
-launch adds one to its entry in ``LAUNCHES``.
+launch adds one to its entry in ``LAUNCHES``. The launchers refuse
+tensors that require grad; the ``torch.autograd.Function``s around them
+(``SelectiveScanFn``, ``FusedMixerCoreFn``) call them with grad mode off.
 """
 
 from __future__ import annotations
@@ -22,8 +30,9 @@ from typing import Dict, Optional
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"selective_scan_fwd": 0, "pass_a_fwd": 0,
-                            "pass_b_fwd": 0}
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    ("selective_scan_fwd", "selective_scan_bwd", "pass_a_fwd", "pass_b_fwd",
+     "pass_b_bwd", "pass_a_bwd"), 0)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,8 +48,8 @@ def launch_counts() -> Dict[str, int]:
 
 def check_cuda_args(name: str, device: torch.device, **tensors) -> None:
     """Raise unless ``device`` is a CUDA device and every given tensor
-    (None skipped) lies on it, is contiguous, and needs no gradient: the
-    kernels are forward-only."""
+    (None skipped) lies on it, is contiguous, and needs no gradient
+    while grad mode is on: a raw launch records nothing for autograd."""
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
     grad = torch.is_grad_enabled()
@@ -54,9 +63,9 @@ def check_cuda_args(name: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
         if grad and t.requires_grad:
             raise RuntimeError(
-                f"{name}: {arg} requires grad, but the CUDA kernel is "
-                "forward-only; run under torch.no_grad() or "
-                "torch.inference_mode()")
+                f"{name}: {arg} requires grad, but a raw kernel launch "
+                "records no graph; call ops.scan.selective_scan or "
+                "fused_mixer_core, or run under torch.no_grad()")
 
 
 def check_aligned(name: str, **tensors) -> None:

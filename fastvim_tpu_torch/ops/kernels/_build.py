@@ -1,9 +1,10 @@
 """Build the CUDA kernels with nvcc at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into one
-shared library with a plain C interface, named by a hash of the sources
-and flags, under ``fastvim_tpu_torch/build/``. A missing ``nvcc`` or a
-failed build raises; nothing falls back.
+Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``), one nvcc
+process per file and all at once, and linked into one shared library with
+a plain C interface, named by a hash of the sources and flags, under
+``fastvim_tpu_torch/build/``. A missing ``nvcc`` or a failed build raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -21,20 +22,31 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name → argument types. Each returns a cudaError_t.
 SIGNATURES = {
-    # u, delta, A, B, C, bias, D, out, batch, L, d, n, dtype, softplus,
-    # reverse, stream
-    "fv_selective_scan_fwd": [_P] * 8 + [_I] * 7 + [_P],
+    # u, delta, A, B, C, bias, D, out, states, batch, L, d, n, dtype,
+    # softplus, reverse, stream
+    "fv_selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    # u, delta, A, B, C, bias, D, g, states, du, ddelta, dbc_part, vec_part,
+    # dB, dC, vec, batch, L, d, n, dtype, softplus, reverse, stream
+    "fv_selective_scan_bwd": [_P] * 16 + [_I] * 7 + [_P],
     # x, w_x, b_x, w_cf, b_cf, w_ab, b_ab, xc_f, xc_b, pf, pb, batch, H, W,
     # dm, di, transposed, dtype, scaling, stream
     "fv_pass_a_fwd": [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P],
     # x, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b, w_out, b_out,
     # out, batch, H, W, dm, di, transposed, dtype, use_ln, eps, stream
     "fv_pass_b_fwd": [_P] * 14 + [_I] * 8 + [ctypes.c_float, _P],
+    # g, x, xc_f, xc_b, yf, yb, w_z, w_z_t, b_z, d_f, d_b, ln_w, ln_b,
+    # w_out_t, dx, dxc_f, dxc_b, dy, mg, dz, vec_part, vec, w_part, dw_out,
+    # dw_z, batch, H, W, dm, di, transposed, dtype, use_ln, nsplit, eps, stream
+    "fv_pass_b_bwd": [_P] * 25 + [_I] * 9 + [ctypes.c_float, _P],
+    # x, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, w_x_t, b_x, w_cf, b_cf, w_ab,
+    # b_ab, dx, dxin, c_part, c_vec, w_part, dw_x, batch, H, W, dm, di,
+    # transposed, dtype, nsplit, scaling, stream
+    "fv_pass_a_bwd": [_P] * 19 + [_I] * 8 + [ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()
@@ -72,6 +84,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfastvim_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _fail(proc: subprocess.CompletedProcess) -> RuntimeError:
+    return RuntimeError(
+        f"nvcc failed ({proc.returncode}): {' '.join(proc.args)}\n"
+        f"{proc.stdout}\n{proc.stderr}")
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     out = library_path()
@@ -79,16 +97,32 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = {src: BUILD_DIR / f"{tag}.{src.stem}.o"
+            for src in sorted(CSRC.glob("*.cu"))}
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in objs.items()]
+    done = []
+    for p in procs:  # all are running; collect them in turn
+        stdout, stderr = p.communicate()
+        done.append(subprocess.CompletedProcess(p.args, p.returncode, stdout,
+                                                stderr))
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        for proc in done:
+            if proc.returncode != 0:
+                raise _fail(proc)
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs.values())],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise _fail(link)
+        os.replace(tmp, out)
+    finally:
+        for f in (tmp, *objs.values()):
+            f.unlink(missing_ok=True)
     return out
 
 

@@ -89,6 +89,34 @@ __device__ __forceinline__ float softplus(float v) {
   return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
 }
 
+// d/dv [v · sigmoid(v)]
+__device__ __forceinline__ float dsilu(float v) {
+  const float s = 1.f / (1.f + expf(-v));
+  return s * (1.f + v * (1.f - s));
+}
+
+// out[b][i] = Σ_s part[b][s][i], s < S, i < n: the second pass of every
+// cross-block sum of the backward kernels. Each block of the first pass
+// writes its partial to its own slot, and this adds the slots in a fixed
+// order, so the sums are the same from run to run (no atomics).
+static __global__ void sum_partials_kernel(const float* __restrict__ part,
+                                           float* __restrict__ out, long n,
+                                           int S) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* p = part + static_cast<size_t>(blockIdx.y) * S * n + i;
+  float acc = 0.f;
+  for (int s = 0; s < S; ++s) acc += p[static_cast<size_t>(s) * n];
+  out[static_cast<size_t>(blockIdx.y) * n + i] = acc;
+}
+
+inline cudaError_t sum_partials(const float* part, float* out, long n, int S,
+                                int batch, cudaStream_t stream) {
+  dim3 grid(static_cast<unsigned>((n + 255) / 256), batch);
+  sum_partials_kernel<<<grid, 256, 0, stream>>>(part, out, n, S);
+  return cudaGetLastError();
+}
+
 // Bytes of shared memory a block may use on sm_90.
 constexpr size_t kMaxSmem = 232448;
 

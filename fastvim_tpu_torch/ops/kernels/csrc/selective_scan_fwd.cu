@@ -6,6 +6,8 @@
 //   h = a * h + delta * u * B[t, :];  y[t] = <h, C[t, :]> (+ D * u)
 // run left to right, or right to left for reverse=1 (the suffix scan of
 // the pooled backward direction; the output stays in original order).
+// With a `states` buffer it also writes h on entry to each chunk, as
+// `_pallas_fwd(save_states=True)` does, for the backward (K2).
 //
 // What bounds it on the H100: the recurrence is sequential in t, so one
 // (batch, channel) costs L dependent steps whatever the bandwidth. At the
@@ -46,8 +48,9 @@ __global__ void __launch_bounds__(kThreads)
 scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                 const float* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const float* __restrict__ bias,
-                const float* __restrict__ Dp, T* __restrict__ out, int L,
-                int d, int n, bool softplus, bool reverse) {
+                const float* __restrict__ Dp, T* __restrict__ out,
+                float* __restrict__ states, int L, int d, int n,
+                bool softplus, bool reverse) {
   constexpr int kVe = fv::kVec<T>;  // elements per 16-byte vector
   // 16-byte vectors of B (and of C) per thread per chunk, at n = 16
   constexpr int kBCIters = kChunk * kLanes / (kVe * kThreads);
@@ -135,6 +138,9 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
       }
     }
     if (ci + 1 < nchunks) fetch(ci + 1);  // in flight during the scan
+    if (states && s < n)  // h on entry to this chunk, for the backward
+      states[((static_cast<size_t>(blockIdx.y) * nchunks +
+               chunk_start(ci) / kChunk) * d + d0 + ch) * n + s] = h;
     __syncthreads();
 #pragma unroll 4
     for (int k = 0; k < len; ++k) {
@@ -159,15 +165,16 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
 template <typename T>
 cudaError_t launch(const void* u, const void* delta, const void* A,
                    const void* B, const void* C, const void* bias,
-                   const void* D, void* out, int batch, int L, int d, int n,
-                   bool softplus, bool reverse, cudaStream_t stream) {
+                   const void* D, void* out, void* states, int batch, int L,
+                   int d, int n, bool softplus, bool reverse,
+                   cudaStream_t stream) {
   dim3 grid(d / kChannels, batch);
   scan_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(delta),
       static_cast<const float*>(A), static_cast<const T*>(B),
       static_cast<const T*>(C), static_cast<const float*>(bias),
-      static_cast<const float*>(D), static_cast<T*>(out), L, d, n, softplus,
-      reverse);
+      static_cast<const float*>(D), static_cast<T*>(out),
+      static_cast<float*>(states), L, d, n, softplus, reverse);
   return cudaGetLastError();
 }
 
@@ -176,13 +183,15 @@ cudaError_t launch(const void* u, const void* delta, const void* A,
 // u, delta: (batch, L, d) and B, C: (batch, L, n), all of `dtype`
 // (0 fp32, 1 bf16), contiguous and 16-byte aligned; d % 4 == 0, n 8 or
 // 16; A: (d, n) fp32; bias, D: (d,) fp32 or null; out: (batch, L, d) of
-// `dtype`. Returns a cudaError_t.
+// `dtype`; states: null, or (batch, ceil(L / 64), d, n) fp32, which
+// receives the state h on entry to each 64-step chunk (what the backward
+// kernel rebuilds h from). Returns a cudaError_t.
 extern "C" int fv_selective_scan_fwd(const void* u, const void* delta,
                                      const void* A, const void* B,
                                      const void* C, const void* bias,
-                                     const void* D, void* out, int batch,
-                                     int L, int d, int n, int dtype,
-                                     int softplus, int reverse,
+                                     const void* D, void* out, void* states,
+                                     int batch, int L, int d, int n,
+                                     int dtype, int softplus, int reverse,
                                      void* stream) {
   if (batch < 1 || batch > 65535 || L < 0 || d % kChannels != 0 || d < 1 ||
       (n != 8 && n != kLanes))
@@ -191,11 +200,11 @@ extern "C" int fv_selective_scan_fwd(const void* u, const void* delta,
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case fv::kF32:
-      return launch<float>(u, delta, A, B, C, bias, D, out, batch, L, d, n,
-                           softplus, reverse, st);
+      return launch<float>(u, delta, A, B, C, bias, D, out, states, batch, L,
+                           d, n, softplus, reverse, st);
     case fv::kBF16:
-      return launch<__nv_bfloat16>(u, delta, A, B, C, bias, D, out, batch, L,
-                                   d, n, softplus, reverse, st);
+      return launch<__nv_bfloat16>(u, delta, A, B, C, bias, D, out, states,
+                                   batch, L, d, n, softplus, reverse, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -61,19 +61,27 @@ def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
                    delta_softplus: bool = False, reverse: bool = False,
                    impl: str = "auto") -> torch.Tensor:
     """Dispatching entry point: ``impl="ref"`` runs the sequential
-    reference on any device; otherwise a CPU tensor runs the reference and
-    a CUDA tensor launches the chunked scan kernel (K1)."""
+    reference on any device, differentiated by autograd through its loop;
+    otherwise a CPU tensor runs the reference and a CUDA tensor launches
+    the chunked scan kernel (K1). When a gradient is needed, the call goes
+    through ``SelectiveScanFn``, whose backward is K2 (its plain version
+    on the CPU)."""
     if impl == "ref":
         return selective_scan_ref(u, delta, A, B, C, D=D,
                                   delta_bias=delta_bias,
                                   delta_softplus=delta_softplus,
                                   reverse=reverse)
-    from fastvim_tpu_torch.ops.kernels.selective_scan import (
-        selective_scan_fwd,
-    )
+    from fastvim_tpu_torch.ops.kernels import selective_scan as ss
 
-    return selective_scan_fwd(u, delta, A, B, C, D=D, delta_bias=delta_bias,
-                              delta_softplus=delta_softplus, reverse=reverse)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (u, delta, A, B, C, D, delta_bias)):
+        return ss.SelectiveScanFn.apply(u, delta, A, B, C, D, delta_bias,
+                                        delta_softplus, reverse)
+    return ss.selective_scan_fwd(u, delta, A, B, C, D=D,
+                                 delta_bias=delta_bias,
+                                 delta_softplus=delta_softplus,
+                                 reverse=reverse)
 
 
 def pool_grid(x: torch.Tensor, grid_shape: Sequence[int],

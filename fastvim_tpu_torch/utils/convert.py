@@ -1,9 +1,15 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights, gradients and optimizer-visible names between the JAX
+package and the port.
 
 ``from_jax_params`` turns a flax ``VisionMamba`` parameter tree (nested
 mappings of array-likes, with or without the top-level ``"params"``) into
 the port's ``state_dict`` as numpy arrays, under the torch reference's
-names. It needs numpy only:
+names. A gradient tree from ``jax.grad`` has the parameters' structure,
+so the same function maps it onto the port's names, and so it does any
+per-leaf tree (a weight-decay mask broadcast to the leaves' shapes).
+``to_jax_params`` is the inverse, and ``grads_to_numpy`` collects a
+model's ``.grad``s (or a name → gradient mapping) under the same names.
+They need numpy only:
 
 ==============================  =======================================
 flax (``fastvim_tpu.models``)   port / reference torch name
@@ -77,3 +83,51 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         sd["head.weight"] = _np(p["head"]["kernel"]).T
         sd["head.bias"] = _np(p["head"]["bias"])
     return sd
+
+
+def _set(tree: Dict[str, Any], path: str, value: np.ndarray) -> None:
+    *parents, leaf = path.split("/")
+    for k in parents:
+        tree = tree.setdefault(k, {})
+    tree[leaf] = value
+
+
+def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's state_dict (name → array-like; torch tensors go through
+    ``.numpy()`` first) → the flax tree ``{"params": {...}}``: the inverse
+    of :func:`from_jax_params`."""
+    tree: Dict[str, Any] = {}
+    for name, v in state_dict.items():
+        v = _np(v)
+        parts = name.split(".")
+        if parts[0] == "layers":
+            pre, rest = f"layers_{parts[1]}/", parts[2:]
+        else:
+            pre, rest = "", parts
+        if rest[0] == "mixer":
+            pre, rest = pre + "mixer/", rest[1:]
+        key = ".".join(rest)
+        if key == "patch_embed.proj.weight":
+            _set(tree, "patch_embed/proj/kernel", v.transpose(2, 3, 1, 0))
+        elif key == "patch_embed.proj.bias":
+            _set(tree, "patch_embed/proj/bias", v)
+        elif rest[0] in ("in_proj", "out_proj", "head"):
+            _set(tree, f"{pre}{rest[0]}/" + ("kernel" if rest[1] == "weight"
+                                             else "bias"),
+                 v.T if rest[1] == "weight" else v)
+        elif rest[0].startswith("conv1d") and rest[1] == "weight":
+            _set(tree, f"{pre}{rest[0]}_weight", v[:, 0, :].T)
+        elif rest[0].startswith(("x_proj", "dt_proj")) and rest[1] == "weight":
+            _set(tree, f"{pre}{rest[0]}_weight", v.T)
+        else:  # norm.weight → norm_weight, A_log, D, pos_embed, ...
+            _set(tree, pre + "_".join(rest), v)
+    return {"params": tree}
+
+
+def grads_to_numpy(source) -> Dict[str, np.ndarray]:
+    """A model's ``.grad``s, or a name → gradient tensor mapping, as
+    ``{name: float32 numpy array}`` under the port's names."""
+    items = (source.items() if isinstance(source, Mapping)
+             else ((n, p.grad) for n, p in source.named_parameters()))
+    return {n: g.detach().float().cpu().numpy() for n, g in items
+            if g is not None}

@@ -150,15 +150,36 @@ def test_fusable_limits():
 
 
 def test_cpu_wrappers_count_no_launch():
-    """On CPU tensors the wrappers run the plain versions and launch
-    nothing."""
+    """On CPU tensors the wrappers run the plain versions, forward and
+    backward, and launch nothing."""
     kernels.reset_launch_counts()
-    x = _x(5, 8, 8)
+    x = torch.from_numpy(_x(5, 8, 8))
     _, tp = _layer_params(6)
-    fused_mixer_core(torch.from_numpy(x), tp, (8, 8), False, 1.0, 1e-5, True,
-                     torch.float32)
-    assert kernels.launch_counts() == {"selective_scan_fwd": 0,
-                                       "pass_a_fwd": 0, "pass_b_fwd": 0}
+    fused_mixer_core(x, tp, (8, 8), False, 1.0, 1e-5, True, torch.float32)
+    out = fused_mixer_core(x.requires_grad_(), tp, (8, 8), False, 1.0, 1e-5,
+                           True, torch.float32)
+    out.sum().backward()
+    assert x.grad is not None
+    assert kernels.launch_counts() == dict.fromkeys(
+        ("selective_scan_fwd", "selective_scan_bwd", "pass_a_fwd",
+         "pass_b_fwd", "pass_b_bwd", "pass_a_bwd"), 0)
+
+
+def test_launchers_refuse_grad_requiring_tensors():
+    """A raw launch records no autograd graph, so the launchers' argument
+    check refuses a tensor that requires grad while grad mode is on; the
+    autograd Functions call them with grad mode off."""
+    from types import SimpleNamespace
+
+    cuda = torch.device("cuda", 0)
+    t = SimpleNamespace(device=cuda, requires_grad=True,
+                        is_contiguous=lambda: True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        kernels.check_cuda_args("selective_scan_bwd", cuda, u=t)
+    with torch.no_grad():
+        kernels.check_cuda_args("selective_scan_bwd", cuda, u=t, D=None)
+    with pytest.raises(ValueError, match="expected cuda:0"):
+        kernels.check_cuda_args("pass_b_bwd", cuda, x4=torch.zeros(1))
 
 
 def test_wrappers_refuse_other_devices():
@@ -175,6 +196,19 @@ def test_wrappers_refuse_other_devices():
         lf.pass_b(m(1, 8, 8, DM), m(1, 8, 8, DI), m(1, 8, 8, DI), m(1, 8, DI),
                   m(1, 8, DI), m(DI, DM), None, m(DI), m(DI), m(DI), m(DI),
                   m(DM, DI), None, 1e-5, True, False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ss.selective_scan_bwd(m(1, 8, DI), m(1, 8, DI), m(DI, N), m(1, 8, N),
+                              m(1, 8, N), None, None, m(1, 8, DI),
+                              m(1, 1, DI, N))
+    with pytest.raises(ValueError, match="unsupported device"):
+        lf.pass_b_bwd(m(1, 8, 8, DM), m(1, 8, 8, DM), m(1, 8, 8, DI),
+                      m(1, 8, 8, DI), m(1, 8, DI), m(1, 8, DI), m(DI, DM),
+                      None, m(DI), m(DI), m(DI), m(DI), m(DM, DI), 1e-5, True,
+                      False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lf.pass_a_bwd(m(1, 8, 8, DM), m(1, 8, 8, DM), m(1, 8, 8, DI),
+                      m(1, 8, 8, DI), m(1, 8, DI), m(1, 8, DI), m(DI, DM),
+                      None, m(DI, 4), None, m(DI, 4), None, 1.0, False)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -211,12 +245,13 @@ def test_port_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(
         fastvim_tpu_torch.__path__, "fastvim_tpu_torch.")]
     assert "fastvim_tpu_torch.ops.kernels.layer_fused" in mods
+    assert "fastvim_tpu_torch.train.trainer" in mods
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "new = sorted(m for m in set(sys.modules) - before\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                    'fastvim_tpu'))\n"
         "assert not new, new\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

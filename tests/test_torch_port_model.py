@@ -25,6 +25,7 @@ from fastvim_tpu_torch.utils import from_jax_params
 TOL = dict(rtol=1e-4, atol=1e-4)
 SMALL = dict(patch_size=16, depth=2, embed_dim=64, num_classes=10,
              drop_path_rate=0.0)
+PORT = dict(SMALL, device="cpu")  # the port builds on the card unless asked
 
 
 def _jax_model(name, img_size, **kw):
@@ -37,7 +38,7 @@ def _jax_model(name, img_size, **kw):
 
 
 def _port_model(name, img_size, params, **kw):
-    model = create_model(name, img_size=img_size, **SMALL, **kw)
+    model = create_model(name, img_size=img_size, **PORT, **kw)
     sd = {k: torch.from_numpy(np.array(v))
           for k, v in from_jax_params(params).items()}
     model.load_state_dict(sd, strict=True)
@@ -59,7 +60,7 @@ def test_from_jax_params_matches_export():
         assert sorted(got) == sorted(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-        port = create_model(name, img_size=64, **SMALL)
+        port = create_model(name, img_size=64, **PORT)
         assert sorted(port.state_dict()) == sorted(got)
         for k, v in port.state_dict().items():
             assert tuple(v.shape) == got[k].shape, k
@@ -90,8 +91,8 @@ def test_logits_match_jax(name, img_size, extra, jax_path):
 def test_dispatch_fields_agree(field, value):
     """The mixer's unfused path and the forced reference scan give the
     logits of the default dispatch (fused layer, device-dispatched scan)."""
-    a = create_model("fastvim_tiny", img_size=128, **SMALL)
-    b = create_model("fastvim_tiny", img_size=128, **SMALL, **{field: value})
+    a = create_model("fastvim_tiny", img_size=128, **PORT)
+    b = create_model("fastvim_tiny", img_size=128, **PORT, **{field: value})
     x = np.random.default_rng(2).standard_normal(
         (2, 128, 128, 3)).astype(np.float32)
     np.testing.assert_allclose(_logits(b, x), _logits(a, x), **TOL)
@@ -101,8 +102,8 @@ def test_seeded_init_and_registry():
     """One generator seed gives one model; every port name exists in the
     JAX registry."""
     g = lambda: torch.Generator().manual_seed(7)
-    a = create_model("fastvim_tiny", img_size=64, generator=g(), **SMALL)
-    b = create_model("fastvim_tiny", img_size=64, generator=g(), **SMALL)
+    a = create_model("fastvim_tiny", img_size=64, generator=g(), **PORT)
+    b = create_model("fastvim_tiny", img_size=64, generator=g(), **PORT)
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(va, vb), k
     assert not a.training
@@ -113,6 +114,6 @@ def test_seeded_init_and_registry():
 
 
 def test_grid_mismatch_raises():
-    model = create_model("fastvim_tiny", img_size=64, **SMALL)
+    model = create_model("fastvim_tiny", img_size=64, **PORT)
     with pytest.raises(ValueError, match="pos-embed resize"):
         model(torch.zeros(1, 96, 64, 3))
