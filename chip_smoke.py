@@ -7,14 +7,18 @@ Phases, each of which raises on failure (exit code non-zero):
 
 1. print the card's name and power limit, the torch / CUDA / nvcc
    versions, and build the CUDA kernels from ``ops/kernels/csrc``;
-2. hold each kernel (K1 scan, K3 pass A, K4 pass B, and the backward
-   kernels K2 scan, K5 pass B, K6 pass A) against its plain PyTorch
-   version on the card, at the main path's shapes, in fp32 and bf16, and
-   time both;
+2. hold each of the eleven kernels (K1 scan, K3 pass A, K4 pass B; the
+   backward kernels K2 scan, K5 pass B, K6 pass A; K7 pass B in its
+   recompute form, K8 conv + pool, K9 and K10 the two merge kernels, and
+   the lanes scan) against its plain PyTorch version on the card, at the
+   main path's shapes, in fp32 and bf16, and time both;
 3. build ``fastvim_tiny`` and ``vim_tiny`` at 224 px, full width, fp32,
    from one seed, and compare their logits, then their loss and every
    parameter's gradient, on the card (kernels) with the same models on
-   the CPU (plain versions);
+   the CPU (plain versions); the same for the logits of the four
+   configurations of ``fastvim_tiny`` that reach K7-K10, and for
+   ``fastvim_base`` (depth 2), which is too wide for the fused layer and
+   must run unfused;
 4. run both models forward at 2048 px, batch 2, bf16. Logits must be
    finite, and the kernels' launch counters must show 24 pass A + 24
    pass B + 48 scans for FastVim-T and 48 scans for Vim-T per forward.
@@ -27,7 +31,16 @@ Phases, each of which raises on failure (exit code non-zero):
    on one fixed batch. Every loss must be finite, the last below the
    first, the parameters changed, and each step must launch 24 K3, 24 K4,
    48 K1, 24 K5, 24 K6 and 48 K2. Then one step of ``vim_tiny`` at
-   2048 px, batch 2 (48 K1, 48 K2), and the step time of each as img/s.
+   2048 px, batch 2 (48 K1, 48 K2), and the step time of each as img/s;
+6. the configurations: ``fastvim_tiny`` at 2048 px, batch 2, bf16, full
+   depth, with ``fused_kernels="always"`` (24 K8, 24 K9, 48 K1 per
+   forward), ``fused_kernels="merge"`` (24 K9, 48 K1), ``fused_merge``
+   (24 K10, 48 K1) and ``layer_fused="recompute"`` (24 K3 pools-only, 24
+   K7, 48 K1): finite logits within 2e-2 of the largest logit of the
+   default configuration's from the same seed, exactly those launches,
+   and img/s beside the default's; one train step of
+   ``fused_kernels="always"``; and the lanes scan through
+   ``selective_scan(variant="lanes")`` at L = 16,384 beside K1.
 
 The line before the last is a JSON object with one entry per kernel
 (``bound_ms`` is the larger of bytes / 3.35 TB/s and operations / the
@@ -369,6 +382,206 @@ def check_bwd_kernels(dev, card):
     return errs, times
 
 
+def timed(name, tag, kern, plain, n_bytes, flops, kind, card, iters=20,
+          plain_iters=20):
+    """Time a kernel and its plain version and log both beside the bound."""
+    k_ms = cuda_ms(kern, iters)
+    p_ms = cuda_ms(plain, plain_iters)
+    b_ms, by = bound(n_bytes, flops, kind)
+    log(f"[time] {name} {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({by}) ({card})")
+    return k_ms, p_ms, b_ms, by
+
+
+def check_config_kernels(dev, card):
+    """Phase 2, the kernels of the other configurations: K7, K8, K9, K10
+    and lanes against their plain versions on the card, at FastVim-T's
+    2048 px shapes (grid 128 × 128, batch 2, d_model 192, d_inner 384)."""
+    import torch
+
+    from fastvim_tpu_torch.ops.kernels import fused_block as fb
+    from fastvim_tpu_torch.ops.kernels import layer_fused as lf
+    from fastvim_tpu_torch.ops.kernels import merge_gate as mg
+    from fastvim_tpu_torch.ops.kernels import selective_scan as ss
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    rnd = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    uni = lambda *s, bound: (torch.rand(*s, generator=g, device=dev) * 2
+                             - 1) * bound
+    names = ("pass_b_recompute_fwd", "conv_pool_fwd", "merge_gate_fwd",
+             "merge_ln_gate_fwd", "selective_scan_fwd_lanes")
+    errs = dict.fromkeys(names, 0.0)
+    times = {}
+    worst = lambda name, e: errs.__setitem__(name, max(errs[name], e))
+    cases = ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL))
+    tensors = lambda args: [a for a in args if isinstance(a, torch.Tensor)]
+
+    batch, (H, W), dm, di = 2, (128, 128), 192, 384
+    L = H * W
+    conv = [uni(di, 4, bound=0.5) for _ in range(2)]
+    cbias = [uni(di, bound=0.5) for _ in range(2)]
+    d_f, d_b = uni(di, bound=1.0), uni(di, bound=1.0)
+    ln_w, ln_b = 1 + uni(di, bound=0.1), uni(di, bound=0.1)
+    conv_args = (conv[0], cbias[0], conv[1], cbias[1])
+
+    # K8 / K9: x and z are the column halves of the in-projection's output
+    base_xz = rnd(batch, L, 2 * di)
+    yf, yb = rnd(batch, H, di), rnd(batch, H, di)
+    for dtype, tol in cases:
+        bf = dtype == torch.bfloat16
+        xz = base_xz.to(dtype)
+        x, z = xz[..., :di], xz[..., di:]
+        for method in ("mean", "max"):
+            args = (x, *conv_args, H, W, method, 0.5)
+            got = fb.conv_pool(*args)
+            for part, gt, wt in zip(("pf", "pb"), got,
+                                    fb.conv_pool_plain(*args)):
+                worst("conv_pool_fwd", compare(
+                    f"conv_pool_fwd {part} {method} {dtype}", gt, wt, tol))
+            if bf and method == "mean":
+                # per element: 2 convs of 4 taps (16), 2 SiLU (~10), sums
+                times["conv_pool_fwd"] = timed(
+                    "conv_pool_fwd", f"bf16 B={batch} L={L} d={di}",
+                    lambda: fb.conv_pool(*args),
+                    lambda: fb.conv_pool_plain(*args),
+                    nbytes(*tensors(args), *got), 30.0 * batch * L * di,
+                    "fp32", card)
+        for use_norm in (True, False):
+            args = (x, z, yf, yb, *conv_args, d_f, d_b, ln_w, ln_b, H, W,
+                    1e-5, use_norm)
+            got = fb.merge_gate(*args)
+            worst("merge_gate_fwd", compare(
+                f"merge_gate_fwd use_norm={use_norm} {dtype}", got,
+                fb.merge_gate_plain(*args), tol))
+            if bf and use_norm:
+                # K8's conv stage, then the merge, LN and gate (~25)
+                times["merge_gate_fwd"] = timed(
+                    "merge_gate_fwd", f"bf16 B={batch} L={L} d={di}",
+                    lambda: fb.merge_gate(*args),
+                    lambda: fb.merge_gate_plain(*args),
+                    nbytes(*tensors(args), got), 55.0 * batch * L * di,
+                    "fp32", card)
+
+    # K10: both broadcast patterns (P = H = W here)
+    base = dict(xc_f=rnd(batch, L, di), xc_b=rnd(batch, L, di),
+                yf=rnd(batch, H, di), yb=rnd(batch, H, di))
+    for dtype, tol in cases:
+        t = {k: v.to(dtype) for k, v in base.items()}
+        z = base_xz.to(dtype)[..., di:]
+        for pool_axes in ((1,), (0,)):
+            args = (t["xc_f"], t["xc_b"], z, t["yf"], t["yb"], d_f, d_b, ln_w,
+                    ln_b, (H, W), pool_axes, 1e-5, True)
+            got = mg.merge_ln_gate(*args)
+            worst("merge_ln_gate_fwd", compare(
+                f"merge_ln_gate_fwd pool_axes={pool_axes} {dtype}", got,
+                mg.merge_ln_gate_plain(*args), tol))
+            if dtype == torch.bfloat16:
+                tm = timed("merge_ln_gate_fwd",
+                           f"bf16 B={batch} L={L} d={di} pool_axes="
+                           f"{pool_axes}", lambda: mg.merge_ln_gate(*args),
+                           lambda: mg.merge_ln_gate_plain(*args),
+                           nbytes(*tensors(args), got),
+                           25.0 * batch * L * di, "fp32", card)
+                times.setdefault("merge_ln_gate_fwd", tm)
+
+    # K7: both orientations
+    w_in = uni(2 * di, dm, bound=dm ** -0.5)
+    w_out = uni(dm, di, bound=di ** -0.5 / 24 ** 0.5)
+    base_x = rnd(batch, H, W, dm)
+    for dtype, tol in cases:
+        x4 = base_x.to(dtype)
+        wx, wz = w_in[:di].to(dtype), w_in[di:].to(dtype)
+        for transposed in (False, True):
+            args = (x4, yf.to(dtype), yb.to(dtype), wx, None, *conv_args, wz,
+                    None, d_f, d_b, ln_w, ln_b, w_out.to(dtype), None, 1e-5,
+                    True, transposed)
+            got = lf.pass_b_recompute(*args)
+            worst("pass_b_recompute_fwd", compare(
+                f"pass_b_recompute_fwd transposed={transposed} {dtype}", got,
+                lf.pass_b_recompute_plain(*args), tol))
+            if dtype == torch.bfloat16:
+                # three GEMMs of d_model × d_inner per token
+                tm = timed("pass_b_recompute_fwd",
+                           f"bf16 grid={H}x{W} B={batch} transposed="
+                           f"{transposed}",
+                           lambda: lf.pass_b_recompute(*args),
+                           lambda: lf.pass_b_recompute_plain(*args),
+                           nbytes(*tensors(args), got),
+                           3 * 2.0 * batch * L * dm * di, "bf16", card)
+                times.setdefault("pass_b_recompute_fwd", tm)
+                # its pass A: K3 without the xc stores
+                a_args = (x4, wx, None, *conv_args, 1.0, transposed)
+                pools = lf.pass_a(*a_args, write_xc=False)[2:]
+                for part, gt, wt in zip(("pf", "pb"), pools,
+                                        lf.pass_a(*a_args)[2:]):
+                    compare(f"pass_a_fwd pools-only {part} transposed="
+                            f"{transposed}", gt, wt, 0.0)
+                a_ms = cuda_ms(lambda: lf.pass_a(*a_args, write_xc=False), 20)
+                log(f"[time] pass_a_fwd pools-only bf16 grid={H}x{W} "
+                    f"B={batch} transposed={transposed}: kernel {a_ms:.4f} "
+                    f"ms ({card})")
+
+    # lanes: the pooled scan's length and Vim-T's, beside K1 on the same
+    # inputs
+    d, n = 384, 16
+    A = -torch.exp(uni(d, n, bound=1.0))
+    bias = uni(d, bound=0.5)
+    kw = dict(delta_bias=bias, delta_softplus=True)
+    for Ls in (128, 16384):
+        base = dict(u=rnd(batch, Ls, d), delta=rnd(batch, Ls, d, scale=0.5),
+                    B=rnd(batch, Ls, n), C=rnd(batch, Ls, n))
+        for dtype, tol in cases:
+            t = {k: v.to(dtype) for k, v in base.items()}
+            args = (t["u"], t["delta"], A, t["B"], t["C"])
+            got = ss.selective_scan_fwd_lanes(*args, **kw)
+            worst("selective_scan_fwd_lanes", compare(
+                f"selective_scan_fwd_lanes L={Ls} B={batch} {dtype}", got,
+                ss.selective_scan_fwd_lanes_plain(*args, **kw), tol))
+            compare(f"selective_scan_fwd_lanes vs K1 L={Ls} {dtype}", got,
+                    ss.selective_scan_fwd(*args, **kw), tol)
+            if dtype == torch.bfloat16:
+                # the same function as K1: its bytes and its 9 operations
+                # per (b, t, d, n)
+                tm = timed("selective_scan_fwd_lanes",
+                           f"bf16 B={batch} L={Ls} d={d}",
+                           lambda: ss.selective_scan_fwd_lanes(*args, **kw),
+                           lambda: ss.selective_scan_fwd_lanes_plain(*args,
+                                                                     **kw),
+                           nbytes(*args, bias, got),
+                           9.0 * batch * Ls * d * n, "fp32", card,
+                           iters=200 if Ls == 128 else 10,
+                           plain_iters=20 if Ls == 128 else 2)
+                k1 = cuda_ms(lambda: ss.selective_scan_fwd(*args, **kw),
+                             200 if Ls == 128 else 10)
+                log(f"[time] selective_scan_fwd (K1, forward direction) bf16 "
+                    f"B={batch} L={Ls} d={d}: {k1:.4f} ms ({card})")
+                if Ls == 16384:  # the length phase 6 drives it at
+                    times["selective_scan_fwd_lanes"] = tm
+        del base, t, got
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+# the configurations of fastvim_tiny that reach K7-K10: model fields, and
+# the launches of one forward at depth 24
+CONFIGS = {
+    "fused_kernels=always": (
+        dict(layer_fused="off", ssm_cfg={"fused_kernels": "always"}),
+        {"conv_pool_fwd": 24, "merge_gate_fwd": 24,
+         "selective_scan_fwd": 48}),
+    "fused_kernels=merge": (
+        dict(layer_fused="off", ssm_cfg={"fused_kernels": "merge"}),
+        {"merge_gate_fwd": 24, "selective_scan_fwd": 48}),
+    "fused_merge": (
+        dict(layer_fused="off", ssm_cfg={"fused_merge": True}),
+        {"merge_ln_gate_fwd": 24, "selective_scan_fwd": 48}),
+    "layer_fused=recompute": (
+        dict(layer_fused="recompute"),
+        {"pass_a_fwd": 24, "pass_b_recompute_fwd": 24,
+         "selective_scan_fwd": 48}),
+}
+
+
 def check_models_224(dev):
     """Phase 3: 224 px fp32 logits, card (kernels) vs CPU (plain)."""
     import torch
@@ -376,13 +589,19 @@ def check_models_224(dev):
     from fastvim_tpu_torch.models import create_model
 
     x = torch.randn(4, 224, 224, 3, generator=torch.Generator().manual_seed(1))
-    for name in ("fastvim_tiny", "vim_tiny"):
+    # fastvim_base (d_inner 1536) is wider than pass A/B take: with the
+    # default fields it must run the unfused path (scans by K1)
+    models = [("fastvim_tiny", {}), ("vim_tiny", {}),
+              *(("fastvim_tiny", kw) for kw, _ in CONFIGS.values()),
+              ("fastvim_base", dict(depth=2))]
+    for name, kw in models:
         cpu_model = create_model(name, img_size=224, device="cpu",
-                                 generator=torch.Generator().manual_seed(0))
+                                 generator=torch.Generator().manual_seed(0),
+                                 **kw)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
         want = cpu_model(x)
         got = gpu_model(x.to(dev)).cpu()
-        compare(f"{name} 224px fp32 logits, card vs CPU", got, want,
+        compare(f"{name} {kw} 224px fp32 logits, card vs CPU", got, want,
                 MODEL_TOL)
 
 
@@ -496,13 +715,13 @@ def run_train_path(dev, card):
     )
 
     img, classes = 2048, 1000
+    none = dict.fromkeys(kernels.launch_counts(), 0)
     per_step = {
-        "fastvim_tiny": {"selective_scan_fwd": 48, "selective_scan_bwd": 48,
-                         "pass_a_fwd": 24, "pass_b_fwd": 24, "pass_b_bwd": 24,
-                         "pass_a_bwd": 24},
-        "vim_tiny": {"selective_scan_fwd": 48, "selective_scan_bwd": 48,
-                     "pass_a_fwd": 0, "pass_b_fwd": 0, "pass_b_bwd": 0,
-                     "pass_a_bwd": 0},
+        "fastvim_tiny": {**none, "selective_scan_fwd": 48,
+                         "selective_scan_bwd": 48, "pass_a_fwd": 24,
+                         "pass_b_fwd": 24, "pass_b_bwd": 24, "pass_a_bwd": 24},
+        "vim_tiny": {**none, "selective_scan_fwd": 48,
+                     "selective_scan_bwd": 48},
     }
     total = dict.fromkeys(kernels.launch_counts(), 0)
     for name, batch, steps in (("fastvim_tiny", 3, 5), ("vim_tiny", 2, 1)):
@@ -539,7 +758,7 @@ def run_train_path(dev, card):
         log(f"[train] {name} {img}px B={batch} bf16: losses "
             f"{[round(v, 5) for v in losses]}, grad_norm "
             f"{metrics['grad_norm'].item():.4f}, launches per step "
-            f"{per_step[name]}, peak memory "
+            f"{ {k: v for k, v in per_step[name].items() if v} }, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         if not all(map(math.isfinite, losses)):
             raise AssertionError(f"{name}: non-finite loss {losses}")
@@ -557,6 +776,123 @@ def run_train_path(dev, card):
             f"{batch / ms * 1e3:.2f} img/s ({card})")
         del model, state, tx, train_step, before, batch_
         torch.cuda.empty_cache()
+    return total
+
+
+def run_config_path(dev, card):
+    """Phase 6: the four configurations of FastVim-T at 2048 px, batch 2,
+    bf16, full depth and width, built by ``create_model``; one train step
+    of ``fused_kernels="always"``; the lanes scan at Vim-T's length.
+    Returns the launch counts of the forwards, the step and the scan."""
+    import torch
+
+    from fastvim_tpu_torch.models import create_model
+    from fastvim_tpu_torch.ops import kernels
+    from fastvim_tpu_torch.ops.scan import selective_scan
+    from fastvim_tpu_torch.train import (
+        TrainState,
+        constant,
+        make_optimizer,
+        make_supervised_train_step,
+    )
+
+    batch, img = 2, 2048
+    none = dict.fromkeys(kernels.launch_counts(), 0)
+    total = dict(none)
+
+    def counted(fn, expected, what):
+        """Run fn with the counts at 0; check and add what it launched."""
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        seen = kernels.launch_counts()
+        if seen != {**none, **expected}:
+            raise AssertionError(f"{what}: launches "
+                                 f"{ {k: v for k, v in seen.items() if v} }, "
+                                 f"expected {expected}")
+        for k, v in seen.items():
+            total[k] += v
+        return out
+
+    build = lambda **kw: create_model(
+        "fastvim_tiny", img_size=img, dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(0), **kw)
+    x = torch.randn(batch, img, img, 3, device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.inference_mode():
+        default = build()
+        want = default(x).float()
+        scale = want.abs().max().item()
+        d_ms = cuda_ms(lambda: default(x), 5, windows=5)
+        log(f"[time] fastvim_tiny default {img}px B={batch} bf16 forward: "
+            f"{d_ms:.3f} ms, {batch / d_ms * 1e3:.2f} img/s ({card})")
+        for name, (kw, expected) in CONFIGS.items():
+            model = build(**kw)
+            logits = counted(lambda: model(x), expected, name).float()
+            if (logits.shape != (batch, 1000)
+                    or not torch.isfinite(logits).all()):
+                raise AssertionError(f"{name}: logits {tuple(logits.shape)} "
+                                     "not finite or of the wrong shape")
+            off = (logits - want).abs().max().item()
+            log(f"[config] {name} {img}px B={batch} bf16: logits finite, "
+                f"{off:.3e} from the default configuration's (largest logit "
+                f"{scale:.3e}), launches {expected}")
+            if off > BF16_TOL * scale:
+                raise AssertionError(f"{name}: logits {off:.3e} from the "
+                                     f"default's, over {BF16_TOL} of {scale}")
+            ms = cuda_ms(lambda: model(x), 5, windows=5)
+            log(f"[time] fastvim_tiny {name} {img}px B={batch} bf16 forward: "
+                f"{ms:.3f} ms, {batch / ms * 1e3:.2f} img/s; default "
+                f"{batch / d_ms * 1e3:.2f} img/s ({card})")
+            del model
+        del default
+
+    # one train step through K8 and K9 (their backward is autograd through
+    # the plain versions; the scans' is K2)
+    kw, fwd = CONFIGS["fused_kernels=always"]
+    model = build(drop_path_rate=0.0, **kw)
+    state = TrainState.create(model, make_optimizer(constant(1e-4),
+                                                    weight_decay=0.05,
+                                                    params=model))
+    train_step = make_supervised_train_step(model, 1000, label_smoothing=0.1,
+                                            ema_decay=None)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch_ = {"image": x, "label": torch.randint(1000, (batch,), device=dev,
+                                                 generator=gen)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, metrics = counted(lambda: train_step(state, batch_),
+                         {**fwd, "selective_scan_bwd": 48},
+                         "fused_kernels=always train step")
+    loss = metrics["train_loss"].item()
+    log(f"[train] fastvim_tiny fused_kernels=always {img}px B={batch} bf16: "
+        f"loss {loss:.5f}, grad_norm {metrics['grad_norm'].item():.4f}, "
+        f"first step {(time.perf_counter() - t0) * 1e3:.1f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+    if not math.isfinite(loss):
+        raise AssertionError(f"fused_kernels=always: non-finite loss {loss}")
+    del model, state, train_step
+    torch.cuda.empty_cache()
+
+    # lanes through the op's entry point, at Vim-T's scan shape
+    g = torch.Generator(device=dev).manual_seed(6)
+    Ls, d, n = 16384, 384, 16
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).bfloat16()
+    u, delta, B, C = rnd(batch, Ls, d), rnd(batch, Ls, d) * 0.5, \
+        rnd(batch, Ls, n), rnd(batch, Ls, n)
+    A = -torch.exp(torch.rand(d, n, generator=g, device=dev) * 2 - 1)
+    with torch.inference_mode():
+        scan = lambda variant: selective_scan(u, delta, A, B, C,
+                                              delta_softplus=True,
+                                              variant=variant)
+        y = counted(lambda: scan("lanes"), {"selective_scan_fwd_lanes": 1},
+                    "lanes scan")
+        compare(f"selective_scan variant=lanes vs sublane L={Ls} bf16", y,
+                scan("sublane"), BF16_TOL)
+        l_ms, k_ms = cuda_ms(lambda: scan("lanes"), 10), \
+            cuda_ms(lambda: scan("sublane"), 10)
+        log(f"[time] selective_scan bf16 B={batch} L={Ls} d={d}: lanes "
+            f"{l_ms:.4f} ms, K1 {k_ms:.4f} ms ({card})")
     return total
 
 
@@ -594,11 +930,17 @@ def main() -> int:
     errs.update(errs_bwd)
     times.update(times_bwd)
     with torch.inference_mode():
+        errs_cfg, times_cfg = check_config_kernels(dev, card)
+    errs.update(errs_cfg)
+    times.update(times_cfg)
+    with torch.inference_mode():
         check_models_224(dev)
     check_grads_224(dev)
     with torch.inference_mode():
         launches = run_main_path(dev, card)
     for name, count in run_train_path(dev, card).items():
+        launches[name] += count
+    for name, count in run_config_path(dev, card).items():
         launches[name] += count
 
     src = "fastvim_tpu_torch/ops/kernels/csrc/"
@@ -615,6 +957,16 @@ def main() -> int:
          "fastvim_tpu/ops/pallas/layer_fused.py:453"),
         ("pass_a_bwd", "layer_fused_bwd.cu",
          "fastvim_tpu/ops/pallas/layer_fused.py:555"),
+        ("pass_b_recompute_fwd", "layer_fused_recompute.cu",
+         "fastvim_tpu/ops/pallas/layer_fused.py:374"),
+        ("conv_pool_fwd", "fused_block.cu",
+         "fastvim_tpu/ops/pallas/fused_block.py:130"),
+        ("merge_gate_fwd", "fused_block.cu",
+         "fastvim_tpu/ops/pallas/fused_block.py:151"),
+        ("merge_ln_gate_fwd", "merge_gate.cu",
+         "fastvim_tpu/ops/pallas/merge_gate.py:54"),
+        ("selective_scan_fwd_lanes", "selective_scan_lanes.cu",
+         "fastvim_tpu/ops/pallas/selective_scan.py:115"),
     ]
     for name, _, _ in table:
         if launches[name] < 1:

@@ -4,8 +4,10 @@ Counterpart of ``fastvim_tpu/models/blocks.py`` for 2-D token grids: the
 add+norm keeps an fp32 residual stream, and odd layers swap the grid's
 two axes. A pooled (mean/max) odd layer runs in place as the mixer's
 ``transposed`` orientation (column-major conv, pooling over rows); any
-other rotated layer (the full-scan Vim) materializes the transposed
-sequence and transposes back.
+other rotated layer materializes the transposed sequence and transposes
+back: the full-scan Vim, and a model whose ``fused_kernels`` is not
+"never", because the fused block kernels (K8, K9) pool over the last grid
+axis only. ``fused_merge`` (K10) keeps the in-place orientation.
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ class Block(nn.Module):
         grid = self.token_size
         rotated = self.rotate_every_block and self.layer_idx % 2 != 0
         transposed = (rotated and len(grid) == 2
-                      and self.mixer.collapse_method in ("mean", "max"))
+                      and self.mixer.collapse_method in ("mean", "max")
+                      and self.mixer.fused_kernels == "never")
         if transposed:
             hidden = self.mixer(hidden, grid, pool_axes=(0,),
                                 transposed=True)

@@ -13,17 +13,37 @@ conv + reverse scan), with no full-length flips. ``transposed`` is the
 odd-layer orientation: the conv runs along the column-major raster and
 pooling is over rows, without moving the tokens.
 
-Dispatch: with ``layer_fused`` "auto" or "on" (the same here: the fused
-layer runs on every device) and a grid that :func:`fusable` accepts, the
-whole layer runs as pass A (K3) → pooled scans (K1) → pass B (K4);
-otherwise the unfused path below, whose scans still go through
+Dispatch, in this order (``forward``):
+
+1. ``layer_fused`` "auto" or "on" (the same here: the fused layer runs on
+   every device), on a grid and at widths that
+   :func:`~fastvim_tpu_torch.ops.kernels.layer_fused.fusable` accepts: the
+   whole layer runs as pass A (K3) → pooled scans (K1) → pass B (K4).
+   ``layer_fused="recompute"`` (the JAX package's
+   ``FASTVIM_LF_RECOMPUTE=1``) is the same layer with pass A writing the
+   pools only and pass B computing the conv stage again (K7). Wider
+   models than the passes take (d_inner > 768; > 384 for K7) run the
+   unfused path below, which computes the same function.
+2. ``fused_kernels`` "auto" or "always" (the same here), for mean or max
+   pooling over the last axis of a 2-D grid: conv + pool (K8) → pooled
+   scans → conv again + merge + LN + gate (K9); "merge" runs the conv and
+   the pool in plain ops and only K9. ``models/blocks.py`` materializes
+   the odd-layer rotation for such a model, so every layer pools over its
+   last axis.
+3. ``fused_merge`` (the JAX package's ``FASTVIM_FUSED_MERGE=1``), for any
+   pooled 2-D layer in either orientation: plain conv and pool, then
+   broadcast + D-skip + merge + LN + gate in one kernel (K10).
+4. the plain unfused math.
+
+Every scan goes through
 :func:`~fastvim_tpu_torch.ops.scan.selective_scan`. ``scan_impl="ref"``
 forces the sequential reference scan; any other value ("auto", and the
 JAX package's "assoc"/"pallas") dispatches on the device. When a gradient
 is needed, ``layer_fused_bwd`` picks the fused layer's backward: "fused"
 (the K5 and K6 adjoint kernels, scans by K2) or "remat" (autograd through
-the unfused math, recomputed); the unfused path's scans differentiate
-through K2 either way.
+the unfused math, recomputed; always so in the recompute mode). K8-K10
+differentiate through their plain versions, and the unfused path's scans
+through K2.
 
 Parameters have the torch reference's names and layouts; they stay
 float32 and are cast to the module ``dtype`` where they are used.
@@ -46,6 +66,7 @@ from fastvim_tpu_torch.models.layers import (
     torch_linear_init_,
 )
 from fastvim_tpu_torch.ops.conv import dual_conv1d, grid_dual_conv1d
+from fastvim_tpu_torch.ops.kernels import fused_block, merge_gate
 from fastvim_tpu_torch.ops.kernels.layer_fused import (
     FusedParams,
     fusable,
@@ -71,11 +92,15 @@ class MambaMixer(nn.Module):
                  n_layer: int = 24, norm_eps: float = 1e-5,
                  scan_impl: str = "auto", layer_fused: str = "auto",
                  layer_fused_bwd: str = "fused",
+                 fused_kernels: str = "never", fused_merge: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if layer_fused not in ("auto", "on", "off"):
-            raise ValueError(f"layer_fused must be auto|on|off, got "
-                             f"{layer_fused!r}")
+        if layer_fused not in ("auto", "on", "off", "recompute"):
+            raise ValueError(f"layer_fused must be auto|on|off|recompute, "
+                             f"got {layer_fused!r}")
+        if fused_kernels not in ("never", "auto", "always", "merge"):
+            raise ValueError(f"fused_kernels must be never|auto|always|merge,"
+                             f" got {fused_kernels!r}")
         if layer_fused_bwd not in ("fused", "remat"):
             raise ValueError(f"layer_fused_bwd must be fused|remat, got "
                              f"{layer_fused_bwd!r}")
@@ -98,6 +123,8 @@ class MambaMixer(nn.Module):
         self.scan_impl = scan_impl
         self.layer_fused = layer_fused
         self.layer_fused_bwd = layer_fused_bwd
+        self.fused_kernels = fused_kernels
+        self.fused_merge = fused_merge
         self.dtype = dtype
 
         di, n, r = self.d_inner, d_state, self.dt_rank
@@ -163,6 +190,19 @@ class MambaMixer(nn.Module):
             None if ln is None else ln.weight, None if ln is None else ln.bias,
             self.out_proj.weight, self.out_proj.bias)
 
+    def _proj_scan(self, xp: torch.Tensor, sfx: str,
+                   reverse: bool) -> torch.Tensor:
+        """Projections and scan of one direction's (pooled) sequence."""
+        dt_proj = getattr(self, f"dt_proj{sfx}")
+        return proj_scan(xp, getattr(self, f"x_proj{sfx}").weight,
+                         dt_proj.weight, dt_proj.bias,
+                         getattr(self, f"A{sfx}_log"), self.dtype,
+                         self.scan_impl, reverse)
+
+    def _pool(self, xc, grid_shape, pool_axes):
+        return pool_grid(xc, grid_shape, pool_axes, self.collapse_method,
+                         self.scaling_factor)
+
     def _scan_branch(self, xc: torch.Tensor, sfx: str,
                      grid_shape: Sequence[int], pool_axes: Sequence[int],
                      reverse: bool) -> torch.Tensor:
@@ -170,16 +210,41 @@ class MambaMixer(nn.Module):
         + D·conv_out. xc: (batch, L, d_inner) conv output."""
         dtype = self.dtype
         pooled = self.collapse_method != "none"
-        xp = (pool_grid(xc, grid_shape, pool_axes, self.collapse_method,
-                        self.scaling_factor) if pooled else xc)
-        dt_proj = getattr(self, f"dt_proj{sfx}")
-        y = proj_scan(xp, getattr(self, f"x_proj{sfx}").weight,
-                      dt_proj.weight, dt_proj.bias,
-                      getattr(self, f"A{sfx}_log"), dtype, self.scan_impl,
-                      reverse)
+        xp = self._pool(xc, grid_shape, pool_axes) if pooled else xc
+        y = self._proj_scan(xp, sfx, reverse)
         if pooled:
             y = broadcast_grid(y, grid_shape, pool_axes)
         return y.to(dtype) + getattr(self, f"D{sfx}").to(dtype) * xc
+
+    def _use_fused(self, grid_shape, pool_axes) -> bool:
+        """The fused block kernels (K8, K9) take this layer: pooled over
+        the last axis of a 2-D grid."""
+        return (self.fused_kernels != "never"
+                and self.collapse_method in ("mean", "max")
+                and len(grid_shape) == 2 and tuple(pool_axes) == (1,)
+                and fused_block.fusable(*grid_shape, self.d_inner))
+
+    def _fused_forward(self, xin, z, grid_shape) -> torch.Tensor:
+        """conv + pool (K8; plain ops in "merge" mode) → pooled scans →
+        conv again + broadcast + D-skip + merge + LN + gate (K9)."""
+        rows, cols = grid_shape
+        conv = (self.conv1d.weight.reshape(self.d_inner, -1),
+                self.conv1d.bias,
+                self.conv1d_b.weight.reshape(self.d_inner, -1),
+                self.conv1d_b.bias)
+        pool_args = (xin, *conv, rows, cols, self.collapse_method,
+                     self.scaling_factor)
+        if self.fused_kernels == "merge":
+            pf, pb = fused_block.conv_pool_plain(*pool_args)
+        else:
+            pf, pb = fused_block.ConvPoolFn.apply(*pool_args)
+        yf = self._proj_scan(pf, "", False).float()
+        yb = self._proj_scan(pb, "_b", True).float()
+        ln = self.layernorm
+        return fused_block.MergeGateFn.apply(
+            xin, z, yf, yb, *conv, self.D, self.D_b,
+            None if ln is None else ln.weight, None if ln is None else ln.bias,
+            rows, cols, self.norm_eps, ln is not None)
 
     def forward(self, x: torch.Tensor, grid_shape: Sequence[int],
                 pool_axes: Optional[Sequence[int]] = None,
@@ -192,13 +257,15 @@ class MambaMixer(nn.Module):
                      else (len(grid_shape) - 1,))
         dtype = self.dtype
         x = x.to(dtype)
+        recompute = self.layer_fused == "recompute"
         if self.layer_fused != "off" and fusable(
-                grid_shape, pool_axes, transposed, self.d_conv,
-                self.collapse_method):
+                grid_shape, pool_axes, transposed, self.d_model, self.d_inner,
+                self.d_conv, self.collapse_method, recompute=recompute):
             return fused_mixer_core(
                 x, self.fused_params(), grid_shape, transposed,
                 self.scaling_factor, self.norm_eps, self.use_norm_after_ssm,
-                dtype, self.scan_impl, bwd_mode=self.layer_fused_bwd)
+                dtype, self.scan_impl, bwd_mode=self.layer_fused_bwd,
+                recompute=recompute)
         return self._unfused(x, grid_shape, pool_axes, transposed)
 
     def _unfused(self, x, grid_shape, pool_axes, transposed):
@@ -207,6 +274,18 @@ class MambaMixer(nn.Module):
         xz = F.linear(x, self.in_proj.weight.to(dtype),
                       _cast(self.in_proj.bias, dtype))
         xin, z = xz[..., :di], xz[..., di:]
+        if self._use_fused(grid_shape, pool_axes):
+            merged = self._fused_forward(xin, z, grid_shape)
+        else:
+            merged = self._conv_merge(xin, z, grid_shape, pool_axes,
+                                      transposed)
+        return F.linear(merged, self.out_proj.weight.to(dtype),
+                        _cast(self.out_proj.bias, dtype))
+
+    def _conv_merge(self, xin, z, grid_shape, pool_axes, transposed):
+        """Plain dual conv, then the scans and the merge: through K10
+        with ``fused_merge``, else in plain ops."""
+        dtype = self.dtype
         conv_args = (xin, self._conv_w("").to(dtype),
                      _cast(self.conv1d.bias, dtype),
                      self._conv_w("_b").to(dtype),
@@ -215,12 +294,22 @@ class MambaMixer(nn.Module):
             xc_f, xc_b = grid_dual_conv1d(*conv_args, grid_shape, axis=0)
         else:
             xc_f, xc_b = dual_conv1d(*conv_args)
+        ln = self.layernorm
+        if (self.fused_merge and self.collapse_method != "none"
+                and merge_gate.fusable(grid_shape, pool_axes, self.d_inner)):
+            yf = self._proj_scan(self._pool(xc_f, grid_shape, pool_axes), "",
+                                 False)
+            yb = self._proj_scan(self._pool(xc_b, grid_shape, pool_axes),
+                                 "_b", True)
+            return merge_gate.MergeLnGateFn.apply(
+                xc_f.contiguous(), xc_b.contiguous(), z, yf.to(dtype),
+                yb.to(dtype), self.D, self.D_b,
+                None if ln is None else ln.weight,
+                None if ln is None else ln.bias, grid_shape, pool_axes,
+                self.norm_eps, ln is not None)
         y_f = self._scan_branch(xc_f, "", grid_shape, pool_axes, False)
         y_b = self._scan_branch(xc_b, "_b", grid_shape, pool_axes, True)
         merged = (y_f + y_b) * 0.5
-        if self.layernorm is not None:
-            merged = layer_norm(merged, self.layernorm.weight,
-                                self.layernorm.bias, eps=self.norm_eps)
-        merged = merged * F.silu(z)
-        return F.linear(merged, self.out_proj.weight.to(dtype),
-                        _cast(self.out_proj.bias, dtype))
+        if ln is not None:
+            merged = layer_norm(merged, ln.weight, ln.bias, eps=self.norm_eps)
+        return merged * F.silu(z)

@@ -7,6 +7,11 @@ Counterpart of the classification path of
 ``img_size`` gives: there is no pos-embed resize and no ``out_indices``
 feature-map mode here. ``model.train()`` / ``model.eval()`` take the place
 of the JAX package's ``deterministic`` argument: they switch DropPath.
+``layer_fused`` ("auto", "on", "off", "recompute") and ``layer_fused_bwd``
+are model fields; ``fused_kernels`` and ``fused_merge`` reach the mixers
+through ``ssm_cfg``, as in the JAX ``VisionMamba`` (see
+``models/mixer.py`` for the dispatch). All of them share one parameter
+tree.
 """
 
 from __future__ import annotations

@@ -47,6 +47,21 @@ SIGNATURES = {
     # b_ab, dx, dxin, c_part, c_vec, w_part, dw_x, batch, H, W, dm, di,
     # transposed, dtype, nsplit, scaling, stream
     "fv_pass_a_bwd": [_P] * 19 + [_I] * 8 + [ctypes.c_float, _P],
+    # x, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z, b_z, d_f, d_b, ln_w,
+    # ln_b, w_out, b_out, out, batch, H, W, dm, di, transposed, dtype,
+    # use_ln, eps, stream
+    "fv_pass_b_recompute_fwd": [_P] * 18 + [_I] * 8 + [ctypes.c_float, _P],
+    # x, w_cf, b_cf, w_ab, b_ab, pf, pb, batch, rows, cols, d, ldx, is_max,
+    # dtype, scaling, stream
+    "fv_conv_pool_fwd": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
+    # x, z, yf, yb, w_cf, b_cf, w_ab, b_ab, d_f, d_b, ln_w, ln_b, out, batch,
+    # rows, cols, d, ldx, ldz, dtype, use_ln, eps, stream
+    "fv_merge_gate_fwd": [_P] * 13 + [_I] * 8 + [ctypes.c_float, _P],
+    # xc_f, xc_b, z, yf, yb, d_f, d_b, ln_w, ln_b, out, batch, H, W, d, ldz,
+    # along_w, dtype, use_ln, eps, stream
+    "fv_merge_ln_gate_fwd": [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P],
+    # u, delta, A, B, C, bias, D, out, batch, L, d, n, dtype, softplus, stream
+    "fv_selective_scan_fwd_lanes": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

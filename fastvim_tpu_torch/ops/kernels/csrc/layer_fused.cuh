@@ -309,29 +309,31 @@ __device__ __forceinline__ void gemm_rows(const float* sA,
   }
 }
 
-// WMMA: s_out[0:32, :N] = sA (32 × K bf16, row stride lda) · Wtᵀ, Wt a
-// row-major (N × K) bf16 weight read from global memory (L2-resident);
-// in slabs of 384 columns, warp w taking column tiles w, w + 8, w + 16
-// for both row tiles (each weight tile is loaded once per block).
-// Staging the weights through shared memory in K chunks of 32 instead
-// measured slower (0.352 vs 0.287 ms at 2048 px).
+// WMMA: s_out[0:16·kMt, :N] = sA (16·kMt × K bf16, row stride lda) · Wtᵀ,
+// Wt a row-major (N × K) bf16 weight read from global memory
+// (L2-resident); in slabs of 384 columns, warp w taking column tiles w,
+// w + 8, w + 16 for all kMt row tiles (each weight tile is loaded once
+// per block). kMt = 2 is a 32-token tile; 3 adds the recompute pass's
+// halo rows. Staging the weights through shared memory in K chunks of 32
+// instead measured slower (0.352 vs 0.287 ms at 2048 px).
+template <int kMt = 2>
 __device__ __forceinline__ void wmma_rows(const bf16* sA, int lda,
                                           const bf16* __restrict__ Wt, int K,
                                           int N, float* s_out, int ldo) {
   const int warp = threadIdx.x / 32;
   for (int n0 = 0; n0 < N; n0 += kBSlab) {
     const int ntiles = min(kBSlab, N - n0) / kWm;
-    wmma::fragment<wmma::accumulator, kWm, kWm, kWm, float> acc[2][3];
+    wmma::fragment<wmma::accumulator, kWm, kWm, kWm, float> acc[kMt][3];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      wmma::fill_fragment(acc[0][j], 0.f);
-      wmma::fill_fragment(acc[1][j], 0.f);
-    }
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int m = 0; m < kMt; ++m) wmma::fill_fragment(acc[m][j], 0.f);
     for (int k = 0; k < K; k += kWm) {
-      wmma::fragment<wmma::matrix_a, kWm, kWm, kWm, bf16, wmma::row_major> a0,
-          a1;
-      wmma::load_matrix_sync(a0, sA + k, lda);
-      wmma::load_matrix_sync(a1, sA + kWm * lda + k, lda);
+      wmma::fragment<wmma::matrix_a, kWm, kWm, kWm, bf16, wmma::row_major>
+          a[kMt];
+#pragma unroll
+      for (int m = 0; m < kMt; ++m)
+        wmma::load_matrix_sync(a[m], sA + m * kWm * lda + k, lda);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         const int nt = warp + 8 * j;
@@ -340,8 +342,9 @@ __device__ __forceinline__ void wmma_rows(const bf16* sA, int lda,
               wb;
           wmma::load_matrix_sync(
               wb, Wt + static_cast<size_t>(n0 + nt * kWm) * K + k, K);
-          wmma::mma_sync(acc[0][j], a0, wb, acc[0][j]);
-          wmma::mma_sync(acc[1][j], a1, wb, acc[1][j]);
+#pragma unroll
+          for (int m = 0; m < kMt; ++m)
+            wmma::mma_sync(acc[m][j], a[m], wb, acc[m][j]);
         }
       }
     }
@@ -350,9 +353,10 @@ __device__ __forceinline__ void wmma_rows(const bf16* sA, int lda,
       const int nt = warp + 8 * j;
       if (nt < ntiles) {
         float* o = s_out + n0 + nt * kWm;
-        wmma::store_matrix_sync(o, acc[0][j], ldo, wmma::mem_row_major);
-        wmma::store_matrix_sync(o + kWm * ldo, acc[1][j], ldo,
-                                wmma::mem_row_major);
+#pragma unroll
+        for (int m = 0; m < kMt; ++m)
+          wmma::store_matrix_sync(o + m * kWm * ldo, acc[m][j], ldo,
+                                  wmma::mem_row_major);
       }
     }
   }

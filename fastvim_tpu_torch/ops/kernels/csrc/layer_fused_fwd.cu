@@ -99,8 +99,10 @@ __device__ __forceinline__ void conv_pool_line(
     const long t = L.transposed ? static_cast<long>(i) * L.W + L.p
                                 : static_cast<long>(L.p) * L.W + i;
     const size_t off = (L.img + t) * di + cc;
-    xc_f[off] = fv::from_f32<T>(xf);
-    xc_b[off] = fv::from_f32<T>(xb);
+    if (xc_f) {  // null in the pools-only form (the recompute mode's pass A)
+      xc_f[off] = fv::from_f32<T>(xf);
+      xc_b[off] = fv::from_f32<T>(xb);
+    }
     sum_f += xf;
     sum_b += xb;
   }
@@ -454,7 +456,8 @@ cudaError_t launch_b(int dtype, const void* x, const void* xc_f,
 // x: (batch, H, W, dm) of `dtype` (0 fp32, 1 bf16); w_x: (di, dm) of
 // `dtype` (the x rows of in_proj.weight); b_x, b_cf, b_ab: (di,) fp32 or
 // null; w_cf, w_ab: (di, 4) fp32. Outputs xc_f, xc_b: (batch, H, W, di);
-// pf, pb: (batch, P, di), P = W if transposed else H; all of `dtype`.
+// pf, pb: (batch, P, di), P = W if transposed else H; all of `dtype`. With
+// xc_f and xc_b both null only the pools are written.
 // dm % 32 == 0, di % 64 == 0, lines of >= 4 tokens; x and w_x 32-byte
 // aligned. Returns a cudaError_t.
 extern "C" int fv_pass_a_fwd(const void* x, const void* w_x, const void* b_x,

@@ -1,6 +1,7 @@
-"""K3-K6: the two passes of the fused FastVim mixer layer, forward
-(``csrc/layer_fused_fwd.cu``) and backward (``csrc/layer_fused_bwd.cu``),
-and ``fused_mixer_core``, which chains pass A → the pooled scans → pass B
+"""K3-K7: the two passes of the fused FastVim mixer layer, forward
+(``csrc/layer_fused_fwd.cu``), backward (``csrc/layer_fused_bwd.cu``) and
+pass B in its recompute form (``csrc/layer_fused_recompute.cu``), and
+``fused_mixer_core``, which chains pass A → the pooled scans → pass B
 and differentiates through ``FusedMixerCoreFn``.
 
 Counterpart of ``fastvim_tpu/ops/pallas/layer_fused.py``:
@@ -12,6 +13,9 @@ Counterpart of ``fastvim_tpu/ops/pallas/layer_fused.py``:
            xc, yf/yb ──broadcast + D·xc──merge──LN──·──·W_out─► out
   backward: pass B backward (K5) ─► VJP of the section between (GEMMs by
            autograd, scans by K2) ─► pass A backward (K6)
+  recompute: pass A writes pf, pb only; pass B (K7) computes the conv
+           stage again from x̂ before its tail, so xc_f and xc_b never
+           reach device memory; its backward is the rematerializing one
 
 Weights are in the torch reference layout (``in_proj.weight`` is
 ``(2·d_inner, d_model)``, conv weights ``(d_inner, 4)``, ``out_proj.weight``
@@ -36,22 +40,66 @@ from fastvim_tpu_torch.ops.scan import (
 )
 
 
+FWD_MAX_DI = 768        # widest d_inner K4 holds in one block (kBMaxDi)
+RECOMPUTE_MAX_DI = 384  # ... and K7, whose block also holds xin (kRcMaxDi)
+RECOMPUTE_MAX_DM = 384  # K7's x̂ tile beside xin and z in shared memory
+
+
+def pass_a_widths_ok(d_model: int, d_inner: int) -> bool:
+    """The widths K3's launcher takes: its GEMM walks d_model in chunks
+    of 32 and a block owns 64 channels."""
+    return d_model > 0 and d_model % 32 == 0 and d_inner > 0 \
+        and d_inner % 64 == 0
+
+
+def pass_b_widths_ok(d_model: int, d_inner: int,
+                     recompute: bool = False) -> bool:
+    """The widths K4's launcher takes, or K7's with ``recompute``: whole
+    32-column tiles, and all of d_inner in one block."""
+    if d_model <= 0 or d_model % 32 or d_inner <= 0 or d_inner % 32:
+        return False
+    if recompute:
+        return d_inner <= RECOMPUTE_MAX_DI and d_model <= RECOMPUTE_MAX_DM
+    return d_inner <= FWD_MAX_DI
+
+
 def fusable(grid_shape: Sequence[int], pool_axes: Sequence[int],
-            transposed: bool, d_conv: int, collapse_method: str) -> bool:
+            transposed: bool, d_model: int, d_inner: int, d_conv: int,
+            collapse_method: str, recompute: bool = False) -> bool:
     """The limits of what pass A/B compute: a 2-D grid, width-4 convs,
-    mean pooling over the axis that matches the orientation, and grid
-    axes long enough that conv taps wrap at most one line."""
+    mean pooling over the axis that matches the orientation, grid axes
+    long enough that conv taps wrap at most one line, and widths that the
+    pass A and pass B (with ``recompute``: K7) launchers take. A layer
+    outside them runs the unfused path, which computes the same
+    function."""
     if len(grid_shape) != 2 or d_conv != 4 or collapse_method != "mean":
         return False
     if tuple(pool_axes) != ((0,) if transposed else (1,)):
         return False
     H, W = grid_shape
-    return H >= d_conv and W >= d_conv
+    return (H >= d_conv and W >= d_conv
+            and pass_a_widths_ok(d_model, d_inner)
+            and pass_b_widths_ok(d_model, d_inner, recompute))
 
 
 # ----------------------------------------------------------------------
 # K3: pass A
 # ----------------------------------------------------------------------
+
+def _conv_stage_plain(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab,
+                      transposed: bool):
+    """xin = x̂·W_xᵀ + b_x and its dual conv + SiLU along the line
+    direction, in fp32: (xc_f, xc_b), each (B, H, W, di) float32."""
+    B, H, W, dm = x4.shape
+    di = w_x.shape[0]
+    xin = x4.reshape(B, H * W, dm).float() @ w_x.float().t()
+    if b_x is not None:
+        xin = xin + b_x.float()
+    xcf, xcb = grid_dual_conv1d(xin, w_cf.float().t(), b_cf,
+                                w_ab.float().t(), b_ab, (H, W),
+                                axis=0 if transposed else 1)
+    return xcf.reshape(B, H, W, di), xcb.reshape(B, H, W, di)
+
 
 def pass_a_plain(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling: float,
                  transposed: bool):
@@ -60,29 +108,25 @@ def pass_a_plain(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling: float,
     the given values. Returns xc_f, xc_b (B, H, W, di) and pf, pb (B, P,
     di), P = W if transposed else H, all in x4's dtype; the pools are taken
     from the fp32 conv outputs."""
-    B, H, W, dm = x4.shape
-    di = w_x.shape[0]
+    H, W = x4.shape[1:3]
     dtype = x4.dtype
-    xin = x4.reshape(B, H * W, dm).float() @ w_x.float().t()
-    if b_x is not None:
-        xin = xin + b_x.float()
-    xcf, xcb = grid_dual_conv1d(xin, w_cf.float().t(), b_cf,
-                                w_ab.float().t(), b_ab, (H, W),
-                                axis=0 if transposed else 1)
+    xcf, xcb = _conv_stage_plain(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab,
+                                 transposed)
     line_axis, ln = (1, H) if transposed else (2, W)
-    pool = lambda xc: (xc.reshape(B, H, W, di).sum(line_axis)
-                       * (scaling / ln)).to(dtype)
-    return (xcf.reshape(B, H, W, di).to(dtype),
-            xcb.reshape(B, H, W, di).to(dtype), pool(xcf), pool(xcb))
+    pool = lambda xc: (xc.sum(line_axis) * (scaling / ln)).to(dtype)
+    return xcf.to(dtype), xcb.to(dtype), pool(xcf), pool(xcb)
 
 
 def pass_a(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling: float,
-           transposed: bool):
-    """Pass A (K3); same contract as :func:`pass_a_plain`. On CUDA,
-    d_model must be a multiple of 32 and d_inner of 64."""
+           transposed: bool, write_xc: bool = True):
+    """Pass A (K3); same contract as :func:`pass_a_plain`. With
+    ``write_xc=False`` only the pools are computed and xc_f, xc_b come
+    back as None (the recompute mode's pass A). On CUDA, d_model must be
+    a multiple of 32 and d_inner of 64."""
     if x4.device.type == "cpu":
-        return pass_a_plain(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling,
-                            transposed)
+        out = pass_a_plain(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling,
+                           transposed)
+        return out if write_xc else (None, None) + out[2:]
     name = "pass_a_fwd"
     kernels.check_cuda_args(name, x4.device, x4=x4, w_x=w_x, b_x=b_x,
                             w_cf=w_cf, b_cf=b_cf, w_ab=w_ab, b_ab=b_ab)
@@ -97,14 +141,14 @@ def pass_a(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling: float,
         if t is not None and (t.dtype != torch.float32
                               or tuple(t.shape) != shape):
             raise ValueError(f"{name}: {arg} must be float32 {shape}")
-    if dm % 32 or di % 64 or min(H, W) < 4:
+    if not pass_a_widths_ok(dm, di) or min(H, W) < 4:
         raise ValueError(f"{name}: needs d_model % 32 == 0, d_inner % 64 == "
                          f"0 and H, W >= 4, got d_model={dm}, d_inner={di}, "
                          f"grid=({H}, {W})")
     kernels.check_aligned(name, x4=x4, w_x=w_x)
     P = W if transposed else H
-    xc_f = x4.new_empty(B, H, W, di)
-    xc_b = x4.new_empty(B, H, W, di)
+    xc_f = x4.new_empty(B, H, W, di) if write_xc else None
+    xc_b = x4.new_empty(B, H, W, di) if write_xc else None
     pf = x4.new_empty(B, P, di)
     pb = x4.new_empty(B, P, di)
     err = _build.library().fv_pass_a_fwd(
@@ -182,14 +226,87 @@ def pass_b(x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b, w_out,
             raise ValueError(f"{name}: {arg} must be float32 {shape}")
     if use_ln and (ln_w is None or ln_b is None):
         raise ValueError(f"{name}: use_ln needs ln_w and ln_b")
-    if dm % 32 or di % 32 or di > 768:
+    if not pass_b_widths_ok(dm, di):
         raise ValueError(f"{name}: needs d_model, d_inner % 32 == 0 and "
-                         f"d_inner <= 768, got {dm}, {di}")
+                         f"d_inner <= {FWD_MAX_DI}, got {dm}, {di}")
     kernels.check_aligned(name, x4=x4, w_z=w_z, w_out=w_out)
     out = torch.empty_like(x4)
     err = _build.library().fv_pass_b_fwd(
         *map(kernels.ptr, (x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w,
                            ln_b, w_out, b_out, out)),
+        B, H, W, dm, di, int(transposed), code, int(use_ln), float(eps),
+        kernels.stream_ptr(x4.device))
+    _build.check(err, name)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# K7: pass B with the conv stage recomputed
+# ----------------------------------------------------------------------
+
+def pass_b_recompute_plain(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z,
+                           b_z, d_f, d_b, ln_w, ln_b, w_out, b_out,
+                           eps: float, use_ln: bool, transposed: bool):
+    """Pass B without materialized conv outputs: xc_f and xc_b are
+    computed again from x4 as in :func:`pass_a_plain`, kept in fp32, and
+    enter :func:`pass_b_plain`'s tail. x4: (B, H, W, dm); yf, yb: (B, P,
+    di); w_x, w_z: (di, dm) and w_out: (dm, di) in x4's dtype; the rest
+    float32 as in the two passes. Returns (B, H, W, dm) in x4's dtype."""
+    xcf, xcb = _conv_stage_plain(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab,
+                                 transposed)
+    return pass_b_plain(x4, xcf, xcb, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
+                        w_out, b_out, eps, use_ln, transposed)
+
+
+def pass_b_recompute(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z, b_z,
+                     d_f, d_b, ln_w, ln_b, w_out, b_out, eps: float,
+                     use_ln: bool, transposed: bool):
+    """Pass B in its recompute form (K7); same contract as
+    :func:`pass_b_recompute_plain`. On CUDA, d_model and d_inner must be
+    multiples of 32, at most 384 each, and H, W >= 4."""
+    if x4.device.type == "cpu":
+        return pass_b_recompute_plain(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab,
+                                      b_ab, w_z, b_z, d_f, d_b, ln_w, ln_b,
+                                      w_out, b_out, eps, use_ln, transposed)
+    name = "pass_b_recompute_fwd"
+    if not use_ln:
+        ln_w = ln_b = None
+    kernels.check_cuda_args(name, x4.device, x4=x4, yf=yf, yb=yb, w_x=w_x,
+                            b_x=b_x, w_cf=w_cf, b_cf=b_cf, w_ab=w_ab,
+                            b_ab=b_ab, w_z=w_z, b_z=b_z, d_f=d_f, d_b=d_b,
+                            ln_w=ln_w, ln_b=ln_b, w_out=w_out, b_out=b_out)
+    B, H, W, dm = x4.shape
+    di = w_z.shape[0]
+    P = W if transposed else H
+    code = kernels.dtype_code(name, x4)
+    for arg, t, shape in (("yf", yf, (B, P, di)), ("yb", yb, (B, P, di)),
+                          ("w_x", w_x, (di, dm)), ("w_z", w_z, (di, dm)),
+                          ("w_out", w_out, (dm, di))):
+        if t.dtype != x4.dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} must be {x4.dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for arg, t, shape in (("w_cf", w_cf, (di, 4)), ("w_ab", w_ab, (di, 4)),
+                          ("b_x", b_x, (di,)), ("b_cf", b_cf, (di,)),
+                          ("b_ab", b_ab, (di,)), ("b_z", b_z, (di,)),
+                          ("d_f", d_f, (di,)), ("d_b", d_b, (di,)),
+                          ("ln_w", ln_w, (di,)), ("ln_b", ln_b, (di,)),
+                          ("b_out", b_out, (dm,))):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != shape):
+            raise ValueError(f"{name}: {arg} must be float32 {shape}")
+    if use_ln and (ln_w is None or ln_b is None):
+        raise ValueError(f"{name}: use_ln needs ln_w and ln_b")
+    if not pass_b_widths_ok(dm, di, recompute=True) or min(H, W) < 4:
+        raise ValueError(
+            f"{name}: needs d_model, d_inner % 32 == 0, d_model <= "
+            f"{RECOMPUTE_MAX_DM}, d_inner <= {RECOMPUTE_MAX_DI} and H, W >= "
+            f"4, got d_model={dm}, d_inner={di}, grid=({H}, {W})")
+    kernels.check_aligned(name, x4=x4, w_x=w_x, w_z=w_z, w_out=w_out)
+    out = torch.empty_like(x4)
+    err = _build.library().fv_pass_b_recompute_fwd(
+        *map(kernels.ptr, (x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z,
+                           b_z, d_f, d_b, ln_w, ln_b, w_out, b_out, out)),
         B, H, W, dm, di, int(transposed), code, int(use_ln), float(eps),
         kernels.stream_ptr(x4.device))
     _build.check(err, name)
@@ -553,13 +670,15 @@ def reference_core(x_hat: torch.Tensor, p: FusedParams,
 
 
 def _fused_forward(x_hat, p: FusedParams, grid, transposed, scaling, eps,
-                   use_ln, dtype, scan_impl, keep_mid_graph: bool = False):
+                   use_ln, dtype, scan_impl, keep_mid_graph: bool = False,
+                   recompute: bool = False):
     """Pass A → pooled scans → pass B. Returns (out (B, H, W, dm), x4,
     the pass B arguments, (xc_f, xc_b, pf, pb, yf, yb), mid). With
     ``keep_mid_graph`` the x_proj / dt_proj / scan section between the
     passes runs with autograd recording on detached leaves, and ``mid`` =
     (leaves, yf, yb) is that graph, for the fused backward to
-    differentiate."""
+    differentiate. With ``recompute`` pass A writes the pools only (xc_f
+    and xc_b are None) and pass B is K7, which computes them again."""
     B, L, dm = x_hat.shape
     H, W = grid
     if L != H * W:
@@ -572,7 +691,8 @@ def _fused_forward(x_hat, p: FusedParams, grid, transposed, scaling, eps,
     a_args = (in_w[:di], in_b[0], _f32(p.conv_f_w.reshape(di, -1)),
               _f32(p.conv_f_b), _f32(p.conv_b_w.reshape(di, -1)),
               _f32(p.conv_b_b))
-    xc_f, xc_b, pf, pb = pass_a(x4, *a_args, scaling, transposed)
+    xc_f, xc_b, pf, pb = pass_a(x4, *a_args, scaling, transposed,
+                                write_xc=not recompute)
     scan_p = (p.x_proj_f, p.dt_w_f, p.dt_b_f, p.A_log_f,
               p.x_proj_b, p.dt_w_b, p.dt_b_b, p.A_log_b)
     mid = None
@@ -591,8 +711,12 @@ def _fused_forward(x_hat, p: FusedParams, grid, transposed, scaling, eps,
     b_args = (in_w[di:], in_b[1], _f32(p.D_f), _f32(p.D_b),
               _f32(p.ln_w) if use_ln else None,
               _f32(p.ln_b) if use_ln else None, p.out_w.to(dtype))
-    out = pass_b(x4, xc_f, xc_b, yf, yb, *b_args, _f32(p.out_b), eps, use_ln,
-                 transposed)
+    if recompute:
+        out = pass_b_recompute(x4, yf, yb, *a_args, *b_args, _f32(p.out_b),
+                               eps, use_ln, transposed)
+    else:
+        out = pass_b(x4, xc_f, xc_b, yf, yb, *b_args, _f32(p.out_b), eps,
+                     use_ln, transposed)
     return out, x4, a_args, b_args, (xc_f, xc_b, pf, pb, yf, yb), mid
 
 
@@ -652,16 +776,19 @@ class FusedMixerCoreFn(torch.autograd.Function):
 
 
 class FusedMixerCoreRematFn(torch.autograd.Function):
-    """The fused forward with the rematerializing backward: autograd
-    through :func:`reference_core`, recomputed from x̂ and the
-    parameters. Counterpart of ``bwd_mode="remat"`` in the JAX package."""
+    """The fused forward (with ``recompute``: in its recompute form) with
+    the rematerializing backward: autograd through :func:`reference_core`,
+    recomputed from x̂ and the parameters. Counterpart of
+    ``bwd_mode="remat"`` in the JAX package, and of its recompute mode,
+    which saves no conv outputs for the adjoint kernels."""
 
     @staticmethod
     def forward(ctx, x_hat, grid, transposed, scaling, eps, use_ln, dtype,
-                scan_impl, *params):
+                scan_impl, recompute, *params):
         p = FusedParams(*params)
         out, x4, *_ = _fused_forward(x_hat, p, grid, transposed, scaling,
-                                     eps, use_ln, dtype, scan_impl)
+                                     eps, use_ln, dtype, scan_impl,
+                                     recompute=recompute)
         ctx.p, ctx.x_hat = p, x_hat
         ctx.cfg = (grid, transposed, scaling, eps, use_ln, dtype, scan_impl)
         return out.reshape(x_hat.shape[0], -1, x4.shape[-1])
@@ -681,22 +808,25 @@ class FusedMixerCoreRematFn(torch.autograd.Function):
         dp = [None] * len(ctx.p)
         for i, gr in zip(present, grads[1:]):
             dp[i] = gr
-        return (grads[0],) + (None,) * 7 + tuple(dp)
+        return (grads[0],) + (None,) * 8 + tuple(dp)
 
 
 def fused_mixer_core(x_hat: torch.Tensor, p: FusedParams,
                      grid: Tuple[int, int], transposed: bool, scaling: float,
                      eps: float, use_ln: bool, dtype: torch.dtype,
                      scan_impl: str = "auto", return_saved: bool = False,
-                     bwd_mode: str = "fused"):
+                     bwd_mode: str = "fused", recompute: bool = False):
     """The fused mixer layer, in_proj → … → out_proj. x_hat: (B, L, dm)
     normed block input. Returns (B, L, dm) in ``dtype``; with
     ``return_saved`` (forward only) also ``(xc_f, xc_b, pf, pb, yf, yb)``.
+    With ``recompute`` pass A writes the pools only and pass B is K7
+    (xc_f and xc_b are then None).
 
     When a gradient is needed the call goes through
     :class:`FusedMixerCoreFn` (``bwd_mode="fused"``: the K5 and K6
-    adjoint kernels) or :class:`FusedMixerCoreRematFn` (``"remat"``:
-    autograd through :func:`reference_core`)."""
+    adjoint kernels) or :class:`FusedMixerCoreRematFn` (``"remat"``, and
+    always with ``recompute``, which keeps no conv outputs for the adjoint
+    kernels: autograd through :func:`reference_core`)."""
     if bwd_mode not in ("fused", "remat"):
         raise ValueError(f"bwd_mode must be fused|remat, got {bwd_mode!r}")
     needs_grad = torch.is_grad_enabled() and any(
@@ -704,19 +834,20 @@ def fused_mixer_core(x_hat: torch.Tensor, p: FusedParams,
     if needs_grad:
         if return_saved:
             raise ValueError("return_saved is a forward-only option")
+        args = (x_hat, tuple(grid), transposed, scaling, eps, use_ln, dtype,
+                scan_impl)
+        if recompute or bwd_mode == "remat":
+            return FusedMixerCoreRematFn.apply(*args, recompute, *p)
         dm, di = x_hat.shape[-1], p.conv_f_w.shape[0]
-        if (bwd_mode == "fused" and x_hat.is_cuda
-                and (dm % 64 or di % 64 or di > BWD_MAX_DI)):
+        if x_hat.is_cuda and (dm % 64 or di % 64 or di > BWD_MAX_DI):
             # say so before the forward runs, not in the middle of backward
             raise ValueError(
                 f"fused_mixer_core: the fused backward kernels need d_model, "
                 f"d_inner % 64 == 0 and d_inner <= {BWD_MAX_DI}, got {dm}, "
                 f"{di}; use bwd_mode='remat' (layer_fused_bwd) for this width")
-        fn = FusedMixerCoreFn if bwd_mode == "fused" else FusedMixerCoreRematFn
-        return fn.apply(x_hat, tuple(grid), transposed, scaling, eps, use_ln,
-                        dtype, scan_impl, *p)
+        return FusedMixerCoreFn.apply(*args, *p)
     out, _, _, _, saved, _ = _fused_forward(x_hat, p, grid, transposed,
                                             scaling, eps, use_ln, dtype,
-                                            scan_impl)
+                                            scan_impl, recompute=recompute)
     out = out.reshape(x_hat.shape[0], -1, x_hat.shape[-1])
     return (out, saved) if return_saved else out

@@ -1,13 +1,17 @@
-"""K1 and K2: the chunked selective scan, forward
+"""K1, K2 and lanes: the chunked selective scan, forward
 (``csrc/selective_scan_fwd.cu``) and backward
-(``csrc/selective_scan_bwd.cu``), and the ``torch.autograd.Function``
-around both.
+(``csrc/selective_scan_bwd.cu``), the forward with time across a warp's
+lanes (``csrc/selective_scan_lanes.cu``), and the
+``torch.autograd.Function``s around them.
 
-K1 replaces ``_scan_kernel`` and K2 ``_bwd_kernel`` of
-``fastvim_tpu/ops/pallas/selective_scan.py``. K1's plain version is the
-sequential reference :func:`fastvim_tpu_torch.ops.scan.selective_scan_ref`;
-K2's is :func:`selective_scan_bwd_plain`, the same adjoint written in
-tensor ops (not autograd through the forward).
+K1 replaces ``_scan_kernel``, K2 ``_bwd_kernel`` and lanes
+``_scan_kernel_lanes`` of ``fastvim_tpu/ops/pallas/selective_scan.py``.
+K1's plain version is the sequential reference
+:func:`fastvim_tpu_torch.ops.scan.selective_scan_ref`; K2's is
+:func:`selective_scan_bwd_plain`, the same adjoint written in tensor ops
+(not autograd through the forward); lanes' is
+:func:`selective_scan_fwd_lanes_plain`, the doubling scan written with
+shifts over the time axis.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ selective_scan_plain = selective_scan_ref
 
 CHUNK = 64        # steps per chunk in K1 and K2 (kChunk in csrc/)
 BWD_CHANNELS = 8  # channels per K2 block (kBwdChannels in csrc/)
+LANES_CHUNK = 128  # steps per chunk of the lanes kernel: 4 per lane
 
 
 def _check_scan_args(name, u, delta, A, B, C, D, delta_bias):
@@ -87,6 +92,86 @@ def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     _build.check(err, name)
     kernels.LAUNCHES[name] += 1
     return (out, states) if save_states else out
+
+
+# ----------------------------------------------------------------------
+# lanes: the forward with time across the lanes
+# ----------------------------------------------------------------------
+
+def selective_scan_fwd_lanes_plain(u, delta, A, B, C, D=None, delta_bias=None,
+                                   delta_softplus: bool = False,
+                                   chunk: int = LANES_CHUNK):
+    """The forward scan as the TPU lanes kernel computes it, in tensor
+    ops: time last, padded to whole chunks (u = 0, so padded steps add
+    nothing), inside each chunk a log-depth doubling scan of the pairs
+    (a, b) ← (a·a₋ₖ, b + a·b₋ₖ) for shifts k = 1, 2, 4, … with the
+    identity (1, 0) shifted in, then the state carried from chunk to
+    chunk. (The CUDA kernel applies the same combine rule, to lane totals
+    of 4 steps.) Same contract as :func:`selective_scan_plain` without
+    ``reverse``; what checks the combine rule, not the reference again."""
+    batch, L, d = u.shape
+    pad = (-L) % chunk
+    tl = lambda t: F.pad(t.float(), (0, 0, 0, pad)).transpose(1, 2)
+    u_t, dt, B_t, C_t = tl(u), tl(delta), tl(B), tl(C)  # (b, d | n, L + pad)
+    if delta_bias is not None:
+        dt = dt + delta_bias.float()[:, None]
+    if delta_softplus:
+        dt = F.softplus(dt)
+    chunks = lambda t: t.reshape(*t.shape[:-1], -1, chunk)
+    a = chunks(torch.exp(dt[:, None] * A.float().t()[None, :, :, None]))
+    b = chunks((dt * u_t)[:, None] * B_t[:, :, None])  # (b, n, d, nc, chunk)
+    shift = 1
+    while shift < chunk:
+        a_sh = F.pad(a[..., :-shift], (shift, 0), value=1.0)
+        b_sh = F.pad(b[..., :-shift], (shift, 0), value=0.0)
+        b = b + a * b_sh
+        a = a * a_sh
+        shift *= 2
+    h = a.new_zeros(a.shape[:3])  # (b, n, d): the carried state
+    Cc = chunks(C_t)
+    ys = []
+    for ci in range(a.shape[3]):
+        hc = b[..., ci, :] + a[..., ci, :] * h[..., None]
+        h = hc[..., -1]
+        ys.append((hc * Cc[:, :, None, ci]).sum(1))
+    y = torch.cat(ys, -1) if ys else u_t
+    if D is not None:
+        y = y + D.float()[:, None] * u_t
+    return y.transpose(1, 2)[:, :L].to(u.dtype)
+
+
+def selective_scan_fwd_lanes(u, delta, A, B, C, D=None, delta_bias=None,
+                             delta_softplus: bool = False):
+    """The lanes variant of the forward scan, forward direction only;
+    same contract as :func:`selective_scan_fwd` without ``reverse`` and
+    ``save_states``. The inputs are padded to whole 128-step chunks and
+    transposed to time-last, (batch, d, L) and (batch, n, L), as the TPU
+    launcher does, and y is transposed back. On CUDA, d must be a multiple
+    of 4 and n 8 or 16."""
+    if u.device.type == "cpu":
+        return selective_scan_fwd_lanes_plain(u, delta, A, B, C, D=D,
+                                              delta_bias=delta_bias,
+                                              delta_softplus=delta_softplus)
+    name = "selective_scan_fwd_lanes"
+    kernels.check_cuda_args(name, u.device, u=u, delta=delta, A=A, B=B, C=C,
+                            D=D, delta_bias=delta_bias)
+    batch, L, d, n, code = _check_scan_args(name, u, delta, A, B, C, D,
+                                            delta_bias)
+    if d % 4 or n not in (8, 16):
+        raise ValueError(f"{name}: needs d % 4 == 0 and n in (8, 16), got "
+                         f"d={d}, n={n}")
+    pad = (-L) % LANES_CHUNK
+    u_t, dt_t, B_t, C_t = (
+        (F.pad(t, (0, 0, 0, pad)) if pad else t).transpose(1, 2).contiguous()
+        for t in (u, delta, B, C))
+    out_t = torch.empty_like(u_t)
+    err = _build.library().fv_selective_scan_fwd_lanes(
+        *map(kernels.ptr, (u_t, dt_t, A, B_t, C_t, delta_bias, D, out_t)),
+        batch, L + pad, d, n, code, int(delta_softplus),
+        kernels.stream_ptr(u.device))
+    _build.check(err, name)
+    kernels.LAUNCHES[name] += 1
+    return out_t[:, :, :L].transpose(1, 2).contiguous()
 
 
 # ----------------------------------------------------------------------
@@ -222,3 +307,44 @@ class SelectiveScanFn(torch.autograd.Function):
             gr.to(t.dtype) if t is not None and need else None
             for gr, t, need in zip(grads, ins, ctx.needs_input_grad)
         ) + (None, None)
+
+
+class SelectiveScanLanesFn(torch.autograd.Function):
+    """y = scan(...) through the lanes kernel, forward direction. The
+    kernel saves no states, so the backward computes the forward again:
+    on the card through K1, for the chunk-entry states, and then K2; on
+    the CPU by autograd through the sequential reference. The JAX package
+    recomputes through its associative scan; the values are the same."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, delta_bias, delta_softplus):
+        u, delta, B, C = (t.contiguous() for t in (u, delta, B, C))
+        if u.is_cuda and u.shape[-1] % BWD_CHANNELS:
+            # say so before the forward runs, not in the middle of backward
+            raise ValueError(f"selective_scan: the backward kernel needs d % "
+                             f"{BWD_CHANNELS} == 0, got d={u.shape[-1]}")
+        ctx.save_for_backward(u, delta, A, B, C, D, delta_bias)
+        ctx.delta_softplus = delta_softplus
+        return selective_scan_fwd_lanes(u, delta, A, B, C, D=D,
+                                        delta_bias=delta_bias,
+                                        delta_softplus=delta_softplus)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins = ctx.saved_tensors
+        if not g.is_cuda:
+            return kernels.plain_vjp(
+                selective_scan_plain, ins, (ctx.delta_softplus,), g,
+                ctx.needs_input_grad[:7]) + (None,)
+        u, delta, A, B, C, D, delta_bias = ins
+        _, states = selective_scan_fwd(u, delta, A, B, C, D=D,
+                                       delta_bias=delta_bias,
+                                       delta_softplus=ctx.delta_softplus,
+                                       save_states=True)
+        grads = selective_scan_bwd(u, delta, A, B, C, D, delta_bias,
+                                   g.contiguous(), states,
+                                   ctx.delta_softplus, False)
+        return tuple(
+            gr.to(t.dtype) if t is not None and need else None
+            for gr, t, need in zip(grads, ins, ctx.needs_input_grad)
+        ) + (None,)

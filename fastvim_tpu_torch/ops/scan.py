@@ -59,13 +59,25 @@ def selective_scan_ref(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
 
 def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
                    delta_softplus: bool = False, reverse: bool = False,
-                   impl: str = "auto") -> torch.Tensor:
+                   impl: str = "auto",
+                   variant: str = "sublane") -> torch.Tensor:
     """Dispatching entry point: ``impl="ref"`` runs the sequential
     reference on any device, differentiated by autograd through its loop;
     otherwise a CPU tensor runs the reference and a CUDA tensor launches
     the chunked scan kernel (K1). When a gradient is needed, the call goes
     through ``SelectiveScanFn``, whose backward is K2 (its plain version
-    on the CPU)."""
+    on the CPU).
+
+    ``variant="lanes"`` (the name the JAX package gives it; "sublane" is
+    the default kernel) takes the forward through the lanes kernel
+    instead, time across a warp's lanes, forward direction only; its
+    gradient goes through ``SelectiveScanLanesFn``."""
+    if variant not in ("sublane", "lanes"):
+        raise ValueError(f"variant must be sublane|lanes, got {variant!r}")
+    if variant == "lanes" and reverse:
+        raise NotImplementedError(
+            "variant='lanes' is forward-only; use the default variant for "
+            "reverse")
     if impl == "ref":
         return selective_scan_ref(u, delta, A, B, C, D=D,
                                   delta_bias=delta_bias,
@@ -73,9 +85,17 @@ def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
                                   reverse=reverse)
     from fastvim_tpu_torch.ops.kernels import selective_scan as ss
 
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (u, delta, A, B, C, D, delta_bias)):
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (u, delta, A, B, C, D, delta_bias))
+    if variant == "lanes":
+        if needs_grad:
+            return ss.SelectiveScanLanesFn.apply(u, delta, A, B, C, D,
+                                                 delta_bias, delta_softplus)
+        return ss.selective_scan_fwd_lanes(u, delta, A, B, C, D=D,
+                                           delta_bias=delta_bias,
+                                           delta_softplus=delta_softplus)
+    if needs_grad:
         return ss.SelectiveScanFn.apply(u, delta, A, B, C, D, delta_bias,
                                         delta_softplus, reverse)
     return ss.selective_scan_fwd(u, delta, A, B, C, D=D,

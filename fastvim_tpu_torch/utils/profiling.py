@@ -29,6 +29,11 @@ KERNEL_GROUPS = (
     ("K6 pass A bwd (dx GEMM)", "pass_a_bwd_dx"),
     ("K5/K6 weight-gradient GEMMs", "wgrad_kernel"),
     ("K2/K5/K6 partial sums", "sum_partials_kernel"),
+    ("K7 pass B, conv stage recomputed", "pass_b_rc"),
+    ("K8 conv + pool", "conv_pool_kernel"),
+    ("K10 merge + LN + gate", "merge_ln_gate_kernel"),
+    ("K9 conv again + merge + LN + gate", "merge_gate_kernel"),
+    ("lanes scan fwd", "scan_lanes_kernel"),
     ("K3 pass A", "pass_a"), ("K4 pass B", "pass_b"))
 
 

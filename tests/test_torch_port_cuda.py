@@ -21,7 +21,9 @@ import pytest
 import torch
 
 from fastvim_tpu_torch.ops import kernels
+from fastvim_tpu_torch.ops.kernels import fused_block as fb
 from fastvim_tpu_torch.ops.kernels import layer_fused as lf
+from fastvim_tpu_torch.ops.kernels import merge_gate as mg
 from fastvim_tpu_torch.ops.kernels import selective_scan as ss
 from fastvim_tpu_torch.ops.scan import selective_scan
 
@@ -272,6 +274,7 @@ def test_fused_layer_grads_match_cpu(dev, transposed, bwd_mode):
     got = grads(dev)
     fused = bwd_mode == "fused"
     assert kernels.launch_counts() == {
+        **dict.fromkeys(kernels.LAUNCHES, 0),
         "selective_scan_fwd": 2 if fused else 4, "selective_scan_bwd": 2,
         "pass_a_fwd": 1, "pass_b_fwd": 1, "pass_b_bwd": int(fused),
         "pass_a_bwd": int(fused)}
@@ -344,3 +347,248 @@ def test_wrappers_refuse(dev):
     with pytest.raises(ValueError, match="d_inner <= 384"):
         lf.pass_b_bwd(x4, x4, wide, wide, y, y, _rand(g, 768, 64), None, v, v,
                       v, v, _rand(g, 64, 768), 1e-5, True, False)
+
+
+# ----------------------------------------------------------------------
+# K7-K10 and lanes
+# ----------------------------------------------------------------------
+
+ODD_GRIDS = [(14, 14), (6, 10), (4, 200), (170, 5)]
+
+
+def _block_args(g, dtype, batch, rows, cols, d, bias):
+    """merge_gate's arguments: x and z as the two column halves of one
+    (batch, L, 2d) array, as the mixer hands them over."""
+    L = rows * cols
+    xz = _rand(g, batch, L, 2 * d).to(dtype)
+    cb = (lambda: _rand(g, d, scale=0.3)) if bias else (lambda: None)
+    return [xz[..., :d], xz[..., d:], _rand(g, batch, rows, d),
+            _rand(g, batch, rows, d), _rand(g, d, 4, scale=0.5), cb(),
+            _rand(g, d, 4, scale=0.5), cb(), _rand(g, d), _rand(g, d),
+            1 + _rand(g, d, scale=0.1), _rand(g, d, scale=0.1)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,d,method,bias", [
+    *[(grid, 128, "mean", True) for grid in ODD_GRIDS],
+    ((14, 14), 768, "max", False), ((6, 10), 1536, "max", True),
+    ((1, 12), 96, "mean", True),   # a single row
+    ((6, 2), 32, "max", True),     # rows shorter than the conv's reach
+    ((5, 1), 32, "mean", False),
+])
+def test_conv_pool_matches_plain(dev, dtype, grid, d, method, bias):
+    g = torch.Generator(device=dev).manual_seed(d + grid[0])
+    a = _block_args(g, dtype, 2, *grid, d, bias)
+    args = (a[0], *a[4:8], *grid, method, 0.5)
+    with torch.no_grad():
+        for got, want in zip(fb.conv_pool(*args), fb.conv_pool_plain(*args)):
+            _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,d,bias,use_norm", [
+    *[(grid, 128, True, True) for grid in ODD_GRIDS],
+    ((14, 14), 768, False, True), ((6, 10), 1536, True, False),
+    ((6, 10), 2560, True, True),   # FastVim-H's d_inner
+    ((1, 12), 96, True, True), ((6, 2), 32, True, False),
+])
+def test_merge_gate_matches_plain(dev, dtype, grid, d, bias, use_norm):
+    g = torch.Generator(device=dev).manual_seed(d + grid[1])
+    a = _block_args(g, dtype, 2, *grid, d, bias)
+    with torch.no_grad():
+        _close(fb.merge_gate(*a, *grid, 1e-5, use_norm),
+               fb.merge_gate_plain(*a, *grid, 1e-5, use_norm), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pool_axes", [(1,), (0,)])
+@pytest.mark.parametrize("grid,d,use_ln", [
+    *[(grid, 128, True) for grid in ODD_GRIDS],
+    ((14, 14), 768, True), ((6, 10), 1536, False), ((6, 10), 2560, True),
+])
+def test_merge_ln_gate_matches_plain(dev, dtype, pool_axes, grid, d, use_ln):
+    g = torch.Generator(device=dev).manual_seed(d + grid[0] + pool_axes[0])
+    H, W = grid
+    P = H if pool_axes == (1,) else W
+    xz = _rand(g, 2, H * W, 2 * d).to(dtype)
+    ln = ((1 + _rand(g, d, scale=0.1), _rand(g, d, scale=0.1)) if use_ln
+          else (None, None))
+    args = (_rand(g, 2, H * W, d).to(dtype), _rand(g, 2, H * W, d).to(dtype),
+            xz[..., d:], _rand(g, 2, P, d).to(dtype),
+            _rand(g, 2, P, d).to(dtype), _rand(g, d), _rand(g, d), *ln, grid,
+            pool_axes, 1e-5, use_ln)
+    with torch.no_grad():
+        _close(mg.merge_ln_gate(*args), mg.merge_ln_gate_plain(*args),
+               TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,transposed,batch,dm,di,bias,use_ln", [
+    *[(grid, tr, 2, 64, 128, tr, True) for grid in ODD_GRIDS
+      for tr in (False, True)],
+    ((6, 10), True, 3, 64, 128, True, False),   # 60 tokens: a partial tile
+    ((8, 8), False, 2, 192, 384, False, True),  # FastVim-T widths
+])
+def test_pass_b_recompute_matches_plain(dev, dtype, grid, transposed, batch,
+                                        dm, di, bias, use_ln):
+    g = torch.Generator(device=dev).manual_seed(di + grid[1] + 2)
+    H, W = grid
+    P = W if transposed else H
+    x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, _, _ = _pass_a_args(
+        g, dtype, batch, H, W, dm, di, bias, transposed)
+    cb = (lambda k: _rand(g, k, scale=0.3)) if bias else (lambda k: None)
+    args = (x4, _rand(g, batch, P, di).to(dtype),
+            _rand(g, batch, P, di).to(dtype), w_x, b_x, w_cf, b_cf, w_ab,
+            b_ab, _rand(g, di, dm, scale=dm ** -0.5).to(dtype), cb(di),
+            _rand(g, di), _rand(g, di), 1 + _rand(g, di, scale=0.1),
+            _rand(g, di, scale=0.1),
+            _rand(g, dm, di, scale=di ** -0.5).to(dtype), cb(dm), 1e-5,
+            use_ln, transposed)
+    with torch.no_grad():
+        _close(lf.pass_b_recompute(*args), lf.pass_b_recompute_plain(*args),
+               TOL[dtype])
+        # pass A's pools-only form gives pass A's pools
+        a_args = (x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, 0.5, transposed)
+        none_f, none_b, pf, pb = lf.pass_a(*a_args, write_xc=False)
+        assert none_f is None and none_b is None
+        want = lf.pass_a(*a_args)
+        assert torch.equal(pf, want[2]) and torch.equal(pb, want[3])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,n,batch,extras", [
+    (300, 16, 2, True),     # 2 whole chunks of 128 and a partial one
+    (16384, 16, 2, True),   # Vim-T's full-length scan
+    (31, 8, 1, False),      # less than a chunk, d_state 8, no D, no bias
+    (1, 16, 2, True),
+])
+def test_lanes_scan_matches_plain(dev, dtype, L, n, batch, extras):
+    """The lanes kernel against the doubling scan in tensor ops and
+    against K1."""
+    g = torch.Generator(device=dev).manual_seed(L + 2)
+    d = 64
+    args = (_rand(g, batch, L, d).to(dtype),
+            _rand(g, batch, L, d, scale=0.5).to(dtype),
+            -torch.exp(_rand(g, d, n, scale=0.5)),
+            _rand(g, batch, L, n).to(dtype), _rand(g, batch, L, n).to(dtype))
+    kw = dict(D=_rand(g, d) if extras else None,
+              delta_bias=_rand(g, d, scale=0.3) if extras else None,
+              delta_softplus=extras)
+    with torch.no_grad():
+        got = ss.selective_scan_fwd_lanes(*args, **kw)
+        _close(got, ss.selective_scan_fwd_lanes_plain(*args, **kw),
+               TOL[dtype])
+        _close(got, ss.selective_scan_fwd(*args, **kw), TOL[dtype])
+
+
+def test_lanes_function_grads_match_cpu(dev):
+    """selective_scan(variant="lanes") on CUDA tensors that require grad:
+    the lanes kernel forward, K1 (for the states) and K2 backward, and
+    the CPU's gradients."""
+    g = torch.Generator().manual_seed(11)
+    batch, L, d, n = 2, 150, 64, 16
+    base = [torch.randn(batch, L, d, generator=g),
+            torch.randn(batch, L, d, generator=g) * 0.5,
+            -torch.exp(torch.randn(d, n, generator=g) * 0.5),
+            torch.randn(batch, L, n, generator=g),
+            torch.randn(batch, L, n, generator=g), torch.randn(d, generator=g),
+            torch.randn(d, generator=g) * 0.3]
+    w = torch.randn(batch, L, d, generator=g)
+
+    def grads(device):
+        ins = [t.to(device).requires_grad_() for t in base]
+        y = selective_scan(*ins[:5], D=ins[5], delta_bias=ins[6],
+                           delta_softplus=True, variant="lanes")
+        return torch.autograd.grad((y * w.to(device)).sum(), ins)
+
+    kernels.reset_launch_counts()
+    got, want = grads(dev), grads("cpu")
+    assert kernels.launch_counts() == {
+        **dict.fromkeys(kernels.LAUNCHES, 0), "selective_scan_fwd_lanes": 1,
+        "selective_scan_fwd": 1, "selective_scan_bwd": 1}
+    for i, (a, b) in enumerate(zip(got, want)):
+        _close(a.cpu(), b, 1e-4, summed=i in (2, 5, 6))
+
+
+_SCANS = {"selective_scan_fwd": 2, "selective_scan_bwd": 2}
+
+
+@pytest.mark.parametrize("config,transposed,counts", [
+    # fused_kernels pools over the last axis only (blocks.py rotates)
+    (dict(fused_kernels="always"), False,
+     {"conv_pool_fwd": 1, "merge_gate_fwd": 1, **_SCANS}),
+    (dict(fused_kernels="merge"), False, {"merge_gate_fwd": 1, **_SCANS}),
+    (dict(fused_merge=True), False, {"merge_ln_gate_fwd": 1, **_SCANS}),
+    (dict(fused_merge=True), True, {"merge_ln_gate_fwd": 1, **_SCANS}),
+    # the remat backward runs K1 twice more through the unfused math
+    (dict(layer_fused="recompute"), False,
+     {"pass_a_fwd": 1, "pass_b_recompute_fwd": 1, "selective_scan_fwd": 4,
+      "selective_scan_bwd": 2}),
+    (dict(layer_fused="recompute"), True,
+     {"pass_a_fwd": 1, "pass_b_recompute_fwd": 1, "selective_scan_fwd": 4,
+      "selective_scan_bwd": 2}),
+])
+def test_mixer_configurations_grads_match_cpu(dev, config, transposed,
+                                              counts):
+    """One mixer in each configuration, forward and backward on the card:
+    the kernels its forward launches (its backward recomputes through
+    plain ops and K1/K2), and the CPU's output and gradients."""
+    from fastvim_tpu_torch.models.mixer import MambaMixer
+
+    kw = {"layer_fused": "off", **config}
+    cpu = MambaMixer(d_model=64, n_layer=2, **kw)
+    cpu.reset_parameters(torch.Generator().manual_seed(5))
+    gpu = MambaMixer(d_model=64, n_layer=2, **kw)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(dev)
+    x = torch.randn(2, 60, 64, generator=torch.Generator().manual_seed(6))
+    grid, extra = (6, 10), (dict(pool_axes=(0,), transposed=True)
+                            if transposed else {})
+
+    def run(mixer, device):
+        xx = x.to(device).requires_grad_()
+        out = mixer(xx, grid, **extra)
+        params = list(mixer.parameters())
+        return out, torch.autograd.grad((out ** 2).sum(), [xx] + params)
+
+    kernels.reset_launch_counts()
+    out, got = run(gpu, dev)
+    assert kernels.launch_counts() == {**dict.fromkeys(kernels.LAUNCHES, 0),
+                                       **counts}
+    want_out, want = run(cpu, "cpu")
+    _close(out.detach().cpu(), want_out.detach(), 1e-4)
+    for a, b in zip(got, want):
+        _close(a.cpu(), b, 1e-4, summed=True)
+
+
+def test_new_wrappers_refuse(dev):
+    """Widths and layouts the new kernels do not take raise instead of
+    falling back."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = _block_args(g, torch.float32, 1, 4, 6, 32, True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fb.conv_pool(a[0].clone().requires_grad_(), *a[4:8], 4, 6)
+    with pytest.raises(ValueError, match="d % 32"):
+        fb.conv_pool(_rand(g, 1, 24, 20), *(t[:20] for t in a[4:8]), 4, 6)
+    with pytest.raises(ValueError, match="column slice"):
+        fb.merge_gate(_rand(g, 1, 32, 24).transpose(1, 2), *a[1:], 4, 6)
+    with pytest.raises(ValueError, match="does not match grid"):
+        fb.merge_gate(*a, 5, 6)
+    with pytest.raises(ValueError, match="float32"):
+        fb.merge_gate(a[0], a[1], a[2].bfloat16(), *a[3:], 4, 6)
+    xc = _rand(g, 1, 24, 32)
+    with pytest.raises(ValueError, match="pooled over one axis"):
+        mg.merge_ln_gate(xc, xc, xc, a[2], a[3], a[8], a[9], None, None,
+                         (4, 6), (0, 1), 1e-5, False)
+    x4, y = _rand(g, 1, 8, 8, 64), _rand(g, 1, 8, 768)
+    v = _rand(g, 768)
+    with pytest.raises(ValueError, match="d_inner <= 384"):
+        lf.pass_b_recompute(x4, y, y, _rand(g, 768, 64), None,
+                            _rand(g, 768, 4), None, _rand(g, 768, 4), None,
+                            _rand(g, 768, 64), None, v, v, v, v,
+                            _rand(g, 64, 768), None, 1e-5, True, False)
+    u = _rand(g, 1, 8, 64)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        selective_scan(u, u, -torch.ones(64, 16, device=dev),
+                       _rand(g, 1, 8, 16), _rand(g, 1, 8, 16), reverse=True,
+                       variant="lanes")

@@ -129,7 +129,8 @@ def test_fused_core_matches_reference_unaligned(transposed, grid, bias,
                                                 use_ln, scaling):
     """A grid the JAX kernels cannot take (not 8-aligned) runs fused in
     the port; it matches the JAX unfused reference `_reference_core`."""
-    assert fusable(grid, (0,) if transposed else (1,), transposed, 4, "mean")
+    assert fusable(grid, (0,) if transposed else (1,), transposed, DM, DI, 4,
+                   "mean")
     x = _x(3, *grid)
     jp, tp = _layer_params(4, bias=bias)
     args = (grid, transposed, scaling, 1e-5, use_ln)
@@ -139,14 +140,21 @@ def test_fused_core_matches_reference_unaligned(transposed, grid, bias,
 
 
 def test_fusable_limits():
-    """The real limits of the fused layer, without the TPU layout rules."""
-    assert fusable((14, 14), (1,), False, 4, "mean")
-    assert fusable((14, 14), (0,), True, 4, "mean")
-    assert not fusable((14, 14), (0,), False, 4, "mean")
-    assert not fusable((14, 14), (1,), False, 4, "max")
-    assert not fusable((14, 14), (1,), False, 3, "mean")
-    assert not fusable((3, 14), (1,), False, 4, "mean")
-    assert not fusable((4, 4, 4), (2,), False, 4, "mean")
+    """The real limits of the fused layer, without the TPU layout rules:
+    the grid, and the widths the pass A and pass B launchers take."""
+    w = (192, 384)  # FastVim-T's d_model, d_inner
+    assert fusable((14, 14), (1,), False, *w, 4, "mean")
+    assert fusable((14, 14), (0,), True, *w, 4, "mean")
+    assert not fusable((14, 14), (0,), False, *w, 4, "mean")
+    assert not fusable((14, 14), (1,), False, *w, 4, "max")
+    assert not fusable((14, 14), (1,), False, *w, 3, "mean")
+    assert not fusable((3, 14), (1,), False, *w, 4, "mean")
+    assert not fusable((4, 4, 4), (2,), False, *w, 4, "mean")
+    # widths: K4 holds d_inner <= 768 in a block, K3 owns 64 channels
+    assert fusable((14, 14), (1,), False, 384, 768, 4, "mean")
+    assert not fusable((14, 14), (1,), False, 768, 1536, 4, "mean")
+    assert not fusable((14, 14), (1,), False, 48, 96, 4, "mean")
+    assert not fusable((14, 14), (1,), False, 192, 352, 4, "mean")
 
 
 def test_cpu_wrappers_count_no_launch():
@@ -162,7 +170,9 @@ def test_cpu_wrappers_count_no_launch():
     assert x.grad is not None
     assert kernels.launch_counts() == dict.fromkeys(
         ("selective_scan_fwd", "selective_scan_bwd", "pass_a_fwd",
-         "pass_b_fwd", "pass_b_bwd", "pass_a_bwd"), 0)
+         "pass_b_fwd", "pass_b_bwd", "pass_a_bwd", "pass_b_recompute_fwd",
+         "conv_pool_fwd", "merge_gate_fwd", "merge_ln_gate_fwd",
+         "selective_scan_fwd_lanes"), 0)
 
 
 def test_launchers_refuse_grad_requiring_tensors():
