@@ -11,11 +11,15 @@ Phases, each of which raises on failure (exit code non-zero):
    backward kernels K2 scan, K5 pass B, K6 pass A; K7 pass B in its
    recompute form, K8 conv + pool, K9 and K10 the two merge kernels, and
    the lanes scan) against its plain PyTorch version on the card, at the
-   main path's shapes, in fp32 and bf16, and time both;
+   main path's shapes, in fp32 and bf16, and time both; K5 and K6 also at
+   FastVim-S's widths (d_model 384, d_inner 768), with the number of
+   kernels one call launches (counted by a child process under
+   ``torch.profiler``);
 3. build ``fastvim_tiny`` and ``vim_tiny`` at 224 px, full width, fp32,
    from one seed, and compare their logits, then their loss and every
    parameter's gradient, on the card (kernels) with the same models on
-   the CPU (plain versions); the same for the logits of the four
+   the CPU (plain versions), and the loss and gradients of
+   ``fastvim_small`` at depth 2; the same for the logits of the four
    configurations of ``fastvim_tiny`` that reach K7-K10, and for
    ``fastvim_base`` (depth 2), which is too wide for the fused layer and
    must run unfused;
@@ -30,8 +34,10 @@ Phases, each of which raises on failure (exit code non-zero):
    ``make_supervised_train_step`` (label smoothing 0.1, no EMA): 5 steps
    on one fixed batch. Every loss must be finite, the last below the
    first, the parameters changed, and each step must launch 24 K3, 24 K4,
-   48 K1, 24 K5, 24 K6 and 48 K2. Then one step of ``vim_tiny`` at
-   2048 px, batch 2 (48 K1, 48 K2), and the step time of each as img/s;
+   48 K1, 24 K5, 24 K6 and 48 K2. Then 3 steps of ``fastvim_small`` at
+   batch 2, full width and depth, with its default fields (the same
+   launches per step) and one step of ``vim_tiny`` at batch 2 (48 K1, 48
+   K2), and the step time of each as img/s;
 6. the configurations: ``fastvim_tiny`` at 2048 px, batch 2, bf16, full
    depth, with ``fused_kernels="always"`` (24 K8, 24 K9, 48 K1 per
    forward), ``fused_kernels="merge"`` (24 K9, 48 K1), ``fused_merge``
@@ -140,6 +146,62 @@ def cuda_ms(fn, iters: int, windows: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def count_bwd_launches() -> int:
+    """``chip_smoke.py --count-launches``: print, as JSON, how many device
+    kernels (copies included) one call of K5 and of K6 launches in bf16
+    and in fp32, from a ``torch.profiler`` trace of a small call. It runs
+    as a process of its own (see :func:`bwd_launches_per_call`), so that
+    the profiler's hooks never sit under a timed phase."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvim_tpu_torch.ops.kernels import layer_fused as lf
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.3
+    batch, H, W, dm, di = 2, 14, 14, 192, 384
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tok = lambda c: rnd(batch, H, W, c).to(dtype)
+        pooled = lambda: rnd(batch, H, di).to(dtype)
+        calls = {
+            "pass_b_bwd": lambda a=(
+                tok(dm), tok(dm), tok(di), tok(di), pooled(), pooled(),
+                rnd(di, dm).to(dtype), None, rnd(di), rnd(di), rnd(di),
+                rnd(di), rnd(dm, di).to(dtype), 1e-5, True, False):
+                lf.pass_b_bwd(*a),
+            "pass_a_bwd": lambda a=(
+                tok(dm), rnd(batch, H, W, dm), tok(di), tok(di), pooled(),
+                pooled(), rnd(di, dm).to(dtype), None, rnd(di, 4), rnd(di),
+                rnd(di, 4), rnd(di), 1.0, False): lf.pass_a_bwd(*a)}
+        for name, fn in calls.items():
+            with torch.no_grad():
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(4):
+                        fn()
+                    torch.cuda.synchronize()
+            n = sum(ev.count for ev in prof.key_averages()
+                    if str(ev.device_type).endswith("CUDA")
+                    and (getattr(ev, "self_device_time_total", 0)
+                         or getattr(ev, "self_cuda_time_total", 0)) > 0)
+            out.setdefault(name, {})[str(dtype)] = n / 4
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def bwd_launches_per_call() -> dict:
+    """{kernel: {dtype: device kernels a call launches}} for K5 and K6,
+    counted by a child process (the library is built by then)."""
+    run = subprocess.run([sys.executable, __file__, "--count-launches"],
+                         capture_output=True, text=True, timeout=300)
+    if run.returncode != 0:
+        raise RuntimeError(f"--count-launches failed: {run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
 
 
 def check_kernels(dev, card):
@@ -255,7 +317,7 @@ def compare_all(name, got, want, tol, n_per_token):
                for i, (g, w) in enumerate(zip(got, want)))
 
 
-def check_bwd_kernels(dev, card):
+def check_bwd_kernels(dev, card, per_call):
     """Phase 2, the backward kernels: K2, K5 and K6 against their plain
     versions on the card."""
     import torch
@@ -321,48 +383,51 @@ def check_bwd_kernels(dev, card):
         del base, t
         torch.cuda.empty_cache()
 
-    # K5 / K6 at FastVim-T's widths: grid 128×128 (2048 px, batch 3) and
-    # 14×14 (224 px)
-    dm, di = 192, 384
-    w_in = uni(2 * di, dm, bound=dm ** -0.5)
-    conv = [uni(di, 4, bound=0.5) for _ in range(2)]
-    cbias = [uni(di, bound=0.5) for _ in range(2)]
-    w_out = uni(dm, di, bound=di ** -0.5)
-    d_f, d_b = uni(di, bound=1.0), uni(di, bound=1.0)
-    ln_w, ln_b = 1 + uni(di, bound=0.1), uni(di, bound=0.1)
-    for (H, W), batch in (((128, 128), 3), ((14, 14), 8)):
-        base = dict(x=rnd(batch, H, W, dm), g=rnd(batch, H, W, dm),
-                    xc_f=rnd(batch, H, W, di), xc_b=rnd(batch, H, W, di),
-                    dxc_f=rnd(batch, H, W, di), dxc_b=rnd(batch, H, W, di))
-        dx_b = rnd(batch, H, W, dm)
-        for transposed in (False, True):
-            P = W if transposed else H
-            pooled = dict(yf=rnd(batch, P, di), yb=rnd(batch, P, di),
-                          dpf=rnd(batch, P, di), dpb=rnd(batch, P, di))
-            for dtype in (torch.float32, torch.bfloat16):
-                bf = dtype == torch.bfloat16
-                t = {k: v.to(dtype) for k, v in {**base, **pooled}.items()}
-                wx, wz = w_in[:di].to(dtype), w_in[di:].to(dtype)
-                tag = f"grid={H}x{W} B={batch} {dtype} transposed={transposed}"
-                # K5: dx, dxc_f, dxc_b, dy per token or line; the 8 weight
-                # and vector gradients summed over every token
-                b_args = (t["g"], t["x"], t["xc_f"], t["xc_b"], t["yf"],
-                          t["yb"], wz, None, d_f, d_b, ln_w, ln_b,
-                          w_out.to(dtype), 1e-5, True, transposed)
-                got_b = lf.pass_b_bwd(*b_args)
-                tol = BF16_TOL if bf else FP32_TOL
-                e = compare_all(f"pass_b_bwd {tag}", got_b,
-                                lf.pass_b_bwd_plain(*b_args), tol, 4)
-                errs["pass_b_bwd"] = max(errs["pass_b_bwd"], e)
-                # K6: dx per token; 6 gradients summed over every token
-                a_args = (t["x"], dx_b, t["dxc_f"], t["dxc_b"], t["dpf"],
-                          t["dpb"], wx, None, conv[0], cbias[0], conv[1],
-                          cbias[1], 1.0, transposed)
-                got_a = lf.pass_a_bwd(*a_args)
-                e = compare_all(f"pass_a_bwd {tag}", got_a,
-                                lf.pass_a_bwd_plain(*a_args), tol, 1)
-                errs["pass_a_bwd"] = max(errs["pass_a_bwd"], e)
-                if bf and (H, W) == (128, 128):
+    # K5 / K6 at FastVim-T's widths (the main path: 2048 px, batch 3) and
+    # FastVim-S's (batch 2): grid 128×128 (2048 px) and 14×14 (224 px)
+    for dm, di, big_batch in ((192, 384, 3), (384, 768, 2)):
+        w_in = uni(2 * di, dm, bound=dm ** -0.5)
+        conv = [uni(di, 4, bound=0.5) for _ in range(2)]
+        cbias = [uni(di, bound=0.5) for _ in range(2)]
+        w_out = uni(dm, di, bound=di ** -0.5)
+        d_f, d_b = uni(di, bound=1.0), uni(di, bound=1.0)
+        ln_w, ln_b = 1 + uni(di, bound=0.1), uni(di, bound=0.1)
+        for (H, W), batch in (((128, 128), big_batch), ((14, 14), 8)):
+            base = dict(x=rnd(batch, H, W, dm), g=rnd(batch, H, W, dm),
+                        xc_f=rnd(batch, H, W, di), xc_b=rnd(batch, H, W, di),
+                        dxc_f=rnd(batch, H, W, di), dxc_b=rnd(batch, H, W, di))
+            dx_b = rnd(batch, H, W, dm)
+            for transposed in (False, True):
+                P = W if transposed else H
+                pooled = dict(yf=rnd(batch, P, di), yb=rnd(batch, P, di),
+                              dpf=rnd(batch, P, di), dpb=rnd(batch, P, di))
+                for dtype in (torch.float32, torch.bfloat16):
+                    bf = dtype == torch.bfloat16
+                    t = {k: v.to(dtype)
+                         for k, v in {**base, **pooled}.items()}
+                    wx, wz = w_in[:di].to(dtype), w_in[di:].to(dtype)
+                    tag = (f"d_model={dm} d_inner={di} grid={H}x{W} B={batch} "
+                           f"{dtype} transposed={transposed}")
+                    # K5: dx, dxc_f, dxc_b, dy per token or line; the 8
+                    # weight and vector gradients summed over every token
+                    b_args = (t["g"], t["x"], t["xc_f"], t["xc_b"], t["yf"],
+                              t["yb"], wz, None, d_f, d_b, ln_w, ln_b,
+                              w_out.to(dtype), 1e-5, True, transposed)
+                    got_b = lf.pass_b_bwd(*b_args)
+                    tol = BF16_TOL if bf else FP32_TOL
+                    e = compare_all(f"pass_b_bwd {tag}", got_b,
+                                    lf.pass_b_bwd_plain(*b_args), tol, 4)
+                    errs["pass_b_bwd"] = max(errs["pass_b_bwd"], e)
+                    # K6: dx per token; 6 gradients summed over every token
+                    a_args = (t["x"], dx_b, t["dxc_f"], t["dxc_b"], t["dpf"],
+                              t["dpb"], wx, None, conv[0], cbias[0], conv[1],
+                              cbias[1], 1.0, transposed)
+                    got_a = lf.pass_a_bwd(*a_args)
+                    e = compare_all(f"pass_a_bwd {tag}", got_a,
+                                    lf.pass_a_bwd_plain(*a_args), tol, 1)
+                    errs["pass_a_bwd"] = max(errs["pass_a_bwd"], e)
+                    if not (bf and (H, W) == (128, 128)):
+                        continue
                     gemm = 2.0 * batch * H * W * dm * di  # one GEMM's FLOP
                     for name, kern, plain, args, outs, flops in (
                             ("pass_b_bwd", lf.pass_b_bwd, lf.pass_b_bwd_plain,
@@ -376,9 +441,13 @@ def check_bwd_kernels(dev, card):
                                      if isinstance(a, torch.Tensor)), *outs),
                             flops, "bf16")
                         log(f"[time] {name} bf16 {tag}: kernel {k_ms:.4f} "
-                            f"ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-                            f"({by}) ({card})")
+                            f"ms in {per_call[name]['torch.bfloat16']:g} "
+                            f"launches, plain {p_ms:.4f} ms, bound "
+                            f"{b_ms:.4f} ms ({by}) ({card})")
+                        # the kernels line takes the main path's widths
                         times.setdefault(name, (k_ms, p_ms, b_ms, by))
+            del base, dx_b, t
+            torch.cuda.empty_cache()
     return errs, times
 
 
@@ -616,10 +685,12 @@ def check_grads_224(dev):
     gen = torch.Generator().manual_seed(4)
     x = torch.randn(2, 224, 224, 3, generator=gen)
     labels = torch.randint(1000, (2,), generator=gen)
-    for name in ("fastvim_tiny", "vim_tiny"):
+    for name, kw in (("fastvim_tiny", {}), ("vim_tiny", {}),
+                     ("fastvim_small", {"depth": 2})):
         cpu_model = create_model(name, img_size=224, device="cpu",
                                  drop_path_rate=0.0,
-                                 generator=torch.Generator().manual_seed(0))
+                                 generator=torch.Generator().manual_seed(0),
+                                 **kw)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
         results = []
         for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
@@ -723,8 +794,11 @@ def run_train_path(dev, card):
         "vim_tiny": {**none, "selective_scan_fwd": 48,
                      "selective_scan_bwd": 48},
     }
+    # FastVim-S: 24 layers too, each through the same six kernels
+    per_step["fastvim_small"] = per_step["fastvim_tiny"]
     total = dict.fromkeys(kernels.launch_counts(), 0)
-    for name, batch, steps in (("fastvim_tiny", 3, 5), ("vim_tiny", 2, 1)):
+    for name, batch, steps in (("fastvim_tiny", 3, 5), ("fastvim_small", 2, 3),
+                               ("vim_tiny", 2, 1)):
         # no device argument: the entry point builds on the card
         model = create_model(name, img_size=img, dtype=torch.bfloat16,
                              drop_path_rate=0.0,
@@ -770,7 +844,7 @@ def run_train_path(dev, card):
                 raise AssertionError(f"{name}: parameters did not change")
         if state.step != steps:
             raise AssertionError(f"{name}: step count {state.step}")
-        iters, windows = (3, 3) if name == "fastvim_tiny" else (1, 3)
+        iters, windows = (1, 3) if name == "vim_tiny" else (3, 3)
         ms = cuda_ms(lambda: train_step(state, batch_), iters, windows)
         log(f"[time] {name} {img}px B={batch} bf16 train step: {ms:.3f} ms, "
             f"{batch / ms * 1e3:.2f} img/s ({card})")
@@ -902,6 +976,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--count-launches"]:
+        return count_bwd_launches()
     try:
         from fastvim_tpu_torch.ops.kernels import _build
     except ImportError as e:
@@ -925,8 +1001,11 @@ def main() -> int:
 
     with torch.inference_mode():
         errs, times = check_kernels(dev, card)
+    per_call = bwd_launches_per_call()
+    log(f"[launches] device kernels per call, weight transposes included: "
+        f"{per_call}")
     with torch.no_grad():
-        errs_bwd, times_bwd = check_bwd_kernels(dev, card)
+        errs_bwd, times_bwd = check_bwd_kernels(dev, card, per_call)
     errs.update(errs_bwd)
     times.update(times_bwd)
     with torch.inference_mode():

@@ -39,10 +39,10 @@ SIGNATURES = {
     # x, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b, w_out, b_out,
     # out, batch, H, W, dm, di, transposed, dtype, use_ln, eps, stream
     "fv_pass_b_fwd": [_P] * 14 + [_I] * 8 + [ctypes.c_float, _P],
-    # g, x, xc_f, xc_b, yf, yb, w_z, w_z_t, b_z, d_f, d_b, ln_w, ln_b,
+    # g, x, xc_f, xc_b, yf, yb, w_z, w_z_t, b_z, d_f, d_b, ln_w, ln_b, w_out,
     # w_out_t, dx, dxc_f, dxc_b, dy, mg, dz, vec_part, vec, w_part, dw_out,
     # dw_z, batch, H, W, dm, di, transposed, dtype, use_ln, nsplit, eps, stream
-    "fv_pass_b_bwd": [_P] * 25 + [_I] * 9 + [ctypes.c_float, _P],
+    "fv_pass_b_bwd": [_P] * 26 + [_I] * 9 + [ctypes.c_float, _P],
     # x, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, w_x_t, b_x, w_cf, b_cf, w_ab,
     # b_ab, dx, dxin, c_part, c_vec, w_part, dw_x, batch, H, W, dm, di,
     # transposed, dtype, nsplit, scaling, stream
@@ -62,6 +62,8 @@ SIGNATURES = {
     "fv_merge_ln_gate_fwd": [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P],
     # u, delta, A, B, C, bias, D, out, batch, L, d, n, dtype, softplus, stream
     "fv_selective_scan_fwd_lanes": [_P] * 8 + [_I] * 6 + [_P],
+    # out (32 x uint64 on the host): cycles per phase of K5 / K6 in bf16
+    "fv_bwd_phase_cycles": [_P],
 }
 
 _lock = threading.Lock()

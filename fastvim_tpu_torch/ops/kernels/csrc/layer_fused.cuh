@@ -251,21 +251,21 @@ constexpr int kBCols = 12;           // FMA: output channels per thread
 constexpr int kBSlab = 32 * kBCols;  // output columns per slab: 384
 constexpr int kBMaxDi = 768;         // per-lane merge registers: / 32
 
-// FMA: acc[r][j] = Σ_k sA[(4·warp + r)·K + k] · Wt[(n0 + lane + 32j)·K +
-// k] for j < ncols: a (32 × K) fp32 tile in shared memory times the
+// FMA: acc[r][j] = Σ_k sA[(kR·warp + r)·K + k] · Wt[(n0 + lane + 32j)·K +
+// k] for j < ncols: an (8·kR × K) fp32 tile in shared memory times the
 // transpose of rows n0.. of a row-major (N × K) weight in T.
-template <typename T>
+template <typename T, int kR = 4>
 __device__ __forceinline__ void gemm_rows(const float* sA,
                                           const T* __restrict__ Wt, int K,
                                           int n0, int ncols, float* s_w,
-                                          float acc[4][kBCols]) {
+                                          float (*acc)[kBCols]) {
   constexpr int kVe = fv::kVec<T>;  // elements per 16-byte vector
   constexpr int kVpr = kBKc / kVe;  // vectors per row of a K chunk
   constexpr int kIters = kBSlab * kVpr / kThreads;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int nn = 32 * ncols;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < kR; ++r)
 #pragma unroll
     for (int j = 0; j < kBCols; ++j) acc[r][j] = 0.f;
   for (int k0 = 0; k0 < K; k0 += kBKc) {
@@ -300,8 +300,8 @@ __device__ __forceinline__ void gemm_rows(const float* sA,
       for (int j = 0; j < kBCols; ++j)
         wv[j] = j < ncols ? s_w[k * (kBSlab + 1) + lane + 32 * j] : 0.f;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float a = sA[(4 * warp + r) * K + k0 + k];
+      for (int r = 0; r < kR; ++r) {
+        const float a = sA[(kR * warp + r) * K + k0 + k];
 #pragma unroll
         for (int j = 0; j < kBCols; ++j) acc[r][j] += a * wv[j];
       }

@@ -1,5 +1,6 @@
 """K3-K7: the two passes of the fused FastVim mixer layer, forward
-(``csrc/layer_fused_fwd.cu``), backward (``csrc/layer_fused_bwd.cu``) and
+(``csrc/layer_fused_fwd.cu``), backward (``csrc/layer_fused_bwd_wgmma.cu``
+in bf16, ``csrc/layer_fused_bwd.cu`` in fp32 and for the entry points) and
 pass B in its recompute form (``csrc/layer_fused_recompute.cu``), and
 ``fused_mixer_core``, which chains pass A → the pooled scans → pass B
 and differentiates through ``FusedMixerCoreFn``.
@@ -41,6 +42,9 @@ from fastvim_tpu_torch.ops.scan import (
 
 
 FWD_MAX_DI = 768        # widest d_inner K4 holds in one block (kBMaxDi)
+BWD_MAX_DI = 768        # ... and K5 / K6 take (kBwdMaxDi): K4's limit
+BWD_MAX_DM = 384        # K5 / K6 keep a tile's dx̂ in registers
+A_BWD_WINDOW = 58       # tokens a K6 block of the bf16 path owns (kAWin)
 RECOMPUTE_MAX_DI = 384  # ... and K7, whose block also holds xin (kRcMaxDi)
 RECOMPUTE_MAX_DM = 384  # K7's x̂ tile beside xin and z in shared memory
 
@@ -61,6 +65,21 @@ def pass_b_widths_ok(d_model: int, d_inner: int,
     if recompute:
         return d_inner <= RECOMPUTE_MAX_DI and d_model <= RECOMPUTE_MAX_DM
     return d_inner <= FWD_MAX_DI
+
+
+def pass_bwd_widths_ok(d_model: int, d_inner: int) -> bool:
+    """The widths the launchers of K5 and K6 take: whole 64-column tiles,
+    d_model <= d_inner, and both within what a block holds."""
+    return (d_model >= 64 and d_model % 64 == 0 and d_inner % 64 == 0
+            and d_model <= d_inner <= BWD_MAX_DI and d_model <= BWD_MAX_DM)
+
+
+def _check_bwd_widths(name: str, dm: int, di: int) -> None:
+    if not pass_bwd_widths_ok(dm, di):
+        raise ValueError(
+            f"{name}: the fused backward kernels need d_model, d_inner % 64 "
+            f"== 0, d_model <= d_inner <= {BWD_MAX_DI} and d_model <= "
+            f"{BWD_MAX_DM}, got d_model={dm}, d_inner={di}")
 
 
 def fusable(grid_shape: Sequence[int], pool_axes: Sequence[int],
@@ -318,18 +337,23 @@ def pass_b_recompute(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z, b_z,
 # K5: pass B backward
 # ----------------------------------------------------------------------
 
-BWD_MAX_DI = 384  # widest d_inner K5 holds in one block's registers
-
-
 def _dsilu(v: torch.Tensor) -> torch.Tensor:
     s = torch.sigmoid(v)
     return s * (1 + v * (1 - s))
 
 
-def _wgrad_splits(ntokens: int) -> int:
+def _wgrad_splits(ntokens: int, dm: int, di: int, jobs: int,
+                  bf16: bool) -> int:
     """Token slices the weight-gradient GEMMs are split into: enough
-    blocks to fill the card, each with at least ~1k tokens."""
-    return max(1, min(32, ntokens // 1024))
+    blocks over the launch's output tiles to fill an H100's 132 SMs (one
+    block each of 128 x 192 tiles on wgmma, four each of 64 x 64 FMA
+    tiles), each slice with at least ~512 tokens. More slices only add
+    partials to write and to add up."""
+    if bf16:
+        blocks, tiles = 132, -(-di // 128) * -(-dm // 192)
+    else:
+        blocks, tiles = 528, (di // 64) * (dm // 64)
+    return max(1, min(ntokens // 512, round(blocks / (tiles * jobs))))
 
 
 def pass_b_bwd_plain(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w,
@@ -394,10 +418,10 @@ def pass_b_bwd_plain(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w,
 def pass_b_bwd(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
                w_out, eps: float, use_ln: bool, transposed: bool):
     """Pass B backward (K5); same contract as :func:`pass_b_bwd_plain`.
-    On CUDA, d_model and d_inner must be multiples of 64 and d_inner <=
-    384. The sums over all tokens (weight and vector gradients) are
-    written as per-block partials and added by a second kernel in a
-    fixed order."""
+    On CUDA the widths must pass :func:`pass_bwd_widths_ok`. The sums
+    over all tokens (weight and vector gradients) are written as
+    per-block partials and added by one more kernel in a fixed order;
+    a call is three launches."""
     if x4.device.type == "cpu":
         return pass_b_bwd_plain(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f,
                                 d_b, ln_w, ln_b, w_out, eps, use_ln,
@@ -428,15 +452,16 @@ def pass_b_bwd(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
             raise ValueError(f"{name}: {arg} must be float32 ({di},)")
     if use_ln and (ln_w is None or ln_b is None):
         raise ValueError(f"{name}: use_ln needs ln_w and ln_b")
-    if dm % 64 or di % 64 or di > BWD_MAX_DI:
-        raise ValueError(f"{name}: needs d_model, d_inner % 64 == 0 and "
-                         f"d_inner <= {BWD_MAX_DI}, got {dm}, {di}")
-    w_z_t = w_z.t().contiguous()      # (dm, di): dx = dz · W_z
-    w_out_t = w_out.t().contiguous()  # (di, dm): d(gated) = g · W_out
-    kernels.check_aligned(name, g4=g4, x4=x4, w_z=w_z, w_z_t=w_z_t,
-                          w_out_t=w_out_t)
+    _check_bwd_widths(name, dm, di)
+    # the fp32 kernel (FMA tiles) reads the weights of its transposed
+    # products row-major; the bf16 kernel reads them through wgmma's
+    # descriptor as they lie
+    w_z_t = w_z.t().contiguous() if code == 0 else None      # (dm, di)
+    w_out_t = w_out.t().contiguous() if code == 0 else None  # (di, dm)
+    kernels.check_aligned(name, g4=g4, x4=x4, xc_f=xc_f, xc_b=xc_b, yf=yf,
+                          yb=yb, w_z=w_z, w_out=w_out)
     T = B * H * W
-    nsplit = _wgrad_splits(T)
+    nsplit = _wgrad_splits(T, dm, di, 2, code == 1)
     f32 = dict(dtype=torch.float32, device=x4.device)
     dx = torch.empty(B, H, W, dm, **f32)
     dxc_f, dxc_b = torch.empty_like(xc_f), torch.empty_like(xc_b)
@@ -445,13 +470,13 @@ def pass_b_bwd(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
     nvec = 5 * di + dm
     vec_part = torch.empty(B * P, nvec, **f32)
     vec = torch.empty(nvec, **f32)
-    w_part = torch.empty(nsplit, dm * di, **f32)
+    w_part = torch.empty(2, nsplit, di * dm, **f32)
     dw_out = torch.empty(dm, di, **f32)
     dw_z = torch.empty(di, dm, **f32)
     err = _build.library().fv_pass_b_bwd(
         *map(kernels.ptr, (g4, x4, xc_f, xc_b, yf, yb, w_z, w_z_t, b_z, d_f,
-                           d_b, ln_w, ln_b, w_out_t, dx, dxc_f, dxc_b, dy,
-                           mg, dz, vec_part, vec, w_part, dw_out, dw_z)),
+                           d_b, ln_w, ln_b, w_out, w_out_t, dx, dxc_f, dxc_b,
+                           dy, mg, dz, vec_part, vec, w_part, dw_out, dw_z)),
         B, H, W, dm, di, int(transposed), code, int(use_ln), nsplit,
         float(eps), kernels.stream_ptr(x4.device))
     _build.check(err, name)
@@ -523,9 +548,9 @@ def pass_a_bwd_plain(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, b_cf,
 def pass_a_bwd(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, b_cf, w_ab,
                b_ab, scaling: float, transposed: bool):
     """Pass A backward (K6); same contract as :func:`pass_a_bwd_plain`.
-    On CUDA, d_model and d_inner must be multiples of 64. The sums over
-    all tokens are per-block partials added by a second kernel in a fixed
-    order."""
+    On CUDA the widths must pass :func:`pass_bwd_widths_ok`. The sums
+    over all tokens are per-block partials added by one more kernel in a
+    fixed order; a call is three launches in bf16, four in fp32."""
     if x4.device.type == "cpu":
         return pass_a_bwd_plain(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x,
                                 w_cf, b_cf, w_ab, b_ab, scaling, transposed)
@@ -552,18 +577,21 @@ def pass_a_bwd(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, b_cf, w_ab,
         if t is not None and (t.dtype != torch.float32
                               or tuple(t.shape) != shape):
             raise ValueError(f"{name}: {arg} must be float32 {shape}")
-    if dm % 64 or di % 64 or min(H, W) < 4:
-        raise ValueError(f"{name}: needs d_model, d_inner % 64 == 0 and "
-                         f"H, W >= 4, got d_model={dm}, d_inner={di}, "
-                         f"grid=({H}, {W})")
-    w_x_t = w_x.t().contiguous()  # (dm, di): dx = dxin · W_x
-    kernels.check_aligned(name, x4=x4, w_x=w_x, w_x_t=w_x_t)
+    _check_bwd_widths(name, dm, di)
+    if min(H, W) < 4:
+        raise ValueError(f"{name}: needs H, W >= 4, got grid=({H}, {W})")
+    # only the fp32 kernel reads a transposed copy (see pass_b_bwd)
+    w_x_t = w_x.t().contiguous() if code == 0 else None  # (dm, di)
+    kernels.check_aligned(name, x4=x4, dx_b=dx_b, dxc_f=dxc_f, dxc_b=dxc_b,
+                          w_x=w_x)
     T = B * H * W
-    nsplit = _wgrad_splits(T)
+    nsplit = _wgrad_splits(T, dm, di, 1, code == 1)
     f32 = dict(dtype=torch.float32, device=x4.device)
     dx = torch.empty(B, H, W, dm, **f32)
     dxin = x4.new_empty(T, di)  # GEMM operand
-    c_part = torch.empty(B * P, 11 * di, **f32)
+    # a partial per block: a line in fp32, a window of the conv order in bf16
+    nblk = P if code == 0 else -(-H * W // A_BWD_WINDOW)
+    c_part = torch.empty(B * nblk, 11 * di, **f32)
     c_vec = torch.empty(11, di, **f32)
     w_part = torch.empty(nsplit, di * dm, **f32)
     dw_x = torch.empty(di, dm, **f32)
@@ -838,13 +866,11 @@ def fused_mixer_core(x_hat: torch.Tensor, p: FusedParams,
                 scan_impl)
         if recompute or bwd_mode == "remat":
             return FusedMixerCoreRematFn.apply(*args, recompute, *p)
-        dm, di = x_hat.shape[-1], p.conv_f_w.shape[0]
-        if x_hat.is_cuda and (dm % 64 or di % 64 or di > BWD_MAX_DI):
+        if x_hat.is_cuda:
             # say so before the forward runs, not in the middle of backward
-            raise ValueError(
-                f"fused_mixer_core: the fused backward kernels need d_model, "
-                f"d_inner % 64 == 0 and d_inner <= {BWD_MAX_DI}, got {dm}, "
-                f"{di}; use bwd_mode='remat' (layer_fused_bwd) for this width")
+            _check_bwd_widths("fused_mixer_core (bwd_mode='fused'; 'remat' "
+                              "takes any width the forward takes)",
+                              x_hat.shape[-1], p.conv_f_w.shape[0])
         return FusedMixerCoreFn.apply(*args, *p)
     out, _, _, _, saved, _ = _fused_forward(x_hat, p, grid, transposed,
                                             scaling, eps, use_ln, dtype,

@@ -9,6 +9,11 @@ first CUDA device and prints one table::
     python -m fastvim_tpu_torch.utils.profiling --model fastvim_tiny \\
         --img 2048 --batch 3 --train
 
+With ``--bwd-times`` it instead times K5 and K6 alone (bf16, CUDA events,
+both orientations) at the model's widths and grid, and with
+``--bwd-phases`` it builds the kernels with their cycle counters compiled
+in and prints where a block of K5 and of K6 spends its cycles.
+
 It needs a CUDA device; nothing here falls back to the CPU.
 """
 
@@ -25,10 +30,12 @@ import torch
 KERNEL_GROUPS = (
     ("K1 scan fwd", "scan_fwd_kernel"), ("K2 scan bwd", "scan_bwd_kernel"),
     ("K5 pass B bwd (main)", "pass_b_bwd"),
-    ("K6 pass A bwd (conv adjoint)", "pass_a_bwd_conv"),
-    ("K6 pass A bwd (dx GEMM)", "pass_a_bwd_dx"),
-    ("K5/K6 weight-gradient GEMMs", "wgrad_kernel"),
-    ("K2/K5/K6 partial sums", "sum_partials_kernel"),
+    ("K6 pass A bwd (main)", "pass_a_bwd_wgmma"),
+    ("K6 pass A bwd, fp32 (conv adjoint)", "pass_a_bwd_conv"),
+    ("K6 pass A bwd, fp32 (dx GEMM)", "pass_a_bwd_dx"),
+    ("K5/K6 weight-gradient GEMMs", "wgrad_"),
+    ("K5/K6 partial sums", "sum_segments_kernel"),
+    ("K2 partial sums", "sum_partials_kernel"),
     ("K7 pass B, conv stage recomputed", "pass_b_rc"),
     ("K8 conv + pool", "conv_pool_kernel"),
     ("K10 merge + LN + gate", "merge_ln_gate_kernel"),
@@ -85,6 +92,108 @@ def group_rows(rows) -> Dict[str, Tuple[float, int]]:
     return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
 
 
+# the PROF marks of csrc/layer_fused_bwd_wgmma.cu: a mark takes the cycles
+# since the mark before it
+K5_PHASES = ((0, "second pass of the tile before + barrier"),
+             (11, "x̂, g copies started"), (12, "first pass: LN statistics"),
+             (1, "wait for x̂, g"), (2, "db_out"), (3, "z product"),
+             (4, "m0 to shared + dgated product"),
+             (5, "gate / LayerNorm epilogue"), (6, "barrier"),
+             (7, "column sums + dz copy-out"), (8, "dx̂ product"),
+             (9, "row sums + dx̂ store"), (10, "second pass, last tile"))
+K6_PHASES = ((16, "dx̂ store of the window before + wait for x̂"),
+             (17, "xin product"), (18, "xin to shared"),
+             (19, "wait for the cotangents"), (20, "conv adjoint walk"),
+             (21, "barrier"), (22, "partials + dxin copy-out"),
+             (23, "dx̂ product"))
+
+
+def _bwd_args(dm: int, di: int, grid: int, batch: int, transposed: bool):
+    """Random bf16 arguments of ``pass_b_bwd`` and ``pass_a_bwd`` on a
+    grid × grid token grid."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dt = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    H = W = grid
+    tok = lambda c: rnd(batch, H, W, c).to(dt)
+    pooled = lambda: rnd(batch, H, di).to(dt)
+    b_args = (tok(dm), tok(dm), tok(di), tok(di), pooled(), pooled(),
+              rnd(di, dm, scale=dm ** -0.5).to(dt), None, rnd(di), rnd(di),
+              1 + rnd(di, scale=0.1), rnd(di, scale=0.1),
+              rnd(dm, di, scale=di ** -0.5).to(dt), 1e-5, True, transposed)
+    a_args = (tok(dm), rnd(batch, H, W, dm), tok(di), tok(di), pooled(),
+              pooled(), rnd(di, dm, scale=dm ** -0.5).to(dt), rnd(di),
+              rnd(di, 4, scale=.5), rnd(di), rnd(di, 4, scale=.5), rnd(di),
+              1.0, transposed)
+    return b_args, a_args
+
+
+def bwd_kernel_times(dm: int, di: int, grid: int, batch: int,
+                     iters: int = 20) -> None:
+    """Print the time of one K5 and one K6 call in bf16 (CUDA events over
+    ``iters`` calls after a warm-up one), on even and odd layers."""
+    from fastvim_tpu_torch.ops.kernels import layer_fused as lf
+
+    for transposed in (False, True):
+        b_args, a_args = _bwd_args(dm, di, grid, batch, transposed)
+        ms = []
+        with torch.no_grad():
+            for fn, args in ((lf.pass_b_bwd, b_args), (lf.pass_a_bwd, a_args)):
+                fn(*args)
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(iters):
+                    fn(*args)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end) / iters)
+        print(f"bf16 d_model={dm} d_inner={di} grid={grid}x{grid} B={batch} "
+              f"transposed={transposed}: K5 {ms[0]:.4f} ms, K6 {ms[1]:.4f} ms")
+
+
+def bwd_phase_cycles(dm: int, di: int, grid: int, batch: int) -> None:
+    """Print the cycles per block and phase of one K5 and one K6 call in
+    bf16 on random inputs (thread 0's clock; the kernels are built with
+    -DFV_PROFILE, so call this before anything else builds them)."""
+    import ctypes
+
+    from fastvim_tpu_torch.ops.kernels import _build
+    from fastvim_tpu_torch.ops.kernels import layer_fused as lf
+
+    _build.NVCC_FLAGS.append("-DFV_PROFILE")
+    lib = _build.library()
+    dev = torch.device("cuda", 0)
+
+    def read():
+        buf = (ctypes.c_uint64 * 32)()
+        _build.check(lib.fv_bwd_phase_cycles(buf), "fv_bwd_phase_cycles")
+        return list(buf)
+
+    b_args, a_args = _bwd_args(dm, di, grid, batch, False)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    windows = batch * -(-grid * grid // lf.A_BWD_WINDOW)
+    with torch.no_grad():
+        for name, fn, args, phases, nblk in (
+                ("K5", lf.pass_b_bwd, b_args, K5_PHASES, batch * grid),
+                ("K6", lf.pass_a_bwd, a_args, K6_PHASES, min(sms, windows))):
+            fn(*args)  # warm-up
+            read()
+            fn(*args)
+            cyc = read()
+            total = sum(cyc)
+            print(f"{name} bf16 d_model={dm} d_inner={di} grid={grid}x{grid} "
+                  f"B={batch}: {total // nblk} cycles a block, {nblk} blocks")
+            for mark, what in phases:
+                print(f"{cyc[mark] // nblk:10d} {cyc[mark] / total:7.1%}  "
+                      f"{what}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="fastvim_tiny")
@@ -95,9 +204,21 @@ def main() -> None:
     ap.add_argument("--train", action="store_true",
                     help="a supervised train step instead of a forward")
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--bwd-times", action="store_true",
+                    help="time K5 and K6 alone at the model's widths")
+    ap.add_argument("--bwd-phases", action="store_true",
+                    help="cycles per phase of K5 and K6 at the model's widths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")
+    if args.bwd_phases or args.bwd_times:
+        from fastvim_tpu_torch.models.registry import _SIZES
+
+        size = _SIZES[args.model.split("_", 1)[1]]
+        dm = size["embed_dim"]  # d_inner = 2 · d_model in every registry model
+        shape = (dm, 2 * dm, args.img // size["patch_size"], args.batch)
+        return (bwd_phase_cycles if args.bwd_phases
+                else bwd_kernel_times)(*shape)
 
     from fastvim_tpu_torch.models import create_model
     from fastvim_tpu_torch.train import (
@@ -136,7 +257,8 @@ def main() -> None:
     what = "train step" if args.train else "forward"
     print(f"{args.model} {args.img}px B={args.batch} {args.dtype} {what} "
           f"({card}): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-          f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+          f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, "
+          f"{sum(r[2] for r in rows)} kernels and copies launched")
     print(f"{'ms/step':>10} {'share':>7} {'launches':>9}  kernel")
     for name, (ms, count) in list(group_rows(rows).items())[:args.top]:
         print(f"{ms:10.3f} {ms / busy_ms:7.1%} {count:9d}  {name[:90]}")

@@ -198,6 +198,13 @@ def test_pass_b_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
     ((70, 5), True, 2, 64, 128, False, True),    # the same down columns
     ((4, 4), True, 2, 64, 128, True, True),      # the smallest grid
     ((8, 8), True, 2, 192, 384, True, True),     # FastVim-T widths
+    ((8, 8), False, 2, 384, 768, True, True),    # FastVim-S widths: 6 slabs
+    ((6, 10), True, 2, 128, 512, False, True),   # d_inner > 384
+    ((6, 10), False, 2, 64, 64, True, True),     # half a slab
+    ((3, 65), False, 2, 128, 192, True, True),   # an M tile + 1 tokens
+    ((65, 3), True, 2, 128, 192, False, False),
+    ((1, 40), False, 2, 64, 128, True, True),    # a 1 x N and an N x 1 grid
+    ((40, 1), True, 2, 64, 128, True, True),
 ])
 def test_pass_b_bwd_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
                                   bias, use_ln):
@@ -228,6 +235,12 @@ def test_pass_b_bwd_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
     ((170, 5), True, 1, 64, 128, False),   # 176-token columns: 2 passes
     ((8, 8), True, 2, 192, 384, False),    # FastVim-T widths
     ((4, 4), False, 2, 64, 128, True),     # the smallest grid
+    ((8, 8), False, 2, 384, 768, True),    # FastVim-S widths: 6 slabs
+    ((6, 10), True, 2, 128, 512, False),   # d_inner > 384
+    ((6, 10), False, 2, 64, 64, True),     # half a slab
+    ((4, 65), False, 2, 128, 192, True),   # an M tile + 1 tokens a line
+    ((65, 4), True, 2, 128, 192, False),
+    ((14, 14), True, 3, 192, 384, True),   # windows that straddle images' ends
 ])
 def test_pass_a_bwd_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
                                   bias):
@@ -243,6 +256,34 @@ def test_pass_a_bwd_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
     with torch.no_grad():
         _close_all(lf.pass_a_bwd(*args), lf.pass_a_bwd_plain(*args),
                    TOL[dtype], 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("transposed", [False, True])
+def test_bwd_kernels_bitwise_reproducible(dev, dtype, transposed):
+    """K5 and K6 add their cross-block sums in a fixed order (no atomics):
+    two calls on the same inputs agree bit for bit, ragged tiles and
+    several token slices included."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    batch, H, W, dm, di = 2, 40, 70, 192, 384
+    P = W if transposed else H
+    tok = lambda c: _rand(g, batch, H, W, c).to(dtype)
+    pooled = lambda: _rand(g, batch, P, di).to(dtype)
+    b_args = (tok(dm), tok(dm), tok(di), tok(di), pooled(), pooled(),
+              _rand(g, di, dm, scale=dm ** -0.5).to(dtype),
+              _rand(g, di, scale=0.3), _rand(g, di), _rand(g, di),
+              1 + _rand(g, di, scale=0.1), _rand(g, di, scale=0.1),
+              _rand(g, dm, di, scale=di ** -0.5).to(dtype), 1e-5, True,
+              transposed)
+    x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling, _ = _pass_a_args(
+        g, dtype, batch, H, W, dm, di, True, transposed)
+    a_args = (x4, _rand(g, batch, H, W, dm), tok(di), tok(di), pooled(),
+              pooled(), w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling, transposed)
+    with torch.no_grad():
+        for fn, args in ((lf.pass_b_bwd, b_args), (lf.pass_a_bwd, a_args)):
+            first = [t.clone() for t in fn(*args)]
+            for a, b in zip(first, fn(*args)):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("bwd_mode", ["fused", "remat"])
@@ -326,7 +367,7 @@ def test_wrappers_refuse(dev):
     with pytest.raises(ValueError, match="32-byte"):
         ss.selective_scan_fwd(flat[4:].view(1, 8, 64), u, A, B, B)
     # the backward launchers too: no grad-requiring input, states from K1,
-    # and no d_inner wider than K5 holds
+    # and no width beyond what K5 and K6 hold
     with torch.no_grad():
         _, states = ss.selective_scan_fwd(u, u, A, B, B, save_states=True)
     with pytest.raises(RuntimeError, match="requires grad"):
@@ -334,19 +375,25 @@ def test_wrappers_refuse(dev):
                               None, u, states)
     with pytest.raises(ValueError, match="states must be"):
         ss.selective_scan_bwd(u, u, A, B, B, None, None, u, states[:, :, :8])
-    x4, wide = _rand(g, 1, 8, 8, 64), _rand(g, 1, 8, 8, 768)
-    y, v = _rand(g, 1, 8, 768), _rand(g, 768)
-    wide_p = lf.FusedParams(*([None] * 2), v.new_zeros(768, 4),
+    x4, wide = _rand(g, 1, 8, 8, 64), _rand(g, 1, 8, 8, 832)
+    y, v = _rand(g, 1, 8, 832), _rand(g, 832)
+    wide_p = lf.FusedParams(*([None] * 2), v.new_zeros(832, 4),
                             *([None] * 17))
-    with pytest.raises(ValueError, match="bwd_mode='remat'"):
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="bwd_mode='fused'"):
         lf.fused_mixer_core(_rand(g, 1, 64, 64).requires_grad_(), wide_p,
                             (8, 8), False, 1.0, 1e-5, True, torch.float32)
     with pytest.raises(ValueError, match="d % 8 == 0"):
         selective_scan(_rand(g, 1, 8, 12).requires_grad_(), _rand(g, 1, 8, 12),
                        -torch.ones(12, 16, device=dev), B, B)
-    with pytest.raises(ValueError, match="d_inner <= 384"):
-        lf.pass_b_bwd(x4, x4, wide, wide, y, y, _rand(g, 768, 64), None, v, v,
-                      v, v, _rand(g, 64, 768), 1e-5, True, False)
+    assert kernels.launch_counts()["pass_a_fwd"] == 0  # before the forward
+    with pytest.raises(ValueError, match="d_inner <= 768"):
+        lf.pass_b_bwd(x4, x4, wide, wide, y, y, _rand(g, 832, 64), None, v, v,
+                      v, v, _rand(g, 64, 832), 1e-5, True, False)
+    with pytest.raises(ValueError, match="d_inner <= 768"):
+        lf.pass_a_bwd(x4, _rand(g, 1, 8, 8, 64), wide, wide, y, y,
+                      _rand(g, 832, 64), None, _rand(g, 832, 4), None,
+                      _rand(g, 832, 4), None, 1.0, False)
 
 
 # ----------------------------------------------------------------------
