@@ -11,23 +11,28 @@ Phases, each of which raises on failure (exit code non-zero):
    backward kernels K2 scan, K5 pass B, K6 pass A; K7 pass B in its
    recompute form, K8 conv + pool, K9 and K10 the two merge kernels, and
    the lanes scan) against its plain PyTorch version on the card, at the
-   main path's shapes, in fp32 and bf16, and time both; K5 and K6 also at
-   FastVim-S's widths (d_model 384, d_inner 768), with the number of
-   kernels one call launches (counted by a child process under
+   main path's shapes, in fp32 and bf16, and time both; K3-K6 also at
+   FastVim-S's widths (d_model 384, d_inner 768, grid 128 × 128, batch 2,
+   both orientations), each timed beside its bound and with the number of
+   device kernels one call launches (counted by a child process under
    ``torch.profiler``);
 3. build ``fastvim_tiny`` and ``vim_tiny`` at 224 px, full width, fp32,
    from one seed, and compare their logits, then their loss and every
    parameter's gradient, on the card (kernels) with the same models on
    the CPU (plain versions), and the loss and gradients of
-   ``fastvim_small`` at depth 2; the same for the logits of the four
-   configurations of ``fastvim_tiny`` that reach K7-K10, and for
-   ``fastvim_base`` (depth 2), which is too wide for the fused layer and
-   must run unfused;
+   ``fastvim_small`` at depth 2 and of ``fastvim_tiny`` with
+   ``embed_dim=96`` at depth 2, whose layers fuse forward (2 K3 and 2 K4
+   launches) and take the remat backward (no K5 or K6 launch); the same
+   for the logits of the four configurations of ``fastvim_tiny`` that
+   reach K7-K10, and for ``fastvim_base`` (depth 2), which is too wide for
+   the fused layer and must run unfused;
 4. run both models forward at 2048 px, batch 2, bf16. Logits must be
    finite, and the kernels' launch counters must show 24 pass A + 24
    pass B + 48 scans for FastVim-T and 48 scans for Vim-T per forward.
    Then time forwards with CUDA events (median of 5 windows) and print
-   img/s;
+   img/s, FastVim-T's also as a CUDA-graph replay (static input, captured
+   after warm-up), where its forward is the device's time and not the
+   host's;
 5. train: ``fastvim_tiny`` at 2048 px, batch 3, bf16, built on the card by
    ``create_model`` → ``make_optimizer`` (AdamW, cosine schedule with
    warmup, weight decay 0.05) → ``TrainState`` →
@@ -148,11 +153,11 @@ def cuda_ms(fn, iters: int, windows: int = 1) -> float:
     return statistics.median(times)
 
 
-def count_bwd_launches() -> int:
+def count_launches() -> int:
     """``chip_smoke.py --count-launches``: print, as JSON, how many device
-    kernels (copies included) one call of K5 and of K6 launches in bf16
-    and in fp32, from a ``torch.profiler`` trace of a small call. It runs
-    as a process of its own (see :func:`bwd_launches_per_call`), so that
+    kernels (copies included) one call of K3, K4, K5 and K6 launches in
+    bf16 and in fp32, from a ``torch.profiler`` trace of a small call. It
+    runs as a process of its own (see :func:`launches_per_call`), so that
     the profiler's hooks never sit under a timed phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -168,6 +173,14 @@ def count_bwd_launches() -> int:
         tok = lambda c: rnd(batch, H, W, c).to(dtype)
         pooled = lambda: rnd(batch, H, di).to(dtype)
         calls = {
+            "pass_a_fwd": lambda a=(
+                tok(dm), rnd(di, dm).to(dtype), None, rnd(di, 4), rnd(di),
+                rnd(di, 4), rnd(di), 1.0, False): lf.pass_a(*a),
+            "pass_b_fwd": lambda a=(
+                tok(dm), tok(di), tok(di), pooled(), pooled(),
+                rnd(di, dm).to(dtype), None, rnd(di), rnd(di), rnd(di),
+                rnd(di), rnd(dm, di).to(dtype), None, 1e-5, True, False):
+                lf.pass_b(*a),
             "pass_b_bwd": lambda a=(
                 tok(dm), tok(dm), tok(di), tok(di), pooled(), pooled(),
                 rnd(di, dm).to(dtype), None, rnd(di), rnd(di), rnd(di),
@@ -194,8 +207,8 @@ def count_bwd_launches() -> int:
     return 0
 
 
-def bwd_launches_per_call() -> dict:
-    """{kernel: {dtype: device kernels a call launches}} for K5 and K6,
+def launches_per_call() -> dict:
+    """{kernel: {dtype: device kernels a call launches}} for K3-K6,
     counted by a child process (the library is built by then)."""
     run = subprocess.run([sys.executable, __file__, "--count-launches"],
                          capture_output=True, text=True, timeout=300)
@@ -204,8 +217,8 @@ def bwd_launches_per_call() -> dict:
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
-def check_kernels(dev, card):
-    """Phase 2: every kernel against its plain version on the card."""
+def check_kernels(dev, card, per_call):
+    """Phase 2: K1, K3 and K4 against their plain versions on the card."""
     import torch
 
     from fastvim_tpu_torch.ops.kernels import layer_fused as lf
@@ -255,41 +268,46 @@ def check_kernels(dev, card):
                     f"{b_ms:.4f} ms ({by}) ({card})")
                 times.setdefault("selective_scan_fwd", (k_ms, p_ms, b_ms, by))
 
-    # K3 / K4 at FastVim-T's widths: grid 128×128 (2048 px) and 14×14
-    dm, di = 192, 384
-    w_in = uni(2 * di, dm, bound=dm ** -0.5)
-    conv = [uni(di, 4, bound=0.5) for _ in range(2)]
-    cbias = [uni(di, bound=0.5) for _ in range(2)]
-    w_out = uni(dm, di, bound=di ** -0.5 / 24 ** 0.5)
-    d_f, d_b = uni(di, bound=1.0), uni(di, bound=1.0)
-    ln_w, ln_b = 1 + uni(di, bound=0.1), uni(di, bound=0.1)
-    for (H, W), batch in (((128, 128), 2), ((14, 14), 8)):
-        base_x = rnd(batch, H, W, dm)
-        for transposed in (False, True):
-            P = W if transposed else H
-            base_b = dict(xc_f=rnd(batch, H, W, di), xc_b=rnd(batch, H, W, di),
-                          yf=rnd(batch, P, di), yb=rnd(batch, P, di))
-            for dtype, tol in ((torch.float32, FP32_TOL),
-                               (torch.bfloat16, BF16_TOL)):
-                x4 = base_x.to(dtype)
-                wx, wz = w_in[:di].to(dtype), w_in[di:].to(dtype)
-                a_args = (x4, wx, None, conv[0], cbias[0], conv[1], cbias[1],
-                          1.0, transposed)
-                tag = f"grid={H}x{W} B={batch} {dtype} transposed={transposed}"
-                got = lf.pass_a(*a_args)
-                want = lf.pass_a_plain(*a_args)
-                for part, gt, wt in zip(("xc_f", "xc_b", "pf", "pb"), got,
-                                        want):
-                    e = compare(f"pass_a_fwd {part} {tag}", gt, wt, tol)
-                    errs["pass_a_fwd"] = max(errs["pass_a_fwd"], e)
-                bb = {k: v.to(dtype) for k, v in base_b.items()}
-                b_args = (x4, bb["xc_f"], bb["xc_b"], bb["yf"], bb["yb"], wz,
-                          None, d_f, d_b, ln_w, ln_b, w_out.to(dtype), None,
-                          1e-5, True, transposed)
-                e = compare(f"pass_b_fwd {tag}", lf.pass_b(*b_args),
-                            lf.pass_b_plain(*b_args), tol)
-                errs["pass_b_fwd"] = max(errs["pass_b_fwd"], e)
-                if dtype == torch.bfloat16 and (H, W) == (128, 128):
+    # K3 / K4 at FastVim-T's widths (the main path: 2048 px, batch 2, and
+    # 224 px) and FastVim-S's (2048 px, batch 2)
+    for dm, di, shapes in ((192, 384, (((128, 128), 2), ((14, 14), 8))),
+                           (384, 768, (((128, 128), 2),))):
+        w_in = uni(2 * di, dm, bound=dm ** -0.5)
+        conv = [uni(di, 4, bound=0.5) for _ in range(2)]
+        cbias = [uni(di, bound=0.5) for _ in range(2)]
+        w_out = uni(dm, di, bound=di ** -0.5 / 24 ** 0.5)
+        d_f, d_b = uni(di, bound=1.0), uni(di, bound=1.0)
+        ln_w, ln_b = 1 + uni(di, bound=0.1), uni(di, bound=0.1)
+        for (H, W), batch in shapes:
+            base_x = rnd(batch, H, W, dm)
+            for transposed in (False, True):
+                P = W if transposed else H
+                base_b = dict(xc_f=rnd(batch, H, W, di),
+                              xc_b=rnd(batch, H, W, di),
+                              yf=rnd(batch, P, di), yb=rnd(batch, P, di))
+                for dtype, tol in ((torch.float32, FP32_TOL),
+                                   (torch.bfloat16, BF16_TOL)):
+                    x4 = base_x.to(dtype)
+                    wx, wz = w_in[:di].to(dtype), w_in[di:].to(dtype)
+                    a_args = (x4, wx, None, conv[0], cbias[0], conv[1],
+                              cbias[1], 1.0, transposed)
+                    tag = (f"d_model={dm} d_inner={di} grid={H}x{W} "
+                           f"B={batch} {dtype} transposed={transposed}")
+                    got = lf.pass_a(*a_args)
+                    want = lf.pass_a_plain(*a_args)
+                    for part, gt, wt in zip(("xc_f", "xc_b", "pf", "pb"), got,
+                                            want):
+                        e = compare(f"pass_a_fwd {part} {tag}", gt, wt, tol)
+                        errs["pass_a_fwd"] = max(errs["pass_a_fwd"], e)
+                    bb = {k: v.to(dtype) for k, v in base_b.items()}
+                    b_args = (x4, bb["xc_f"], bb["xc_b"], bb["yf"], bb["yb"],
+                              wz, None, d_f, d_b, ln_w, ln_b, w_out.to(dtype),
+                              None, 1e-5, True, transposed)
+                    e = compare(f"pass_b_fwd {tag}", lf.pass_b(*b_args),
+                                lf.pass_b_plain(*b_args), tol)
+                    errs["pass_b_fwd"] = max(errs["pass_b_fwd"], e)
+                    if not (dtype == torch.bfloat16 and (H, W) == (128, 128)):
+                        continue
                     gemm = 2.0 * batch * H * W * dm * di  # one GEMM's FLOP
                     for name, kern, plain, args, outs, flops in (
                             ("pass_a_fwd", lf.pass_a, lf.pass_a_plain, a_args,
@@ -303,9 +321,14 @@ def check_kernels(dev, card):
                                      if isinstance(a, torch.Tensor)), *outs),
                             flops, "bf16")
                         log(f"[time] {name} bf16 {tag}: kernel {k_ms:.4f} "
-                            f"ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-                            f"({by}) ({card})")
+                            f"ms in {per_call[name]['torch.bfloat16']:g} "
+                            f"launches, plain {p_ms:.4f} ms, bound "
+                            f"{b_ms:.4f} ms ({by}) ({card})")
+                        # the kernels line takes the main path's widths
                         times.setdefault(name, (k_ms, p_ms, b_ms, by))
+                del got, want
+            del base_x, base_b
+            torch.cuda.empty_cache()
     return errs, times
 
 
@@ -676,17 +699,22 @@ def check_models_224(dev):
 
 def check_grads_224(dev):
     """Phase 3, training: the loss and every parameter's gradient at
-    224 px in fp32, card (kernels) vs CPU (plain versions)."""
+    224 px in fp32, card (kernels) vs CPU (plain versions). The d_model 96
+    model fuses forward (K3, K4) but not backward: its layers take the
+    remat backward, so no K5 or K6 launches."""
     import torch
 
     from fastvim_tpu_torch.models import create_model
+    from fastvim_tpu_torch.ops import kernels
     from fastvim_tpu_torch.train import cross_entropy
 
     gen = torch.Generator().manual_seed(4)
     x = torch.randn(2, 224, 224, 3, generator=gen)
     labels = torch.randint(1000, (2,), generator=gen)
+    narrow = {"embed_dim": 96, "depth": 2}
     for name, kw in (("fastvim_tiny", {}), ("vim_tiny", {}),
-                     ("fastvim_small", {"depth": 2})):
+                     ("fastvim_small", {"depth": 2}),
+                     ("fastvim_tiny", narrow)):
         cpu_model = create_model(name, img_size=224, device="cpu",
                                  drop_path_rate=0.0,
                                  generator=torch.Generator().manual_seed(0),
@@ -695,14 +723,25 @@ def check_grads_224(dev):
         results = []
         for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
             model.train()
+            kernels.reset_launch_counts()
             loss = cross_entropy(model(x.to(d)), labels.to(d), 0.1)
+            fwd = kernels.launch_counts()
             params = dict(model.named_parameters())
             grads = torch.autograd.grad(loss, list(params.values()))
+            bwd = {k: v - fwd[k] for k, v in kernels.launch_counts().items()}
             results.append((loss.detach().cpu(),
                             {n: gr.cpu() for n, gr in zip(params, grads)}))
+        if kw is narrow:
+            seen = (fwd["pass_a_fwd"], fwd["pass_b_fwd"], bwd["pass_b_bwd"],
+                    bwd["pass_a_bwd"])
+            log(f"[check] {name} {kw}: K3, K4 launches per forward "
+                f"{seen[:2]}, K5, K6 in its backward {seen[2:]}")
+            if seen != (2, 2, 0, 0):
+                raise AssertionError(f"{name} {kw}: K3, K4, K5, K6 launches "
+                                     f"{seen}, expected (2, 2, 0, 0)")
         (want_loss, want), (got_loss, got) = results
-        compare(f"{name} 224px fp32 loss, card vs CPU", got_loss, want_loss,
-                MODEL_TOL)
+        compare(f"{name} {kw} 224px fp32 loss, card vs CPU", got_loss,
+                want_loss, MODEL_TOL)
         worst, worst_name = 0.0, ""
         for n, w in want.items():
             scale = w.abs().max().item() + 1e-12
@@ -712,9 +751,9 @@ def check_grads_224(dev):
                                      f"of its largest entry (> {GRAD_TOL})")
             if e > worst:
                 worst, worst_name = e, n
-        log(f"[check] {name} 224px fp32 gradients of {len(want)} parameters, "
-            f"card vs CPU: worst {worst:.3e} of the largest entry "
-            f"({worst_name}) tol={GRAD_TOL:g} ok")
+        log(f"[check] {name} {kw} 224px fp32 gradients of {len(want)} "
+            f"parameters, card vs CPU: worst {worst:.3e} of the largest "
+            f"entry ({worst_name}) tol={GRAD_TOL:g} ok")
 
 
 def run_main_path(dev, card):
@@ -723,6 +762,7 @@ def run_main_path(dev, card):
 
     from fastvim_tpu_torch.models import create_model
     from fastvim_tpu_torch.ops import kernels
+    from fastvim_tpu_torch.utils.profiling import captured_forward
 
     batch, img = 2, 2048
     models = {name: create_model(name, img_size=img, dtype=torch.bfloat16,
@@ -760,6 +800,13 @@ def run_main_path(dev, card):
         ms = cuda_ms(lambda: model(x), 5, windows=5)
         log(f"[time] {name} {img}px B={batch} bf16 forward: {ms:.3f} ms, "
             f"{batch / ms * 1e3:.2f} img/s ({card})")
+    # eager FastVim-T is host-bound; replayed as a CUDA graph (static input,
+    # captured after warm-up) its forward is the device's time
+    replay = captured_forward(models["fastvim_tiny"], x)
+    ms = cuda_ms(replay, 10, windows=5)
+    log(f"[time] fastvim_tiny {img}px B={batch} bf16 forward, CUDA-graph "
+        f"replay: {ms:.3f} ms, {batch / ms * 1e3:.2f} img/s ({card})")
+    del replay
     b224 = 40
     x224 = torch.randn(b224, 224, 224, 3, device=dev, dtype=torch.bfloat16,
                        generator=torch.Generator(device=dev).manual_seed(3))
@@ -977,7 +1024,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:] == ["--count-launches"]:
-        return count_bwd_launches()
+        return count_launches()
     try:
         from fastvim_tpu_torch.ops.kernels import _build
     except ImportError as e:
@@ -999,11 +1046,11 @@ def main() -> int:
     log(f"[build] {_build.library_path().name} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    with torch.inference_mode():
-        errs, times = check_kernels(dev, card)
-    per_call = bwd_launches_per_call()
+    per_call = launches_per_call()
     log(f"[launches] device kernels per call, weight transposes included: "
         f"{per_call}")
+    with torch.inference_mode():
+        errs, times = check_kernels(dev, card, per_call)
     with torch.no_grad():
         errs_bwd, times_bwd = check_bwd_kernels(dev, card, per_call)
     errs.update(errs_bwd)
@@ -1022,43 +1069,50 @@ def main() -> int:
     for name, count in run_config_path(dev, card).items():
         launches[name] += count
 
+    # each kernel's files: the main path's (bf16) kernel, then the fp32
+    # route, the C entry points and the headers they include
     src = "fastvim_tpu_torch/ops/kernels/csrc/"
+    fwd = ("layer_fused_fwd.cu", "layer_fused_fwd.cuh", "layer_fused.cuh",
+           "wgmma.cuh")
+    bwd = ("layer_fused_bwd.cu", "layer_fused_bwd.cuh", "layer_fused.cuh",
+           "wgmma.cuh")
     table = [
-        ("selective_scan_fwd", "selective_scan_fwd.cu",
+        ("selective_scan_fwd", "selective_scan_fwd.cu", (),
          "fastvim_tpu/ops/pallas/selective_scan.py:79"),
-        ("selective_scan_bwd", "selective_scan_bwd.cu",
+        ("selective_scan_bwd", "selective_scan_bwd.cu", (),
          "fastvim_tpu/ops/pallas/selective_scan.py:294"),
-        ("pass_a_fwd", "layer_fused_fwd.cu",
+        ("pass_a_fwd", "layer_fused_fwd_wgmma.cu", fwd,
          "fastvim_tpu/ops/pallas/layer_fused.py:303"),
-        ("pass_b_fwd", "layer_fused_fwd.cu",
+        ("pass_b_fwd", "layer_fused_fwd_wgmma.cu", fwd,
          "fastvim_tpu/ops/pallas/layer_fused.py:409"),
-        ("pass_b_bwd", "layer_fused_bwd.cu",
+        ("pass_b_bwd", "layer_fused_bwd_wgmma.cu", bwd,
          "fastvim_tpu/ops/pallas/layer_fused.py:453"),
-        ("pass_a_bwd", "layer_fused_bwd.cu",
+        ("pass_a_bwd", "layer_fused_bwd_wgmma.cu", bwd,
          "fastvim_tpu/ops/pallas/layer_fused.py:555"),
         ("pass_b_recompute_fwd", "layer_fused_recompute.cu",
-         "fastvim_tpu/ops/pallas/layer_fused.py:374"),
-        ("conv_pool_fwd", "fused_block.cu",
+         ("layer_fused.cuh",), "fastvim_tpu/ops/pallas/layer_fused.py:374"),
+        ("conv_pool_fwd", "fused_block.cu", ("merge_tail.cuh",),
          "fastvim_tpu/ops/pallas/fused_block.py:130"),
-        ("merge_gate_fwd", "fused_block.cu",
+        ("merge_gate_fwd", "fused_block.cu", ("merge_tail.cuh",),
          "fastvim_tpu/ops/pallas/fused_block.py:151"),
-        ("merge_ln_gate_fwd", "merge_gate.cu",
+        ("merge_ln_gate_fwd", "merge_gate.cu", ("merge_tail.cuh",),
          "fastvim_tpu/ops/pallas/merge_gate.py:54"),
-        ("selective_scan_fwd_lanes", "selective_scan_lanes.cu",
+        ("selective_scan_fwd_lanes", "selective_scan_lanes.cu", (),
          "fastvim_tpu/ops/pallas/selective_scan.py:115"),
     ]
-    for name, _, _ in table:
+    for name, *_ in table:
         if launches[name] < 1:
             raise AssertionError(f"{name}: not launched on the main path")
     print(card, flush=True)
     # library_ms: no single PyTorch call computes any of these functions
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src + file,
+        {"name": name, "route": "cuda", "source": src + main_file,
+         "sources": [src + f for f in (main_file, *more, "common.cuh")],
          "replaces": tpu, "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": times[name][2],
          "bound_by": times[name][3], "library_ms": None}
-        for name, file, tpu in table]}), flush=True)
+        for name, main_file, more, tpu in table]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -41,7 +41,10 @@ forces the sequential reference scan; any other value ("auto", and the
 JAX package's "assoc"/"pallas") dispatches on the device. When a gradient
 is needed, ``layer_fused_bwd`` picks the fused layer's backward: "fused"
 (the K5 and K6 adjoint kernels, scans by K2) or "remat" (autograd through
-the unfused math, recomputed; always so in the recompute mode). K8-K10
+the unfused math, recomputed; always so in the recompute mode). A fused
+layer whose widths the adjoint kernels do not take (d_model not a
+multiple of 64, d_model > 384 or > d_inner; ``fused_bwd_route``) takes
+"remat" whatever the field says, so every width that fuses trains. K8-K10
 differentiate through their plain versions, and the unfused path's scans
 through K2.
 

@@ -80,6 +80,40 @@ __device__ __forceinline__ void widen4(const uint2& v, float* f) {  // bf16
   f[3] = __uint_as_float(v.y & 0xffff0000u);
 }
 
+// 2 consecutive floats through the read-only path
+__device__ __forceinline__ float2 ld_f2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+// 8 consecutive floats of shared memory as two 16-byte reads
+__device__ __forceinline__ void lds_f8(const float* p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+// 8 floats rounded to bf16, as one 16-byte vector
+__device__ __forceinline__ uint4 pack8(const float* f) {
+  alignas(16) __nv_bfloat162 p[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return *reinterpret_cast<uint4*>(p);
+}
+// 1 / (1 + e^-v) on the fast-math units, for the bf16 paths, which round
+// what they feed to 8 bits of mantissa anyway
+__device__ __forceinline__ float sigmoid_fast(float v) {
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+
+// v · sigmoid(v) = ½v·(1 + tanh(½v)) on the fast-math tanh unit: one
+// instruction where sigmoid_fast takes two and a guard, ~2^-11 relative
+// error, for the bf16 paths
+__device__ __forceinline__ float silu_fast(float v) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(0.5f * v));
+  return fmaf(0.5f * v, t, 0.5f * v);
+}
+
 __device__ __forceinline__ float silu(float v) {
   return v / (1.f + expf(-v));
 }

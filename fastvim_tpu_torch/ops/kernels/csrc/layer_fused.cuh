@@ -1,9 +1,10 @@
-// Device code shared by the forward (layer_fused_fwd.cu) and backward
-// (layer_fused_bwd.cu) passes of the fused FastVim mixer layer: the line
-// a pass A block owns, the x-half GEMM of a line plus its halo into a
-// shared fp32 tile, and the 32-token-tile GEMMs of pass B (FMA tiles for
-// fp32, WMMA 16×16×16 for bf16). See layer_fused_fwd.cu for the design
-// notes and the measurements behind them.
+// Device code shared by the fp32 forward (layer_fused_fwd.cu), backward
+// (layer_fused_bwd.cu) and recompute (layer_fused_recompute.cu) passes of
+// the fused FastVim mixer layer: the line a pass A block owns, the x-half
+// GEMM of a line plus its halo into a shared fp32 tile, and the
+// 32-token-tile GEMMs of pass B (FMA tiles for fp32; WMMA 16×16×16 for
+// the recompute pass in bf16). See layer_fused_fwd.cu for the design
+// notes.
 #pragma once
 
 #include <mma.h>
@@ -29,21 +30,15 @@ constexpr int kACh = 64;             // channels per block
 constexpr int kAKc = 32;             // K chunk of the FMA GEMM
 constexpr int kARows = 9;            // FMA: tokens per thread per pass
 constexpr int kAPass = 16 * kARows;  // FMA: tokens per GEMM pass
-constexpr int kAWRows = 160;         // WMMA: tokens per GEMM pass
 
-__host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
-// shared memory of pass A for a line of `ln` tokens, in bytes
-__host__ __device__ inline size_t pass_a_smem(int ln, int dm, bool tc) {
+// shared memory of pass A's fp32 kernel for a line of `ln` tokens, in
+// bytes
+__host__ __device__ inline size_t pass_a_smem(int ln, int dm) {
   const int ntok = ln + 2 * kPad;
   const size_t red = 2 * 4 * kACh * sizeof(float);  // pooled partials
-  if (tc)
-    return static_cast<size_t>(round16(ntok)) * kACh * sizeof(float) +
-           static_cast<size_t>(imin(kAWRows, round16(ntok))) * (dm + 8) *
-               sizeof(bf16) +
-           red;
   return (static_cast<size_t>(ntok) * kACh +
           static_cast<size_t>(kAKc) * (kAPass + 1) +
           static_cast<size_t>(kAKc) * (kACh + 1)) * sizeof(float) +
@@ -174,72 +169,6 @@ __device__ __forceinline__ void xin_tile_fma(
     }
   }
   __syncthreads();
-}
-
-// The same for bf16 inputs on tensor cores (WMMA); s_xin is
-// [round16(ntok)][kACh] and s_xb [min(kAWRows, round16(ntok))][dm + 8]
-// bf16 is staging. Ends with a barrier.
-__device__ __forceinline__ void xin_tile_wmma(
-    const bf16* __restrict__ x, const bf16* __restrict__ w_x,
-    const float* __restrict__ b_x, const Line& L, int c0, int dm,
-    float* s_xin, bf16* s_xb) {
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int ntok = L.ln + 2 * kPad;
-  const int ntok16 = round16(ntok);
-  const int ldx = dm + 8;  // padded row: 16 bytes of skew per row
-  // warp → column tile w % 4 and row tiles w / 4 + 2i; its W_x tile is
-  // read straight from global memory (L2-resident). Staging the 64-row
-  // slice in shared memory instead measured slower (0.222 vs 0.151 ms at
-  // 2048 px): the extra 25 KB left one block per SM.
-  const int nt = warp % 4;
-  const bf16* wtile = w_x + static_cast<size_t>(c0 + nt * kWm) * dm;
-  const int vpr = dm / 8;  // 16-byte vectors per row of x̂
-  for (int jp = 0; jp < ntok16; jp += kAWRows) {
-    const int rows = min(kAWRows, ntok16 - jp);
-    __syncthreads();  // the previous pass's readers are done
-    for (int i = tid; i < rows * vpr; i += kThreads) {
-      const int r = i / vpr, v = i % vpr;
-      const long t = jp + r < ntok ? L.token(jp + r) : -1;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (t >= 0)  // masked before the load
-        val = fv::load16(x + (L.img + t) * dm + v * 8);
-      *reinterpret_cast<uint4*>(s_xb + static_cast<size_t>(r) * ldx +
-                                v * 8) = val;
-    }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, kWm, kWm, kWm, float> acc[5];
-#pragma unroll
-    for (int i = 0; i < 5; ++i) wmma::fill_fragment(acc[i], 0.f);
-    for (int k = 0; k < dm; k += kWm) {
-      wmma::fragment<wmma::matrix_b, kWm, kWm, kWm, bf16, wmma::col_major> wb;
-      wmma::load_matrix_sync(wb, wtile + k, dm);
-#pragma unroll
-      for (int i = 0; i < 5; ++i) {
-        const int mt = warp / 4 + 2 * i;
-        if (mt * kWm < rows) {
-          wmma::fragment<wmma::matrix_a, kWm, kWm, kWm, bf16, wmma::row_major>
-              xa;
-          wmma::load_matrix_sync(xa, s_xb + static_cast<size_t>(mt) * kWm *
-                                                ldx + k, ldx);
-          wmma::mma_sync(acc[i], xa, wb, acc[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      const int mt = warp / 4 + 2 * i;
-      if (mt * kWm < rows)
-        wmma::store_matrix_sync(
-            s_xin + static_cast<size_t>(jp + mt * kWm) * kACh + nt * kWm,
-            acc[i], kACh, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  if (b_x) {  // rows outside the sequence stay 0 (their x̂ rows were 0)
-    for (int i = tid; i < ntok * kACh; i += kThreads)
-      if (L.token(i / kACh) >= 0) s_xin[i] += b_x[c0 + i % kACh];
-    __syncthreads();
-  }
 }
 
 // ---------------------------------------------------------------------

@@ -87,6 +87,10 @@ using bf162 = __nv_bfloat162;
 using fv::cp_async16;
 using fv::gmma_desc;
 using fv::kMaxSmem;
+using fv::ld_f2;
+using fv::lds_f8;
+using fv::pack8;
+using fv::sigmoid_fast;
 using fv::smem_u32;
 using fv::swz;
 using fvb::kAWin;
@@ -101,93 +105,13 @@ constexpr int kStageBytes = 2 * kBlkBytes;
 
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
-__device__ __forceinline__ float2 ld_f2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-// 1 / (1 + e^-v) on the fast-math units: the bf16 path rounds what it
-// feeds to 8 bits of mantissa anyway
-__device__ __forceinline__ float sigmoid_fast(float v) {
-  return __fdividef(1.f, 1.f + __expf(-v));
-}
 __device__ __forceinline__ float dsilu_fast(float v) {
   const float s = sigmoid_fast(v);
   return s * (1.f + v * (1.f - s));
 }
-// 8 consecutive floats of shared memory as two 16-byte reads
-__device__ __forceinline__ void lds_f8(const float* p, float* f) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  alignas(16) bf162 p[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return *reinterpret_cast<uint4*>(p);
-}
-
-// The ring of weight stages. `fetch(s)` starts the copies of stage s (or
-// nothing past the last) and the caller commits; every acquire commits
-// exactly one group, so the group of the stage being acquired is always
-// the (kStages - 1)-th newest.
 template <typename Fetch>
-struct Ring {
-  uint32_t base;
-  int cons;
-  Fetch fetch;
-  __device__ Ring(uint32_t b, Fetch i) : base(b), cons(0), fetch(i) {}
-  __device__ uint32_t slot_addr(int s) const {
-    return base + (s % kStages) * kStageBytes;
-  }
-  __device__ void start() {
-    for (int s = 0; s < kStages - 1; ++s) {
-      fetch(s, slot_addr(s));
-      fv::cp_async_commit();
-    }
-  }
-  // The next stage's shared address. After its barrier every thread
-  // has finished reading the stage before it (its wgmmas were waited
-  // for), so that slot is free: the caller starts its products on the
-  // new stage and then calls refill(), once per acquire, so that the
-  // copies are started while the tensor cores work.
-  __device__ uint32_t acquire() {
-    fv::cp_async_wait<kStages - 2>();
-    fv::fence_async_smem();
-    __syncthreads();
-    return slot_addr(cons++);
-  }
-  __device__ void refill() {
-    const int s = cons + kStages - 2;
-    fetch(s, slot_addr(s));
-    fv::cp_async_commit();
-  }
-};
-
-// acc (64 × 64 of this warpgroup) = A (64 × 64·nblk, K-major blocks at
-// `sa`) · B over the next nblk stages of the ring; kTb 0: the stage holds
-// B K-major, this warpgroup's 64 rows at `boff`; 1: MN-major, its 64
-// columns in the block at `boff`. Warpgroups with `active` false only
-// keep the ring moving.
-template <int kTb, typename R>
-__device__ __forceinline__ void slab_gemm(float* acc, uint32_t sa, int nblk,
-                                          R& ring, uint32_t boff,
-                                          bool active) {
-  for (int b = 0; b < nblk; ++b) {
-    const uint32_t st = ring.acquire() + boff;
-    if (active) {
-      fv::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        fv::wgmma_n64<0, kTb>(acc, gmma_desc(sa + b * kBlkBytes + 32 * kk),
-                              gmma_desc(st + (kTb ? 2048 : 32) * kk),
-                              (b | kk) != 0);
-      fv::wgmma_commit();
-    }
-    ring.refill();
-    if (active) fv::wgmma_wait();
-  }
-}
+using Ring = fv::Ring<kStages, kStageBytes, Fetch>;
+using fv::slab_gemm;
 
 // dxa (64 × d_model/2 of this warpgroup, kNU units of 32 columns) +=
 // A (64 × sw, K-major blocks at `sa`) · W[slab rows, :] over the next kNU

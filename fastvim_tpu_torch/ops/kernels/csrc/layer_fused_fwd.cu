@@ -18,27 +18,19 @@
 // columns in column-major order and pools over rows). Token (line p,
 // position i) is p·W + i on even layers and i·W + p on odd ones.
 //
-// What bounds them on the H100: the three GEMMs (d_model 192 × d_inner
-// 384 per token, for x̂·W_x, x̂·W_z and the out projection) are ~0.44
-// MFLOP per token against ~4.2 KB of bf16 traffic per token (x̂ read
-// twice, xc_f and xc_b written and read back, out written): ~105
-// FLOP/byte, below the ~295 at which bf16 tensor cores become the limit.
-// So with tensor-core GEMMs the passes are bound by memory traffic,
-// mostly the xc round trip. In fp32 there are no tensor cores to use
-// without TF32 rounding, so the fp32 path runs FMA tiles (67 TFLOP/s
-// peak, ~52 FLOP/byte of fp32 traffic) and is FMA-bound. Both paths keep
-// every intermediate except xc (which pass B needs after the pooled
-// scans) out of device memory.
+// This file holds the C entry points and the fp32 path; the bf16 path,
+// the main path's, is layer_fused_fwd_wgmma.cu (wgmma, weights staged
+// through a cp.async ring, channel slabs), where its design and what
+// bounds it are set out.
 //
-// GEMMs: fp32 inputs use FMA tiles streamed through shared memory in K
-// chunks, every 16-byte load of a chunk issued before any is stored.
-// bf16 inputs use WMMA 16×16×16 tiles (bf16 products, fp32 accumulation,
-// the TPU kernel's `preferred_element_type=f32`): A from shared memory,
-// the weight tile straight from global memory (L2-resident, read once per
-// block). Measured on the main path at 2048 px: one dependent load per
-// element, FMA only, took 0.37 ms (K3) and 1.34 ms (K4).
+// fp32 (the 224 px checks against the CPU): there are no tensor cores to
+// use without TF32 rounding, so both passes run FMA tiles streamed
+// through shared memory in K chunks, every 16-byte load of a chunk issued
+// before any is stored (67 TFLOP/s peak, ~52 FLOP/byte of fp32 traffic:
+// FMA-bound). Both keep every intermediate except xc (which pass B needs
+// after the pooled scans) out of device memory.
 //
-// K3 design: a block owns one line of one image and a 64-channel slice,
+// K3 (fp32): a block owns one line of one image and a 64-channel slice,
 // so the pooled mean needs no cross-block reduction. It computes the
 // x-half GEMM for the line's tokens plus 3 halo tokens on each side (the
 // previous line's tail for the causal taps, the next line's head for the
@@ -46,18 +38,17 @@
 // Halo tokens outside the sequence (before the first line, after the
 // last) are never loaded: they are masked before the read and set to 0,
 // the zero padding of the flat conv. The conv, SiLU, the xc stores and
-// the pooled sums run from that tile in fp32; pf/pb are taken from the
-// fp32 xc before its cast.
+// the pooled sums run from that tile; pf/pb are taken from xc before any
+// cast.
 //
-// K4 design: a block owns 32 consecutive tokens with all d_inner
+// K4 (fp32): a block owns 32 consecutive tokens with all d_inner
 // channels, so LayerNorm statistics are a warp reduction over a full row.
-// z goes to a shared (32 × d_inner) fp32 tile, the merge/LN/gate runs
-// over it (one warp per 4 tokens), the gated value is rounded to the
-// working dtype (the TPU kernel casts it before the out GEMM), and the
-// out projection reads it from shared memory. Registers are capped so
-// that two blocks share an SM.
+// z goes to a shared (32 × d_inner) tile, the merge/LN/gate runs over it
+// (one warp per 4 tokens), and the out projection reads the gated value
+// from shared memory.
 
 #include "layer_fused.cuh"
+#include "layer_fused_fwd.cuh"
 
 namespace {
 
@@ -149,45 +140,11 @@ pass_a_kernel(const T* __restrict__ x, const T* __restrict__ w_x,
                     xc_f, xc_b, pf, pb, scaling);
 }
 
-// WMMA GEMM path (bf16)
-__global__ void __launch_bounds__(kThreads)
-pass_a_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_x,
-                   const float* __restrict__ b_x,
-                   const float* __restrict__ w_cf,
-                   const float* __restrict__ b_cf,
-                   const float* __restrict__ w_ab,
-                   const float* __restrict__ b_ab, bf16* __restrict__ xc_f,
-                   bf16* __restrict__ xc_b, bf16* __restrict__ pf,
-                   bf16* __restrict__ pb, int H, int W, int dm, int di,
-                   bool transposed, float scaling) {
-  extern __shared__ __align__(128) unsigned char smem_aw[];
-  const int c0 = blockIdx.x * kACh;
-  const int b = blockIdx.z;
-  const Line L{H, W, transposed ? W : H, transposed ? H : W,
-               static_cast<int>(blockIdx.y), transposed,
-               static_cast<size_t>(b) * H * W};
-  const int ntok16 = round16(L.ln + 2 * kPad);
-  const int ldx = dm + 8;  // padded row: 16 bytes of skew per row
-  float* s_xin = reinterpret_cast<float*>(smem_aw);  // [ntok16][kACh]
-  bf16* s_xb = reinterpret_cast<bf16*>(s_xin + static_cast<size_t>(ntok16) *
-                                                   kACh);  // [rows][ldx]
-  float* s_red = reinterpret_cast<float*>(
-      s_xb + static_cast<size_t>(imin(kAWRows, ntok16)) * ldx);
-
-  xin_tile_wmma(x, w_x, b_x, L, c0, dm, s_xin, s_xb);
-  conv_pool_line<bf16>(s_xin, s_red, L, b, c0, di, w_cf, b_cf, w_ab, b_ab,
-                       xc_f, xc_b, pf, pb, scaling);
-}
-
 // =====================================================================
 // K4: pass B
 // =====================================================================
-// shared memory of pass B, in bytes
-__host__ __device__ inline size_t pass_b_smem(int dm, int di, bool tc) {
-  if (tc)
-    return static_cast<size_t>(kBTok) * (dm + 8) * sizeof(bf16)   // x̂
-           + static_cast<size_t>(kBTok) * imax(di, dm) * sizeof(float)  // z, out
-           + static_cast<size_t>(kBTok) * (di + 8) * sizeof(bf16);  // gated
+// shared memory of pass B's fp32 kernel, in bytes
+__host__ __device__ inline size_t pass_b_smem(int dm, int di) {
   return (static_cast<size_t>(kBTok) * dm + static_cast<size_t>(kBTok) * di +
           static_cast<size_t>(kBKc) * (kBSlab + 1)) * sizeof(float);
 }
@@ -196,9 +153,9 @@ __host__ __device__ inline size_t pass_b_smem(int dm, int di, bool tc) {
 // s_z (row stride ldz); the gated value, rounded to T, into g (row stride
 // ldg). One warp per 4 tokens; g may alias s_z (same element, same
 // thread).
-template <typename T, typename G>
+template <typename T>
 __device__ __forceinline__ void merge_ln_gate(
-    const float* s_z, int ldz, G* g, int ldg, long tok0, int ntile,
+    const float* s_z, int ldz, float* g, int ldg, long tok0, int ntile,
     const T* __restrict__ xc_f, const T* __restrict__ xc_b,
     const T* __restrict__ yf, const T* __restrict__ yb,
     const float* __restrict__ b_z, const float* __restrict__ d_f,
@@ -246,11 +203,7 @@ __device__ __forceinline__ void merge_ln_gate(
         float v = m[j];
         if (use_ln) v = (v - mu) * rstd * ln_w[c] + ln_b[c];
         const float z = s_z[t * ldz + c] + (b_z ? b_z[c] : 0.f);
-        const float gated = v * fv::silu(z);
-        if constexpr (std::is_same<G, float>::value)
-          g[t * ldg + c] = fv::round_to<T>(gated);
-        else
-          g[t * ldg + c] = fv::from_f32<G>(gated);
+        g[t * ldg + c] = fv::round_to<T>(v * fv::silu(z));
       }
     }
   }
@@ -302,7 +255,7 @@ pass_b_kernel(const T* __restrict__ x, const T* __restrict__ xc_f,
         if (j < ncols) s_g[(4 * warp + r) * di + n0 + lane + 32 * j] = acc[r][j];
   }
   __syncthreads();
-  merge_ln_gate<T, float>(s_g, di, s_g, di, tok0, ntile, xc_f, xc_b, yf, yb,
+  merge_ln_gate<T>(s_g, di, s_g, di, tok0, ntile, xc_f, xc_b, yf, yb,
                           b_z, d_f, d_b, ln_w, ln_b, H, W, di, transposed,
                           use_ln, eps);
   for (int n0 = 0; n0 < dm; n0 += kBSlab) {  // out = g·W_out + b_out
@@ -322,132 +275,47 @@ pass_b_kernel(const T* __restrict__ x, const T* __restrict__ xc_f,
   }
 }
 
-// WMMA GEMM path (bf16)
-__global__ void __launch_bounds__(kThreads, 2)
-pass_b_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
-                   const bf16* __restrict__ xc_b, const bf16* __restrict__ yf,
-                   const bf16* __restrict__ yb, const bf16* __restrict__ w_z,
-                   const float* __restrict__ b_z,
-                   const float* __restrict__ d_f,
-                   const float* __restrict__ d_b,
-                   const float* __restrict__ ln_w,
-                   const float* __restrict__ ln_b,
-                   const bf16* __restrict__ w_out,
-                   const float* __restrict__ b_out, bf16* __restrict__ out,
-                   long ntokens, int H, int W, int dm, int di,
-                   bool transposed, bool use_ln, float eps) {
-  extern __shared__ __align__(128) unsigned char smem_bw[];
-  const int ldx = dm + 8, ldg = di + 8;  // 16 bytes of skew per row
-  bf16* s_xb = reinterpret_cast<bf16*>(smem_bw);  // [kBTok][ldx]
-  float* s_z = reinterpret_cast<float*>(
-      s_xb + static_cast<size_t>(kBTok) * ldx);   // [kBTok][imax(di, dm)]
-  bf16* s_gb = reinterpret_cast<bf16*>(
-      s_z + static_cast<size_t>(kBTok) * imax(di, dm));  // [kBTok][ldg]
-  const long tok0 = static_cast<long>(blockIdx.x) * kBTok;
-  const int ntile = ntokens - tok0 < kBTok ? static_cast<int>(ntokens - tok0)
-                                           : kBTok;
-  const int vpr = dm / 8;  // 16-byte vectors per row of x̂
-  for (int i = threadIdx.x; i < kBTok * vpr; i += kThreads) {
-    const int t = i / vpr, v = i % vpr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < ntile) val = fv::load16(x + (tok0 + t) * dm + v * 8);
-    *reinterpret_cast<uint4*>(s_xb + static_cast<size_t>(t) * ldx + v * 8) =
-        val;
-  }
-  __syncthreads();
-  wmma_rows(s_xb, ldx, w_z, dm, di, s_z, di);  // z = x̂·W_z
-  __syncthreads();
-  merge_ln_gate<bf16, bf16>(s_z, di, s_gb, ldg, tok0, ntile, xc_f, xc_b, yf,
-                            yb, b_z, d_f, d_b, ln_w, ln_b, H, W, di,
-                            transposed, use_ln, eps);
-  __syncthreads();
-  wmma_rows(s_gb, ldg, w_out, di, dm, s_z, dm);  // g·W_out
-  __syncthreads();
-  for (int i = threadIdx.x; i < ntile * dm; i += kThreads) {
-    const int n = i % dm;
-    out[tok0 * dm + i] = fv::from_f32<bf16>(s_z[i] + (b_out ? b_out[n] : 0.f));
-  }
-}
-
 // ---------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------
-cudaError_t launch_a(int dtype, const void* x, const void* w_x,
-                     const void* b_x, const void* w_cf, const void* b_cf,
-                     const void* w_ab, const void* b_ab, void* xc_f,
-                     void* xc_b, void* pf, void* pb, int batch, int H, int W,
-                     int dm, int di, bool transposed, float scaling,
-                     cudaStream_t stream) {
+cudaError_t launch_a(const void* x, const void* w_x, const void* b_x,
+                     const void* w_cf, const void* b_cf, const void* w_ab,
+                     const void* b_ab, void* xc_f, void* xc_b, void* pf,
+                     void* pb, int batch, int H, int W, int dm, int di,
+                     bool transposed, float scaling, cudaStream_t stream) {
   const int P = transposed ? W : H;
   const int ln = transposed ? H : W;
-  const bool tc = dtype == fv::kBF16;
-  const size_t smem = pass_a_smem(ln, dm, tc);
+  const size_t smem = pass_a_smem(ln, dm);
   dim3 grid(di / kACh, P, batch);
-  const auto* bx = static_cast<const float*>(b_x);
-  const auto* wcf = static_cast<const float*>(w_cf);
-  const auto* bcf = static_cast<const float*>(b_cf);
-  const auto* wab = static_cast<const float*>(w_ab);
-  const auto* bab = static_cast<const float*>(b_ab);
-  cudaError_t err;
-  if (tc) {
-    err = fv::allow_max_smem<pass_a_wmma_kernel>();
-    if (err != cudaSuccess) return err;
-    pass_a_wmma_kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w_x), bx, wcf,
-        bcf, wab, bab, static_cast<bf16*>(xc_f), static_cast<bf16*>(xc_b),
-        static_cast<bf16*>(pf), static_cast<bf16*>(pb), H, W, dm, di,
-        transposed, scaling);
-  } else {
-    err = fv::allow_max_smem<pass_a_kernel<float>>();
-    if (err != cudaSuccess) return err;
-    pass_a_kernel<float><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w_x), bx, wcf,
-        bcf, wab, bab, static_cast<float*>(xc_f), static_cast<float*>(xc_b),
-        static_cast<float*>(pf), static_cast<float*>(pb), H, W, dm, di,
-        transposed, scaling);
-  }
+  cudaError_t err = fv::allow_max_smem<pass_a_kernel<float>>();
+  if (err != cudaSuccess) return err;
+  pass_a_kernel<float><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w_x),
+      static_cast<const float*>(b_x), static_cast<const float*>(w_cf),
+      static_cast<const float*>(b_cf), static_cast<const float*>(w_ab),
+      static_cast<const float*>(b_ab), static_cast<float*>(xc_f),
+      static_cast<float*>(xc_b), static_cast<float*>(pf),
+      static_cast<float*>(pb), H, W, dm, di, transposed, scaling);
   return cudaGetLastError();
 }
 
-cudaError_t launch_b(int dtype, const void* x, const void* xc_f,
-                     const void* xc_b, const void* yf, const void* yb,
-                     const void* w_z, const void* b_z, const void* d_f,
-                     const void* d_b, const void* ln_w, const void* ln_b,
-                     const void* w_out, const void* b_out, void* out,
-                     int batch, int H, int W, int dm, int di, bool transposed,
-                     bool use_ln, float eps, cudaStream_t stream) {
+cudaError_t launch_b(const void* x, const void* xc_f, const void* xc_b,
+                     const void* yf, const void* yb, const void* w_z,
+                     const void* b_z, const void* d_f, const void* d_b,
+                     const void* ln_w, const void* ln_b, const void* w_out,
+                     const void* b_out, void* out, int batch, int H, int W,
+                     int dm, int di, bool transposed, bool use_ln, float eps,
+                     cudaStream_t stream) {
   const long ntokens = static_cast<long>(batch) * H * W;
-  const bool tc = dtype == fv::kBF16;
-  const size_t smem = pass_b_smem(dm, di, tc);
   const unsigned blocks = static_cast<unsigned>((ntokens + kBTok - 1) / kBTok);
-  const auto* bz = static_cast<const float*>(b_z);
-  const auto* df = static_cast<const float*>(d_f);
-  const auto* db = static_cast<const float*>(d_b);
-  const auto* lw = static_cast<const float*>(ln_w);
-  const auto* lb = static_cast<const float*>(ln_b);
-  const auto* bo = static_cast<const float*>(b_out);
-  cudaError_t err;
-  if (tc) {
-    err = fv::allow_max_smem<pass_b_wmma_kernel>();
-    if (err != cudaSuccess) return err;
-    pass_b_wmma_kernel<<<blocks, kThreads, smem, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(xc_f),
-        static_cast<const bf16*>(xc_b), static_cast<const bf16*>(yf),
-        static_cast<const bf16*>(yb), static_cast<const bf16*>(w_z), bz, df,
-        db, lw, lb, static_cast<const bf16*>(w_out), bo,
-        static_cast<bf16*>(out), ntokens, H, W, dm, di, transposed, use_ln,
-        eps);
-  } else {
-    err = fv::allow_max_smem<pass_b_kernel<float>>();
-    if (err != cudaSuccess) return err;
-    pass_b_kernel<float><<<blocks, kThreads, smem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(xc_f),
-        static_cast<const float*>(xc_b), static_cast<const float*>(yf),
-        static_cast<const float*>(yb), static_cast<const float*>(w_z), bz, df,
-        db, lw, lb, static_cast<const float*>(w_out), bo,
-        static_cast<float*>(out), ntokens, H, W, dm, di, transposed, use_ln,
-        eps);
-  }
+  cudaError_t err = fv::allow_max_smem<pass_b_kernel<float>>();
+  if (err != cudaSuccess) return err;
+  auto cF = [](const void* p) { return static_cast<const float*>(p); };
+  pass_b_kernel<float><<<blocks, kThreads, pass_b_smem(dm, di), stream>>>(
+      cF(x), cF(xc_f), cF(xc_b), cF(yf), cF(yb), cF(w_z), cF(b_z), cF(d_f),
+      cF(d_b), cF(ln_w), cF(ln_b), cF(w_out), cF(b_out),
+      static_cast<float*>(out), ntokens, H, W, dm, di, transposed, use_ln,
+      eps);
   return cudaGetLastError();
 }
 
@@ -458,8 +326,8 @@ cudaError_t launch_b(int dtype, const void* x, const void* xc_f,
 // null; w_cf, w_ab: (di, 4) fp32. Outputs xc_f, xc_b: (batch, H, W, di);
 // pf, pb: (batch, P, di), P = W if transposed else H; all of `dtype`. With
 // xc_f and xc_b both null only the pools are written.
-// dm % 32 == 0, di % 64 == 0, lines of >= 4 tokens; x and w_x 32-byte
-// aligned. Returns a cudaError_t.
+// dm % 32 == 0, di % 64 == 0, lines of >= 4 tokens, and in bf16 dm <= 384;
+// x and w_x 32-byte aligned. Returns a cudaError_t.
 extern "C" int fv_pass_a_fwd(const void* x, const void* w_x, const void* b_x,
                              const void* w_cf, const void* b_cf,
                              const void* w_ab, const void* b_ab, void* xc_f,
@@ -468,22 +336,27 @@ extern "C" int fv_pass_a_fwd(const void* x, const void* w_x, const void* b_x,
                              int dtype, float scaling, void* stream) {
   const int ln = transposed ? H : W;
   const int P = transposed ? W : H;
-  if ((dtype != fv::kF32 && dtype != fv::kBF16) || batch < 1 ||
-      batch > 65535 || P < 1 || P > 65535 || ln < kPad + 1 || dm < kAKc ||
-      dm % kAKc != 0 || di < kACh || di % kACh != 0 ||
-      pass_a_smem(ln, dm, dtype == fv::kBF16) > kMaxSmem)
+  const bool bf = dtype == fv::kBF16;
+  if ((dtype != fv::kF32 && !bf) || batch < 1 || batch > 65535 || P < 1 ||
+      P > 65535 || ln < kPad + 1 || dm < kAKc || dm % kAKc != 0 ||
+      di < kACh || di % kACh != 0 || (bf && dm > fvf::kMaxDm) ||
+      (!bf && pass_a_smem(ln, dm) > kMaxSmem))
     return cudaErrorInvalidValue;
-  return launch_a(dtype, x, w_x, b_x, w_cf, b_cf, w_ab, b_ab, xc_f, xc_b, pf,
-                  pb, batch, H, W, dm, di, transposed, scaling,
-                  static_cast<cudaStream_t>(stream));
+  auto s = static_cast<cudaStream_t>(stream);
+  if (bf)
+    return fvf::pass_a_fwd_bf16(x, w_x, b_x, w_cf, b_cf, w_ab, b_ab, xc_f,
+                                xc_b, pf, pb, batch, H, W, dm, di, transposed,
+                                scaling, s);
+  return launch_a(x, w_x, b_x, w_cf, b_cf, w_ab, b_ab, xc_f, xc_b, pf, pb,
+                  batch, H, W, dm, di, transposed, scaling, s);
 }
 
 // x: (batch, H, W, dm); xc_f, xc_b: (batch, H, W, di); yf, yb: (batch, P,
 // di); w_z: (di, dm) (the z rows of in_proj.weight); w_out: (dm, di), all
 // of `dtype`. b_z, d_f, d_b, ln_w, ln_b: (di,) and b_out: (dm,) fp32; b_z,
 // b_out may be null, ln_w/ln_b are read only with use_ln. out: (batch, H,
-// W, dm) of `dtype`. dm, di % 32 == 0, di <= 768; x, w_z, w_out 32-byte
-// aligned. Returns a cudaError_t.
+// W, dm) of `dtype`. dm, di % 32 == 0, di <= 768, and in bf16 dm <= 384;
+// x, w_z, w_out 32-byte aligned. Returns a cudaError_t.
 extern "C" int fv_pass_b_fwd(const void* x, const void* xc_f,
                              const void* xc_b, const void* yf, const void* yb,
                              const void* w_z, const void* b_z,
@@ -493,11 +366,17 @@ extern "C" int fv_pass_b_fwd(const void* x, const void* xc_f,
                              int batch, int H, int W, int dm, int di,
                              int transposed, int dtype, int use_ln, float eps,
                              void* stream) {
-  if ((dtype != fv::kF32 && dtype != fv::kBF16) || batch < 1 || H < 1 ||
-      W < 1 || dm < 32 || dm % 32 != 0 || di < 32 || di % 32 != 0 ||
-      di > kBMaxDi || pass_b_smem(dm, di, dtype == fv::kBF16) > kMaxSmem)
+  const bool bf = dtype == fv::kBF16;
+  if ((dtype != fv::kF32 && !bf) || batch < 1 || H < 1 || W < 1 || dm < 32 ||
+      dm % 32 != 0 || di < 32 || di % 32 != 0 || di > kBMaxDi ||
+      (bf && dm > fvf::kMaxDm) || (!bf && pass_b_smem(dm, di) > kMaxSmem))
     return cudaErrorInvalidValue;
-  return launch_b(dtype, x, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w,
-                  ln_b, w_out, b_out, out, batch, H, W, dm, di, transposed,
-                  use_ln, eps, static_cast<cudaStream_t>(stream));
+  auto s = static_cast<cudaStream_t>(stream);
+  if (bf)
+    return fvf::pass_b_fwd_bf16(x, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b,
+                                ln_w, ln_b, w_out, b_out, out, batch, H, W,
+                                dm, di, transposed, use_ln, eps, s);
+  return launch_b(x, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
+                  w_out, b_out, out, batch, H, W, dm, di, transposed, use_ln,
+                  eps, s);
 }

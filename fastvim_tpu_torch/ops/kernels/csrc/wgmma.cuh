@@ -1,7 +1,9 @@
-// Hopper building blocks of the backward kernels of the fused layer
-// (layer_fused_bwd.cu): warpgroup matrix products (`wgmma`) on bf16
-// operands in shared memory, the 128-byte-swizzled tile layout they read,
-// and asynchronous 16-byte copies (`cp.async`) that fill such tiles.
+// Hopper building blocks of the fused layer's kernels in bf16
+// (layer_fused_fwd_wgmma.cu, layer_fused_bwd_wgmma.cu): warpgroup matrix
+// products (`wgmma`) on bf16 operands in shared memory, the
+// 128-byte-swizzled tile layout they read, asynchronous 16-byte copies
+// (`cp.async`) that fill such tiles, and the ring of weight stages they
+// stream through.
 //
 // A tile block is R rows of 64 bf16 (128 bytes), its base aligned to 1024
 // bytes; the 16-byte chunk c of row r lies at chunk c ^ (r % 8). One
@@ -121,6 +123,70 @@ __device__ __forceinline__ void cp_block(uint32_t sblk,
     const int r = i >> 3, ch = i & 7;
     cp_async16(sblk + r * kBlkRowBytes + (((ch ^ r) & 7) << 4),
                src + static_cast<size_t>(r0 + r) * ld + c0 + ch * 8);
+  }
+}
+
+// The ring of weight stages: kStages slots of kStageBytes from shared
+// address `base`. `fetch(s, addr)` starts the copies of stage s (or
+// nothing past the last) and the ring commits; every acquire commits
+// exactly one group, so the group of the stage being acquired is always
+// the (kStages - 1)-th newest. Other groups committed in between only
+// make the wait more conservative.
+template <int kStages, int kStageBytes, typename Fetch>
+struct Ring {
+  uint32_t base;
+  int cons;
+  Fetch fetch;
+  __device__ Ring(uint32_t b, Fetch f) : base(b), cons(0), fetch(f) {}
+  __device__ uint32_t slot_addr(int s) const {
+    return base + (s % kStages) * kStageBytes;
+  }
+  __device__ void start() {
+    for (int s = 0; s < kStages - 1; ++s) {
+      fetch(s, slot_addr(s));
+      cp_async_commit();
+    }
+  }
+  // The next stage's shared address. After its barrier every thread
+  // has finished reading the stage before it (its wgmmas were waited
+  // for), so that slot is free: the caller starts its products on the
+  // new stage and then calls refill(), once per acquire, so that the
+  // copies are started while the tensor cores work.
+  __device__ uint32_t acquire() {
+    cp_async_wait<kStages - 2>();
+    fence_async_smem();
+    __syncthreads();
+    return slot_addr(cons++);
+  }
+  __device__ void refill() {
+    const int s = cons + kStages - 2;
+    fetch(s, slot_addr(s));
+    cp_async_commit();
+  }
+};
+
+// acc (64 × 64 of this warpgroup) = A (64 × 64·nblk, K-major 64-row
+// blocks of 8 KB at `sa`) · B over the next nblk stages of the ring; kTb
+// 0: the stage holds B K-major, this warpgroup's 64 rows at `boff`; 1:
+// MN-major, its 64 columns in the block at `boff`. Warpgroups with
+// `active` false only keep the ring moving.
+template <int kTb, typename R>
+__device__ __forceinline__ void slab_gemm(float* acc, uint32_t sa, int nblk,
+                                          R& ring, uint32_t boff,
+                                          bool active) {
+  for (int b = 0; b < nblk; ++b) {
+    const uint32_t st = ring.acquire() + boff;
+    if (active) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_n64<0, kTb>(acc, gmma_desc(sa + b * 64 * kBlkRowBytes + 32 * kk),
+                          gmma_desc(st + (kTb ? 2048 : 32) * kk),
+                          (b | kk) != 0);
+      wgmma_commit();
+    }
+    ring.refill();
+    if (active) wgmma_wait();
   }
 }
 

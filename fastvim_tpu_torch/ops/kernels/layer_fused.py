@@ -1,5 +1,6 @@
 """K3-K7: the two passes of the fused FastVim mixer layer, forward
-(``csrc/layer_fused_fwd.cu``), backward (``csrc/layer_fused_bwd_wgmma.cu``
+(``csrc/layer_fused_fwd_wgmma.cu`` in bf16, ``csrc/layer_fused_fwd.cu`` in
+fp32 and for the entry points), backward (``csrc/layer_fused_bwd_wgmma.cu``
 in bf16, ``csrc/layer_fused_bwd.cu`` in fp32 and for the entry points) and
 pass B in its recompute form (``csrc/layer_fused_recompute.cu``), and
 ``fused_mixer_core``, which chains pass A → the pooled scans → pass B
@@ -41,7 +42,8 @@ from fastvim_tpu_torch.ops.scan import (
 )
 
 
-FWD_MAX_DI = 768        # widest d_inner K4 holds in one block (kBMaxDi)
+FWD_MAX_DI = 768        # widest d_inner K4 takes (kBMaxDi)
+FWD_MAX_DM = 384        # K3 / K4 keep a tile's x̂ and K4 its out on chip
 BWD_MAX_DI = 768        # ... and K5 / K6 take (kBwdMaxDi): K4's limit
 BWD_MAX_DM = 384        # K5 / K6 keep a tile's dx̂ in registers
 A_BWD_WINDOW = 58       # tokens a K6 block of the bf16 path owns (kAWin)
@@ -50,21 +52,21 @@ RECOMPUTE_MAX_DM = 384  # K7's x̂ tile beside xin and z in shared memory
 
 
 def pass_a_widths_ok(d_model: int, d_inner: int) -> bool:
-    """The widths K3's launcher takes: its GEMM walks d_model in chunks
-    of 32 and a block owns 64 channels."""
-    return d_model > 0 and d_model % 32 == 0 and d_inner > 0 \
+    """The widths K3's launcher takes: d_model in multiples of 32 (zero-
+    padded to 64 in bf16) up to 384, d_inner in slabs of 64 channels."""
+    return 0 < d_model <= FWD_MAX_DM and d_model % 32 == 0 and d_inner > 0 \
         and d_inner % 64 == 0
 
 
 def pass_b_widths_ok(d_model: int, d_inner: int,
                      recompute: bool = False) -> bool:
     """The widths K4's launcher takes, or K7's with ``recompute``: whole
-    32-column tiles, and all of d_inner in one block."""
+    32-column tiles, d_model <= 384 and d_inner <= 768 (K7: 384)."""
     if d_model <= 0 or d_model % 32 or d_inner <= 0 or d_inner % 32:
         return False
     if recompute:
         return d_inner <= RECOMPUTE_MAX_DI and d_model <= RECOMPUTE_MAX_DM
-    return d_inner <= FWD_MAX_DI
+    return d_inner <= FWD_MAX_DI and d_model <= FWD_MAX_DM
 
 
 def pass_bwd_widths_ok(d_model: int, d_inner: int) -> bool:
@@ -72,6 +74,18 @@ def pass_bwd_widths_ok(d_model: int, d_inner: int) -> bool:
     d_model <= d_inner, and both within what a block holds."""
     return (d_model >= 64 and d_model % 64 == 0 and d_inner % 64 == 0
             and d_model <= d_inner <= BWD_MAX_DI and d_model <= BWD_MAX_DM)
+
+
+def fused_bwd_route(d_model: int, d_inner: int, bwd_mode: str) -> str:
+    """The backward a fused layer of these widths takes when a gradient is
+    needed: ``bwd_mode`` ("fused": the K5 and K6 adjoint kernels;
+    "remat": autograd through the unfused math, recomputed) where
+    :func:`pass_bwd_widths_ok` holds, else "remat", which takes every
+    width the fused forward takes. Decided from the widths alone, before
+    the forward runs, on every device alike."""
+    if bwd_mode not in ("fused", "remat"):
+        raise ValueError(f"bwd_mode must be fused|remat, got {bwd_mode!r}")
+    return bwd_mode if pass_bwd_widths_ok(d_model, d_inner) else "remat"
 
 
 def _check_bwd_widths(name: str, dm: int, di: int) -> None:
@@ -140,8 +154,8 @@ def pass_a(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling: float,
            transposed: bool, write_xc: bool = True):
     """Pass A (K3); same contract as :func:`pass_a_plain`. With
     ``write_xc=False`` only the pools are computed and xc_f, xc_b come
-    back as None (the recompute mode's pass A). On CUDA, d_model must be
-    a multiple of 32 and d_inner of 64."""
+    back as None (the recompute mode's pass A). On CUDA the widths must
+    pass :func:`pass_a_widths_ok`; a call is one launch."""
     if x4.device.type == "cpu":
         out = pass_a_plain(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling,
                            transposed)
@@ -161,9 +175,9 @@ def pass_a(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling: float,
                               or tuple(t.shape) != shape):
             raise ValueError(f"{name}: {arg} must be float32 {shape}")
     if not pass_a_widths_ok(dm, di) or min(H, W) < 4:
-        raise ValueError(f"{name}: needs d_model % 32 == 0, d_inner % 64 == "
-                         f"0 and H, W >= 4, got d_model={dm}, d_inner={di}, "
-                         f"grid=({H}, {W})")
+        raise ValueError(f"{name}: needs d_model % 32 == 0, d_model <= "
+                         f"{FWD_MAX_DM}, d_inner % 64 == 0 and H, W >= 4, "
+                         f"got d_model={dm}, d_inner={di}, grid=({H}, {W})")
     kernels.check_aligned(name, x4=x4, w_x=w_x)
     P = W if transposed else H
     xc_f = x4.new_empty(B, H, W, di) if write_xc else None
@@ -214,8 +228,8 @@ def pass_b_plain(x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
 
 def pass_b(x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b, w_out,
            b_out, eps: float, use_ln: bool, transposed: bool):
-    """Pass B (K4); same contract as :func:`pass_b_plain`. On CUDA,
-    d_model and d_inner must be multiples of 32 and d_inner <= 768."""
+    """Pass B (K4); same contract as :func:`pass_b_plain`. On CUDA the
+    widths must pass :func:`pass_b_widths_ok`; a call is one launch."""
     if x4.device.type == "cpu":
         return pass_b_plain(x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b,
                             ln_w, ln_b, w_out, b_out, eps, use_ln,
@@ -246,8 +260,9 @@ def pass_b(x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b, w_out,
     if use_ln and (ln_w is None or ln_b is None):
         raise ValueError(f"{name}: use_ln needs ln_w and ln_b")
     if not pass_b_widths_ok(dm, di):
-        raise ValueError(f"{name}: needs d_model, d_inner % 32 == 0 and "
-                         f"d_inner <= {FWD_MAX_DI}, got {dm}, {di}")
+        raise ValueError(f"{name}: needs d_model, d_inner % 32 == 0, "
+                         f"d_model <= {FWD_MAX_DM} and d_inner <= "
+                         f"{FWD_MAX_DI}, got {dm}, {di}")
     kernels.check_aligned(name, x4=x4, w_z=w_z, w_out=w_out)
     out = torch.empty_like(x4)
     err = _build.library().fv_pass_b_fwd(
@@ -851,12 +866,24 @@ def fused_mixer_core(x_hat: torch.Tensor, p: FusedParams,
     (xc_f and xc_b are then None).
 
     When a gradient is needed the call goes through
-    :class:`FusedMixerCoreFn` (``bwd_mode="fused"``: the K5 and K6
-    adjoint kernels) or :class:`FusedMixerCoreRematFn` (``"remat"``, and
-    always with ``recompute``, which keeps no conv outputs for the adjoint
-    kernels: autograd through :func:`reference_core`)."""
-    if bwd_mode not in ("fused", "remat"):
-        raise ValueError(f"bwd_mode must be fused|remat, got {bwd_mode!r}")
+    :class:`FusedMixerCoreFn` (the K5 and K6 adjoint kernels) where
+    :func:`fused_bwd_route` says "fused", and through
+    :class:`FusedMixerCoreRematFn` (autograd through
+    :func:`reference_core`) where it says "remat": for ``bwd_mode="remat"``,
+    and for any ``bwd_mode`` at widths the adjoint kernels do not take
+    (d_model not a multiple of 64, d_model > 384 or > d_inner). With
+    ``recompute``, which keeps no conv outputs for the adjoint kernels, it
+    is always the latter. On CUDA, widths the forward kernels do not take
+    raise here, before anything is launched."""
+    dm, di = x_hat.shape[-1], p.conv_f_w.shape[0]
+    route = fused_bwd_route(dm, di, bwd_mode)
+    if x_hat.is_cuda and not (pass_a_widths_ok(dm, di)
+                              and pass_b_widths_ok(dm, di, recompute)):
+        raise ValueError(
+            f"fused_mixer_core: the fused forward kernels take d_model % 32 "
+            f"== 0, d_inner % 64 == 0, d_model <= {FWD_MAX_DM} and d_inner "
+            f"<= {FWD_MAX_DI} (with recompute: d_inner <= "
+            f"{RECOMPUTE_MAX_DI}), got d_model={dm}, d_inner={di}")
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x_hat,) + tuple(p))
     if needs_grad:
@@ -864,13 +891,8 @@ def fused_mixer_core(x_hat: torch.Tensor, p: FusedParams,
             raise ValueError("return_saved is a forward-only option")
         args = (x_hat, tuple(grid), transposed, scaling, eps, use_ln, dtype,
                 scan_impl)
-        if recompute or bwd_mode == "remat":
+        if recompute or route == "remat":
             return FusedMixerCoreRematFn.apply(*args, recompute, *p)
-        if x_hat.is_cuda:
-            # say so before the forward runs, not in the middle of backward
-            _check_bwd_widths("fused_mixer_core (bwd_mode='fused'; 'remat' "
-                              "takes any width the forward takes)",
-                              x_hat.shape[-1], p.conv_f_w.shape[0])
         return FusedMixerCoreFn.apply(*args, *p)
     out, _, _, _, saved, _ = _fused_forward(x_hat, p, grid, transposed,
                                             scaling, eps, use_ln, dtype,

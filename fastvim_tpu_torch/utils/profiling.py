@@ -9,10 +9,13 @@ first CUDA device and prints one table::
     python -m fastvim_tpu_torch.utils.profiling --model fastvim_tiny \\
         --img 2048 --batch 3 --train
 
-With ``--bwd-times`` it instead times K5 and K6 alone (bf16, CUDA events,
-both orientations) at the model's widths and grid, and with
-``--bwd-phases`` it builds the kernels with their cycle counters compiled
-in and prints where a block of K5 and of K6 spends its cycles.
+With ``--graph`` the forward is captured once as a CUDA graph and the
+replays are profiled, so that the forward's device time is read without
+the host's launches in the way. With ``--fwd-times`` / ``--bwd-times`` it
+instead times K3 and K4 / K5 and K6 alone (bf16, CUDA events, both
+orientations) at the model's widths and grid, and with ``--bwd-phases``
+it builds the kernels with their cycle counters compiled in and prints
+where a block of K5 and of K6 spends its cycles.
 
 It needs a CUDA device; nothing here falls back to the CPU.
 """
@@ -132,29 +135,46 @@ def _bwd_args(dm: int, di: int, grid: int, batch: int, transposed: bool):
     return b_args, a_args
 
 
-def bwd_kernel_times(dm: int, di: int, grid: int, batch: int,
-                     iters: int = 20) -> None:
-    """Print the time of one K5 and one K6 call in bf16 (CUDA events over
-    ``iters`` calls after a warm-up one), on even and odd layers."""
+def _fwd_args(dm: int, di: int, grid: int, batch: int, transposed: bool):
+    """Random bf16 arguments of ``pass_b`` and ``pass_a``, as
+    :func:`_bwd_args`."""
+    b_args, a_args = _bwd_args(dm, di, grid, batch, transposed)
+    # pass_b: x̂, xc_f, xc_b, yf, yb, w_z, b_z, D_f, D_b, ln_w, ln_b, w_out,
+    # b_out, eps, use_ln, transposed; pass_a: x̂, w_x, b_x, the convs
+    return (b_args[1:12] + (b_args[12], None) + b_args[13:],
+            a_args[:1] + a_args[6:])
+
+
+def _event_ms(fn, args, iters: int) -> float:
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_times(dm: int, di: int, grid: int, batch: int, fwd: bool,
+                 iters: int = 20) -> None:
+    """Print the time of one call of K4 and K3 (``fwd``) or of K5 and K6
+    in bf16 (CUDA events over ``iters`` calls after a warm-up one), on even
+    and odd layers."""
     from fastvim_tpu_torch.ops.kernels import layer_fused as lf
 
+    names = ("K4", "K3") if fwd else ("K5", "K6")
+    fns = (lf.pass_b, lf.pass_a) if fwd else (lf.pass_b_bwd, lf.pass_a_bwd)
     for transposed in (False, True):
-        b_args, a_args = _bwd_args(dm, di, grid, batch, transposed)
-        ms = []
+        args = (_fwd_args if fwd else _bwd_args)(dm, di, grid, batch,
+                                                 transposed)
         with torch.no_grad():
-            for fn, args in ((lf.pass_b_bwd, b_args), (lf.pass_a_bwd, a_args)):
-                fn(*args)
-                torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(iters):
-                    fn(*args)
-                end.record()
-                end.synchronize()
-                ms.append(start.elapsed_time(end) / iters)
+            ms = [_event_ms(fn, a, iters) for fn, a in zip(fns, args)]
         print(f"bf16 d_model={dm} d_inner={di} grid={grid}x{grid} B={batch} "
-              f"transposed={transposed}: K5 {ms[0]:.4f} ms, K6 {ms[1]:.4f} ms")
+              f"transposed={transposed}: {names[0]} {ms[0]:.4f} ms, "
+              f"{names[1]} {ms[1]:.4f} ms")
 
 
 def bwd_phase_cycles(dm: int, di: int, grid: int, batch: int) -> None:
@@ -194,6 +214,23 @@ def bwd_phase_cycles(dm: int, di: int, grid: int, batch: int) -> None:
                       f"{what}")
 
 
+def captured_forward(model, image: torch.Tensor) -> Callable[[], object]:
+    """The model's forward on a static input, captured as a CUDA graph
+    after three eager warm-up calls on a side stream; returns the replay,
+    whose launches cost the host one call. The kernels' launch counters
+    count the capture's launches only."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode(), torch.cuda.stream(stream):
+        for _ in range(3):
+            model(image)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode(), torch.cuda.graph(graph):
+        model(image)
+    return graph.replay
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="fastvim_tiny")
@@ -204,6 +241,11 @@ def main() -> None:
     ap.add_argument("--train", action="store_true",
                     help="a supervised train step instead of a forward")
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--graph", action="store_true",
+                    help="profile replays of the forward captured as a CUDA "
+                         "graph")
+    ap.add_argument("--fwd-times", action="store_true",
+                    help="time K3 and K4 alone at the model's widths")
     ap.add_argument("--bwd-times", action="store_true",
                     help="time K5 and K6 alone at the model's widths")
     ap.add_argument("--bwd-phases", action="store_true",
@@ -211,14 +253,17 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")
-    if args.bwd_phases or args.bwd_times:
+    if args.graph and args.train:
+        raise SystemExit("profiling: --graph captures a forward only")
+    if args.bwd_phases or args.bwd_times or args.fwd_times:
         from fastvim_tpu_torch.models.registry import _SIZES
 
         size = _SIZES[args.model.split("_", 1)[1]]
         dm = size["embed_dim"]  # d_inner = 2 · d_model in every registry model
         shape = (dm, 2 * dm, args.img // size["patch_size"], args.batch)
-        return (bwd_phase_cycles if args.bwd_phases
-                else bwd_kernel_times)(*shape)
+        if args.bwd_phases:
+            return bwd_phase_cycles(*shape)
+        return kernel_times(*shape, fwd=args.fwd_times)
 
     from fastvim_tpu_torch.models import create_model
     from fastvim_tpu_torch.train import (
@@ -244,6 +289,8 @@ def main() -> None:
         step = make_supervised_train_step(model, 1000, label_smoothing=0.1,
                                           ema_decay=None)
         fn = lambda: step(state, batch)
+    elif args.graph:
+        fn = captured_forward(model, batch["image"])
     else:
         def fn():
             with torch.inference_mode():
@@ -254,7 +301,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    what = "train step" if args.train else "forward"
+    what = ("train step" if args.train
+            else "forward, CUDA-graph replay" if args.graph else "forward")
     print(f"{args.model} {args.img}px B={args.batch} {args.dtype} {what} "
           f"({card}): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, "

@@ -10,9 +10,14 @@ package: on an 8 × 8 grid to ``fused_mixer_core`` with its fused backward
 those kernels do not take, to ``jax.grad`` of ``_reference_core``. Then a
 ``fastvim``-shaped model of d_inner 512 takes a supervised train step
 with its default fields, and the width predicate's truth table is spelled
-out. Inputs and weights come from numpy with a seed and go to both sides,
+out, with the backward route of every width ``fusable`` accepts: a width
+the adjoint kernels refuse takes the remat backward, and a d_model 96
+model (d_inner 192, which the JAX package runs unfused) trains through it
+with default fields. Inputs and weights come from numpy with a seed and go to both sides,
 in fp32.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -228,3 +233,128 @@ def test_bwd_width_predicate(dm, di, ok):
     if ok:
         assert lf.pass_a_widths_ok(dm, di) and lf.pass_b_widths_ok(dm, di)
         assert lf.fusable((8, 8), (1,), False, dm, di, 4, "mean")
+
+
+@pytest.mark.parametrize("dm,di,fused", [
+    (96, 192, False),    # d_model an odd multiple of 32
+    (160, 320, False),
+    (192, 384, True),    # FastVim-T
+    (256, 512, True),
+    (352, 704, False),
+    (384, 768, True),    # FastVim-S
+    (224, 448, False),
+    (320, 256, False),   # d_model > d_inner (expand < 2)
+])
+def test_fused_bwd_route(dm, di, fused):
+    """Every width fusable accepts gets a backward that takes it: the
+    adjoint kernels where pass_bwd_widths_ok holds and the field asks for
+    them, the remat backward otherwise, chosen by width before the
+    forward runs and taken by fused_mixer_core on the CPU as on the
+    card."""
+    assert lf.fusable((4, 4), (1,), False, dm, di, 4, "mean")
+    assert lf.pass_bwd_widths_ok(dm, di) is fused
+    assert lf.fused_bwd_route(dm, di, "fused") == ("fused" if fused
+                                                   else "remat")
+    assert lf.fused_bwd_route(dm, di, "remat") == "remat"
+    with pytest.raises(ValueError, match="bwd_mode"):
+        lf.fused_bwd_route(dm, di, "auto")
+    _, tp = _layer_params(dm, dm, di)
+    x = torch.zeros(1, 16, dm, requires_grad=True)
+    for mode in ("fused", "remat"):
+        out = fused_mixer_core(x, tp, (4, 4), False, 1.0, 1e-5, True,
+                               torch.float32, bwd_mode=mode)
+        want = "FusedMixerCoreFn" if lf.fused_bwd_route(
+            dm, di, mode) == "fused" else "FusedMixerCoreRematFn"
+        assert type(out.grad_fn).__name__ == want + "Backward"
+
+
+NARROW = dict(img_size=32, patch_size=4, depth=2, embed_dim=96,
+              num_classes=10, drop_path_rate=0.0)  # d_inner 192
+
+
+@functools.lru_cache(maxsize=1)
+def _narrow_jax():
+    """The JAX side of the d_model 96 model, once for every case: inputs,
+    weights in the port's names, the loss and gradients, and the loss and
+    parameters after one train step."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, 2)
+    jmodel = jax_create_model("fastvim_tiny", layer_fused="off",
+                              scan_impl="ref", **NARROW)
+    params = jmodel.init(jax.random.PRNGKey(4), jnp.asarray(x))
+
+    def jloss(p):
+        return jax_cross_entropy(jmodel.apply(p, jnp.asarray(x)),
+                                 jnp.asarray(labels), 0.1)
+
+    loss, grads = jax.jit(jax.value_and_grad(jloss))(params)
+    jtx = joptim.make_optimizer(
+        jsched.cosine_with_warmup(2e-3, 1e-5, 20, 3, 5e-4), weight_decay=0.05,
+        params=params)
+    jstate = JaxTrainState.create(jax.tree_util.tree_map(jnp.array, params),
+                                  jtx, ema=False)
+    jstep = jax_make_train_step(jmodel, 10, label_smoothing=0.1,
+                                ema_decay=None)
+    jstate, jm = jstep(jstate, {"image": jnp.asarray(x),
+                                "label": jnp.asarray(labels)},
+                       jax.random.PRNGKey(0))
+    return (x, labels, from_jax_params(params), float(loss),
+            from_jax_params(grads), float(jm["train_loss"]),
+            from_jax_params(jstate.params))
+
+
+@pytest.mark.parametrize("bwd", ["fused", "remat"])
+def test_narrow_model_trains_through_remat(monkeypatch, bwd):
+    """A d_model 96 model fuses forward but not backward: with either
+    value of layer_fused_bwd (default "fused") both layers take
+    FusedMixerCoreRematFn. Its loss and gradients, and one
+    make_supervised_train_step step, against the JAX package, which runs
+    those layers unfused (d_inner 192 fails its d_inner % 128): values to
+    rtol = atol = 1e-5, gradients (sums over tokens) to 1e-4 of each
+    tensor's largest entry."""
+    x, labels, params, want_loss, want, want_step_loss, new = _narrow_jax()
+    weights = {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+    models = []
+    for _ in range(2):
+        m = create_model("fastvim_tiny", device="cpu", layer_fused_bwd=bwd,
+                         **NARROW)
+        m.load_state_dict(weights)
+        models.append(m)
+    mixer = models[0].layers[0].mixer
+    assert (mixer.d_model, mixer.d_inner) == (96, 192)
+    assert lf.fused_bwd_route(96, 192, mixer.layer_fused_bwd) == "remat"
+    calls = {"FusedMixerCoreFn": 0, "FusedMixerCoreRematFn": 0}
+    for cls in (lf.FusedMixerCoreFn, lf.FusedMixerCoreRematFn):
+        def counted(*a, _apply=cls.apply, _name=cls.__name__):
+            calls[_name] += 1
+            return _apply(*a)
+        monkeypatch.setattr(cls, "apply", counted)
+
+    model = models[0]
+    model.train()
+    loss = cross_entropy(model(torch.from_numpy(x)),
+                         torch.from_numpy(labels), 0.1)
+    loss.backward()
+    assert calls == {"FusedMixerCoreFn": 0, "FusedMixerCoreRematFn": 2}
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=1e-5, atol=1e-5)
+    got = grads_to_numpy(model)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.abs(got[k] - want[k]).max() <= \
+            SUMMED_TOL * np.abs(want[k]).max(), k
+
+    model = models[1]
+    tx = make_optimizer(cosine_with_warmup(2e-3, 1e-5, 20, 3, 5e-4),
+                        weight_decay=0.05, params=model)
+    state = TrainState.create(model, tx)
+    step = make_supervised_train_step(model, 10, label_smoothing=0.1,
+                                      ema_decay=None)
+    state, m = step(state, {"image": torch.from_numpy(x),
+                            "label": torch.from_numpy(labels)})
+    assert calls["FusedMixerCoreRematFn"] == 4
+    np.testing.assert_allclose(m["train_loss"].item(), want_step_loss,
+                               rtol=1e-5, atol=1e-5)
+    for k, v in state.params.items():
+        np.testing.assert_allclose(v.detach().numpy(), new[k], rtol=1e-5,
+                                   atol=1e-5, err_msg=k)

@@ -155,6 +155,15 @@ def _pass_a_args(g, dtype, batch, H, W, dm, di, bias, transposed):
     ((4, 200), False, 1, 64, 128, True),   # 206-token lines: 2 GEMM passes
     ((170, 5), True, 1, 64, 128, False),   # 176-token columns: 2 passes
     ((8, 8), True, 2, 384, 768, False),    # FastVim-S widths
+    ((128, 128), False, 2, 192, 384, True),  # FastVim-T at 2048 px
+    ((128, 128), True, 2, 192, 384, False),
+    ((6, 10), False, 2, 96, 192, True),    # d_model zero-padded to 128
+    ((10, 6), True, 2, 160, 320, False),   # ... and to 192
+    ((5, 63), False, 2, 64, 128, True),    # lines of 63, 64 and 65 tokens
+    ((64, 5), True, 2, 64, 128, False),
+    ((4, 65), False, 2, 128, 192, True),
+    ((65, 4), True, 2, 128, 192, False),
+    ((4, 200), False, 1, 384, 768, True),  # two segments at FastVim-S widths
 ])
 def test_pass_a_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
                               bias):
@@ -169,7 +178,17 @@ def test_pass_a_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
 @pytest.mark.parametrize("grid,transposed,batch,dm,di,bias,use_ln", [
     ((6, 10), False, 3, 64, 128, False, True),   # 180 tokens: partial tile
     ((6, 10), True, 3, 64, 128, True, False),
-    ((8, 8), True, 2, 384, 768, True, True),     # two 384-column slabs
+    ((8, 8), True, 2, 384, 768, True, True),     # six 128-channel slabs
+    ((128, 128), False, 2, 192, 384, True, True),  # FastVim-T at 2048 px
+    ((128, 128), True, 2, 192, 384, False, True),
+    ((6, 10), False, 2, 96, 192, True, True),    # d_model zero-padded
+    ((10, 6), True, 1, 160, 320, False, True),
+    ((5, 13), False, 1, 64, 96, True, True),     # 65 tokens, a 96-wide slab
+    ((8, 8), False, 2, 192, 352, True, True),    # d_inner % 64 == 32
+    ((1, 40), False, 2, 64, 128, True, True),    # a 1 x N and an N x 1 grid
+    ((40, 1), True, 2, 64, 128, False, True),
+    ((3, 65), False, 2, 128, 192, True, True),   # lines of 65 tokens
+    ((65, 3), True, 2, 128, 192, False, False),
 ])
 def test_pass_b_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
                               bias, use_ln):
@@ -188,6 +207,57 @@ def test_pass_b_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
             use_ln, transposed)
     with torch.no_grad():
         _close(lf.pass_b(*args), lf.pass_b_plain(*args), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,transposed,dm,di", [
+    ((6, 10), False, 64, 128),
+    ((128, 128), True, 192, 384),
+    ((200, 4), True, 384, 768),
+    ((5, 63), False, 96, 192),
+])
+def test_pass_a_pools_only_matches_plain(dev, dtype, grid, transposed, dm,
+                                         di):
+    """K3 without the xc stores (the recompute mode's pass A): no xc, and
+    the pools of pass_a_plain."""
+    g = torch.Generator(device=dev).manual_seed(dm + grid[1])
+    args = _pass_a_args(g, dtype, 2, *grid, dm, di, True, transposed)
+    with torch.no_grad():
+        got = lf.pass_a(*args, write_xc=False)
+        want = lf.pass_a_plain(*args)
+    assert got[0] is None and got[1] is None
+    for a, b in zip(got[2:], want[2:]):
+        _close(a, b, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("transposed", [False, True])
+def test_fwd_kernels_bitwise_reproducible(dev, dtype, transposed):
+    """K3 and K4 write every output from one block, without atomics: two
+    calls on the same inputs agree bit for bit (ragged tiles and padded
+    widths included)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    batch, H, W, dm, di = 2, 40, 70, 160, 352
+    P = W if transposed else H
+    a_args = _pass_a_args(g, dtype, batch, H, W, dm, 384, True, transposed)
+    b_args = (_rand(g, batch, H, W, dm).to(dtype),
+              _rand(g, batch, H, W, di).to(dtype),
+              _rand(g, batch, H, W, di).to(dtype),
+              _rand(g, batch, P, di).to(dtype), _rand(g, batch, P, di).to(dtype),
+              _rand(g, di, dm, scale=dm ** -0.5).to(dtype),
+              _rand(g, di, scale=0.3), _rand(g, di), _rand(g, di),
+              1 + _rand(g, di, scale=0.1), _rand(g, di, scale=0.1),
+              _rand(g, dm, di, scale=di ** -0.5).to(dtype),
+              _rand(g, dm, scale=0.3), 1e-5, True, transposed)
+    with torch.no_grad():
+        for fn, args in ((lf.pass_a, a_args), (lf.pass_b, b_args)):
+            out = fn(*args)
+            first = [t.clone() for t in (out if isinstance(out, tuple)
+                                         else (out,))]
+            again = fn(*args)
+            for a, b in zip(first, again if isinstance(again, tuple)
+                            else (again,)):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -380,7 +450,7 @@ def test_wrappers_refuse(dev):
     wide_p = lf.FusedParams(*([None] * 2), v.new_zeros(832, 4),
                             *([None] * 17))
     kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match="bwd_mode='fused'"):
+    with pytest.raises(ValueError, match="fused forward kernels"):
         lf.fused_mixer_core(_rand(g, 1, 64, 64).requires_grad_(), wide_p,
                             (8, 8), False, 1.0, 1e-5, True, torch.float32)
     with pytest.raises(ValueError, match="d % 8 == 0"):
@@ -390,6 +460,17 @@ def test_wrappers_refuse(dev):
     with pytest.raises(ValueError, match="d_inner <= 768"):
         lf.pass_b_bwd(x4, x4, wide, wide, y, y, _rand(g, 832, 64), None, v, v,
                       v, v, _rand(g, 64, 832), 1e-5, True, False)
+    # the forward kernels keep a tile's x̂ on chip: d_model <= 384
+    x416 = _rand(g, 1, 8, 8, 416)
+    with pytest.raises(ValueError, match="d_model <= 384"):
+        lf.pass_a(x416, _rand(g, 128, 416), None, _rand(g, 128, 4), None,
+                  _rand(g, 128, 4), None, 1.0, False)
+    with pytest.raises(ValueError, match="d_model <= 384"):
+        y128 = _rand(g, 1, 8, 128)
+        v128 = _rand(g, 128)
+        lf.pass_b(x416, _rand(g, 1, 8, 8, 128), _rand(g, 1, 8, 8, 128), y128,
+                  y128, _rand(g, 128, 416), None, v128, v128, v128, v128,
+                  _rand(g, 416, 128), None, 1e-5, True, False)
     with pytest.raises(ValueError, match="d_inner <= 768"):
         lf.pass_a_bwd(x4, _rand(g, 1, 8, 8, 64), wide, wide, y, y,
                       _rand(g, 832, 64), None, _rand(g, 832, 4), None,
