@@ -15,7 +15,10 @@ Phases, each of which raises on failure (exit code non-zero):
    FastVim-S's widths (d_model 384, d_inner 768, grid 128 × 128, batch 2,
    both orientations), each timed beside its bound and with the number of
    device kernels one call launches (counted by a child process under
-   ``torch.profiler``);
+   ``torch.profiler``); K1 in both of its forms, sequential (L = 128)
+   and chunked (Vim-T's L = 16,384 and 16,385, also held against its own
+   plain version and the sequential kernel, y and the saved states),
+   with the form the launcher picks at each length;
 3. build ``fastvim_tiny`` and ``vim_tiny`` at 224 px, full width, fp32,
    from one seed, and compare their logits, then their loss and every
    parameter's gradient, on the card (kernels) with the same models on
@@ -156,11 +159,11 @@ def cuda_ms(fn, iters: int, windows: int = 1) -> float:
 def count_launches() -> int:
     """``chip_smoke.py --count-launches``: print, as JSON, how many device
     kernels (copies included) one call of K3, K4, K5 and K6 launches in
-    bf16 and in fp32, from a ``torch.profiler`` trace of a small call. It
+    bf16 and in fp32, from a ``torch.profiler`` trace of a small call, and
+    one call of K1 in each of its forms at L = 128 and 16,384 in bf16. It
     runs as a process of its own (see :func:`launches_per_call`), so that
     the profiler's hooks never sit under a timed phase."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from fastvim_tpu_torch.ops.kernels import layer_fused as lf
 
@@ -191,30 +194,59 @@ def count_launches() -> int:
                 pooled(), rnd(di, dm).to(dtype), None, rnd(di, 4), rnd(di),
                 rnd(di, 4), rnd(di), 1.0, False): lf.pass_a_bwd(*a)}
         for name, fn in calls.items():
-            with torch.no_grad():
-                fn()
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(4):
-                        fn()
-                    torch.cuda.synchronize()
-            n = sum(ev.count for ev in prof.key_averages()
-                    if str(ev.device_type).endswith("CUDA")
-                    and (getattr(ev, "self_device_time_total", 0)
-                         or getattr(ev, "self_cuda_time_total", 0)) > 0)
-            out.setdefault(name, {})[str(dtype)] = n / 4
+            out.setdefault(name, {})[str(dtype)] = kernels_a_call(fn)
+    # K1 in both forms at FastVim's and Vim-T's lengths, bf16
+    from fastvim_tpu_torch.ops.kernels import selective_scan as ss
+
+    d, n = 384, 16
+    A, bias = -torch.exp(rnd(d, n)), rnd(d)
+    for L in (128, 16384):
+        args = [rnd(2, L, c).bfloat16() for c in (d, d, n, n)]
+        args.insert(2, A)
+        for route in ("sequential", "chunked"):
+            out[f"selective_scan_fwd L={L} {route}"] = kernels_a_call(
+                lambda: ss._launch_fwd(route, *args, delta_bias=bias,
+                                       delta_softplus=True))
     print(json.dumps(out), flush=True)
     return 0
 
 
+def kernels_a_call(fn) -> float:
+    """Device kernels (and copies) one call of ``fn`` launches: a
+    torch.profiler trace of 4 calls after a warm-up one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                fn()
+            torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA")
+               and (getattr(ev, "self_device_time_total", 0)
+                    or getattr(ev, "self_cuda_time_total", 0)) > 0) / 4
+
+
 def launches_per_call() -> dict:
-    """{kernel: {dtype: device kernels a call launches}} for K3-K6,
-    counted by a child process (the library is built by then)."""
+    """{kernel: {dtype: device kernels a call launches}} for K3-K6, and
+    {"selective_scan_fwd L=<L> <form>": device kernels} for K1, counted by
+    a child process (the library is built by then). K1's chunked form must
+    be its three phases and the sequential form one kernel."""
     run = subprocess.run([sys.executable, __file__, "--count-launches"],
                          capture_output=True, text=True, timeout=300)
     if run.returncode != 0:
         raise RuntimeError(f"--count-launches failed: {run.stderr[-2000:]}")
-    return json.loads(run.stdout.strip().splitlines()[-1])
+    counts = json.loads(run.stdout.strip().splitlines()[-1])
+    for L in (128, 16384):
+        for form, want in (("sequential", 1), ("chunked", 3)):
+            got = counts[f"selective_scan_fwd L={L} {form}"]
+            if got != want:
+                raise AssertionError(f"selective_scan_fwd {form} L={L}: {got}"
+                                     f" device kernels a call, not {want}")
+    return counts
 
 
 def check_kernels(dev, card, per_call):
@@ -233,11 +265,20 @@ def check_kernels(dev, card, per_call):
 
     # K1: the pooled scans of FastVim-T at 2048 px (L = 128) and the
     # full-length scans of Vim-T (L = 16,384; 16,385 with the middle cls
-    # token exercises the tail chunk)
+    # token exercises the tail chunk), the launcher against the plain
+    # version: its error and its L = 128 time are the kernels line's. The
+    # launcher takes the sequential form at L = 128 and the chunked one at
+    # Vim-T's lengths; there the chunked form is also held against its
+    # plain version (the same three phases in tensor ops) and against the
+    # sequential kernel on the same inputs, y and the chunk-entry states,
+    # and both forms are timed in the [time] line of each length
     d, n = 384, 16
     A = -torch.exp(uni(d, n, bound=1.0))
     bias = uni(d, bound=0.5)
+    chunked_err = 0.0
     for L, batch in ((128, 2), (16384, 2), (16385, 1)):
+        route = ss.fwd_route(L)
+        log(f"[route] selective_scan_fwd L={L}: {route}")
         base = dict(u=rnd(batch, L, d), delta=rnd(batch, L, d, scale=0.5),
                     B=rnd(batch, L, n), C=rnd(batch, L, n))
         for dtype, tol in ((torch.float32, FP32_TOL),
@@ -248,25 +289,54 @@ def check_kernels(dev, card, per_call):
             args = (t["u"], t["delta"], A, t["B"], t["C"])
             kw = dict(delta_bias=bias, delta_softplus=True)
             for reverse in (False, True):
+                tag = f"L={L} B={batch} {dtype} reverse={reverse}"
                 got = ss.selective_scan_fwd(*args, reverse=reverse, **kw)
                 want = ss.selective_scan_plain(*args, reverse=reverse, **kw)
-                e = compare(f"selective_scan_fwd L={L} B={batch} {dtype} "
-                            f"reverse={reverse}", got, want, tol)
+                e = compare(f"selective_scan_fwd {tag}", got, want, tol)
                 errs["selective_scan_fwd"] = max(errs["selective_scan_fwd"],
                                                  e)
+                if L == 128:
+                    continue
+                y_c, st_c = ss._launch_fwd("chunked", *args, reverse=reverse,
+                                           save_states=True, **kw)
+                y_p, st_p = ss.selective_scan_fwd_chunked_plain(
+                    *args, None, bias, True, reverse)
+                y_s, st_s = ss._launch_fwd("sequential", *args,
+                                           reverse=reverse, save_states=True,
+                                           **kw)
+                for what, gt, wt in (("y vs plain", y_c, y_p),
+                                     ("states vs plain", st_c, st_p),
+                                     ("y vs sequential", y_c, y_s),
+                                     ("states vs sequential", st_c, st_s)):
+                    chunked_err = max(chunked_err, compare(
+                        f"selective_scan_fwd chunked {what} {tag}", gt, wt,
+                        tol))
+                del y_c, st_c, y_p, st_p, y_s, st_s
             if dtype == torch.bfloat16:
                 kern = lambda: ss.selective_scan_fwd(*args, reverse=True, **kw)
+                other = "chunked" if route == "sequential" else "sequential"
+                alt = lambda: ss._launch_fwd(other, *args, reverse=True, **kw)
                 plain = lambda: ss.selective_scan_plain(*args, reverse=True,
                                                         **kw)
                 k_ms = cuda_ms(kern, 200 if L == 128 else 5)
+                o_ms = cuda_ms(alt, 200 if L == 128 else 5)
                 p_ms = cuda_ms(plain, 3 if L == 128 else 1)
                 # per (b, t, d, n): exp, the recurrence (4), h·C and its sum
                 b_ms, by = bound(nbytes(*args, bias, got), 9.0 * batch * L * d
                                  * n, "fp32")
+                per = lambda r: per_call[f"selective_scan_fwd L={L} {r}"]
                 log(f"[time] selective_scan_fwd bf16 B={batch} L={L} d={d}: "
-                    f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                    f"{b_ms:.4f} ms ({by}) ({card})")
+                    f"kernel ({route}, {per(route):g} launches) {k_ms:.4f} "
+                    f"ms, {other} ({per(other):g} launches) {o_ms:.4f} ms, "
+                    f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) "
+                    f"({card})")
                 times.setdefault("selective_scan_fwd", (k_ms, p_ms, b_ms, by))
+            del got, want
+        del base, t
+        torch.cuda.empty_cache()
+    log(f"[check] selective_scan_fwd chunked form at L = 16,384 and 16,385: "
+        f"max abs err {chunked_err:.3g} against its plain version and the "
+        f"sequential kernel")
 
     # K3 / K4 at FastVim-T's widths (the main path: 2048 px, batch 2, and
     # 224 px) and FastVim-S's (2048 px, batch 2)
@@ -1070,14 +1140,17 @@ def main() -> int:
         launches[name] += count
 
     # each kernel's files: the main path's (bf16) kernel, then the fp32
-    # route, the C entry points and the headers they include
+    # route, the C entry points and the headers they include (K1: the
+    # sequential form, timed at FastVim's L = 128, then the chunked one,
+    # which the launcher takes at Vim-T's L = 16,384)
     src = "fastvim_tpu_torch/ops/kernels/csrc/"
     fwd = ("layer_fused_fwd.cu", "layer_fused_fwd.cuh", "layer_fused.cuh",
            "wgmma.cuh")
     bwd = ("layer_fused_bwd.cu", "layer_fused_bwd.cuh", "layer_fused.cuh",
            "wgmma.cuh")
     table = [
-        ("selective_scan_fwd", "selective_scan_fwd.cu", (),
+        ("selective_scan_fwd", "selective_scan_fwd.cu",
+         ("selective_scan_fwd_chunked.cu",),
          "fastvim_tpu/ops/pallas/selective_scan.py:79"),
         ("selective_scan_bwd", "selective_scan_bwd.cu", (),
          "fastvim_tpu/ops/pallas/selective_scan.py:294"),

@@ -30,6 +30,8 @@ SIGNATURES = {
     # u, delta, A, B, C, bias, D, out, states, batch, L, d, n, dtype,
     # softplus, reverse, stream
     "fv_selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    # the same with dsum (the chunks' sums of delta, scratch) after states
+    "fv_selective_scan_fwd_chunked": [_P] * 10 + [_I] * 7 + [_P],
     # u, delta, A, B, C, bias, D, g, states, du, ddelta, dbc_part, vec_part,
     # dB, dC, vec, batch, L, d, n, dtype, softplus, reverse, stream
     "fv_selective_scan_bwd": [_P] * 16 + [_I] * 7 + [_P],

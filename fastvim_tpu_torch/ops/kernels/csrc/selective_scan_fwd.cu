@@ -32,7 +32,9 @@
 // reduction latency sits on the L-step chain either (a shuffle reduction
 // inside the loop measured 4.2 ms). A tail chunk shorter than 64
 // (L = 16,385 for the middle-cls-token Vim) only runs its valid steps.
-// All math is fp32; y is written in u's dtype.
+// All math is fp32; y is written in u's dtype. Long scans (from
+// CHUNKED_MIN_L steps, ops/kernels/selective_scan.py) take the
+// chunk-parallel form in selective_scan_fwd_chunked.cu instead.
 
 #include "common.cuh"
 

@@ -1,5 +1,6 @@
 """K1, K2 and lanes: the chunked selective scan, forward
-(``csrc/selective_scan_fwd.cu``) and backward
+(``csrc/selective_scan_fwd.cu`` for short scans,
+``csrc/selective_scan_fwd_chunked.cu`` for long ones) and backward
 (``csrc/selective_scan_bwd.cu``), the forward with time across a warp's
 lanes (``csrc/selective_scan_lanes.cu``), and the
 ``torch.autograd.Function``s around them.
@@ -7,11 +8,12 @@ lanes (``csrc/selective_scan_lanes.cu``), and the
 K1 replaces ``_scan_kernel``, K2 ``_bwd_kernel`` and lanes
 ``_scan_kernel_lanes`` of ``fastvim_tpu/ops/pallas/selective_scan.py``.
 K1's plain version is the sequential reference
-:func:`fastvim_tpu_torch.ops.scan.selective_scan_ref`; K2's is
-:func:`selective_scan_bwd_plain`, the same adjoint written in tensor ops
-(not autograd through the forward); lanes' is
-:func:`selective_scan_fwd_lanes_plain`, the doubling scan written with
-shifts over the time axis.
+:func:`fastvim_tpu_torch.ops.scan.selective_scan_ref`, and its
+chunk-parallel form's is :func:`selective_scan_fwd_chunked_plain`, the
+same three phases in tensor ops; K2's is :func:`selective_scan_bwd_plain`,
+the same adjoint written in tensor ops (not autograd through the
+forward); lanes' is :func:`selective_scan_fwd_lanes_plain`, the doubling
+scan written with shifts over the time axis.
 """
 
 from __future__ import annotations
@@ -30,6 +32,19 @@ selective_scan_plain = selective_scan_ref
 CHUNK = 64        # steps per chunk in K1 and K2 (kChunk in csrc/)
 BWD_CHANNELS = 8  # channels per K2 block (kBwdChannels in csrc/)
 LANES_CHUNK = 128  # steps per chunk of the lanes kernel: 4 per lane
+# K1 takes its chunk-parallel form from this many steps on; shorter scans
+# (FastVim's pooled L = 128, Vim's 197 at 224 px) keep the sequential
+# kernel. Set from both forms' device times on the H100 (bf16, B = 2, d
+# 384: sequential faster at L = 256, chunked from 512 on; PERF.md §6,
+# utils/profiling.py --scan-times).
+CHUNKED_MIN_L = 512
+
+
+def fwd_route(L: int) -> str:
+    """The K1 form :func:`selective_scan_fwd` launches on the card for a
+    scan of L steps: "chunked" (``csrc/selective_scan_fwd_chunked.cu``)
+    or "sequential" (``csrc/selective_scan_fwd.cu``)."""
+    return "chunked" if L >= CHUNKED_MIN_L else "sequential"
 
 
 def _check_scan_args(name, u, delta, A, B, C, D, delta_bias):
@@ -64,14 +79,29 @@ def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     With ``save_states`` returns ``(y, states)``: states (batch,
     ceil(L / 64), d, n) float32 holds the state h on entry to each
     64-step chunk, in scan order, which K2 rebuilds h from. On the CPU
-    states is None (the plain backward needs none)."""
+    states is None (the plain backward needs none).
+
+    On CUDA one call is one K1 launch (``LAUNCHES``) of the form
+    :func:`fwd_route` picks for L; the chunked form is three device
+    kernels on the current stream."""
     if u.device.type == "cpu":
         y = selective_scan_plain(u, delta, A, B, C, D=D,
                                  delta_bias=delta_bias,
                                  delta_softplus=delta_softplus,
                                  reverse=reverse)
         return (y, None) if save_states else y
+    return _launch_fwd(fwd_route(u.shape[1]), u, delta, A, B, C, D,
+                       delta_bias, delta_softplus, reverse, save_states)
+
+
+def _launch_fwd(form: str, u, delta, A, B, C, D=None, delta_bias=None,
+                delta_softplus: bool = False, reverse: bool = False,
+                save_states: bool = False):
+    """K1 on CUDA tensors in the given form, "chunked" or "sequential",
+    whatever L is: :func:`selective_scan_fwd`'s launch, which the tests
+    and timings call to hold one form against the other."""
     name = "selective_scan_fwd"
+    chunked = {"chunked": True, "sequential": False}[form]
     kernels.check_cuda_args(name, u.device, u=u, delta=delta, A=A, B=B, C=C,
                             D=D, delta_bias=delta_bias)
     batch, L, d, n, code = _check_scan_args(name, u, delta, A, B, C, D,
@@ -81,17 +111,77 @@ def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                          f"d={d}, n={n}")
     kernels.check_aligned(name, u=u, delta=delta, B=B, C=C,
                           delta_bias=delta_bias)
+    nchunks = -(-L // CHUNK)
     out = torch.empty_like(u)
-    states = (u.new_empty(batch, -(-L // CHUNK), d, n, dtype=torch.float32)
-              if save_states else None)
-    err = _build.library().fv_selective_scan_fwd(
-        kernels.ptr(u), kernels.ptr(delta), kernels.ptr(A), kernels.ptr(B),
-        kernels.ptr(C), kernels.ptr(delta_bias), kernels.ptr(D),
-        kernels.ptr(out), kernels.ptr(states), batch, L, d, n, code,
-        int(delta_softplus), int(reverse), kernels.stream_ptr(u.device))
+    f32 = dict(dtype=torch.float32, device=u.device)
+    states = (torch.empty(batch, nchunks, d, n, **f32)
+              if save_states or chunked else None)
+    ins = tuple(map(kernels.ptr, (u, delta, A, B, C, delta_bias, D, out,
+                                  states)))
+    flags = (batch, L, d, n, code, int(delta_softplus), int(reverse),
+             kernels.stream_ptr(u.device))
+    if chunked:  # the chunks' sums of delta: phase 1 → phase 2
+        dsum = torch.empty(batch, nchunks, d, **f32)
+        err = _build.library().fv_selective_scan_fwd_chunked(
+            *ins, kernels.ptr(dsum), *flags)
+    else:
+        err = _build.library().fv_selective_scan_fwd(*ins, *flags)
     _build.check(err, name)
     kernels.LAUNCHES[name] += 1
     return (out, states) if save_states else out
+
+
+def selective_scan_fwd_chunked_plain(u, delta, A, B, C, D=None,
+                                     delta_bias=None,
+                                     delta_softplus: bool = False,
+                                     reverse: bool = False):
+    """K1's chunk-parallel form in tensor ops, fp32: L padded to whole
+    64-step chunks with identity steps (delta = 0, so a = 1 and b = 0),
+    the chunks turned into scan order, then the kernel's three phases:
+    each chunk scanned from h = 0 (h_loc) with S = Σ delta over it, the
+    state passed from chunk to chunk as h_in = exp(A·S)·h_in + h_loc, and
+    each chunk scanned again from its h_in for y. Returns ``(y, states)``
+    with y in u's dtype and states (batch, ceil(L / 64), d, n) float32,
+    the chunk-entry states in K2's layout (position order, scan-order
+    state). Same contract as :func:`selective_scan_fwd` with
+    ``save_states``; what checks the combine rule and the state layout,
+    not the reference again."""
+    batch, L, d = u.shape
+    nc = -(-L // CHUNK)
+    pad = nc * CHUNK - L
+    dt = delta.float()
+    if delta_bias is not None:
+        dt = dt + delta_bias.float()
+    if delta_softplus:
+        dt = F.softplus(dt)
+    # chunks and their steps in scan order: the flip is its own inverse
+    order = lambda t: t.flip(1, 2) if reverse else t
+    to_scan = lambda t: order(F.pad(t.float(), (0, 0, 0, pad))
+                              .reshape(batch, nc, CHUNK, t.shape[-1]))
+    dt_s, u_s, B_s, C_s = map(to_scan, (dt, u, B, C))  # (b, nc, CHUNK, ·)
+    A32 = A.float()
+    a = torch.exp(dt_s[..., None] * A32)             # (b, nc, CHUNK, d, n)
+    x = (dt_s * u_s)[..., None] * B_s[:, :, :, None, :]
+
+    h_loc = a.new_zeros(batch, nc, d, A.shape[1])  # phase 1
+    for k in range(CHUNK):
+        h_loc = a[:, :, k] * h_loc + x[:, :, k]
+    decay = torch.exp(dt_s.sum(2)[..., None] * A32)  # (b, nc, d, n)
+    entry = torch.empty_like(h_loc)  # phase 2
+    h = torch.zeros_like(h_loc[:, 0])
+    for c in range(nc):
+        entry[:, c] = h
+        h = decay[:, c] * h + h_loc[:, c]
+    hs, h = torch.empty_like(a), entry  # phase 3
+    for k in range(CHUNK):
+        h = a[:, :, k] * h + x[:, :, k]
+        hs[:, :, k] = h
+    y = (hs * C_s[:, :, :, None, :]).sum(-1)  # (b, nc, CHUNK, d)
+    if D is not None:
+        y = y + D.float() * u_s
+    y = order(y).reshape(batch, nc * CHUNK, d)[:, :L]
+    states = entry.flip(1) if reverse else entry
+    return y.to(u.dtype), states.contiguous()
 
 
 # ----------------------------------------------------------------------

@@ -15,7 +15,11 @@ the host's launches in the way. With ``--fwd-times`` / ``--bwd-times`` it
 instead times K3 and K4 / K5 and K6 alone (bf16, CUDA events, both
 orientations) at the model's widths and grid, and with ``--bwd-phases``
 it builds the kernels with their cycle counters compiled in and prints
-where a block of K5 and of K6 spends its cycles.
+where a block of K5 and of K6 spends its cycles. ``--scan-times`` times
+K1's two forms, sequential and chunked, in turns on the same inputs at
+L = 128 to 16,384 (bf16, B = 2, d_inner 384, n 16, both
+directions), and names the form the launcher picks at each length: what
+sets ``selective_scan.CHUNKED_MIN_L``.
 
 It needs a CUDA device; nothing here falls back to the CPU.
 """
@@ -31,7 +35,10 @@ import torch
 
 # the port's own kernels, by a piece of their C++ name; checked in order
 KERNEL_GROUPS = (
-    ("K1 scan fwd", "scan_fwd_kernel"), ("K2 scan bwd", "scan_bwd_kernel"),
+    ("K1 scan fwd", "scan_fwd_kernel"),
+    ("K1 scan fwd, chunked (phases 1, 3)", "scan_chunk_kernel"),
+    ("K1 scan fwd, chunked (phase 2)", "state_pass_kernel"),
+    ("K2 scan bwd", "scan_bwd_kernel"),
     ("K5 pass B bwd (main)", "pass_b_bwd"),
     ("K6 pass A bwd (main)", "pass_a_bwd_wgmma"),
     ("K6 pass A bwd, fp32 (conv adjoint)", "pass_a_bwd_conv"),
@@ -145,6 +152,14 @@ def _fwd_args(dm: int, di: int, grid: int, batch: int, transposed: bool):
             a_args[:1] + a_args[6:])
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 def _event_ms(fn, args, iters: int) -> float:
     fn(*args)
     torch.cuda.synchronize()
@@ -175,6 +190,55 @@ def kernel_times(dm: int, di: int, grid: int, batch: int, fwd: bool,
         print(f"bf16 d_model={dm} d_inner={di} grid={grid}x{grid} B={batch} "
               f"transposed={transposed}: {names[0]} {ms[0]:.4f} ms, "
               f"{names[1]} {ms[1]:.4f} ms")
+
+
+def scan_times(lengths=(128, 256, 512, 1024, 4096, 16384), batch: int = 2,
+               d: int = 384, n: int = 16) -> None:
+    """Print one K1 call's times in each form (bf16) at each length and
+    direction, with the form ``fwd_route`` picks: the device time of its
+    kernels (``torch.profiler``), which sets the route, and the time per
+    call with CUDA events over a run of calls after a warm-up one, which
+    at short L is the host's enqueue time. The forms run in turns on the
+    same inputs (sequential, chunked, chunked, sequential; each form's two
+    readings printed). The calls are the forward's: softplus, delta_bias
+    and D, no states asked for (the chunked form writes them all the
+    same)."""
+    from fastvim_tpu_torch.ops.kernels import selective_scan as ss
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    uni = lambda *s: torch.rand(*s, generator=g, device=dev) * 2 - 1
+    A, bias, D = -torch.exp(uni(d, n)), 0.5 * uni(d), uni(d)
+    print(card_line(), flush=True)
+    for L in lengths:
+        rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev)
+                                     * scale).to(torch.bfloat16)
+        args = (rnd(batch, L, d), rnd(batch, L, d, scale=0.5), A,
+                rnd(batch, L, n), rnd(batch, L, n))
+        iters = max(10, 2 ** 19 // L)
+        for reverse in (False, True):
+            dev_ms = {"sequential": [], "chunked": []}
+            ev_ms = {"sequential": [], "chunked": []}
+            with torch.no_grad():
+                for route in ("sequential", "chunked", "chunked",
+                              "sequential"):
+                    fn = lambda: ss._launch_fwd(
+                        route, *args, D=D, delta_bias=bias,
+                        delta_softplus=True, reverse=reverse)
+                    rows, busy, _ = device_time_by_kernel(fn, 1, 5)
+                    dev_ms[route].append(busy)
+                    ev_ms[route].append(_event_ms(fn, (), iters))
+                    if route == "chunked":  # its last profile, by phase
+                        phases = ", ".join(
+                            f"{name} {ms:.4f}"
+                            for name, (ms, _) in group_rows(rows).items())
+            show = lambda m: " / ".join(f"{v:.4f}" for v in m)
+            print(f"K1 bf16 B={batch} L={L} d={d} n={n} reverse={reverse}: "
+                  f"device ms sequential {show(dev_ms['sequential'])}, "
+                  f"chunked {show(dev_ms['chunked'])} ({phases}); ms a call "
+                  f"sequential {show(ev_ms['sequential'])}, chunked "
+                  f"{show(ev_ms['chunked'])}; the launcher takes "
+                  f"{ss.fwd_route(L)}", flush=True)
 
 
 def bwd_phase_cycles(dm: int, di: int, grid: int, batch: int) -> None:
@@ -250,9 +314,14 @@ def main() -> None:
                     help="time K5 and K6 alone at the model's widths")
     ap.add_argument("--bwd-phases", action="store_true",
                     help="cycles per phase of K5 and K6 at the model's widths")
+    ap.add_argument("--scan-times", action="store_true",
+                    help="time K1's sequential and chunked forms at "
+                         "L = 128 to 16,384")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")
+    if args.scan_times:
+        return scan_times()
     if args.graph and args.train:
         raise SystemExit("profiling: --graph captures a forward only")
     if args.bwd_phases or args.bwd_times or args.fwd_times:
@@ -297,10 +366,7 @@ def main() -> None:
                 return model(batch["image"])
 
     rows, busy_ms, wall_ms = device_time_by_kernel(fn)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     what = ("train step" if args.train
             else "forward, CUDA-graph replay" if args.graph else "forward")
     print(f"{args.model} {args.img}px B={args.batch} {args.dtype} {what} "

@@ -113,6 +113,82 @@ def test_scan_bwd_kernel_matches_plain(dev, dtype, L, n, reverse, batch,
                4)
 
 
+def _scan_args(g, dtype, batch, L, d, n, extras=True):
+    ins = (_rand(g, batch, L, d).to(dtype),
+           _rand(g, batch, L, d, scale=0.5).to(dtype),
+           -torch.exp(_rand(g, d, n, scale=0.5)),
+           _rand(g, batch, L, n).to(dtype), _rand(g, batch, L, n).to(dtype))
+    kw = dict(D=_rand(g, d) if extras else None,
+              delta_bias=_rand(g, d, scale=0.3) if extras else None)
+    return ins, kw
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype,L,n,batch,d", [
+    (dt, *shape) for dt in DTYPES for shape in (
+        (65, 16, 2, 64),     # one full chunk and one step
+        (200, 8, 3, 36),     # a partial last chunk; d not a multiple of 64
+        (1024, 16, 2, 64),   # 16 chunks
+        (4096, 8, 2, 96))
+] + [(torch.float32, 16385, 16, 1, 64)])  # Vim's middle-cls-token length
+def test_scan_chunked_matches_plain(dev, dtype, L, n, batch, d, reverse):
+    """K1's chunked form against its plain version (y and the chunk-entry
+    states) and against the sequential kernel's states."""
+    g = torch.Generator(device=dev).manual_seed(L + n)
+    ins, kw = _scan_args(g, dtype, batch, L, d, n, extras=L != 200)
+    with torch.no_grad():
+        y, states = ss._launch_fwd(
+            "chunked", *ins, **kw, delta_softplus=True, reverse=reverse,
+            save_states=True)
+        want_y, want_states = ss.selective_scan_fwd_chunked_plain(
+            *ins, kw["D"], kw["delta_bias"], True, reverse)
+        _, seq_states = ss._launch_fwd(
+            "sequential", *ins, **kw, delta_softplus=True, reverse=reverse,
+            save_states=True)
+    _close(y, want_y, TOL[dtype])
+    _close(states, want_states, TOL[torch.float32])
+    _close(states, seq_states, TOL[torch.float32])
+
+
+def test_scan_chunked_is_the_long_route_and_repeatable(dev):
+    """From CHUNKED_MIN_L steps on the launcher takes the chunked form
+    (one counted launch a call), and it gives the same bits every run."""
+    assert ss.fwd_route(ss.CHUNKED_MIN_L) == "chunked"
+    g = torch.Generator(device=dev).manual_seed(5)
+    ins, kw = _scan_args(g, torch.bfloat16, 2, 4096, 64, 16)
+    kw.update(delta_softplus=True, reverse=True, save_states=True)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        first = ss.selective_scan_fwd(*ins, **kw)
+        assert kernels.launch_counts()["selective_scan_fwd"] == 1
+        for _ in range(3):
+            again = ss._launch_fwd("chunked", *ins, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_bwd_from_chunked_states(dev, dtype, reverse):
+    """K2 rebuilding h from the states the chunked form saved (L long
+    enough for the launcher to take it, a partial last chunk) gives the
+    plain adjoint."""
+    L = ss.CHUNKED_MIN_L + 37
+    assert ss.fwd_route(L) == "chunked"
+    g = torch.Generator(device=dev).manual_seed(L + reverse)
+    ins, kw = _scan_args(g, dtype, 2, L, 64, 16)
+    ins = ins + (kw["D"], kw["delta_bias"])
+    gy = _rand(g, 2, L, 64).to(dtype)
+    with torch.no_grad():
+        _, states = ss.selective_scan_fwd(
+            *ins[:5], D=ins[5], delta_bias=ins[6], delta_softplus=True,
+            reverse=reverse, save_states=True)
+        got = ss.selective_scan_bwd(*ins, gy, states, True, reverse)
+        want = ss.selective_scan_bwd_plain(*ins, gy, True, reverse)
+    order = (0, 1, 3, 4, 2, 5, 6)  # du, ddelta, dB, dC per step; then sums
+    _close_all([got[i] for i in order], [want[i] for i in order], TOL[dtype],
+               4)
+
+
 def test_scan_function_grads_match_cpu(dev):
     """selective_scan on CUDA tensors that require grad goes through K1
     (with states) and K2, and gives the CPU's gradients."""
