@@ -14,11 +14,13 @@ Phases, each of which raises on failure (exit code non-zero):
    main path's shapes, in fp32 and bf16, and time both; K3-K6 also at
    FastVim-S's widths (d_model 384, d_inner 768, grid 128 × 128, batch 2,
    both orientations), each timed beside its bound and with the number of
-   device kernels one call launches (counted by a child process under
-   ``torch.profiler``); K1 in both of its forms, sequential (L = 128)
+   device kernels one call launches (counted by a child process from a
+   CUDA graph of one call); K1 in both of its forms, sequential (L = 128)
    and chunked (Vim-T's L = 16,384 and 16,385, also held against its own
    plain version and the sequential kernel, y and the saved states),
-   with the form the launcher picks at each length;
+   with the form the launcher picks at each length; K2 likewise, in its
+   sequential (L = 128) and chunked (L = 16,384 and 16,385) forms, all
+   seven gradients;
 3. build ``fastvim_tiny`` and ``vim_tiny`` at 224 px, full width, fp32,
    from one seed, and compare their logits, then their loss and every
    parameter's gradient, on the card (kernels) with the same models on
@@ -72,6 +74,7 @@ import math
 import subprocess
 import sys
 import time
+from functools import partial
 
 FP32_TOL = 1e-4  # |got - want| <= tol + tol·|want|: fp32 sums in another order
 BF16_TOL = 2e-2  # ≈ 5 bf16 ulps: the outputs are rounded to bf16 on both sides
@@ -159,10 +162,11 @@ def cuda_ms(fn, iters: int, windows: int = 1) -> float:
 def count_launches() -> int:
     """``chip_smoke.py --count-launches``: print, as JSON, how many device
     kernels (copies included) one call of K3, K4, K5 and K6 launches in
-    bf16 and in fp32, from a ``torch.profiler`` trace of a small call, and
-    one call of K1 in each of its forms at L = 128 and 16,384 in bf16. It
-    runs as a process of its own (see :func:`launches_per_call`), so that
-    the profiler's hooks never sit under a timed phase."""
+    bf16 and in fp32, from a CUDA graph captured from a small call, and
+    one call of K1 and of K2 in each of their forms at L = 128 and 16,384
+    in bf16. It runs as a process of its own (see
+    :func:`launches_per_call`), so that its captures and their memory
+    pools never sit under a timed phase."""
     import torch
 
     from fastvim_tpu_torch.ops.kernels import layer_fused as lf
@@ -195,7 +199,7 @@ def count_launches() -> int:
                 rnd(di, 4), rnd(di), 1.0, False): lf.pass_a_bwd(*a)}
         for name, fn in calls.items():
             out.setdefault(name, {})[str(dtype)] = kernels_a_call(fn)
-    # K1 in both forms at FastVim's and Vim-T's lengths, bf16
+    # K1 and K2 in both forms at FastVim's and Vim-T's lengths, bf16
     from fastvim_tpu_torch.ops.kernels import selective_scan as ss
 
     d, n = 384, 16
@@ -203,49 +207,93 @@ def count_launches() -> int:
     for L in (128, 16384):
         args = [rnd(2, L, c).bfloat16() for c in (d, d, n, n)]
         args.insert(2, A)
+        _, states = ss.selective_scan_fwd(*args, delta_bias=bias,
+                                          delta_softplus=True,
+                                          save_states=True)
+        gy = rnd(2, L, d).bfloat16()
         for route in ("sequential", "chunked"):
             out[f"selective_scan_fwd L={L} {route}"] = kernels_a_call(
                 lambda: ss._launch_fwd(route, *args, delta_bias=bias,
                                        delta_softplus=True))
+            out[f"selective_scan_bwd L={L} {route}"] = kernels_a_call(
+                lambda: ss._launch_bwd(route, *args, None, bias, gy, states,
+                                       True))
     print(json.dumps(out), flush=True)
     return 0
 
 
-def kernels_a_call(fn) -> float:
-    """Device kernels (and copies) one call of ``fn`` launches: a
-    torch.profiler trace of 4 calls after a warm-up one."""
+def kernels_a_call(fn) -> int:
+    """Device kernels (and copies) one call of ``fn`` launches: the
+    kernel, memcpy and memset nodes of a CUDA graph captured from one call
+    after a warm-up one, read through the driver API while the capture is
+    open. It does not depend on CUPTI tracing, as a profiler trace
+    does."""
+    import ctypes
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUresult {rc}")
 
     with torch.no_grad():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(4):
-                fn()
-            torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages()
-               if str(ev.device_type).endswith("CUDA")
-               and (getattr(ev, "self_device_time_total", 0)
-                    or getattr(ev, "self_cuda_time_total", 0)) > 0) / 4
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            fn()
+            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+            status, cid = ctypes.c_int(), ctypes.c_uint64()
+            cugraph, deps = ctypes.c_void_p(), ctypes.c_void_p()
+            ndeps, nnodes = ctypes.c_size_t(), ctypes.c_size_t()
+            check(cu.cuStreamGetCaptureInfo_v2(
+                stream, ctypes.byref(status), ctypes.byref(cid),
+                ctypes.byref(cugraph), ctypes.byref(deps),
+                ctypes.byref(ndeps)), "cuStreamGetCaptureInfo_v2")
+            if status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+                raise RuntimeError(f"stream not capturing ({status.value})")
+            check(cu.cuGraphGetNodes(cugraph, None, ctypes.byref(nnodes)),
+                  "cuGraphGetNodes")
+            nodes = (ctypes.c_void_p * nnodes.value)()
+            check(cu.cuGraphGetNodes(cugraph, nodes, ctypes.byref(nnodes)),
+                  "cuGraphGetNodes")
+            kinds = []
+            for node in nodes:
+                kind = ctypes.c_int()
+                check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                            ctypes.byref(kind)),
+                      "cuGraphNodeGetType")
+                kinds.append(kind.value)
+        del graph
+    # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET
+    return sum(kind in (0, 1, 2) for kind in kinds)
 
 
 def launches_per_call() -> dict:
     """{kernel: {dtype: device kernels a call launches}} for K3-K6, and
-    {"selective_scan_fwd L=<L> <form>": device kernels} for K1, counted by
-    a child process (the library is built by then). K1's chunked form must
-    be its three phases and the sequential form one kernel."""
+    {"selective_scan_fwd L=<L> <form>": device kernels} for K1 and the
+    same for K2 (``selective_scan_bwd``), counted by a child process (the
+    library is built by then). K1's chunked form must be its three phases
+    and the sequential form one kernel; K2's chunked form its three phases
+    and three fixed-order sums, the sequential form one kernel and the
+    same sums."""
     run = subprocess.run([sys.executable, __file__, "--count-launches"],
                          capture_output=True, text=True, timeout=300)
     if run.returncode != 0:
         raise RuntimeError(f"--count-launches failed: {run.stderr[-2000:]}")
     counts = json.loads(run.stdout.strip().splitlines()[-1])
     for L in (128, 16384):
-        for form, want in (("sequential", 1), ("chunked", 3)):
-            got = counts[f"selective_scan_fwd L={L} {form}"]
+        for kernel, form, want in (
+                ("selective_scan_fwd", "sequential", 1),
+                ("selective_scan_fwd", "chunked", 3),
+                ("selective_scan_bwd", "sequential", 4),
+                ("selective_scan_bwd", "chunked", 6)):
+            got = counts[f"{kernel} L={L} {form}"]
             if got != want:
-                raise AssertionError(f"selective_scan_fwd {form} L={L}: {got}"
-                                     f" device kernels a call, not {want}")
+                raise AssertionError(f"{kernel} {form} L={L}: {got} device "
+                                     f"kernels a call, not {want}")
     return counts
 
 
@@ -427,11 +475,22 @@ def check_bwd_kernels(dev, card, per_call):
 
     # K2: the pooled scans of a FastVim-T train step at 2048 px (L = 128,
     # batch 3) and Vim-T's full-length scans (L = 16,384; 16,385 is the
-    # ragged last chunk of the middle-cls-token model)
+    # ragged last chunk of the middle-cls-token model), the launcher
+    # against the plain version: its error and its L = 128 time are the
+    # kernels line's. The launcher takes the sequential form at L = 128 and
+    # the chunked one at Vim-T's lengths; there the chunked form is also
+    # held against its plain version (the same three phases in tensor ops)
+    # and against the sequential kernel on the same inputs, and both forms
+    # are timed in the [time] line of each length
     d, n = 384, 16
     A = -torch.exp(uni(d, n, bound=1.0))
     bias, D = uni(d, bound=0.5), uni(d, bound=1.0)
+    order = (0, 1, 3, 4, 2, 5, 6)  # du, ddelta, dB, dC per step; then sums
+    pick = lambda grads: [grads[i] for i in order]
+    chunked_err = 0.0
     for L, batch in ((128, 3), (16384, 2), (16385, 1)):
+        route = ss.bwd_route(L)
+        log(f"[route] selective_scan_bwd L={L}: {route}")
         base = dict(u=rnd(batch, L, d), delta=rnd(batch, L, d, scale=0.5),
                     B=rnd(batch, L, n), C=rnd(batch, L, n),
                     g=rnd(batch, L, d))
@@ -443,6 +502,7 @@ def check_bwd_kernels(dev, card, per_call):
             t = {k: v.to(dtype) for k, v in base.items()}
             ins = (t["u"], t["delta"], A, t["B"], t["C"], D, bias)
             for reverse in (False, True):
+                tag = f"L={L} B={batch} {dtype} reverse={reverse}"
                 _, states = ss.selective_scan_fwd(
                     *ins[:5], D=D, delta_bias=bias, delta_softplus=True,
                     reverse=reverse, save_states=True)
@@ -452,29 +512,48 @@ def check_bwd_kernels(dev, card, per_call):
                                                    reverse)
                 # du, ddelta, dB, dC per step first; dA, dD, dbias are
                 # summed over every step of every batch element
-                order = (0, 1, 3, 4, 2, 5, 6)
-                e = compare_all(f"selective_scan_bwd L={L} B={batch} {dtype} "
-                                f"reverse={reverse}", [got[i] for i in order],
-                                [want[i] for i in order], tol, 4)
+                e = compare_all(f"selective_scan_bwd {tag}", pick(got),
+                                pick(want), tol, 4)
                 errs["selective_scan_bwd"] = max(errs["selective_scan_bwd"],
                                                  e)
+                del want
+                if L == 128:
+                    continue
+                for what, fn in (
+                        ("plain", ss.selective_scan_bwd_chunked_plain),
+                        ("sequential", partial(ss._launch_bwd, "sequential"))):
+                    chunked_err = max(chunked_err, compare_all(
+                        f"selective_scan_bwd chunked vs {what} {tag}",
+                        pick(got), pick(fn(*ins, t["g"], states, True,
+                                           reverse)), tol, 4))
+                torch.cuda.empty_cache()
             if bf and L != 16385:
                 kern = lambda: ss.selective_scan_bwd(*ins, t["g"], states,
                                                      True, True)
+                other = "chunked" if route == "sequential" else "sequential"
+                alt = lambda: ss._launch_bwd(other, *ins, t["g"], states,
+                                             True, True)
                 plain = lambda: ss.selective_scan_bwd_plain(*ins, t["g"],
                                                             True, True)
                 k_ms = cuda_ms(kern, 100 if L == 128 else 3)
+                o_ms = cuda_ms(alt, 100 if L == 128 else 3)
                 p_ms = cuda_ms(plain, 2 if L == 128 else 1)
                 # per (b, t, d, n): h rebuilt (6), lam and the products (14)
                 b_ms, by = bound(nbytes(*ins, t["g"], states, *got),
                                  20.0 * batch * L * d * n, "fp32")
+                per = lambda r: per_call[f"selective_scan_bwd L={L} {r}"]
                 log(f"[time] selective_scan_bwd bf16 B={batch} L={L} d={d}: "
-                    f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                    f"{b_ms:.4f} ms ({by}) ({card})")
+                    f"kernel ({route}, {per(route):g} launches) {k_ms:.4f} "
+                    f"ms, {other} ({per(other):g} launches) {o_ms:.4f} ms, "
+                    f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) "
+                    f"({card})")
                 times.setdefault("selective_scan_bwd", (k_ms, p_ms, b_ms, by))
-            del got, want, states
+            del got, states
         del base, t
         torch.cuda.empty_cache()
+    log(f"[check] selective_scan_bwd chunked form at L = 16,384 and 16,385: "
+        f"max abs err {chunked_err:.3g} against its plain version and the "
+        f"sequential kernel")
 
     # K5 / K6 at FastVim-T's widths (the main path: 2048 px, batch 3) and
     # FastVim-S's (batch 2): grid 128×128 (2048 px) and 14×14 (224 px)
@@ -1140,9 +1219,9 @@ def main() -> int:
         launches[name] += count
 
     # each kernel's files: the main path's (bf16) kernel, then the fp32
-    # route, the C entry points and the headers they include (K1: the
-    # sequential form, timed at FastVim's L = 128, then the chunked one,
-    # which the launcher takes at Vim-T's L = 16,384)
+    # route, the C entry points and the headers they include (K1 and K2:
+    # the sequential form, timed at FastVim's L = 128, then the chunked
+    # one, which the launcher takes at Vim-T's L = 16,384)
     src = "fastvim_tpu_torch/ops/kernels/csrc/"
     fwd = ("layer_fused_fwd.cu", "layer_fused_fwd.cuh", "layer_fused.cuh",
            "wgmma.cuh")
@@ -1150,9 +1229,10 @@ def main() -> int:
            "wgmma.cuh")
     table = [
         ("selective_scan_fwd", "selective_scan_fwd.cu",
-         ("selective_scan_fwd_chunked.cu",),
+         ("selective_scan_fwd_chunked.cu", "scan_chunked.cuh"),
          "fastvim_tpu/ops/pallas/selective_scan.py:79"),
-        ("selective_scan_bwd", "selective_scan_bwd.cu", (),
+        ("selective_scan_bwd", "selective_scan_bwd.cu",
+         ("selective_scan_bwd_chunked.cu", "scan_chunked.cuh"),
          "fastvim_tpu/ops/pallas/selective_scan.py:294"),
         ("pass_a_fwd", "layer_fused_fwd_wgmma.cu", fwd,
          "fastvim_tpu/ops/pallas/layer_fused.py:303"),

@@ -35,6 +35,11 @@ SIGNATURES = {
     # u, delta, A, B, C, bias, D, g, states, du, ddelta, dbc_part, vec_part,
     # dB, dC, vec, batch, L, d, n, dtype, softplus, reverse, stream
     "fv_selective_scan_bwd": [_P] * 16 + [_I] * 7 + [_P],
+    # the same with carry and dsum (scratch of the chunk-parallel form)
+    # after vec
+    "fv_selective_scan_bwd_chunked": [_P] * 18 + [_I] * 7 + [_P],
+    # blocks (one int, out), dtype, n: the chunked form's phase-3 residency
+    "fv_selective_scan_bwd_chunked_occupancy": [_P, _I, _I],
     # x, w_x, b_x, w_cf, b_cf, w_ab, b_ab, xc_f, xc_b, pf, pb, batch, H, W,
     # dm, di, transposed, dtype, scaling, stream
     "fv_pass_a_fwd": [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P],

@@ -7,10 +7,11 @@
 //   delta = softplus(delta + bias);  a = exp(delta * A[d, :]);
 //   h = a * h + delta * u * B[t, :];  y[t] = <h, C[t, :]> (+ D * u)
 // left to right, or right to left for reverse=1, and h on entry to each
-// 64-step chunk into `states`, the contract K2 (selective_scan_bwd.cu)
-// reads: (batch, ceil(L / 64), d, n) fp32, indexed by the chunk's position
-// in the original order, holding h on entry in scan order. With reverse
-// the last chunk, which may be partial, is scanned first from h = 0.
+// 64-step chunk into `states`, the contract K2 (selective_scan_bwd.cu,
+// selective_scan_bwd_chunked.cu) reads: (batch, ceil(L / 64), d, n) fp32,
+// indexed by the chunk's position in the original order, holding h on
+// entry in scan order. With reverse the last chunk, which may be partial,
+// is scanned first from h = 0.
 //
 // What bounds the sequential form on the H100 is the latency of its L-step
 // chain: one thread per (batch, channel, state) walks all of L, 192 blocks
@@ -27,7 +28,8 @@
 //      order, h_in = exp(A·S[c])·h_in + h_loc[c], writing h_in into
 //      states[c] in place before the update. A chain of nchunks
 //      multiply-adds (256 at L = 16,384); the loads and the exponentials do
-//      not depend on it and are started a group of chunks ahead.
+//      not depend on it and are started a group of chunks ahead. The
+//      kernel lives in scan_chunked.cuh: K2's chunked adjoint runs it too.
 //   3. outputs: each (batch, chunk, channel) starts from states[c] and
 //      scans its chunk again, writing y with the D·u skip.
 // At Vim-T's shapes phases 1 and 3 have 2 · 256 · 384 independent
@@ -56,25 +58,12 @@
 // ms, phases 1 + 3 taking 0.176 ms of it and phase 2 0.029 ms, which
 // then got its loads a group ahead too.
 
-#include "common.cuh"
+#include "scan_chunked.cuh"
 
 namespace {
 
-constexpr int kChunk = 64;         // steps per chunk (CHUNK in Python, K2's)
 constexpr int kThreads = 64;       // channels per block, phases 1 and 3
 constexpr int kGroup = 8;          // steps whose u, delta loads go together
-constexpr int kPassThreads = 64;   // (channel, state) pairs per block, phase 2
-constexpr int kPassGroup = 32;     // chunks whose loads phase 2 starts together
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the MUFU unit, a result below 2^-126 flushed to 0: one
-// instruction where exp2f adds the scaling for subnormal results, which
-// a decaying state never needs
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Phases 1 (kOut = false) and 3 (kOut = true). Grid (d / 64 rounded up,
 // nchunks, batch); thread = one channel of one chunk, n states.
@@ -192,55 +181,6 @@ scan_chunk_kernel(const T* __restrict__ u, const T* __restrict__ delta,
   }
 }
 
-// Phase 2. Grid (d · n / 64 rounded up, batch); thread = one (channel,
-// state) pair, walking the chunks in scan order. The next group's loads
-// start before this group's chain and stores (other chunks, so the
-// order is free), and the exponentials wait for nothing but them.
-__global__ void __launch_bounds__(kPassThreads)
-state_pass_kernel(const float* __restrict__ A, float* __restrict__ states,
-                  const float* __restrict__ dsum, int nchunks, int d, int n,
-                  bool reverse) {
-  const int i = blockIdx.x * kPassThreads + threadIdx.x;  // c · n + s
-  if (i >= d * n) return;
-  const size_t b = blockIdx.y;
-  const size_t dn = static_cast<size_t>(d) * n;
-  float* st = states + b * nchunks * dn + i;
-  const float* sm = dsum + b * nchunks * d + i / n;
-  const float a2 = A[i] * kLog2e;
-  const auto chunk = [&](int k) -> size_t {  // k-th in scan order, clamped
-    k = min(k, nchunks - 1);
-    return reverse ? nchunks - 1 - k : k;
-  };
-  // h_loc and the sum of delta of a group of chunks, fetched a group ahead
-  float hl[kPassGroup], S[kPassGroup];
-  float hl_next[kPassGroup], S_next[kPassGroup];
-  const auto fetch = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < kPassGroup; ++j) {
-      const size_t cc = chunk(k0 + j);
-      hl_next[j] = st[cc * dn];
-      S_next[j] = sm[cc * d];
-    }
-  };
-  fetch(0);
-  float h = 0.f;
-  for (int k0 = 0; k0 < nchunks; k0 += kPassGroup) {
-#pragma unroll
-    for (int j = 0; j < kPassGroup; ++j) {
-      hl[j] = hl_next[j];
-      S[j] = S_next[j];
-    }
-    fetch(k0 + kPassGroup);
-#pragma unroll
-    for (int j = 0; j < kPassGroup; ++j) {
-      if (k0 + j < nchunks) {
-        st[chunk(k0 + j) * dn] = h;  // h on entry to the chunk
-        h = fmaf(ex2(a2 * S[j]), h, hl[j]);
-      }
-    }
-  }
-}
-
 template <typename T, int N, bool kOut>
 cudaError_t launch_chunks(dim3 grid, const void* u, const void* delta,
                           const void* A, const void* B, const void* C,
@@ -269,11 +209,7 @@ cudaError_t launch(const void* u, const void* delta, const void* A,
       grid, u, delta, A, B, C, bias, D, out, states, dsum, L, d, softplus,
       reverse, stream);
   if (err != cudaSuccess) return err;
-  const dim3 pgrid((d * N + kPassThreads - 1) / kPassThreads, batch);
-  state_pass_kernel<<<pgrid, kPassThreads, 0, stream>>>(
-      static_cast<const float*>(A), static_cast<float*>(states),
-      static_cast<const float*>(dsum), nchunks, d, N, reverse);
-  err = cudaGetLastError();
+  err = state_pass(A, states, dsum, batch, nchunks, d, N, reverse, stream);
   if (err != cudaSuccess) return err;
   return launch_chunks<T, N, true>(grid, u, delta, A, B, C, bias, D, out,
                                    states, dsum, L, d, softplus, reverse,

@@ -1,8 +1,9 @@
 """K1, K2 and lanes: the chunked selective scan, forward
 (``csrc/selective_scan_fwd.cu`` for short scans,
 ``csrc/selective_scan_fwd_chunked.cu`` for long ones) and backward
-(``csrc/selective_scan_bwd.cu``), the forward with time across a warp's
-lanes (``csrc/selective_scan_lanes.cu``), and the
+(``csrc/selective_scan_bwd.cu`` for short scans,
+``csrc/selective_scan_bwd_chunked.cu`` for long ones), the forward with
+time across a warp's lanes (``csrc/selective_scan_lanes.cu``), and the
 ``torch.autograd.Function``s around them.
 
 K1 replaces ``_scan_kernel``, K2 ``_bwd_kernel`` and lanes
@@ -12,8 +13,10 @@ K1's plain version is the sequential reference
 chunk-parallel form's is :func:`selective_scan_fwd_chunked_plain`, the
 same three phases in tensor ops; K2's is :func:`selective_scan_bwd_plain`,
 the same adjoint written in tensor ops (not autograd through the
-forward); lanes' is :func:`selective_scan_fwd_lanes_plain`, the doubling
-scan written with shifts over the time axis.
+forward), and its chunk-parallel form's is
+:func:`selective_scan_bwd_chunked_plain`; lanes' is
+:func:`selective_scan_fwd_lanes_plain`, the doubling scan written with
+shifts over the time axis.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ selective_scan_plain = selective_scan_ref
 
 CHUNK = 64        # steps per chunk in K1 and K2 (kChunk in csrc/)
 BWD_CHANNELS = 8  # channels per K2 block (kBwdChannels in csrc/)
+BWD_SLOT = 32     # channels per dB/dC partial of chunked K2 (kSlot in csrc/)
 LANES_CHUNK = 128  # steps per chunk of the lanes kernel: 4 per lane
 # K1 takes its chunk-parallel form from this many steps on; shorter scans
 # (FastVim's pooled L = 128, Vim's 197 at 224 px) keep the sequential
@@ -38,6 +42,13 @@ LANES_CHUNK = 128  # steps per chunk of the lanes kernel: 4 per lane
 # 384: sequential faster at L = 256, chunked from 512 on; PERF.md §6,
 # utils/profiling.py --scan-times).
 CHUNKED_MIN_L = 512
+# K2 takes its chunk-parallel form from this many steps on: its sequential
+# form walks two chains a chunk, so the crossover comes earlier than K1's.
+# Set from both forms' device times on the H100 (bf16, B = 2, d 384:
+# sequential 0.030 against chunked 0.046 ms at L = 128, 0.052 against
+# 0.047 at 256; PERF.md §6, utils/profiling.py --scan-times). FastVim's
+# pooled L = 128 keeps the sequential kernel.
+CHUNKED_BWD_MIN_L = 256
 
 
 def fwd_route(L: int) -> str:
@@ -45,6 +56,13 @@ def fwd_route(L: int) -> str:
     scan of L steps: "chunked" (``csrc/selective_scan_fwd_chunked.cu``)
     or "sequential" (``csrc/selective_scan_fwd.cu``)."""
     return "chunked" if L >= CHUNKED_MIN_L else "sequential"
+
+
+def bwd_route(L: int) -> str:
+    """The K2 form :func:`selective_scan_bwd` launches on the card for a
+    scan of L steps: "chunked" (``csrc/selective_scan_bwd_chunked.cu``)
+    or "sequential" (``csrc/selective_scan_bwd.cu``)."""
+    return "chunked" if L >= CHUNKED_BWD_MIN_L else "sequential"
 
 
 def _check_scan_args(name, u, delta, A, B, C, D, delta_bias):
@@ -315,6 +333,75 @@ def selective_scan_bwd_plain(u, delta, A, B, C, D, delta_bias, g,
             (g32 * u32).sum((0, 1)), ddelta.sum((0, 1)))
 
 
+def selective_scan_bwd_chunked_plain(u, delta, A, B, C, D, delta_bias, g,
+                                     states, delta_softplus: bool = False,
+                                     reverse: bool = False) -> ScanGrads:
+    """K2's chunk-parallel form in tensor ops, fp32: L padded to whole
+    64-step chunks with identity steps (delta = 0, so a = 1, and u = g =
+    B = C = 0), the chunks turned into scan order, then the kernel's three
+    phases: each chunk's λ run against scan order from a zero carry (its
+    summary, a·λ out of its first step, and S = Σ delta over it), the
+    carry passed from chunk to chunk against scan order as carry_in =
+    exp(A·S)·carry_in + summary, and each chunk again, h rebuilt from
+    ``states`` (K1's chunk-entry states: (batch, ceil(L / 64), d, n),
+    position order, scan-order entry) and λ from its carry_in, for the
+    gradients. Same contract as :func:`selective_scan_bwd_plain`; what
+    checks the carry pass and the use of the states, not the adjoint
+    again."""
+    batch, L, d = u.shape
+    nc = -(-L // CHUNK)
+    pad = nc * CHUNK - L
+    dt_in = delta.float()
+    if delta_bias is not None:
+        dt_in = dt_in + delta_bias.float()
+    dt = F.softplus(dt_in) if delta_softplus else dt_in
+    sig = torch.sigmoid(dt_in) if delta_softplus else torch.ones_like(dt_in)
+    # chunks and their steps in scan order: the flip is its own inverse
+    order = lambda t: t.flip(1, 2) if reverse else t
+    to_scan = lambda t: order(F.pad(t.float(), (0, 0, 0, pad))
+                              .reshape(batch, nc, CHUNK, t.shape[-1]))
+    dt_s, u_s, g_s, B_s, C_s = map(to_scan, (dt, u, g, B, C))
+    A32 = A.float()
+    a = torch.exp(dt_s[..., None] * A32)             # (b, nc, CHUNK, d, n)
+    x = dt_s * u_s
+    cg = g_s[..., None] * C_s[:, :, :, None, :]      # C·g
+
+    out = a.new_zeros(batch, nc, d, A.shape[1])  # phase 1
+    for k in reversed(range(CHUNK)):
+        out = a[:, :, k] * (cg[:, :, k] + out)
+    decay = torch.exp(dt_s.sum(2)[..., None] * A32)  # (b, nc, d, n)
+    carry_in = torch.empty_like(out)  # phase 2, chunks against scan order
+    carry = torch.zeros_like(out[:, 0])
+    for c in reversed(range(nc)):
+        carry_in[:, c] = carry
+        carry = decay[:, c] * carry + out[:, c]
+    h_prev, hs = torch.empty_like(a), torch.empty_like(a)  # phase 3
+    h = (states.flip(1) if reverse else states).float()
+    for k in range(CHUNK):
+        h_prev[:, :, k] = h
+        h = a[:, :, k] * h + x[:, :, k, :, None] * B_s[:, :, k, None, :]
+        hs[:, :, k] = h
+    lam = torch.empty_like(a)
+    carry = carry_in
+    for k in reversed(range(CHUNK)):
+        lam[:, :, k] = cg[:, :, k] + carry
+        carry = a[:, :, k] * lam[:, :, k]
+    daa = lam * h_prev * a                                    # dL/da · a
+    lam_b = torch.einsum("bckdn,bckn->bckd", lam, B_s)
+    # back to positions, the padding cut
+    back = lambda t: order(t).reshape(batch, nc * CHUNK, *t.shape[3:])[:, :L]
+    du = back(lam_b * dt_s)
+    if D is not None:
+        du = du + D.float() * g.float()
+    ddelta = back(torch.einsum("bckdn,dn->bckd", daa, A32) + lam_b * u_s)
+    ddelta = ddelta * sig
+    dA = torch.einsum("bckdn,bckd->dn", daa, dt_s)  # 0 where dt is padding
+    dB = back(torch.einsum("bckdn,bckd->bckn", lam, x))
+    dC = back(torch.einsum("bckdn,bckd->bckn", hs, g_s))
+    return (du, ddelta, dA, dB, dC, (g.float() * u.float()).sum((0, 1)),
+            ddelta.sum((0, 1)))
+
+
 def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, g, states,
                        delta_softplus: bool = False,
                        reverse: bool = False) -> ScanGrads:
@@ -322,13 +409,26 @@ def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, g, states,
     chunk-entry ``states`` that :func:`selective_scan_fwd` saved (unused
     on the CPU). On CUDA, d must be a multiple of 8 and n 8 or 16.
 
-    dB and dC sum over d and dA over the batch across blocks: the kernel
-    writes one partial per block and a second kernel adds them in a fixed
-    order, so the result is the same from run to run."""
+    On CUDA one call is one K2 launch (``LAUNCHES``) of the form
+    :func:`bwd_route` picks for L. dB and dC sum over d and dA over the
+    batch across blocks: the kernels write one partial per block and
+    sum them in a fixed order, so the result is the same from run to
+    run."""
     if u.device.type == "cpu":
         return selective_scan_bwd_plain(u, delta, A, B, C, D, delta_bias, g,
                                         delta_softplus, reverse)
+    return _launch_bwd(bwd_route(u.shape[1]), u, delta, A, B, C, D,
+                       delta_bias, g, states, delta_softplus, reverse)
+
+
+def _launch_bwd(form: str, u, delta, A, B, C, D, delta_bias, g, states,
+                delta_softplus: bool = False,
+                reverse: bool = False) -> ScanGrads:
+    """K2 on CUDA tensors in the given form, "chunked" or "sequential",
+    whatever L is: :func:`selective_scan_bwd`'s launch, which the tests
+    and timings call to hold one form against the other."""
     name = "selective_scan_bwd"
+    chunked = {"chunked": True, "sequential": False}[form]
     kernels.check_cuda_args(name, u.device, u=u, delta=delta, A=A, B=B, C=C,
                             D=D, delta_bias=delta_bias, g=g, states=states)
     batch, L, d, n, code = _check_scan_args(name, u, delta, A, B, C, D,
@@ -346,21 +446,32 @@ def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, g, states,
                          f"(8, 16), got d={d}, n={n}")
     kernels.check_aligned(name, u=u, delta=delta, B=B, C=C, g=g)
     f32 = dict(dtype=torch.float32, device=u.device)
-    nblk = d // BWD_CHANNELS
     du = torch.empty(batch, L, d, **f32)
     ddelta = torch.empty(batch, L, d, **f32)
-    # per-block partials: dB, dC over the d-blocks; dA, dD, dbias over batch
-    dbc_part = torch.empty(2, batch, nblk, L, n, **f32)
-    vec_part = torch.empty(batch, d * (n + 2), **f32)
     dB = torch.empty(batch, L, n, **f32)
     dC = torch.empty(batch, L, n, **f32)
     vec = torch.empty(d * (n + 2), **f32)
-    err = _build.library().fv_selective_scan_bwd(
-        *map(kernels.ptr, (u, delta, A, B, C, delta_bias, D, g, states, du,
-                           ddelta, dbc_part, vec_part, dB, dC, vec)),
-        batch, L, d, n, code, int(delta_softplus), int(reverse),
-        kernels.stream_ptr(u.device))
-    _build.check(err, name)
+    # per-block partials: dB, dC over the blocks along d; dA, dD, dbias
+    # over the batch (and, chunked, over the chunks too)
+    if chunked:
+        dbc_part = torch.empty(2, batch, -(-d // BWD_SLOT), L, n, **f32)
+        vec_part = torch.empty(batch, nchunks, d * (n + 2), **f32)
+        carry = torch.empty(batch, nchunks, d, n, **f32)  # phase 1 → 3
+        dsum = torch.empty(batch, nchunks, d, **f32)
+        scratch = (carry, dsum)
+    else:
+        dbc_part = torch.empty(2, batch, d // BWD_CHANNELS, L, n, **f32)
+        vec_part = torch.empty(batch, d * (n + 2), **f32)
+        scratch = ()
+    ins = tuple(map(kernels.ptr, (u, delta, A, B, C, delta_bias, D, g, states,
+                                  du, ddelta, dbc_part, vec_part, dB, dC, vec,
+                                  *scratch)))
+    flags = (batch, L, d, n, code, int(delta_softplus), int(reverse),
+             kernels.stream_ptr(u.device))
+    lib = _build.library()
+    fn = (lib.fv_selective_scan_bwd_chunked if chunked
+          else lib.fv_selective_scan_bwd)
+    _build.check(fn(*ins, *flags), name)
     kernels.LAUNCHES[name] += 1
     return (du, ddelta, vec[:d * n].view(d, n), dB, dC,
             vec[d * n:d * (n + 1)], vec[d * (n + 1):])

@@ -16,9 +16,9 @@ instead times K3 and K4 / K5 and K6 alone (bf16, CUDA events, both
 orientations) at the model's widths and grid, and with ``--bwd-phases``
 it builds the kernels with their cycle counters compiled in and prints
 where a block of K5 and of K6 spends its cycles. ``--scan-times`` times
-K1's two forms, sequential and chunked, in turns on the same inputs at
-L = 128 to 16,384 (bf16, B = 2, d_inner 384, n 16, both
-directions), and names the form the launcher picks at each length: what
+the two forms, sequential and chunked, of K1 and of K2 in turns on the
+same inputs at L = 128 to 16,384 (bf16, B = 2, d_inner 384, n 16, both
+directions), and names the form each launcher picks at each length: what
 sets ``selective_scan.CHUNKED_MIN_L``.
 
 It needs a CUDA device; nothing here falls back to the CPU.
@@ -37,8 +37,10 @@ import torch
 KERNEL_GROUPS = (
     ("K1 scan fwd", "scan_fwd_kernel"),
     ("K1 scan fwd, chunked (phases 1, 3)", "scan_chunk_kernel"),
-    ("K1 scan fwd, chunked (phase 2)", "state_pass_kernel"),
+    ("K1 / K2 chunked, carry pass (phase 2)", "state_pass_kernel"),
     ("K2 scan bwd", "scan_bwd_kernel"),
+    ("K2 scan bwd, chunked (phase 1)", "bwd_lam_chunk_kernel"),
+    ("K2 scan bwd, chunked (phase 3)", "bwd_grad_chunk_kernel"),
     ("K5 pass B bwd (main)", "pass_b_bwd"),
     ("K6 pass A bwd (main)", "pass_a_bwd_wgmma"),
     ("K6 pass A bwd, fp32 (conv adjoint)", "pass_a_bwd_conv"),
@@ -46,6 +48,7 @@ KERNEL_GROUPS = (
     ("K5/K6 weight-gradient GEMMs", "wgrad_"),
     ("K5/K6 partial sums", "sum_segments_kernel"),
     ("K2 partial sums", "sum_partials_kernel"),
+    ("K2 partial sums", "sum_slots_kernel"),
     ("K7 pass B, conv stage recomputed", "pass_b_rc"),
     ("K8 conv + pool", "conv_pool_kernel"),
     ("K10 merge + LN + gate", "merge_ln_gate_kernel"),
@@ -194,15 +197,21 @@ def kernel_times(dm: int, di: int, grid: int, batch: int, fwd: bool,
 
 def scan_times(lengths=(128, 256, 512, 1024, 4096, 16384), batch: int = 2,
                d: int = 384, n: int = 16) -> None:
-    """Print one K1 call's times in each form (bf16) at each length and
-    direction, with the form ``fwd_route`` picks: the device time of its
-    kernels (``torch.profiler``), which sets the route, and the time per
-    call with CUDA events over a run of calls after a warm-up one, which
-    at short L is the host's enqueue time. The forms run in turns on the
-    same inputs (sequential, chunked, chunked, sequential; each form's two
-    readings printed). The calls are the forward's: softplus, delta_bias
-    and D, no states asked for (the chunked form writes them all the
-    same)."""
+    """Print one call's times of K1 and of K2 in each form (bf16) at each
+    length and direction, with the form ``fwd_route`` / ``bwd_route``
+    picks: the device time of its kernels (``torch.profiler``), which sets
+    the route, and the time per call with CUDA events over a run of calls
+    after a warm-up one, which at short L is the host's enqueue time. The
+    forms run in turns on the same inputs (sequential, chunked, chunked,
+    sequential; each form's two readings printed), the chunked form's last
+    profile split by kernel. K1's calls are the forward's (softplus,
+    delta_bias and D, no states asked for: the chunked form writes them all
+    the same); K2's take the states K1 saved for the same inputs and a
+    random dL/dy. Also prints the resident blocks per SM of K2's chunked
+    phase 3."""
+    import ctypes
+
+    from fastvim_tpu_torch.ops.kernels import _build
     from fastvim_tpu_torch.ops.kernels import selective_scan as ss
 
     dev = torch.device("cuda", 0)
@@ -210,35 +219,51 @@ def scan_times(lengths=(128, 256, 512, 1024, 4096, 16384), batch: int = 2,
     uni = lambda *s: torch.rand(*s, generator=g, device=dev) * 2 - 1
     A, bias, D = -torch.exp(uni(d, n)), 0.5 * uni(d), uni(d)
     print(card_line(), flush=True)
+    blocks = ctypes.c_int(0)
+    for dtype, code in (("bf16", 1), ("fp32", 0)):
+        _build.check(_build.library().fv_selective_scan_bwd_chunked_occupancy(
+            ctypes.addressof(blocks), code, n), "occupancy")
+        print(f"K2 chunked phase 3, {dtype}, n={n}: {blocks.value} blocks "
+              f"of 128 threads resident per SM", flush=True)
     for L in lengths:
         rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev)
                                      * scale).to(torch.bfloat16)
         args = (rnd(batch, L, d), rnd(batch, L, d, scale=0.5), A,
                 rnd(batch, L, n), rnd(batch, L, n))
+        gy = rnd(batch, L, d)
         iters = max(10, 2 ** 19 // L)
         for reverse in (False, True):
-            dev_ms = {"sequential": [], "chunked": []}
-            ev_ms = {"sequential": [], "chunked": []}
             with torch.no_grad():
-                for route in ("sequential", "chunked", "chunked",
-                              "sequential"):
-                    fn = lambda: ss._launch_fwd(
+                _, states = ss.selective_scan_fwd(
+                    *args, D=D, delta_bias=bias, delta_softplus=True,
+                    reverse=reverse, save_states=True)
+                calls = {
+                    "K1": (ss.fwd_route, lambda route: ss._launch_fwd(
                         route, *args, D=D, delta_bias=bias,
-                        delta_softplus=True, reverse=reverse)
-                    rows, busy, _ = device_time_by_kernel(fn, 1, 5)
-                    dev_ms[route].append(busy)
-                    ev_ms[route].append(_event_ms(fn, (), iters))
-                    if route == "chunked":  # its last profile, by phase
-                        phases = ", ".join(
-                            f"{name} {ms:.4f}"
-                            for name, (ms, _) in group_rows(rows).items())
-            show = lambda m: " / ".join(f"{v:.4f}" for v in m)
-            print(f"K1 bf16 B={batch} L={L} d={d} n={n} reverse={reverse}: "
-                  f"device ms sequential {show(dev_ms['sequential'])}, "
-                  f"chunked {show(dev_ms['chunked'])} ({phases}); ms a call "
-                  f"sequential {show(ev_ms['sequential'])}, chunked "
-                  f"{show(ev_ms['chunked'])}; the launcher takes "
-                  f"{ss.fwd_route(L)}", flush=True)
+                        delta_softplus=True, reverse=reverse)),
+                    "K2": (ss.bwd_route, lambda route: ss._launch_bwd(
+                        route, *args, D, bias, gy, states, True, reverse))}
+                for name, (pick, launch) in calls.items():
+                    dev_ms = {"sequential": [], "chunked": []}
+                    ev_ms = {"sequential": [], "chunked": []}
+                    for route in ("sequential", "chunked", "chunked",
+                                  "sequential"):
+                        fn = lambda: launch(route)
+                        rows, busy, _ = device_time_by_kernel(fn, 1, 5)
+                        dev_ms[route].append(busy)
+                        ev_ms[route].append(_event_ms(fn, (), iters))
+                        if route == "chunked":  # its last profile, by kernel
+                            phases = ", ".join(
+                                f"{kname} {ms:.4f}" for kname, (ms, _)
+                                in group_rows(rows).items())
+                    show = lambda m: " / ".join(f"{v:.4f}" for v in m)
+                    print(f"{name} bf16 B={batch} L={L} d={d} n={n} "
+                          f"reverse={reverse}: device ms sequential "
+                          f"{show(dev_ms['sequential'])}, chunked "
+                          f"{show(dev_ms['chunked'])} ({phases}); ms a call "
+                          f"sequential {show(ev_ms['sequential'])}, chunked "
+                          f"{show(ev_ms['chunked'])}; the launcher takes "
+                          f"{pick(L)}", flush=True)
 
 
 def bwd_phase_cycles(dm: int, di: int, grid: int, batch: int) -> None:
@@ -315,13 +340,15 @@ def main() -> None:
     ap.add_argument("--bwd-phases", action="store_true",
                     help="cycles per phase of K5 and K6 at the model's widths")
     ap.add_argument("--scan-times", action="store_true",
-                    help="time K1's sequential and chunked forms at "
-                         "L = 128 to 16,384")
+                    help="time the sequential and chunked forms of K1 "
+                         "and K2 at L = 128 to 16,384")
+    ap.add_argument("--lengths", default="128,256,512,1024,4096,16384",
+                    help="the scan lengths of --scan-times, comma-separated")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")
     if args.scan_times:
-        return scan_times()
+        return scan_times(tuple(int(L) for L in args.lengths.split(",")))
     if args.graph and args.train:
         raise SystemExit("profiling: --graph captures a forward only")
     if args.bwd_phases or args.bwd_times or args.fwd_times:

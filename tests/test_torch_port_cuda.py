@@ -189,6 +189,63 @@ def test_scan_bwd_from_chunked_states(dev, dtype, reverse):
                4)
 
 
+_BWD_ORDER = (0, 1, 3, 4, 2, 5, 6)  # du, ddelta, dB, dC per step; then sums
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype,L,n,batch,d", [
+    (dt, *shape) for dt in DTYPES for shape in (
+        (65, 16, 2, 64),     # one full chunk and one step
+        (200, 8, 3, 72),     # a partial last chunk; d ≡ 8 (mod 64): a slot
+                             # of 8 channels, half a pass of d_state 8
+        (1024, 16, 2, 72),   # 16 chunks, a slot of 8 channels
+        (4096, 8, 2, 64))
+] + [(torch.float32, 16385, 16, 1, 64)])  # Vim's middle-cls-token length
+def test_scan_bwd_chunked_matches_plain(dev, dtype, L, n, batch, d, reverse):
+    """K2's chunked form against the sequential plain adjoint, its own
+    plain version (the three phases in tensor ops) and the sequential
+    kernel, all from the states K1 saved."""
+    g = torch.Generator(device=dev).manual_seed(L + n + 7)
+    ins, kw = _scan_args(g, dtype, batch, L, d, n, extras=L != 200)
+    ins = ins + (kw["D"], kw["delta_bias"])
+    gy = _rand(g, batch, L, d).to(dtype)
+    with torch.no_grad():
+        _, states = ss.selective_scan_fwd(
+            *ins[:5], D=ins[5], delta_bias=ins[6], delta_softplus=True,
+            reverse=reverse, save_states=True)
+        got = ss._launch_bwd("chunked", *ins, gy, states, True, reverse)
+        for want in (
+                ss.selective_scan_bwd_plain(*ins, gy, True, reverse),
+                ss.selective_scan_bwd_chunked_plain(*ins, gy, states, True,
+                                                    reverse),
+                ss._launch_bwd("sequential", *ins, gy, states, True,
+                               reverse)):
+            _close_all([got[i] for i in _BWD_ORDER],
+                       [want[i] for i in _BWD_ORDER], TOL[dtype], 4)
+
+
+def test_scan_bwd_chunked_is_the_long_route_and_repeatable(dev):
+    """From the threshold on the launcher takes K2's chunked form (one
+    counted launch a call), below it the sequential one, and the chunked
+    form gives the same bits every run (no atomics)."""
+    assert ss.bwd_route(ss.CHUNKED_BWD_MIN_L) == "chunked"
+    assert ss.bwd_route(ss.CHUNKED_BWD_MIN_L - 1) == "sequential"
+    g = torch.Generator(device=dev).manual_seed(6)
+    ins, kw = _scan_args(g, torch.bfloat16, 2, 4096, 64, 16)
+    ins = ins + (kw["D"], kw["delta_bias"])
+    gy = _rand(g, 2, 4096, 64).to(torch.bfloat16)
+    with torch.no_grad():
+        _, states = ss.selective_scan_fwd(
+            *ins[:5], D=ins[5], delta_bias=ins[6], delta_softplus=True,
+            reverse=True, save_states=True)
+        kernels.reset_launch_counts()
+        first = ss.selective_scan_bwd(*ins, gy, states, True, True)
+        assert kernels.launch_counts()["selective_scan_bwd"] == 1
+        for _ in range(3):
+            again = ss._launch_bwd("chunked", *ins, gy, states, True, True)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 def test_scan_function_grads_match_cpu(dev):
     """selective_scan on CUDA tensors that require grad goes through K1
     (with states) and K2, and gives the CPU's gradients."""

@@ -51,10 +51,11 @@ def _scan_inputs(seed, batch, L, d, n=N):
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("L,block_l", [(37, 16), (200, 128)])
 def test_scan_matches_pallas_and_ref(reverse, L, block_l):
-    """K1's plain version (the CPU path of the port's selective_scan)
-    against the Pallas kernel in interpret mode (block_l 16 pads L=37 to 3
-    chunks; L=200 is 2 chunks) and against the sequential JAX reference —
-    the fp32 oracle, not the associative scan."""
+    """K1's plain version (the CPU path of the port's selective_scan) and
+    the Pallas kernel in interpret mode (block_l 16 pads L=37 to 3 chunks;
+    L=200 is 2 chunks), each against the sequential JAX reference — the
+    fp32 oracle, not the associative scan — so that a failure names the
+    side that moved."""
     a = _scan_inputs(L, 2, L, 128)
     kw = dict(delta_softplus=True, reverse=reverse)
     t = {k: torch.from_numpy(v) for k, v in a.items()}
@@ -67,8 +68,11 @@ def test_scan_matches_pallas_and_ref(reverse, L, block_l):
                                 **kw)
     ref = jax_scan_ref(j["u"], j["delta"], j["A"], j["B"], j["C"], D=j["D"],
                        delta_bias=j["delta_bias"], **kw)
-    np.testing.assert_allclose(got, np.asarray(pal), **TOL)
-    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL,
+                               err_msg="the port's scan against the reference")
+    np.testing.assert_allclose(np.asarray(pal), np.asarray(ref), **TOL,
+                               err_msg="the Pallas kernel against the "
+                                       "reference")
 
 
 def _layer_params(seed, bias=False):
