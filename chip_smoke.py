@@ -20,7 +20,8 @@ Phases, each of which raises on failure (exit code non-zero):
    plain version and the sequential kernel, y and the saved states),
    with the form the launcher picks at each length; K2 likewise, in its
    sequential (L = 128) and chunked (L = 16,384 and 16,385) forms, all
-   seven gradients;
+   seven gradients; K7 at FastVim-T's and FastVim-S's widths, both
+   orientations, beside its pass A, K3's pools-only form;
 3. build ``fastvim_tiny`` and ``vim_tiny`` at 224 px, full width, fp32,
    from one seed, and compare their logits, then their loss and every
    parameter's gradient, on the card (kernels) with the same models on
@@ -29,8 +30,9 @@ Phases, each of which raises on failure (exit code non-zero):
    ``embed_dim=96`` at depth 2, whose layers fuse forward (2 K3 and 2 K4
    launches) and take the remat backward (no K5 or K6 launch); the same
    for the logits of the four configurations of ``fastvim_tiny`` that
-   reach K7-K10, and for ``fastvim_base`` (depth 2), which is too wide for
-   the fused layer and must run unfused;
+   reach K7-K10, for ``fastvim_base`` (depth 2), which is too wide for
+   the fused layer and must run unfused, and for ``fastvim_small`` (depth
+   2) with ``layer_fused="recompute"``, which must fuse (2 K3, 2 K7);
 4. run both models forward at 2048 px, batch 2, bf16. Logits must be
    finite, and the kernels' launch counters must show 24 pass A + 24
    pass B + 48 scans for FastVim-T and 48 scans for Vim-T per forward.
@@ -54,8 +56,11 @@ Phases, each of which raises on failure (exit code non-zero):
    (24 K10, 48 K1) and ``layer_fused="recompute"`` (24 K3 pools-only, 24
    K7, 48 K1): finite logits within 2e-2 of the largest logit of the
    default configuration's from the same seed, exactly those launches,
-   and img/s beside the default's; one train step of
-   ``fused_kernels="always"``; and the lanes scan through
+   and img/s beside the default's, the recompute form also as a CUDA-graph
+   replay beside the default's; ``fastvim_small`` at full depth with
+   ``layer_fused="recompute"`` (24 K3 pools-only, 24 K7, 48 K1; logits
+   within 2e-2 of the largest of its default's), both replayed; one train
+   step of ``fused_kernels="always"``; and the lanes scan through
    ``selective_scan(variant="lanes")`` at L = 16,384 beside K1.
 
 The line before the last is a JSON object with one entry per kernel
@@ -161,7 +166,7 @@ def cuda_ms(fn, iters: int, windows: int = 1) -> float:
 
 def count_launches() -> int:
     """``chip_smoke.py --count-launches``: print, as JSON, how many device
-    kernels (copies included) one call of K3, K4, K5 and K6 launches in
+    kernels (copies included) one call of K3, K4, K5, K6 and K7 launches in
     bf16 and in fp32, from a CUDA graph captured from a small call, and
     one call of K1 and of K2 in each of their forms at L = 128 and 16,384
     in bf16. It runs as a process of its own (see
@@ -196,7 +201,13 @@ def count_launches() -> int:
             "pass_a_bwd": lambda a=(
                 tok(dm), rnd(batch, H, W, dm), tok(di), tok(di), pooled(),
                 pooled(), rnd(di, dm).to(dtype), None, rnd(di, 4), rnd(di),
-                rnd(di, 4), rnd(di), 1.0, False): lf.pass_a_bwd(*a)}
+                rnd(di, 4), rnd(di), 1.0, False): lf.pass_a_bwd(*a),
+            "pass_b_recompute_fwd": lambda a=(
+                tok(dm), pooled(), pooled(), rnd(di, dm).to(dtype), None,
+                rnd(di, 4), rnd(di), rnd(di, 4), rnd(di),
+                rnd(di, dm).to(dtype), None, rnd(di), rnd(di), rnd(di),
+                rnd(di), rnd(dm, di).to(dtype), None, 1e-5, True, False):
+                lf.pass_b_recompute(*a)}
         for name, fn in calls.items():
             out.setdefault(name, {})[str(dtype)] = kernels_a_call(fn)
     # K1 and K2 in both forms at FastVim's and Vim-T's lengths, bf16
@@ -272,18 +283,22 @@ def kernels_a_call(fn) -> int:
 
 
 def launches_per_call() -> dict:
-    """{kernel: {dtype: device kernels a call launches}} for K3-K6, and
+    """{kernel: {dtype: device kernels a call launches}} for K3-K7, and
     {"selective_scan_fwd L=<L> <form>": device kernels} for K1 and the
     same for K2 (``selective_scan_bwd``), counted by a child process (the
     library is built by then). K1's chunked form must be its three phases
     and the sequential form one kernel; K2's chunked form its three phases
     and three fixed-order sums, the sequential form one kernel and the
-    same sums."""
+    same sums; K7 one kernel in either dtype."""
     run = subprocess.run([sys.executable, __file__, "--count-launches"],
                          capture_output=True, text=True, timeout=300)
     if run.returncode != 0:
         raise RuntimeError(f"--count-launches failed: {run.stderr[-2000:]}")
     counts = json.loads(run.stdout.strip().splitlines()[-1])
+    if set(counts["pass_b_recompute_fwd"].values()) != {1}:
+        raise AssertionError(f"pass_b_recompute_fwd: "
+                             f"{counts['pass_b_recompute_fwd']} device "
+                             f"kernels a call, not 1")
     for L in (128, 16384):
         for kernel, form, want in (
                 ("selective_scan_fwd", "sequential", 1),
@@ -634,10 +649,11 @@ def timed(name, tag, kern, plain, n_bytes, flops, kind, card, iters=20,
     return k_ms, p_ms, b_ms, by
 
 
-def check_config_kernels(dev, card):
+def check_config_kernels(dev, card, per_call):
     """Phase 2, the kernels of the other configurations: K7, K8, K9, K10
     and lanes against their plain versions on the card, at FastVim-T's
-    2048 px shapes (grid 128 × 128, batch 2, d_model 192, d_inner 384)."""
+    2048 px shapes (grid 128 × 128, batch 2, d_model 192, d_inner 384), K7
+    also at FastVim-S's widths (d_model 384, d_inner 768)."""
     import torch
 
     from fastvim_tpu_torch.ops.kernels import fused_block as fb
@@ -725,42 +741,56 @@ def check_config_kernels(dev, card):
                            25.0 * batch * L * di, "fp32", card)
                 times.setdefault("merge_ln_gate_fwd", tm)
 
-    # K7: both orientations
-    w_in = uni(2 * di, dm, bound=dm ** -0.5)
-    w_out = uni(dm, di, bound=di ** -0.5 / 24 ** 0.5)
-    base_x = rnd(batch, H, W, dm)
-    for dtype, tol in cases:
-        x4 = base_x.to(dtype)
-        wx, wz = w_in[:di].to(dtype), w_in[di:].to(dtype)
-        for transposed in (False, True):
-            args = (x4, yf.to(dtype), yb.to(dtype), wx, None, *conv_args, wz,
-                    None, d_f, d_b, ln_w, ln_b, w_out.to(dtype), None, 1e-5,
-                    True, transposed)
-            got = lf.pass_b_recompute(*args)
-            worst("pass_b_recompute_fwd", compare(
-                f"pass_b_recompute_fwd transposed={transposed} {dtype}", got,
-                lf.pass_b_recompute_plain(*args), tol))
-            if dtype == torch.bfloat16:
+    # K7 at FastVim-T's widths (the kernels line's) and FastVim-S's, both
+    # orientations; its pass A, K3 without the xc stores, timed beside it
+    for dm_, di_ in ((dm, di), (384, 768)):
+        w_in = uni(2 * di_, dm_, bound=dm_ ** -0.5)
+        w_out = uni(dm_, di_, bound=di_ ** -0.5 / 24 ** 0.5)
+        conv_ = [uni(di_, 4, bound=0.5) for _ in range(2)]
+        cbias_ = [uni(di_, bound=0.5) for _ in range(2)]
+        vec = [uni(di_, bound=1.0), uni(di_, bound=1.0),
+               1 + uni(di_, bound=0.1), uni(di_, bound=0.1)]
+        base_x = rnd(batch, H, W, dm_)
+        ys = rnd(batch, H, di_), rnd(batch, H, di_)
+        for dtype, tol in cases:
+            x4 = base_x.to(dtype)
+            wx, wz = w_in[:di_].to(dtype), w_in[di_:].to(dtype)
+            for transposed in (False, True):
+                args = (x4, ys[0].to(dtype), ys[1].to(dtype), wx, None,
+                        conv_[0], cbias_[0], conv_[1], cbias_[1], wz, None,
+                        *vec, w_out.to(dtype), None, 1e-5, True, transposed)
+                tag = (f"d_model={dm_} d_inner={di_} grid={H}x{W} B={batch} "
+                       f"{dtype} transposed={transposed}")
+                got = lf.pass_b_recompute(*args)
+                worst("pass_b_recompute_fwd", compare(
+                    f"pass_b_recompute_fwd {tag}", got,
+                    lf.pass_b_recompute_plain(*args), tol))
+                if dtype != torch.bfloat16:
+                    continue
                 # three GEMMs of d_model × d_inner per token
-                tm = timed("pass_b_recompute_fwd",
-                           f"bf16 grid={H}x{W} B={batch} transposed="
-                           f"{transposed}",
-                           lambda: lf.pass_b_recompute(*args),
-                           lambda: lf.pass_b_recompute_plain(*args),
-                           nbytes(*tensors(args), got),
-                           3 * 2.0 * batch * L * dm * di, "bf16", card)
-                times.setdefault("pass_b_recompute_fwd", tm)
-                # its pass A: K3 without the xc stores
-                a_args = (x4, wx, None, *conv_args, 1.0, transposed)
+                k_ms, p_ms, b_ms, by = timed(
+                    "pass_b_recompute_fwd", f"{tag} in "
+                    f"{per_call['pass_b_recompute_fwd']['torch.bfloat16']:g}"
+                    f" launches", lambda: lf.pass_b_recompute(*args),
+                    lambda: lf.pass_b_recompute_plain(*args),
+                    nbytes(*tensors(args), got),
+                    3 * 2.0 * batch * L * dm_ * di_, "bf16", card)
+                log(f"[time] pass_b_recompute_fwd {tag}: {b_ms / k_ms:.1%} "
+                    f"of the bound ({card})")
+                times.setdefault("pass_b_recompute_fwd",
+                                 (k_ms, p_ms, b_ms, by))
+                a_args = (x4, wx, None, conv_[0], cbias_[0], conv_[1],
+                          cbias_[1], 1.0, transposed)
                 pools = lf.pass_a(*a_args, write_xc=False)[2:]
                 for part, gt, wt in zip(("pf", "pb"), pools,
                                         lf.pass_a(*a_args)[2:]):
-                    compare(f"pass_a_fwd pools-only {part} transposed="
-                            f"{transposed}", gt, wt, 0.0)
+                    compare(f"pass_a_fwd pools-only {part} {tag}", gt, wt,
+                            0.0)
                 a_ms = cuda_ms(lambda: lf.pass_a(*a_args, write_xc=False), 20)
-                log(f"[time] pass_a_fwd pools-only bf16 grid={H}x{W} "
-                    f"B={batch} transposed={transposed}: kernel {a_ms:.4f} "
+                log(f"[time] pass_a_fwd pools-only {tag}: kernel {a_ms:.4f} "
                     f"ms ({card})")
+        del base_x, x4, got
+        torch.cuda.empty_cache()
 
     # lanes: the pooled scan's length and Vim-T's, beside K1 on the same
     # inputs
@@ -828,22 +858,35 @@ def check_models_224(dev):
     import torch
 
     from fastvim_tpu_torch.models import create_model
+    from fastvim_tpu_torch.ops import kernels
 
     x = torch.randn(4, 224, 224, 3, generator=torch.Generator().manual_seed(1))
     # fastvim_base (d_inner 1536) is wider than pass A/B take: with the
-    # default fields it must run the unfused path (scans by K1)
+    # default fields it must run the unfused path (scans by K1).
+    # fastvim_small in the recompute form: K7 launches in fp32 at the
+    # widest d_inner fusable accepts (2 K3 pools-only, 2 K7)
+    recompute_s = dict(depth=2, layer_fused="recompute")
     models = [("fastvim_tiny", {}), ("vim_tiny", {}),
               *(("fastvim_tiny", kw) for kw, _ in CONFIGS.values()),
-              ("fastvim_base", dict(depth=2))]
+              ("fastvim_base", dict(depth=2)),
+              ("fastvim_small", recompute_s)]
     for name, kw in models:
         cpu_model = create_model(name, img_size=224, device="cpu",
                                  generator=torch.Generator().manual_seed(0),
                                  **kw)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
         want = cpu_model(x)
+        kernels.reset_launch_counts()
         got = gpu_model(x.to(dev)).cpu()
+        seen = kernels.launch_counts()
         compare(f"{name} {kw} 224px fp32 logits, card vs CPU", got, want,
                 MODEL_TOL)
+        if kw is recompute_s:
+            k3_k7 = (seen["pass_a_fwd"], seen["pass_b_recompute_fwd"])
+            log(f"[check] {name} {kw}: K3, K7 launches {k3_k7}")
+            if k3_k7 != (2, 2):
+                raise AssertionError(f"{name} {kw}: K3, K7 launches {k3_k7}, "
+                                     f"expected (2, 2)")
 
 
 def check_grads_224(dev):
@@ -1065,6 +1108,7 @@ def run_config_path(dev, card):
         make_optimizer,
         make_supervised_train_step,
     )
+    from fastvim_tpu_torch.utils.profiling import captured_forward
 
     batch, img = 2, 2048
     none = dict.fromkeys(kernels.launch_counts(), 0)
@@ -1083,6 +1127,17 @@ def run_config_path(dev, card):
         for k, v in seen.items():
             total[k] += v
         return out
+
+    def replays(what, models):
+        """Each model's forward as a CUDA-graph replay, in turns: the
+        device's time, without the host's launches."""
+        graphs = {k: captured_forward(m, x) for k, m in models.items()}
+        for k, replay in [*graphs.items(), *reversed(graphs.items())]:
+            ms = cuda_ms(replay, 10, windows=3)
+            log(f"[time] {what} {k} forward, CUDA-graph replay: {ms:.3f} ms, "
+                f"{batch / ms * 1e3:.2f} img/s ({card})")
+        graphs.clear()
+        torch.cuda.empty_cache()
 
     build = lambda **kw: create_model(
         "fastvim_tiny", img_size=img, dtype=torch.bfloat16,
@@ -1114,8 +1169,36 @@ def run_config_path(dev, card):
             log(f"[time] fastvim_tiny {name} {img}px B={batch} bf16 forward: "
                 f"{ms:.3f} ms, {batch / ms * 1e3:.2f} img/s; default "
                 f"{batch / d_ms * 1e3:.2f} img/s ({card})")
+            if name == "layer_fused=recompute":
+                replays(f"fastvim_tiny {img}px B={batch} bf16",
+                        {"default": default, name: model})
             del model
         del default
+
+        # FastVim-S in the recompute form: the widths K7 walks twice
+        kw, expected = CONFIGS["layer_fused=recompute"]
+        build_s = lambda **kw: create_model(
+            "fastvim_small", img_size=img, dtype=torch.bfloat16,
+            generator=torch.Generator().manual_seed(0), **kw)
+        default = build_s()
+        want = default(x).float()
+        scale = want.abs().max().item()
+        model = build_s(**kw)
+        logits = counted(lambda: model(x), expected,
+                         "fastvim_small layer_fused=recompute").float()
+        off = (logits - want).abs().max().item()
+        log(f"[config] fastvim_small layer_fused=recompute {img}px B={batch} "
+            f"bf16: {off:.3e} from the default configuration's (largest "
+            f"logit {scale:.3e}), launches {expected}")
+        if (logits.shape != (batch, 1000) or not torch.isfinite(logits).all()
+                or off > BF16_TOL * scale):
+            raise AssertionError(f"fastvim_small layer_fused=recompute: "
+                                 f"logits {off:.3e} from the default's, over "
+                                 f"{BF16_TOL} of {scale}, or not finite")
+        replays(f"fastvim_small {img}px B={batch} bf16",
+                {"default": default, "layer_fused=recompute": model})
+        del default, model
+        torch.cuda.empty_cache()
 
     # one train step through K8 and K9 (their backward is autograd through
     # the plain versions; the scans' is K2)
@@ -1205,7 +1288,7 @@ def main() -> int:
     errs.update(errs_bwd)
     times.update(times_bwd)
     with torch.inference_mode():
-        errs_cfg, times_cfg = check_config_kernels(dev, card)
+        errs_cfg, times_cfg = check_config_kernels(dev, card, per_call)
     errs.update(errs_cfg)
     times.update(times_cfg)
     with torch.inference_mode():
@@ -1242,8 +1325,10 @@ def main() -> int:
          "fastvim_tpu/ops/pallas/layer_fused.py:453"),
         ("pass_a_bwd", "layer_fused_bwd_wgmma.cu", bwd,
          "fastvim_tpu/ops/pallas/layer_fused.py:555"),
-        ("pass_b_recompute_fwd", "layer_fused_recompute.cu",
-         ("layer_fused.cuh",), "fastvim_tpu/ops/pallas/layer_fused.py:374"),
+        ("pass_b_recompute_fwd", "layer_fused_recompute_wgmma.cu",
+         ("layer_fused_recompute.cu", "layer_fused_fwd.cuh",
+          "layer_fused.cuh", "wgmma.cuh"),
+         "fastvim_tpu/ops/pallas/layer_fused.py:374"),
         ("conv_pool_fwd", "fused_block.cu", ("merge_tail.cuh",),
          "fastvim_tpu/ops/pallas/fused_block.py:130"),
         ("merge_gate_fwd", "fused_block.cu", ("merge_tail.cuh",),

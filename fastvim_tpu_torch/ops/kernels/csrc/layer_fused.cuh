@@ -2,12 +2,9 @@
 // (layer_fused_bwd.cu) and recompute (layer_fused_recompute.cu) passes of
 // the fused FastVim mixer layer: the line a pass A block owns, the x-half
 // GEMM of a line plus its halo into a shared fp32 tile, and the
-// 32-token-tile GEMMs of pass B (FMA tiles for fp32; WMMA 16×16×16 for
-// the recompute pass in bf16). See layer_fused_fwd.cu for the design
-// notes.
+// 32-token-tile FMA GEMMs of pass B. See layer_fused_fwd.cu for the
+// design notes.
 #pragma once
-
-#include <mma.h>
 
 #include <type_traits>
 
@@ -15,12 +12,10 @@
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
 constexpr int kPad = 3;     // d_conv - 1
 constexpr int kThreads = 256;  // 8 warps, both passes
-constexpr int kWm = 16;     // WMMA tile edge
 using fv::kMaxSmem;
 
 // ---------------------------------------------------------------------
@@ -233,59 +228,6 @@ __device__ __forceinline__ void gemm_rows(const float* sA,
         const float a = sA[(kR * warp + r) * K + k0 + k];
 #pragma unroll
         for (int j = 0; j < kBCols; ++j) acc[r][j] += a * wv[j];
-      }
-    }
-  }
-}
-
-// WMMA: s_out[0:16·kMt, :N] = sA (16·kMt × K bf16, row stride lda) · Wtᵀ,
-// Wt a row-major (N × K) bf16 weight read from global memory
-// (L2-resident); in slabs of 384 columns, warp w taking column tiles w,
-// w + 8, w + 16 for all kMt row tiles (each weight tile is loaded once
-// per block). kMt = 2 is a 32-token tile; 3 adds the recompute pass's
-// halo rows. Staging the weights through shared memory in K chunks of 32
-// instead measured slower (0.352 vs 0.287 ms at 2048 px).
-template <int kMt = 2>
-__device__ __forceinline__ void wmma_rows(const bf16* sA, int lda,
-                                          const bf16* __restrict__ Wt, int K,
-                                          int N, float* s_out, int ldo) {
-  const int warp = threadIdx.x / 32;
-  for (int n0 = 0; n0 < N; n0 += kBSlab) {
-    const int ntiles = min(kBSlab, N - n0) / kWm;
-    wmma::fragment<wmma::accumulator, kWm, kWm, kWm, float> acc[kMt][3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-#pragma unroll
-      for (int m = 0; m < kMt; ++m) wmma::fill_fragment(acc[m][j], 0.f);
-    for (int k = 0; k < K; k += kWm) {
-      wmma::fragment<wmma::matrix_a, kWm, kWm, kWm, bf16, wmma::row_major>
-          a[kMt];
-#pragma unroll
-      for (int m = 0; m < kMt; ++m)
-        wmma::load_matrix_sync(a[m], sA + m * kWm * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int nt = warp + 8 * j;
-        if (nt < ntiles) {
-          wmma::fragment<wmma::matrix_b, kWm, kWm, kWm, bf16, wmma::col_major>
-              wb;
-          wmma::load_matrix_sync(
-              wb, Wt + static_cast<size_t>(n0 + nt * kWm) * K + k, K);
-#pragma unroll
-          for (int m = 0; m < kMt; ++m)
-            wmma::mma_sync(acc[m][j], a[m], wb, acc[m][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int nt = warp + 8 * j;
-      if (nt < ntiles) {
-        float* o = s_out + n0 + nt * kWm;
-#pragma unroll
-        for (int m = 0; m < kMt; ++m)
-          wmma::store_matrix_sync(o + m * kWm * ldo, acc[m][j], ldo,
-                                  wmma::mem_row_major);
       }
     }
   }

@@ -1,12 +1,13 @@
-// The bf16 forward kernels of the fused layer (layer_fused_fwd_wgmma.cu),
-// called by the C entry points in layer_fused_fwd.cu.
+// The bf16 forward kernels of the fused layer (K3, K4:
+// layer_fused_fwd_wgmma.cu; K7: layer_fused_recompute_wgmma.cu), called by
+// the C entry points in layer_fused_fwd.cu and layer_fused_recompute.cu.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace fvf {
 
-constexpr int kMaxDm = 384;  // both keep a tile's x̂ (and K4 its out) on chip
+constexpr int kMaxDm = 384;  // each keeps a tile's x̂ (K4, K7 its out) on chip
 
 // K3: x (batch, H, W, dm), w_x (di, dm) bf16; dm % 32 == 0, dm <= 384,
 // di % 64 == 0, lines of >= 4 tokens. xc_f, xc_b may both be null (pools
@@ -27,5 +28,14 @@ cudaError_t pass_b_fwd_bf16(const void* x, const void* xc_f,
                             const void* b_out, void* out, int batch, int H,
                             int W, int dm, int di, bool transposed,
                             bool use_ln, float eps, cudaStream_t stream);
+
+// K7: dm, di % 32 == 0, dm <= 384, di <= 768, H, W >= 4. One launch.
+cudaError_t pass_b_recompute_fwd_bf16(
+    const void* x, const void* yf, const void* yb, const void* w_x,
+    const void* b_x, const void* w_cf, const void* b_cf, const void* w_ab,
+    const void* b_ab, const void* w_z, const void* b_z, const void* d_f,
+    const void* d_b, const void* ln_w, const void* ln_b, const void* w_out,
+    const void* b_out, void* out, int batch, int H, int W, int dm, int di,
+    bool transposed, bool use_ln, float eps, cudaStream_t stream);
 
 }  // namespace fvf

@@ -124,32 +124,6 @@ __device__ __forceinline__ void ldg_f8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// oacc (64 × 32·kNU columns of this warpgroup) += A (64 × 128, two K-major
-// blocks at `sa`) · W_out[cols, slab]ᵀ over the next kNU stages. Stage u
-// holds 64 rows of W_out (N) × the slab's 128 channels (K) as two K-major
-// blocks: rows 32u..32u+31 for warpgroup 0 in its rows 0-31 and rows
-// 32 kNU + 32u.. for warpgroup 1 in rows 32-63, so that both issue the same
-// products on their own half: a product in a branch on the warpgroup
-// makes the compiler serialize every product.
-template <int kNU, typename R>
-__device__ __forceinline__ void out_gemm(float* oacc, uint32_t sa, R& ring,
-                                         int wg) {
-#pragma unroll
-  for (int u = 0; u < kNU; ++u) {
-    const uint32_t st = ring.acquire() + wg * 32 * kRowBytes;
-    fv::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t ko = (kk / 4) * kBlkBytes + 32 * (kk % 4);
-      fv::wgmma_n32<0, 0>(oacc + 16 * u, gmma_desc(sa + ko),
-                          gmma_desc(st + ko), 1);
-    }
-    fv::wgmma_commit();
-    ring.refill();
-    fv::wgmma_wait();
-  }
-}
-
 // kWhole: the first pass keeps m of the whole tile in shared memory
 // (d_inner <= 512 where it fits: FastVim-T), so xc_f, xc_b, yf, yb are
 // read once; else each slab forms its m again from them (from L2)
@@ -187,7 +161,8 @@ pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
 
   // stage s: per slab kNU K blocks of W_z (128 channel rows, 64 a
   // warpgroup), then kNU stages of 64 rows of W_out over the slab's
-  // channels (see out_gemm); rows and columns past the widths zero-filled
+  // channels (see fv::cp_out_stage); rows and columns past the widths
+  // zero-filled
   auto fetch = [&](int s, uint32_t dst) {
     if (s >= total) return;
     const int n0 = s / (2 * kNU) * kBSlab, kb = s % kNU;
@@ -199,15 +174,8 @@ pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
                    w_z + (ok ? static_cast<size_t>(n0 + r) * dm + col : 0),
                    ok);
       }
-    } else {  // see out_gemm
-      for (int i = tid; i < kTM * 16; i += kThreads) {
-        const int r = i >> 4, h = (i >> 3) & 1, ch = i & 7;
-        const int row = (r / 32) * 32 * kNU + 32 * kb + r % 32;
-        const int col = n0 + 64 * h + 8 * ch;
-        const bool ok = row < dm && col < di;
-        cp_async16(dst + h * kBlkBytes + swz(r, 8 * ch),
-                   w_out + (ok ? static_cast<size_t>(row) * di + col : 0), ok);
-      }
+    } else {
+      fv::cp_out_stage(dst, w_out, n0, kb, kNU, dm, di, tid);
     }
   };
   fv::Ring<kBStages, kBStageBytes, decltype(fetch)> ring(smem_u32(sm + L.ring),
@@ -385,7 +353,7 @@ pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
       }
     }
     // out += g·W_out[:, slab]ᵀ (the first acquire publishes the slab)
-    out_gemm<kNU>(oacc, sg, ring, wg);
+    fv::out_gemm<kNU>(oacc, sg, ring, wg);
   }
 
   // out + b_out in bf16, staged in x̂'s blocks (every product that read

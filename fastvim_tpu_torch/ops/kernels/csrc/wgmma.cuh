@@ -190,4 +190,48 @@ __device__ __forceinline__ void slab_gemm(float* acc, uint32_t sa, int nblk,
   }
 }
 
+// The stage of W_out (d_model, d_inner) that out_gemm's step kb reads for
+// the d_inner slab at n0 (128 channels): two K-major blocks of 64 rows of
+// W_out × 64 channels, rows 32kb.. for warpgroup 0 in rows 0-31 and rows
+// 32·nu + 32kb.. for warpgroup 1 in rows 32-63 (nu = ceil(d_model / 64));
+// rows and channels past the widths zero-filled. All 256 threads copy.
+__device__ __forceinline__ void cp_out_stage(uint32_t dst,
+                                             const __nv_bfloat16* w_out,
+                                             int n0, int kb, int nu, int dm,
+                                             int di, int tid) {
+  for (int i = tid; i < 64 * 16; i += 256) {
+    const int r = i >> 4, h = (i >> 3) & 1, ch = i & 7;
+    const int row = (r / 32) * 32 * nu + 32 * kb + r % 32;
+    const int col = n0 + 64 * h + 8 * ch;
+    const bool ok = row < dm && col < di;
+    cp_async16(dst + h * 64 * kBlkRowBytes + swz(r, 8 * ch),
+               w_out + (ok ? static_cast<size_t>(row) * di + col : 0), ok);
+  }
+}
+
+// oacc (64 × 32·kNU columns of this warpgroup) += A (64 × 128, two K-major
+// blocks at `sa`) · W_out[cols, slab]ᵀ over the next kNU stages, each
+// filled by cp_out_stage: both warpgroups issue the same products on their
+// own half, since a product in a branch on the warpgroup makes the
+// compiler serialize every product.
+template <int kNU, typename R>
+__device__ __forceinline__ void out_gemm(float* oacc, uint32_t sa, R& ring,
+                                         int wg) {
+  constexpr uint32_t kBlk = 64 * kBlkRowBytes;
+#pragma unroll
+  for (int u = 0; u < kNU; ++u) {
+    const uint32_t st = ring.acquire() + wg * 32 * kBlkRowBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t ko = (kk / 4) * kBlk + 32 * (kk % 4);
+      wgmma_n32<0, 0>(oacc + 16 * u, gmma_desc(sa + ko), gmma_desc(st + ko),
+                      1);
+    }
+    wgmma_commit();
+    ring.refill();
+    wgmma_wait();
+  }
+}
+
 }  // namespace fv

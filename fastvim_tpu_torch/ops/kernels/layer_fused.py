@@ -2,8 +2,9 @@
 (``csrc/layer_fused_fwd_wgmma.cu`` in bf16, ``csrc/layer_fused_fwd.cu`` in
 fp32 and for the entry points), backward (``csrc/layer_fused_bwd_wgmma.cu``
 in bf16, ``csrc/layer_fused_bwd.cu`` in fp32 and for the entry points) and
-pass B in its recompute form (``csrc/layer_fused_recompute.cu``), and
-``fused_mixer_core``, which chains pass A → the pooled scans → pass B
+pass B in its recompute form (``csrc/layer_fused_recompute_wgmma.cu`` in
+bf16, ``csrc/layer_fused_recompute.cu`` in fp32 and for the entry point),
+and ``fused_mixer_core``, which chains pass A → the pooled scans → pass B
 and differentiates through ``FusedMixerCoreFn``.
 
 Counterpart of ``fastvim_tpu/ops/pallas/layer_fused.py``:
@@ -47,8 +48,9 @@ FWD_MAX_DM = 384        # K3 / K4 keep a tile's x̂ and K4 its out on chip
 BWD_MAX_DI = 768        # ... and K5 / K6 take (kBwdMaxDi): K4's limit
 BWD_MAX_DM = 384        # K5 / K6 keep a tile's dx̂ in registers
 A_BWD_WINDOW = 58       # tokens a K6 block of the bf16 path owns (kAWin)
-RECOMPUTE_MAX_DI = 384  # ... and K7, whose block also holds xin (kRcMaxDi)
-RECOMPUTE_MAX_DM = 384  # K7's x̂ tile beside xin and z in shared memory
+RECOMPUTE_MAX_DI = 768  # ... and K7, which walks d_inner (kRcMaxDi)
+RECOMPUTE_MAX_DM = 384  # K7 keeps a tile's x̂ and out on chip, as K4
+RC_CONV_SLAB = 64       # d_inner channels of a K7 conv slab in bf16 (kCS)
 
 
 def pass_a_widths_ok(d_model: int, d_inner: int) -> bool:
@@ -60,8 +62,8 @@ def pass_a_widths_ok(d_model: int, d_inner: int) -> bool:
 
 def pass_b_widths_ok(d_model: int, d_inner: int,
                      recompute: bool = False) -> bool:
-    """The widths K4's launcher takes, or K7's with ``recompute``: whole
-    32-column tiles, d_model <= 384 and d_inner <= 768 (K7: 384)."""
+    """The widths K4's launcher takes, or K7's with ``recompute`` (the
+    same): whole 32-column tiles, d_model <= 384 and d_inner <= 768."""
     if d_model <= 0 or d_model % 32 or d_inner <= 0 or d_inner % 32:
         return False
     if recompute:
@@ -199,13 +201,15 @@ def pass_a(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling: float,
 # ----------------------------------------------------------------------
 
 def pass_b_plain(x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
-                 w_out, b_out, eps: float, use_ln: bool, transposed: bool):
+                 w_out, b_out, eps: float, use_ln: bool, transposed: bool,
+                 slab_stats: bool = False):
     """x4: (B, H, W, dm); xc_f, xc_b: (B, H, W, di); yf, yb: (B, P, di);
     w_z: (di, dm); w_out: (dm, di), all in x4's dtype. b_z, d_f, d_b,
     ln_w, ln_b: (di,) and b_out: (dm,) float32 (biases may be None). Math
-    in fp32; LayerNorm variance E[m²]−μ² (not clamped); the gated value is
-    rounded to the dtype before the out projection. Returns (B, H, W, dm)
-    in x4's dtype."""
+    in fp32; LayerNorm variance E[m²]−μ² (not clamped), its sums in K7's
+    bf16 order with ``slab_stats`` (:func:`_slab_ln_stats`); the gated
+    value is rounded to the dtype before the out projection. Returns (B, H,
+    W, dm) in x4's dtype."""
     B, H, W, dm = x4.shape
     di = w_z.shape[0]
     dtype = x4.dtype
@@ -216,9 +220,13 @@ def pass_b_plain(x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
     m = (yf.float().reshape(bshape) + d_f.float() * xc_f.float()
          + yb.float().reshape(bshape) + d_b.float() * xc_b.float()) * 0.5
     if use_ln:
-        mu = m.mean(-1, keepdim=True)
-        var = (m * m).mean(-1, keepdim=True) - mu * mu
-        m = (m - mu) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()
+        if slab_stats:
+            mu, rstd = _slab_ln_stats(m, eps)
+        else:
+            mu = m.mean(-1, keepdim=True)
+            var = (m * m).mean(-1, keepdim=True) - mu * mu
+            rstd = torch.rsqrt(var + eps)
+        m = (m - mu) * rstd * ln_w.float() + ln_b.float()
     g = (m.reshape(-1, di) * F.silu(z)).to(dtype).float()
     out = g @ w_out.float().t()
     if b_out is not None:
@@ -293,12 +301,52 @@ def pass_b_recompute_plain(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z,
                         w_out, b_out, eps, use_ln, transposed)
 
 
+def _slab_ln_stats(m: torch.Tensor, eps: float):
+    """LayerNorm mean and 1/std over the last axis of m (fp32) with the sums
+    in the order of K7's bf16 kernel: per conv slab of 64 channels
+    (zero-padded), each thread's 4 channels in order, then a butterfly over
+    the slab's 16 threads, the slab totals added one after another."""
+    di = m.shape[-1]
+    v = F.pad(m, (0, -di % RC_CONV_SLAB)).unflatten(-1, (-1, 16, 4))
+
+    def slab_sums(t):
+        s = t[..., 0] + t[..., 1] + t[..., 2] + t[..., 3]
+        while s.shape[-1] > 1:  # xor 1, 2, 4, 8
+            s = s[..., 0::2] + s[..., 1::2]
+        return s[..., 0]
+
+    sums, sqs = slab_sums(v), slab_sums(v * v)
+    total, total_sq = torch.zeros_like(sums[..., 0]), torch.zeros_like(
+        sums[..., 0])
+    for k in range(sums.shape[-1]):
+        total, total_sq = total + sums[..., k], total_sq + sqs[..., k]
+    inv = 1.0 / di
+    mu = (total * inv).unsqueeze(-1)
+    return mu, torch.rsqrt(total_sq.unsqueeze(-1) * inv - mu * mu + eps)
+
+
+def pass_b_recompute_slabs_plain(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab,
+                                 b_ab, w_z, b_z, d_f, d_b, ln_w, ln_b, w_out,
+                                 b_out, eps: float, use_ln: bool,
+                                 transposed: bool):
+    """:func:`pass_b_recompute_plain` with the LayerNorm sums in the order
+    of K7's bf16 kernel (:func:`_slab_ln_stats`): the plain mirror of that
+    order, held against the JAX package by the CPU tests."""
+    xcf, xcb = _conv_stage_plain(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab,
+                                 transposed)
+    return pass_b_plain(x4, xcf, xcb, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
+                        w_out, b_out, eps, use_ln, transposed,
+                        slab_stats=True)
+
+
 def pass_b_recompute(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z, b_z,
                      d_f, d_b, ln_w, ln_b, w_out, b_out, eps: float,
                      use_ln: bool, transposed: bool):
     """Pass B in its recompute form (K7); same contract as
-    :func:`pass_b_recompute_plain`. On CUDA, d_model and d_inner must be
-    multiples of 32, at most 384 each, and H, W >= 4."""
+    :func:`pass_b_recompute_plain`. On CUDA the widths must pass
+    :func:`pass_b_widths_ok` with ``recompute`` (K4's: d_model <= 384,
+    d_inner <= 768, multiples of 32) and H, W >= 4; a call is one
+    launch."""
     if x4.device.type == "cpu":
         return pass_b_recompute_plain(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab,
                                       b_ab, w_z, b_z, d_f, d_b, ln_w, ln_b,
@@ -336,7 +384,8 @@ def pass_b_recompute(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z, b_z,
             f"{name}: needs d_model, d_inner % 32 == 0, d_model <= "
             f"{RECOMPUTE_MAX_DM}, d_inner <= {RECOMPUTE_MAX_DI} and H, W >= "
             f"4, got d_model={dm}, d_inner={di}, grid=({H}, {W})")
-    kernels.check_aligned(name, x4=x4, w_x=w_x, w_z=w_z, w_out=w_out)
+    kernels.check_aligned(name, x4=x4, yf=yf, yb=yb, w_x=w_x, w_z=w_z,
+                          w_out=w_out)
     out = torch.empty_like(x4)
     err = _build.library().fv_pass_b_recompute_fwd(
         *map(kernels.ptr, (x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z,
@@ -882,8 +931,9 @@ def fused_mixer_core(x_hat: torch.Tensor, p: FusedParams,
         raise ValueError(
             f"fused_mixer_core: the fused forward kernels take d_model % 32 "
             f"== 0, d_inner % 64 == 0, d_model <= {FWD_MAX_DM} and d_inner "
-            f"<= {FWD_MAX_DI} (with recompute: d_inner <= "
-            f"{RECOMPUTE_MAX_DI}), got d_model={dm}, d_inner={di}")
+            f"<= {FWD_MAX_DI} (with recompute: d_model <= "
+            f"{RECOMPUTE_MAX_DM}, d_inner <= {RECOMPUTE_MAX_DI}), got "
+            f"d_model={dm}, d_inner={di}")
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x_hat,) + tuple(p))
     if needs_grad:

@@ -11,15 +11,17 @@ first CUDA device and prints one table::
 
 With ``--graph`` the forward is captured once as a CUDA graph and the
 replays are profiled, so that the forward's device time is read without
-the host's launches in the way. With ``--fwd-times`` / ``--bwd-times`` it
+the host's launches in the way (``--layer-fused recompute`` for the
+recompute configuration). With ``--fwd-times`` / ``--bwd-times`` it
 instead times K3 and K4 / K5 and K6 alone (bf16, CUDA events, both
-orientations) at the model's widths and grid, and with ``--bwd-phases``
-it builds the kernels with their cycle counters compiled in and prints
-where a block of K5 and of K6 spends its cycles. ``--scan-times`` times
-the two forms, sequential and chunked, of K1 and of K2 in turns on the
-same inputs at L = 128 to 16,384 (bf16, B = 2, d_inner 384, n 16, both
-directions), and names the form each launcher picks at each length: what
-sets ``selective_scan.CHUNKED_MIN_L``.
+orientations) at the model's widths and grid, with ``--rc-times`` K7 and
+K3's pools-only form (the recompute configuration's two passes), and
+with ``--bwd-phases`` it builds the kernels with their cycle counters
+compiled in and prints where a block of K5 and of K6 spends its cycles.
+``--scan-times`` times the two forms, sequential and chunked, of K1 and
+of K2 in turns on the same inputs at L = 128 to 16,384 (bf16, B = 2,
+d_inner 384, n 16, both directions), and names the form each launcher
+picks at each length: what sets ``selective_scan.CHUNKED_MIN_L``.
 
 It needs a CUDA device; nothing here falls back to the CPU.
 """
@@ -177,17 +179,26 @@ def _event_ms(fn, args, iters: int) -> float:
 
 
 def kernel_times(dm: int, di: int, grid: int, batch: int, fwd: bool,
-                 iters: int = 20) -> None:
-    """Print the time of one call of K4 and K3 (``fwd``) or of K5 and K6
-    in bf16 (CUDA events over ``iters`` calls after a warm-up one), on even
-    and odd layers."""
+                 iters: int = 20, recompute: bool = False) -> None:
+    """Print the time of one call of K4 and K3 (``fwd``), of K7 and K3's
+    pools-only form (``recompute``) or of K5 and K6 in bf16 (CUDA events
+    over ``iters`` calls after a warm-up one), on even and odd layers."""
     from fastvim_tpu_torch.ops.kernels import layer_fused as lf
 
     names = ("K4", "K3") if fwd else ("K5", "K6")
     fns = (lf.pass_b, lf.pass_a) if fwd else (lf.pass_b_bwd, lf.pass_a_bwd)
+    if recompute:  # K7 and K3 without the xc stores
+        names = ("K7", "K3 pools-only")
+        fns = (lf.pass_b_recompute,
+               lambda *a: lf.pass_a(*a, write_xc=False))
     for transposed in (False, True):
         args = (_fwd_args if fwd else _bwd_args)(dm, di, grid, batch,
                                                  transposed)
+        if recompute:
+            # pass_b_recompute: x̂, yf, yb, pass_a's weights, then pass_b's
+            # from w_z on
+            b, a = args
+            args = ((b[0], b[3], b[4], *a[1:7], *b[5:]), a)
         with torch.no_grad():
             ms = [_event_ms(fn, a, iters) for fn, a in zip(fns, args)]
         print(f"bf16 d_model={dm} d_inner={di} grid={grid}x{grid} B={batch} "
@@ -330,11 +341,16 @@ def main() -> None:
     ap.add_argument("--train", action="store_true",
                     help="a supervised train step instead of a forward")
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--layer-fused", default=None,
+                    help="the model's layer_fused field (e.g. recompute)")
     ap.add_argument("--graph", action="store_true",
                     help="profile replays of the forward captured as a CUDA "
                          "graph")
     ap.add_argument("--fwd-times", action="store_true",
                     help="time K3 and K4 alone at the model's widths")
+    ap.add_argument("--rc-times", action="store_true",
+                    help="time K7 and K3's pools-only form alone at the "
+                         "model's widths")
     ap.add_argument("--bwd-times", action="store_true",
                     help="time K5 and K6 alone at the model's widths")
     ap.add_argument("--bwd-phases", action="store_true",
@@ -351,7 +367,7 @@ def main() -> None:
         return scan_times(tuple(int(L) for L in args.lengths.split(",")))
     if args.graph and args.train:
         raise SystemExit("profiling: --graph captures a forward only")
-    if args.bwd_phases or args.bwd_times or args.fwd_times:
+    if args.bwd_phases or args.bwd_times or args.fwd_times or args.rc_times:
         from fastvim_tpu_torch.models.registry import _SIZES
 
         size = _SIZES[args.model.split("_", 1)[1]]
@@ -359,7 +375,8 @@ def main() -> None:
         shape = (dm, 2 * dm, args.img // size["patch_size"], args.batch)
         if args.bwd_phases:
             return bwd_phase_cycles(*shape)
-        return kernel_times(*shape, fwd=args.fwd_times)
+        return kernel_times(*shape, fwd=args.fwd_times or args.rc_times,
+                            recompute=args.rc_times)
 
     from fastvim_tpu_torch.models import create_model
     from fastvim_tpu_torch.train import (
@@ -371,8 +388,10 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     dtype = getattr(torch, args.dtype)
+    fields = {} if args.layer_fused is None else dict(
+        layer_fused=args.layer_fused)
     model = create_model(args.model, img_size=args.img, dtype=dtype,
-                         drop_path_rate=0.0)
+                         drop_path_rate=0.0, **fields)
     gen = torch.Generator(device=dev).manual_seed(0)
     batch = {"image": torch.randn(args.batch, args.img, args.img, 3,
                                   device=dev, generator=gen, dtype=dtype),
@@ -396,7 +415,8 @@ def main() -> None:
     card = card_line()
     what = ("train step" if args.train
             else "forward, CUDA-graph replay" if args.graph else "forward")
-    print(f"{args.model} {args.img}px B={args.batch} {args.dtype} {what} "
+    print(f"{args.model} {fields} {args.img}px B={args.batch} {args.dtype} "
+          f"{what} "
           f"({card}): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, "
           f"{sum(r[2] for r in rows)} kernels and copies launched")

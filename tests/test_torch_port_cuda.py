@@ -683,37 +683,89 @@ def test_merge_ln_gate_matches_plain(dev, dtype, pool_axes, grid, d, use_ln):
                TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("grid,transposed,batch,dm,di,bias,use_ln", [
-    *[(grid, tr, 2, 64, 128, tr, True) for grid in ODD_GRIDS
-      for tr in (False, True)],
-    ((6, 10), True, 3, 64, 128, True, False),   # 60 tokens: a partial tile
-    ((8, 8), False, 2, 192, 384, False, True),  # FastVim-T widths
-])
-def test_pass_b_recompute_matches_plain(dev, dtype, grid, transposed, batch,
-                                        dm, di, bias, use_ln):
-    g = torch.Generator(device=dev).manual_seed(di + grid[1] + 2)
-    H, W = grid
+def _recompute_args(g, dtype, batch, H, W, dm, di, bias, use_ln,
+                    transposed):
     P = W if transposed else H
     x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, _, _ = _pass_a_args(
         g, dtype, batch, H, W, dm, di, bias, transposed)
     cb = (lambda k: _rand(g, k, scale=0.3)) if bias else (lambda k: None)
-    args = (x4, _rand(g, batch, P, di).to(dtype),
+    return (x4, _rand(g, batch, P, di).to(dtype),
             _rand(g, batch, P, di).to(dtype), w_x, b_x, w_cf, b_cf, w_ab,
             b_ab, _rand(g, di, dm, scale=dm ** -0.5).to(dtype), cb(di),
             _rand(g, di), _rand(g, di), 1 + _rand(g, di, scale=0.1),
             _rand(g, di, scale=0.1),
             _rand(g, dm, di, scale=di ** -0.5).to(dtype), cb(dm), 1e-5,
             use_ln, transposed)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,transposed,batch,dm,di,bias,use_ln", [
+    *[(grid, tr, 2, 64, 128, tr, True) for grid in ODD_GRIDS
+      for tr in (False, True)],
+    ((6, 10), True, 3, 64, 128, True, False),   # 60 tokens: a partial tile
+    ((10, 13), False, 2, 64, 128, False, True),  # 130: the third partial
+    ((8, 8), False, 2, 192, 384, False, True),  # FastVim-T widths
+    ((8, 8), False, 2, 384, 768, True, True),   # FastVim-S widths
+    ((8, 8), True, 2, 384, 768, False, True),
+    ((14, 14), False, 1, 384, 768, False, False),  # ... without LayerNorm
+    ((6, 10), False, 2, 96, 192, True, True),   # d_model zero-padded to 128
+    ((10, 6), True, 2, 160, 320, False, True),  # ... to 192; d_inner 5 x 64
+    ((6, 10), True, 2, 128, 160, True, True),   # d_inner 160: a half slab
+])
+def test_pass_b_recompute_matches_plain(dev, dtype, grid, transposed, batch,
+                                        dm, di, bias, use_ln):
+    g = torch.Generator(device=dev).manual_seed(di + grid[1] + 2)
+    args = _recompute_args(g, dtype, batch, *grid, dm, di, bias, use_ln,
+                           transposed)
     with torch.no_grad():
         _close(lf.pass_b_recompute(*args), lf.pass_b_recompute_plain(*args),
                TOL[dtype])
+        if not lf.pass_a_widths_ok(dm, di):  # K3 walks whole 64-channel slabs
+            return
         # pass A's pools-only form gives pass A's pools
-        a_args = (x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, 0.5, transposed)
+        a_args = (args[0], *args[3:9], 0.5, transposed)
         none_f, none_b, pf, pb = lf.pass_a(*a_args, write_xc=False)
         assert none_f is None and none_b is None
         want = lf.pass_a(*a_args)
         assert torch.equal(pf, want[2]) and torch.equal(pb, want[3])
+
+
+@pytest.mark.parametrize("dm,di", [(192, 384), (384, 768)])
+def test_pass_b_recompute_repeats_bitwise(dev, dm, di):
+    """K7 in bf16, in each of its two designs (the tile's m kept at
+    FastVim-T's widths, d_inner walked twice at FastVim-S's), gives the
+    same bits from call to call: one launch, no atomics."""
+    g = torch.Generator(device=dev).manual_seed(dm)
+    args = _recompute_args(g, torch.bfloat16, 2, 16, 20, dm, di, True, True,
+                           True)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        first = lf.pass_b_recompute(*args)
+        for _ in range(3):
+            assert torch.equal(lf.pass_b_recompute(*args), first)
+    assert kernels.launch_counts()["pass_b_recompute_fwd"] == 4
+
+
+def test_fastvim_small_recompute_fuses(dev):
+    """create_model("fastvim_small", layer_fused="recompute") fuses on the
+    card, as the JAX package's recompute mode does at d_inner 768: 24 K3
+    (pools only), 24 K7 and 48 K1 a forward, and the logits of the same
+    model through the default fused layer (K3, K4) in fp32."""
+    from fastvim_tpu_torch.models import create_model
+
+    build = lambda **kw: create_model(
+        "fastvim_small", img_size=64, device=dev,
+        generator=torch.Generator().manual_seed(0), **kw)
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = build()(x.to(dev))
+        model = build(layer_fused="recompute")
+        kernels.reset_launch_counts()
+        got = model(x.to(dev))
+    assert kernels.launch_counts() == {
+        **dict.fromkeys(kernels.LAUNCHES, 0), "pass_a_fwd": 24,
+        "pass_b_recompute_fwd": 24, "selective_scan_fwd": 48}
+    _close(got, want, 1e-3)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -841,13 +893,13 @@ def test_new_wrappers_refuse(dev):
     with pytest.raises(ValueError, match="pooled over one axis"):
         mg.merge_ln_gate(xc, xc, xc, a[2], a[3], a[8], a[9], None, None,
                          (4, 6), (0, 1), 1e-5, False)
-    x4, y = _rand(g, 1, 8, 8, 64), _rand(g, 1, 8, 768)
-    v = _rand(g, 768)
-    with pytest.raises(ValueError, match="d_inner <= 384"):
-        lf.pass_b_recompute(x4, y, y, _rand(g, 768, 64), None,
-                            _rand(g, 768, 4), None, _rand(g, 768, 4), None,
-                            _rand(g, 768, 64), None, v, v, v, v,
-                            _rand(g, 64, 768), None, 1e-5, True, False)
+    x4, y = _rand(g, 1, 8, 8, 64), _rand(g, 1, 8, 1536)
+    v = _rand(g, 1536)
+    with pytest.raises(ValueError, match="d_inner <= 768"):
+        lf.pass_b_recompute(x4, y, y, _rand(g, 1536, 64), None,
+                            _rand(g, 1536, 4), None, _rand(g, 1536, 4), None,
+                            _rand(g, 1536, 64), None, v, v, v, v,
+                            _rand(g, 64, 1536), None, 1e-5, True, False)
     u = _rand(g, 1, 8, 64)
     with pytest.raises(NotImplementedError, match="forward-only"):
         selective_scan(u, u, -torch.ones(64, 16, device=dev),

@@ -212,20 +212,20 @@ def test_block_kernels_take_grids_the_tpu_kernels_refuse():
 # K7: the fused layer in its recompute form
 # ----------------------------------------------------------------------
 
-def _layer_params(seed, bias=False):
+def _layer_params(seed, bias=False, dm=DM, di=DI):
     """The JAX fused layer's parameter tuple from numpy, and the port's
     FusedParams of the same values (torch layouts)."""
     rng = np.random.default_rng(seed)
     u = lambda shape, s=0.2: rng.uniform(-s, s, shape).astype(np.float32)
     p = dict(
-        win=u((DM, 2 * DI)), bin_=u((2 * DI,)) if bias else None,
-        wcf=u((4, DI)), bcf=u((DI,)), wab=u((4, DI)), bab=u((DI,)),
-        xpf=u((DI, R + 2 * N)), dtwf=u((R, DI)), dtbf=u((DI,), 0.5),
-        Af=u((DI, N), 1.0), Df=u((DI,)),
-        xpb=u((DI, R + 2 * N)), dtwb=u((R, DI)), dtbb=u((DI,), 0.5),
-        Ab=u((DI, N), 1.0), Db=u((DI,)),
-        lnw=1.0 + u((DI,), 0.1), lnb=u((DI,), 0.1),
-        wout=u((DI, DM)), bout=u((DM,)) if bias else None)
+        win=u((dm, 2 * di)), bin_=u((2 * di,)) if bias else None,
+        wcf=u((4, di)), bcf=u((di,)), wab=u((4, di)), bab=u((di,)),
+        xpf=u((di, R + 2 * N)), dtwf=u((R, di)), dtbf=u((di,), 0.5),
+        Af=u((di, N), 1.0), Df=u((di,)),
+        xpb=u((di, R + 2 * N)), dtwb=u((R, di)), dtbb=u((di,), 0.5),
+        Ab=u((di, N), 1.0), Db=u((di,)),
+        lnw=1.0 + u((di,), 0.1), lnb=u((di,), 0.1),
+        wout=u((di, dm)), bout=u((dm,)) if bias else None)
     jp = tuple(J(v) for v in p.values())
     tr = lambda k: T(p[k].T)
     tp = lf.FusedParams(
@@ -261,6 +261,46 @@ def test_recompute_core_matches_pallas_and_reference(grid, transposed,
     ref = _reference_core(J(x), jp, *args, jnp.float32, "ref")
     np.testing.assert_allclose(out.numpy(), np.asarray(pal), **TOL)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("pass_b", ["plain", "slab-order mirror"])
+def test_recompute_core_at_fastvim_s_width_matches_pallas(transposed, pass_b,
+                                                          monkeypatch):
+    """fused_mixer_core(recompute=True) at FastVim-S's widths (d_model 384,
+    d_inner 768), which K7 now takes as the JAX package's recompute mode
+    does, against the JAX fused layer in that mode (Pallas in interpret
+    mode), 8 x 8 grid, batch 1, both orientations; with pass B's plain
+    version, and with its mirror of the bf16 kernel's LayerNorm sum order
+    (pass_b_recompute_slabs_plain) in its place."""
+    dm, di = 384, 768
+    assert lf.pass_b_widths_ok(dm, di, recompute=True)
+    if pass_b != "plain":
+        monkeypatch.setattr(lf, "pass_b_recompute",
+                            lf.pass_b_recompute_slabs_plain)
+    x = np.random.default_rng(7).standard_normal((1, 64, dm)).astype(
+        np.float32)
+    jp, tp = _layer_params(8, bias=transposed, dm=dm, di=di)
+    args = ((8, 8), transposed, 0.5, 1e-5, True)
+    out = lf.fused_mixer_core(T(x), tp, *args, torch.float32, recompute=True)
+    monkeypatch.setenv("FASTVIM_LF_RECOMPUTE", "1")
+    pal = jax_fused_mixer_core(J(x), jp, *args, jnp.float32, "ref", True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pal), **TOL)
+
+
+@pytest.mark.parametrize("di", [128, 160, 768])
+def test_slab_ln_stats_match_mean_and_variance(di):
+    """The mirror of K7's LayerNorm sum order gives the statistics of
+    pass_b_plain's mean-based ones, d_inner a whole number of 64-channel
+    slabs or not."""
+    m = torch.from_numpy(np.random.default_rng(di).standard_normal(
+        (3, 5, di)).astype(np.float32))
+    mu, rstd = lf._slab_ln_stats(m, 1e-5)
+    want_mu = m.mean(-1, keepdim=True)
+    want_var = (m * m).mean(-1, keepdim=True) - want_mu * want_mu
+    np.testing.assert_allclose(mu.numpy(), want_mu.numpy(), **TOL)
+    np.testing.assert_allclose(rstd.numpy(),
+                               torch.rsqrt(want_var + 1e-5).numpy(), **TOL)
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -608,7 +648,7 @@ def test_train_step_fused_kernels_always_matches_jax():
 
 @pytest.mark.parametrize("d_model,fused,recompute", [
     (192, True, True),     # FastVim-T: d_inner 384
-    (384, True, False),    # FastVim-S: 768, too wide for K7 only
+    (384, True, True),     # FastVim-S: 768, which K7 walks in slabs
     (768, False, False),   # FastVim-B: 1536 runs unfused
     (1280, False, False),  # FastVim-H: 2560
 ])
