@@ -62,8 +62,9 @@ SIGNATURES = {
     # dtype, scaling, stream
     "fv_conv_pool_fwd": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
     # x, z, yf, yb, w_cf, b_cf, w_ab, b_ab, d_f, d_b, ln_w, ln_b, out, batch,
-    # rows, cols, d, ldx, ldz, dtype, use_ln, eps, stream
-    "fv_merge_gate_fwd": [_P] * 13 + [_I] * 8 + [ctypes.c_float, _P],
+    # rows, cols, d, ldx, ldz, dtype, use_ln, tile, threads, smem, eps,
+    # stream
+    "fv_merge_gate_fwd": [_P] * 13 + [_I] * 11 + [ctypes.c_float, _P],
     # xc_f, xc_b, z, yf, yb, d_f, d_b, ln_w, ln_b, out, batch, H, W, d, ldz,
     # along_w, dtype, use_ln, eps, stream
     "fv_merge_ln_gate_fwd": [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P],

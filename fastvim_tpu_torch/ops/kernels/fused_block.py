@@ -16,7 +16,9 @@ along the flat raster of a (rows, cols) grid, pooling is over each row
 type the unfused path holds them in, before they are pooled or merged.
 
 Conv weights are ``(d, 4)`` (``conv1d.weight`` reshaped); x and z may be
-the two column halves of the in-projection's output, uncopied. Both are
+the two column halves of the in-projection's output, uncopied. K9 stages
+tiles of consecutive tokens in shared memory; :func:`merge_gate_plan`
+sizes them from d and hands the kernel its tile and block size. Both are
 forward kernels: ``ConvPoolFn`` and ``MergeGateFn`` take the gradient by
 autograd through the plain versions, as the JAX package takes it through
 its references.
@@ -24,7 +26,7 @@ its references.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,12 +37,69 @@ from fastvim_tpu_torch.ops.kernels import _build
 from fastvim_tpu_torch.ops.scan import broadcast_grid, pool_grid
 
 
+# K9's launch plan (csrc/fused_block.cu): threads a block at most (its
+# __launch_bounds__), the shared memory a block may use, and the tile
+# sizes tried, largest first
+MG_MAX_THREADS = 384
+SMEM_BLOCK = 232448
+MG_TILES = (32, 16, 8, 4, 2, 1)
+
+
 def fusable(rows: int, cols: int, d: int) -> bool:
     """What K8 and K9 take: any grid (rows shorter than the conv's reach
-    and single rows included) and any d_inner that is a multiple of 32.
-    The TPU kernels' tile rules (rows % 8, a VMEM budget per tile) have no
+    and single rows included) and any d_inner that is a multiple of 32 and
+    leaves K9 a tile of one token in shared memory in either dtype (fp32
+    needs the most: d <= 2752; FastVim-H's d_inner is 2560). The TPU
+    kernels' tile rules (rows % 8, a VMEM budget per tile) have no
     counterpart here."""
-    return rows >= 1 and cols >= 1 and d >= 32 and d % 32 == 0
+    return (rows >= 1 and cols >= 1 and d >= 32 and d % 32 == 0
+            and merge_gate_smem(1, d, rows, cols, 4) <= SMEM_BLOCK)
+
+
+class MergeGatePlan(NamedTuple):
+    tile: int     # consecutive raster tokens a block stages and computes
+    threads: int  # threads a block: 4 channels each, times the chunks
+    smem: int     # bytes of shared memory a block asks for
+
+
+def merge_rows_staged(tile: int, rows: int, cols: int) -> int:
+    """The yf / yb rows a K9 buffer holds: the most rows a tile of
+    ``tile`` consecutive raster tokens touches, wherever it starts."""
+    return min(tile, rows, (tile + cols - 2) // cols + 1)
+
+
+def merge_gate_smem(tile: int, d: int, rows: int, cols: int,
+                    elem_bytes: int) -> int:
+    """Shared memory of a K9 block: two buffers, each of x (tile + 6 rows,
+    the conv's halo included), z (tile rows) and the yf / yb rows a tile
+    touches; m (tile rows, fp32); μ, rstd and the staged row of each
+    token. The kernel counts its layout by ``merge_smem`` in
+    csrc/fused_block.cu and refuses a launch whose count differs."""
+    nr = merge_rows_staged(tile, rows, cols)
+    buf = (2 * tile + 6) * d * elem_bytes + 2 * nr * d * 4
+    return 2 * buf + tile * d * 4 + tile * 12
+
+
+def merge_gate_plan(d: int, rows: int, cols: int,
+                    elem_bytes: int) -> MergeGatePlan:
+    """K9's tile and block for d channels on a (rows, cols) grid. A
+    thread owns 4 channels: d/4 threads, times the largest power of two
+    that stays within 384, side by side on 4-token chunks (past d = 1536,
+    384 threads take several quads of channels each). The tile is the
+    largest of 32, 16, 8, ... tokens, at most two chunks a thread, whose
+    buffers fit in shared memory: wide d gets fewer tokens a tile, never
+    another code path."""
+    q = d // 4
+    s = 1
+    while q * s * 2 <= MG_MAX_THREADS:
+        s *= 2
+    threads = min(q * s, MG_MAX_THREADS)
+    tiles = [t for t in MG_TILES if t <= 8 * s and
+             merge_gate_smem(t, d, rows, cols, elem_bytes) <= SMEM_BLOCK]
+    if not tiles:
+        raise ValueError(f"merge_gate: d={d} leaves no tile in shared memory")
+    return MergeGatePlan(tiles[0], threads,
+                         merge_gate_smem(tiles[0], d, rows, cols, elem_bytes))
 
 
 def _convs_plain(x, w_cf, b_cf, w_ab, b_ab):
@@ -68,7 +127,8 @@ def _check_conv_args(name, x, w_cf, b_cf, w_ab, b_ab, rows, cols):
     if L != rows * cols:
         raise ValueError(f"{name}: L={L} does not match grid ({rows}, {cols})")
     if not fusable(rows, cols, d):
-        raise ValueError(f"{name}: needs d % 32 == 0, got d={d}")
+        raise ValueError(f"{name}: needs d % 32 == 0 and d <= 2752, got "
+                         f"d={d}")
     for arg, t, shape in (("w_cf", w_cf, (d, 4)), ("w_ab", w_ab, (d, 4)),
                           ("b_cf", b_cf, (d,)), ("b_ab", b_ab, (d,))):
         if t is not None and (t.dtype != torch.float32
@@ -156,12 +216,13 @@ def merge_gate(x, z, yf, yb, w_cf, b_cf, w_ab, b_ab, d_f, d_b, ln_w, ln_b,
                               or tuple(t.shape) != shape):
             raise ValueError(f"{name}: {arg} must be float32 {shape}")
     out = torch.empty(B, L, d, dtype=x.dtype, device=x.device)
+    plan = merge_gate_plan(d, rows, cols, x.element_size())
     err = _build.library().fv_merge_gate_fwd(
         *map(kernels.ptr, (x, z, yf, yb, w_cf, b_cf, w_ab, b_ab, d_f, d_b,
                            ln_w, ln_b, out)),
         B, rows, cols, d, kernels.token_stride(name, "x", x),
-        kernels.token_stride(name, "z", z), code, int(use_norm), float(eps),
-        kernels.stream_ptr(x.device))
+        kernels.token_stride(name, "z", z), code, int(use_norm), plan.tile,
+        plan.threads, plan.smem, float(eps), kernels.stream_ptr(x.device))
     _build.check(err, name)
     kernels.LAUNCHES[name] += 1
     return out

@@ -12,10 +12,11 @@ first CUDA device and prints one table::
 With ``--graph`` the forward is captured once as a CUDA graph and the
 replays are profiled, so that the forward's device time is read without
 the host's launches in the way (``--layer-fused recompute`` for the
-recompute configuration). With ``--fwd-times`` / ``--bwd-times`` it
-instead times K3 and K4 / K5 and K6 alone (bf16, CUDA events, both
-orientations) at the model's widths and grid, with ``--rc-times`` K7 and
-K3's pools-only form (the recompute configuration's two passes), and
+recompute configuration, ``--fused-kernels always`` for K8 and K9). With
+``--fwd-times`` / ``--bwd-times`` it instead times K3 and K4 / K5 and K6
+alone (bf16, CUDA events, both orientations) at the model's widths and
+grid, with ``--rc-times`` K7 and K3's pools-only form (the recompute
+configuration's two passes), with ``--fb-times`` K8 and K9, and
 with ``--bwd-phases`` it builds the kernels with their cycle counters
 compiled in and prints where a block of K5 and of K6 spends its cycles.
 ``--scan-times`` times the two forms, sequential and chunked, of K1 and
@@ -206,6 +207,122 @@ def kernel_times(dm: int, di: int, grid: int, batch: int, fwd: bool,
               f"{names[1]} {ms[1]:.4f} ms")
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device ms a call of ``fn``: ``calls`` calls captured in one CUDA
+    graph after a warm-up call, replayed ``replays`` times after a warm-up
+    replay and timed with CUDA events. A kernel that runs for less time
+    than its wrapper takes on the host (K8 at FastVim's widths) reads the
+    host's time when timed call by call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def kernels_a_call(fn) -> int:
+    """Device kernels (and copies) one call of ``fn`` launches: the
+    kernel, memcpy and memset nodes of a CUDA graph captured from one call
+    after a warm-up one, read through the driver API while the capture is
+    open. It does not depend on CUPTI tracing, as a profiler trace
+    does."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUresult {rc}")
+
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            fn()
+            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+            status, cid = ctypes.c_int(), ctypes.c_uint64()
+            cugraph, deps = ctypes.c_void_p(), ctypes.c_void_p()
+            ndeps, nnodes = ctypes.c_size_t(), ctypes.c_size_t()
+            check(cu.cuStreamGetCaptureInfo_v2(
+                stream, ctypes.byref(status), ctypes.byref(cid),
+                ctypes.byref(cugraph), ctypes.byref(deps),
+                ctypes.byref(ndeps)), "cuStreamGetCaptureInfo_v2")
+            if status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+                raise RuntimeError(f"stream not capturing ({status.value})")
+            check(cu.cuGraphGetNodes(cugraph, None, ctypes.byref(nnodes)),
+                  "cuGraphGetNodes")
+            nodes = (ctypes.c_void_p * nnodes.value)()
+            check(cu.cuGraphGetNodes(cugraph, nodes, ctypes.byref(nnodes)),
+                  "cuGraphGetNodes")
+            kinds = []
+            for node in nodes:
+                kind = ctypes.c_int()
+                check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                            ctypes.byref(kind)),
+                      "cuGraphNodeGetType")
+                kinds.append(kind.value)
+        del graph
+    # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET
+    return sum(kind in (0, 1, 2) for kind in kinds)
+
+
+def block_times(di: int, grid: int, batch: int, iters: int = 20) -> None:
+    """Print the device time of one call of K8 (mean pooling) and of K9
+    (with LayerNorm) in bf16 (a CUDA graph of ``iters`` calls, replayed)
+    on a grid × grid token grid, x and z the column halves of one
+    in-projection output, each beside its byte bound (inputs read once,
+    outputs written once, at 3.35 TB/s) and its largest difference from
+    its plain version on the same inputs."""
+    from fastvim_tpu_torch.ops.kernels import fused_block as fb
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    L = grid * grid
+    xz = rnd(batch, L, 2 * di).bfloat16()
+    x, z = xz[..., :di], xz[..., di:]
+    conv = (rnd(di, 4) * 0.5, rnd(di) * 0.3, rnd(di, 4) * 0.5, rnd(di) * 0.3)
+    ys = (rnd(batch, grid, di), rnd(batch, grid, di))
+    vec = (rnd(di), rnd(di), 1 + rnd(di) * 0.1, rnd(di) * 0.1)
+    k8 = (x, *conv, grid, grid, "mean", 1.0)
+    k9 = (x, z, *ys, *conv, *vec, grid, grid, 1e-5, True)
+    small = 4 * (2 * di * 4 + 2 * di)  # weights and vectors, fp32
+    pooled = 2 * batch * grid * di * 4
+    tok = batch * L * di * 2
+    with torch.no_grad():
+        for name, fn, plain, args, n_bytes in (
+                ("K8", fb.conv_pool, fb.conv_pool_plain, k8,
+                 tok + pooled + small),
+                ("K9", fb.merge_gate, fb.merge_gate_plain, k9,
+                 3 * tok + pooled + small)):
+            ms = graph_ms(lambda: fn(*args), iters)
+            bound = n_bytes / 3.35e12 * 1e3
+            got, want = fn(*args), plain(*args)
+            got, want = ((got, want) if isinstance(got, tuple)
+                         else ((got,), (want,)))
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+            differ = (sum((g != w).sum().item() for g, w in zip(got, want))
+                      / sum(g.numel() for g in got))
+            print(f"bf16 d_inner={di} grid={grid}x{grid} B={batch}: {name} "
+                  f"{ms:.4f} ms, bound {bound:.4f} ms (bytes), "
+                  f"{bound / ms:.1%} of it; against the plain version: max "
+                  f"abs err {err:.3e}, {differ:.2%} of the outputs differ")
+
+
 def scan_times(lengths=(128, 256, 512, 1024, 4096, 16384), batch: int = 2,
                d: int = 384, n: int = 16) -> None:
     """Print one call's times of K1 and of K2 in each form (bf16) at each
@@ -343,6 +460,10 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--layer-fused", default=None,
                     help="the model's layer_fused field (e.g. recompute)")
+    ap.add_argument("--fused-kernels", default=None,
+                    choices=("always", "merge"),
+                    help="the mixers' ssm_cfg fused_kernels field (K8 and "
+                         "K9, or K9 alone; layer_fused off unless given)")
     ap.add_argument("--graph", action="store_true",
                     help="profile replays of the forward captured as a CUDA "
                          "graph")
@@ -351,6 +472,8 @@ def main() -> None:
     ap.add_argument("--rc-times", action="store_true",
                     help="time K7 and K3's pools-only form alone at the "
                          "model's widths")
+    ap.add_argument("--fb-times", action="store_true",
+                    help="time K8 and K9 alone at the model's widths")
     ap.add_argument("--bwd-times", action="store_true",
                     help="time K5 and K6 alone at the model's widths")
     ap.add_argument("--bwd-phases", action="store_true",
@@ -367,7 +490,8 @@ def main() -> None:
         return scan_times(tuple(int(L) for L in args.lengths.split(",")))
     if args.graph and args.train:
         raise SystemExit("profiling: --graph captures a forward only")
-    if args.bwd_phases or args.bwd_times or args.fwd_times or args.rc_times:
+    if (args.bwd_phases or args.bwd_times or args.fwd_times or args.rc_times
+            or args.fb_times):
         from fastvim_tpu_torch.models.registry import _SIZES
 
         size = _SIZES[args.model.split("_", 1)[1]]
@@ -375,6 +499,9 @@ def main() -> None:
         shape = (dm, 2 * dm, args.img // size["patch_size"], args.batch)
         if args.bwd_phases:
             return bwd_phase_cycles(*shape)
+        if args.fb_times:
+            print(card_line(), flush=True)
+            return block_times(*shape[1:])
         return kernel_times(*shape, fwd=args.fwd_times or args.rc_times,
                             recompute=args.rc_times)
 
@@ -390,6 +517,9 @@ def main() -> None:
     dtype = getattr(torch, args.dtype)
     fields = {} if args.layer_fused is None else dict(
         layer_fused=args.layer_fused)
+    if args.fused_kernels is not None:
+        fields = {"layer_fused": "off", **fields,
+                  "ssm_cfg": {"fused_kernels": args.fused_kernels}}
     model = create_model(args.model, img_size=args.img, dtype=dtype,
                          drop_path_rate=0.0, **fields)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -26,6 +26,7 @@ from fastvim_tpu_torch.ops.kernels import layer_fused as lf
 from fastvim_tpu_torch.ops.kernels import merge_gate as mg
 from fastvim_tpu_torch.ops.kernels import selective_scan as ss
 from fastvim_tpu_torch.ops.scan import selective_scan
+from fastvim_tpu_torch.utils.profiling import kernels_a_call
 
 pytestmark = pytest.mark.cuda
 
@@ -659,6 +660,109 @@ def test_merge_gate_matches_plain(dev, dtype, grid, d, bias, use_norm):
     with torch.no_grad():
         _close(fb.merge_gate(*a, *grid, 1e-5, use_norm),
                fb.merge_gate_plain(*a, *grid, 1e-5, use_norm), TOL[dtype])
+
+
+# K8 and K9 on grids whose rows end inside K9's tiles and K8's runs and
+# whose cols divide neither (14 x 14, 6 x 10, 170 x 5, 4 x 200), at the
+# narrowest width and FastVim-H's; many rows (2048 x 16), where K8's runs
+# take several rows each; x and z as column slices whose offsets leave
+# only 4- (bf16) or 8-byte (fp32) alignment (off 2)
+BLOCK_CASES = [
+    ((14, 14), 32, 0), ((6, 10), 96, 2), ((170, 5), 2560, 0),
+    ((4, 200), 2560, 2), ((170, 5), 32, 2), ((4, 200), 96, 0),
+    ((14, 14), 2560, 2), ((6, 10), 384, 2), ((1, 12), 2560, 0),
+    ((2048, 16), 768, 0),
+]
+
+
+def _sliced_block_args(g, dtype, batch, rows, cols, d, off):
+    """merge_gate's arguments with x and z as column slices of a (batch,
+    L, 2d + 2·off) array, ``off`` elements in."""
+    L = rows * cols
+    xz = _rand(g, batch, L, 2 * d + 2 * off).to(dtype)
+    a = _block_args(g, dtype, batch, rows, cols, d, off == 0)
+    a[0], a[1] = xz[..., off:off + d], xz[..., d + 2 * off:]
+    return a
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("method", ["mean", "max"])
+@pytest.mark.parametrize("grid,d,off", BLOCK_CASES)
+def test_conv_pool_odd_grids_widths_and_slices(dev, dtype, grid, d, off,
+                                               method):
+    g = torch.Generator(device=dev).manual_seed(d + grid[0] + off)
+    a = _sliced_block_args(g, dtype, 2, *grid, d, off)
+    args = (a[0], *a[4:8], *grid, method, 0.5)
+    with torch.no_grad():
+        for got, want in zip(fb.conv_pool(*args), fb.conv_pool_plain(*args)):
+            _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("use_norm", [True, False])
+@pytest.mark.parametrize("grid,d,off", BLOCK_CASES[:-1])
+def test_merge_gate_odd_grids_widths_and_slices(dev, dtype, grid, d, off,
+                                                use_norm):
+    g = torch.Generator(device=dev).manual_seed(d + grid[1] + off)
+    a = _sliced_block_args(g, dtype, 2, *grid, d, off)
+    with torch.no_grad():
+        _close(fb.merge_gate(*a, *grid, 1e-5, use_norm),
+               fb.merge_gate_plain(*a, *grid, 1e-5, use_norm), TOL[dtype])
+
+
+def _plan_edges(grid, elem_bytes):
+    """(tile, d): for each tile size K9's plan gives on ``grid``, the
+    widest d that gets it, where the block's shared memory is closest to
+    the card's limit; the widest d ``fusable`` accepts among them."""
+    widest = {}
+    for d in range(32, 8192, 32):
+        if not fb.fusable(*grid, d):
+            break
+        widest[fb.merge_gate_plan(d, *grid, elem_bytes).tile] = d
+    return sorted(widest.items())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid", [(6, 10), (170, 5)])
+def test_merge_gate_at_each_plan_edge(dev, dtype, grid):
+    """K9 launches and matches its plain version at the widest d of each
+    tile size: the kernel refuses a plan whose shared-memory bytes differ
+    from its own layout's, so these launches also hold the plan's formula
+    to the kernel's where it matters most."""
+    edges = _plan_edges(grid, torch.tensor([], dtype=dtype).element_size())
+    assert len(edges) >= 5 and max(d for _, d in edges) >= 2560
+    for tile, d in edges:
+        g = torch.Generator(device=dev).manual_seed(d + tile)
+        a = _block_args(g, dtype, 1, *grid, d, True)
+        with torch.no_grad():
+            _close(fb.merge_gate(*a, *grid, 1e-5, True),
+                   fb.merge_gate_plain(*a, *grid, 1e-5, True), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,d", [((14, 14), 384), ((6, 10), 768),
+                                    ((170, 5), 2560)])
+def test_block_kernels_repeat_bitwise_in_one_launch(dev, dtype, grid, d):
+    """K8 and K9 each launch one device kernel a call (no second pass, no
+    atomics) and give the same bits from call to call."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    a = _block_args(g, dtype, 2, *grid, d, True)
+    calls = {"conv_pool_fwd": lambda: fb.conv_pool(a[0], *a[4:8], *grid,
+                                                   "mean", 0.5),
+             "merge_gate_fwd": lambda: fb.merge_gate(*a, *grid, 1e-5, True)}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            kernels.reset_launch_counts()
+            first = fn()
+            first = [t.clone() for t in (first if isinstance(first, tuple)
+                                         else (first,))]
+            for _ in range(2):
+                again = fn()
+                for x, y in zip(first, again if isinstance(again, tuple)
+                                else (again,)):
+                    assert torch.equal(x, y), name
+            assert kernels.launch_counts()[name] == 3
+            assert kernels_a_call(fn) == 1, name
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
