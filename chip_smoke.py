@@ -21,8 +21,10 @@ Phases, each of which raises on failure (exit code non-zero):
    with the form the launcher picks at each length; K2 likewise, in its
    sequential (L = 128) and chunked (L = 16,384 and 16,385) forms, all
    seven gradients; K7 at FastVim-T's and FastVim-S's widths, both
-   orientations, beside its pass A, K3's pools-only form; K8 and K9 at
-   FastVim-T's and FastVim-S's widths, each with its share of the bound;
+   orientations, beside its pass A, K3's pools-only form; K8, K9 and K10
+   at FastVim-T's and FastVim-S's widths (K10 in both orientations), each
+   with its share of the bound; the lanes scan at L = 128 and 16,384,
+   beside K1;
 3. build ``fastvim_tiny`` and ``vim_tiny`` at 224 px, full width, fp32,
    from one seed, and compare their logits, then their loss and every
    parameter's gradient, on the card (kernels) with the same models on
@@ -33,7 +35,9 @@ Phases, each of which raises on failure (exit code non-zero):
    for the logits of the four configurations of ``fastvim_tiny`` that
    reach K7-K10, for ``fastvim_base`` (depth 2), which is too wide for
    the fused layer and must run unfused, and for ``fastvim_small`` (depth
-   2) with ``layer_fused="recompute"``, which must fuse (2 K3, 2 K7);
+   2) with ``layer_fused="recompute"``, which must fuse (2 K3, 2 K7),
+   and for ``fastvim_tiny`` at d_inner 4096 (depth 2) with
+   ``fused_merge``, the widest K10 takes (2 K10);
 4. run both models forward at 2048 px, batch 2, bf16. Logits must be
    finite, and the kernels' launch counters must show 24 pass A + 24
    pass B + 48 scans for FastVim-T and 48 scans for Vim-T per forward.
@@ -57,8 +61,9 @@ Phases, each of which raises on failure (exit code non-zero):
    (24 K10, 48 K1) and ``layer_fused="recompute"`` (24 K3 pools-only, 24
    K7, 48 K1): finite logits within 2e-2 of the largest logit of the
    default configuration's from the same seed, exactly those launches,
-   and img/s beside the default's, the recompute and ``fused_kernels=
-   "always"`` forms also as CUDA-graph replays beside the default's;
+   and img/s beside the default's, the recompute, ``fused_kernels=
+   "always"`` and ``fused_merge`` forms also as CUDA-graph replays beside
+   the default's;
    ``fastvim_small`` at full depth with
    ``layer_fused="recompute"`` (24 K3 pools-only, 24 K7, 48 K1; logits
    within 2e-2 of the largest of its default's), both replayed; one train
@@ -67,8 +72,9 @@ Phases, each of which raises on failure (exit code non-zero):
 
 After a line with the card's name and power limit, the line before the
 last is a JSON object with one entry per kernel (``ms`` a call's time by
-CUDA events, for K8 and K9 also ``device_ms``, the device time a call
-from CUDA-graph replays; ``bound_ms`` is the larger of bytes / 3.35 TB/s
+CUDA events, for K8, K9, K10 and lanes also ``device_ms``, the device
+time a call from CUDA-graph replays; ``bound_ms`` is the larger of bytes
+/ 3.35 TB/s
 and operations / the H100's peak for their type, for the inputs of the
 timed call); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
@@ -170,16 +176,17 @@ def cuda_ms(fn, iters: int, windows: int = 1) -> float:
 
 def count_launches() -> int:
     """``chip_smoke.py --count-launches``: print, as JSON, how many device
-    kernels (copies included) one call of K3-K9 launches in bf16 and in
+    kernels (copies included) one call of K3-K10 launches in bf16 and in
     fp32, from a CUDA graph captured from a small call, and
-    one call of K1 and of K2 in each of their forms at L = 128 and 16,384
-    in bf16. It runs as a process of its own (see
+    one call of K1 and of K2 in each of their forms and one of the lanes
+    scan at L = 128 and 16,384 in bf16. It runs as a process of its own (see
     :func:`launches_per_call`), so that its captures and their memory
     pools never sit under a timed phase."""
     import torch
 
     from fastvim_tpu_torch.ops.kernels import fused_block as fb
     from fastvim_tpu_torch.ops.kernels import layer_fused as lf
+    from fastvim_tpu_torch.ops.kernels import merge_gate as mg
     from fastvim_tpu_torch.utils.profiling import kernels_a_call
 
     dev = torch.device("cuda", 0)
@@ -223,6 +230,12 @@ def count_launches() -> int:
             rnd(batch, H, di), rnd(batch, H, di), *conv, rnd(di), rnd(di),
             rnd(di), rnd(di)): fb.merge_gate(xz[..., :di], xz[..., di:],
                                             *a, H, W, 1e-5, True)
+        # K10 on materialized conv outputs, z a column slice
+        xc = [rnd(batch, H * W, di).to(dtype) for _ in range(2)]
+        calls["merge_ln_gate_fwd"] = lambda a=(
+            rnd(batch, H, di).to(dtype), rnd(batch, H, di).to(dtype),
+            rnd(di), rnd(di), rnd(di), rnd(di)): mg.merge_ln_gate(
+                *xc, xz[..., di:], *a, (H, W), (1,), 1e-5, True)
         for name, fn in calls.items():
             out.setdefault(name, {})[str(dtype)] = kernels_a_call(fn)
     # K1 and K2 in both forms at FastVim's and Vim-T's lengths, bf16
@@ -244,24 +257,29 @@ def count_launches() -> int:
             out[f"selective_scan_bwd L={L} {route}"] = kernels_a_call(
                 lambda: ss._launch_bwd(route, *args, None, bias, gy, states,
                                        True))
+        out[f"selective_scan_fwd_lanes L={L}"] = kernels_a_call(
+            lambda: ss.selective_scan_fwd_lanes(*args, delta_bias=bias,
+                                                delta_softplus=True))
     print(json.dumps(out), flush=True)
     return 0
 
 
 def launches_per_call() -> dict:
-    """{kernel: {dtype: device kernels a call launches}} for K3-K9, and
+    """{kernel: {dtype: device kernels a call launches}} for K3-K10, and
     {"selective_scan_fwd L=<L> <form>": device kernels} for K1 and the
-    same for K2 (``selective_scan_bwd``), counted by a child process (the
-    library is built by then). K1's chunked form must be its three phases
-    and the sequential form one kernel; K2's chunked form its three phases
-    and three fixed-order sums, the sequential form one kernel and the
-    same sums; K7, K8 and K9 one kernel in either dtype."""
+    same for K2 (``selective_scan_bwd``) and the lanes scan, counted by a
+    child process (the library is built by then). K1's chunked form must
+    be its three phases and the sequential form one kernel; K2's chunked
+    form its three phases and three fixed-order sums, the sequential form
+    one kernel and the same sums; the lanes scan a memset (its flags) and
+    one kernel; K7, K8, K9 and K10 one kernel in either dtype."""
     run = subprocess.run([sys.executable, __file__, "--count-launches"],
                          capture_output=True, text=True, timeout=300)
     if run.returncode != 0:
         raise RuntimeError(f"--count-launches failed: {run.stderr[-2000:]}")
     counts = json.loads(run.stdout.strip().splitlines()[-1])
-    for name in ("pass_b_recompute_fwd", "conv_pool_fwd", "merge_gate_fwd"):
+    for name in ("pass_b_recompute_fwd", "conv_pool_fwd", "merge_gate_fwd",
+                 "merge_ln_gate_fwd"):
         if set(counts[name].values()) != {1}:
             raise AssertionError(f"{name}: {counts[name]} device kernels a "
                                  "call, not 1")
@@ -270,8 +288,9 @@ def launches_per_call() -> dict:
                 ("selective_scan_fwd", "sequential", 1),
                 ("selective_scan_fwd", "chunked", 3),
                 ("selective_scan_bwd", "sequential", 4),
-                ("selective_scan_bwd", "chunked", 6)):
-            got = counts[f"{kernel} L={L} {form}"]
+                ("selective_scan_bwd", "chunked", 6),
+                ("selective_scan_fwd_lanes", None, 2)):
+            got = counts[f"{kernel} L={L}" + (f" {form}" if form else "")]
             if got != want:
                 raise AssertionError(f"{kernel} {form} L={L}: {got} device "
                                      f"kernels a call, not {want}")
@@ -636,6 +655,7 @@ def check_config_kernels(dev, card, per_call):
     from fastvim_tpu_torch.ops.kernels import layer_fused as lf
     from fastvim_tpu_torch.ops.kernels import merge_gate as mg
     from fastvim_tpu_torch.ops.kernels import selective_scan as ss
+    from fastvim_tpu_torch.utils.profiling import graph_ms
 
     g = torch.Generator(device=dev).manual_seed(20)
     rnd = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
@@ -712,28 +732,40 @@ def check_config_kernels(dev, card, per_call):
         del base_xz, xz, x, z, got
         torch.cuda.empty_cache()
 
-    # K10: both broadcast patterns (P = H = W here)
-    base = dict(xc_f=rnd(batch, L, di), xc_b=rnd(batch, L, di),
-                yf=rnd(batch, H, di), yb=rnd(batch, H, di))
-    base_z = rnd(batch, L, 2 * di)
-    for dtype, tol in cases:
-        t = {k: v.to(dtype) for k, v in base.items()}
-        z = base_z.to(dtype)[..., di:]
-        for pool_axes in ((1,), (0,)):
-            args = (t["xc_f"], t["xc_b"], z, t["yf"], t["yb"], d_f, d_b, ln_w,
-                    ln_b, (H, W), pool_axes, 1e-5, True)
-            got = mg.merge_ln_gate(*args)
-            worst("merge_ln_gate_fwd", compare(
-                f"merge_ln_gate_fwd pool_axes={pool_axes} {dtype}", got,
-                mg.merge_ln_gate_plain(*args), tol))
-            if dtype == torch.bfloat16:
-                tm = timed("merge_ln_gate_fwd",
-                           f"bf16 B={batch} L={L} d={di} pool_axes="
-                           f"{pool_axes}", lambda: mg.merge_ln_gate(*args),
-                           lambda: mg.merge_ln_gate_plain(*args),
-                           nbytes(*tensors(args), got),
-                           25.0 * batch * L * di, "fp32", card)
-                times.setdefault("merge_ln_gate_fwd", tm)
+    # K10: both broadcast patterns (P = H = W here), at FastVim-T's widths
+    # (the kernels line's) and FastVim-S's
+    for di_ in (di, 768):
+        base = dict(xc_f=rnd(batch, L, di_), xc_b=rnd(batch, L, di_),
+                    yf=rnd(batch, H, di_), yb=rnd(batch, H, di_))
+        base_z = rnd(batch, L, 2 * di_)
+        vec = ((d_f, d_b, ln_w, ln_b) if di_ == di else
+               (uni(di_, bound=1.0), uni(di_, bound=1.0),
+                1 + uni(di_, bound=0.1), uni(di_, bound=0.1)))
+        for dtype, tol in cases:
+            t = {k: v.to(dtype) for k, v in base.items()}
+            z = base_z.to(dtype)[..., di_:]
+            for pool_axes in ((1,), (0,)):
+                args = (t["xc_f"], t["xc_b"], z, t["yf"], t["yb"], *vec,
+                        (H, W), pool_axes, 1e-5, True)
+                got = mg.merge_ln_gate(*args)
+                worst("merge_ln_gate_fwd", compare(
+                    f"merge_ln_gate_fwd pool_axes={pool_axes} {dtype} "
+                    f"d={di_}", got, mg.merge_ln_gate_plain(*args), tol))
+                if dtype == torch.bfloat16:
+                    tag = (f"bf16 B={batch} L={L} d={di_} pool_axes="
+                           f"{pool_axes}")
+                    tm = timed("merge_ln_gate_fwd", tag,
+                               lambda: mg.merge_ln_gate(*args),
+                               lambda: mg.merge_ln_gate_plain(*args),
+                               nbytes(*tensors(args), got),
+                               25.0 * batch * L * di_, "fp32", card,
+                               graph=True)
+                    log(f"[time] merge_ln_gate_fwd {tag}: "
+                        f"{per_call['merge_ln_gate_fwd'][str(dtype)]} device "
+                        f"kernel a call ({card})")
+                    times.setdefault("merge_ln_gate_fwd", tm)
+        del base, base_z, t, z, got
+        torch.cuda.empty_cache()
 
     # K7 at FastVim-T's widths (the kernels line's) and FastVim-S's, both
     # orientations; its pass A, K3 without the xc stores, timed beside it
@@ -808,18 +840,23 @@ def check_config_kernels(dev, card, per_call):
                 # the same function as K1: its bytes and its 9 operations
                 # per (b, t, d, n)
                 tm = timed("selective_scan_fwd_lanes",
-                           f"bf16 B={batch} L={Ls} d={d}",
+                           f"bf16 B={batch} L={Ls} d={d} in "
+                           f"{per_call[f'selective_scan_fwd_lanes L={Ls}']}"
+                           f" device kernels",
                            lambda: ss.selective_scan_fwd_lanes(*args, **kw),
                            lambda: ss.selective_scan_fwd_lanes_plain(*args,
                                                                      **kw),
                            nbytes(*args, bias, got),
                            9.0 * batch * Ls * d * n, "fp32", card,
                            iters=200 if Ls == 128 else 10,
-                           plain_iters=20 if Ls == 128 else 2)
+                           plain_iters=20 if Ls == 128 else 2, graph=True)
                 k1 = cuda_ms(lambda: ss.selective_scan_fwd(*args, **kw),
                              200 if Ls == 128 else 10)
+                k1_dev = graph_ms(lambda: ss.selective_scan_fwd(*args, **kw),
+                                  200 if Ls == 128 else 10)
                 log(f"[time] selective_scan_fwd (K1, forward direction) bf16 "
-                    f"B={batch} L={Ls} d={d}: {k1:.4f} ms ({card})")
+                    f"B={batch} L={Ls} d={d}: {k1:.4f} ms a call, device "
+                    f"{k1_dev:.4f} ms ({card})")
                 if Ls == 16384:  # the length phase 6 drives it at
                     times["selective_scan_fwd_lanes"] = tm
         del base, t, got
@@ -853,17 +890,22 @@ def check_models_224(dev):
 
     from fastvim_tpu_torch.models import create_model
     from fastvim_tpu_torch.ops import kernels
+    from fastvim_tpu_torch.ops.kernels import merge_gate
 
     x = torch.randn(4, 224, 224, 3, generator=torch.Generator().manual_seed(1))
     # fastvim_base (d_inner 1536) is wider than pass A/B take: with the
     # default fields it must run the unfused path (scans by K1).
     # fastvim_small in the recompute form: K7 launches in fp32 at the
     # widest d_inner fusable accepts (2 K3 pools-only, 2 K7)
+    # fastvim_tiny at d_inner 4096 with fused_merge: K10 at the widest d
+    # its fusable accepts (2 launches)
     recompute_s = dict(depth=2, layer_fused="recompute")
+    merge_widest = dict(depth=2, embed_dim=merge_gate.MAX_D // 2,
+                        **CONFIGS["fused_merge"][0])
     models = [("fastvim_tiny", {}), ("vim_tiny", {}),
               *(("fastvim_tiny", kw) for kw, _ in CONFIGS.values()),
               ("fastvim_base", dict(depth=2)),
-              ("fastvim_small", recompute_s)]
+              ("fastvim_small", recompute_s), ("fastvim_tiny", merge_widest)]
     for name, kw in models:
         cpu_model = create_model(name, img_size=224, device="cpu",
                                  generator=torch.Generator().manual_seed(0),
@@ -875,6 +917,9 @@ def check_models_224(dev):
         seen = kernels.launch_counts()
         compare(f"{name} {kw} 224px fp32 logits, card vs CPU", got, want,
                 MODEL_TOL)
+        if kw is merge_widest and seen["merge_ln_gate_fwd"] != 2:
+            raise AssertionError(f"{name} {kw}: {seen['merge_ln_gate_fwd']} "
+                                 "K10 launches, expected 2")
         if kw is recompute_s:
             k3_k7 = (seen["pass_a_fwd"], seen["pass_b_recompute_fwd"])
             log(f"[check] {name} {kw}: K3, K7 launches {k3_k7}")
@@ -1163,7 +1208,8 @@ def run_config_path(dev, card):
             log(f"[time] fastvim_tiny {name} {img}px B={batch} bf16 forward: "
                 f"{ms:.3f} ms, {batch / ms * 1e3:.2f} img/s; default "
                 f"{batch / d_ms * 1e3:.2f} img/s ({card})")
-            if name in ("layer_fused=recompute", "fused_kernels=always"):
+            if name in ("layer_fused=recompute", "fused_kernels=always",
+                        "fused_merge"):
                 replays(f"fastvim_tiny {img}px B={batch} bf16",
                         {"default": default, name: model})
             del model
@@ -1327,7 +1373,7 @@ def main() -> int:
          "fastvim_tpu/ops/pallas/fused_block.py:130"),
         ("merge_gate_fwd", "fused_block.cu", (),
          "fastvim_tpu/ops/pallas/fused_block.py:151"),
-        ("merge_ln_gate_fwd", "merge_gate.cu", ("merge_tail.cuh",),
+        ("merge_ln_gate_fwd", "merge_gate.cu", (),
          "fastvim_tpu/ops/pallas/merge_gate.py:54"),
         ("selective_scan_fwd_lanes", "selective_scan_lanes.cu", (),
          "fastvim_tpu/ops/pallas/selective_scan.py:115"),

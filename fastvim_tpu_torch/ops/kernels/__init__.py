@@ -95,7 +95,8 @@ def token_stride(name: str, arg: str, t: torch.Tensor) -> int:
     adjacent, tokens and images evenly spaced, and every channel pair
     starts on a 2-element boundary (the kernels load pairs)."""
     batch, L, d = t.shape
-    ld = t.stride(1) if L > 1 else d
+    # one token an image: the images' stride is the tokens'
+    ld = t.stride(1) if L > 1 else t.stride(0) if batch > 1 else d
     if (t.stride(2) != 1 or ld < d or (batch > 1 and t.stride(0) != L * ld)
             or ld % 2 or t.data_ptr() % (2 * t.element_size())):
         raise ValueError(f"{name}: {arg} must be contiguous or a column "

@@ -66,10 +66,11 @@ SIGNATURES = {
     # stream
     "fv_merge_gate_fwd": [_P] * 13 + [_I] * 11 + [ctypes.c_float, _P],
     # xc_f, xc_b, z, yf, yb, d_f, d_b, ln_w, ln_b, out, batch, H, W, d, ldz,
-    # along_w, dtype, use_ln, eps, stream
-    "fv_merge_ln_gate_fwd": [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P],
-    # u, delta, A, B, C, bias, D, out, batch, L, d, n, dtype, softplus, stream
-    "fv_selective_scan_fwd_lanes": [_P] * 8 + [_I] * 6 + [_P],
+    # along_w, dtype, use_ln, pieces, team, eps, stream
+    "fv_merge_ln_gate_fwd": [_P] * 10 + [_I] * 10 + [ctypes.c_float, _P],
+    # u, delta, A, B, C, bias, D, out, states (scratch), batch, L, d, n,
+    # dtype, softplus, stream
+    "fv_selective_scan_fwd_lanes": [_P] * 9 + [_I] * 6 + [_P],
     # out (32 x uint64 on the host): cycles per phase of K5 / K6 in bf16
     "fv_bwd_phase_cycles": [_P],
 }

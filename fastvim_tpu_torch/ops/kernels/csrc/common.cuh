@@ -6,6 +6,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
+#include <vector>
+
 namespace fv {
 
 // dtype codes passed from Python (ops/kernels/_build.py callers)
@@ -163,6 +166,39 @@ cudaError_t allow_max_smem() {
       Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kMaxSmem));
   return err;
+}
+
+// SMs of the current device and resident blocks of `Kernel` at a block
+// size and shared memory, each asked once and then kept, so that a launch
+// inside CUDA-graph capture makes no query.
+struct Residency {
+  int device, threads;
+  size_t smem;
+  int sms, blocks;
+};
+
+template <auto Kernel>
+cudaError_t residency(int threads, size_t smem, int* sms, int* blocks) {
+  static std::mutex mu;
+  static std::vector<Residency> seen;
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Residency& r : seen)
+    if (r.device == dev && r.threads == threads && r.smem == smem) {
+      *sms = r.sms;
+      *blocks = r.blocks;
+      return cudaSuccess;
+    }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, Kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (*blocks < 1) return cudaErrorInvalidConfiguration;
+  seen.push_back({dev, threads, smem, *sms, *blocks});
+  return cudaSuccess;
 }
 
 }  // namespace fv

@@ -69,8 +69,6 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
-#include <mutex>
-#include <vector>
 
 #include "common.cuh"
 
@@ -174,39 +172,6 @@ inline int copy_align(const void* p, long pitch_bytes) {
   const auto a = reinterpret_cast<uintptr_t>(p) | static_cast<uintptr_t>(
                                                       pitch_bytes);
   return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : 4;
-}
-
-// SMs of the current device and resident blocks of `Kernel` at a block
-// size and shared memory, each asked once and then kept, so that a launch
-// inside CUDA-graph capture makes no query.
-struct Residency {
-  int device, threads;
-  size_t smem;
-  int sms, blocks;
-};
-
-template <auto Kernel>
-cudaError_t residency(int threads, size_t smem, int* sms, int* blocks) {
-  static std::mutex mu;
-  static std::vector<Residency> seen;
-  int dev;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Residency& r : seen)
-    if (r.device == dev && r.threads == threads && r.smem == smem) {
-      *sms = r.sms;
-      *blocks = r.blocks;
-      return cudaSuccess;
-    }
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, Kernel, threads,
-                                                      smem);
-  if (err != cudaSuccess) return err;
-  if (*blocks < 1) return cudaErrorInvalidConfiguration;
-  seen.push_back({dev, threads, smem, *sms, *blocks});
-  return cudaSuccess;
 }
 
 // =====================================================================
@@ -396,8 +361,8 @@ cudaError_t launch_conv_pool_t(PoolArgs p, int batch, cudaStream_t stream) {
   constexpr int V = fv::kVec<T>;
   const int O = p.d / V;  // 16-byte chunks of a token
   int sms, per_sm;
-  cudaError_t err = residency<conv_pool_kernel<T, kMax>>(32 * kPoolWarps, 0,
-                                                          &sms, &per_sm);
+  cudaError_t err = fv::residency<conv_pool_kernel<T, kMax>>(
+      32 * kPoolWarps, 0, &sms, &per_sm);
   if (err != cudaSuccess) return err;
   const long cap = static_cast<long>(sms) * per_sm * kPoolWarps;
   const int m_min = min(p.rows, (kMinRun + p.cols - 1) / p.cols);
@@ -824,7 +789,7 @@ cudaError_t launch_merge_gate(MergeArgs a, int threads, int plan_smem,
   cudaError_t err = fv::allow_max_smem<merge_gate_kernel<T>>();
   if (err != cudaSuccess) return err;
   int sms, per_sm;
-  err = residency<merge_gate_kernel<T>>(threads, smem, &sms, &per_sm);
+  err = fv::residency<merge_gate_kernel<T>>(threads, smem, &sms, &per_sm);
   if (err != cudaSuccess) return err;
   const long L = static_cast<long>(a.rows) * a.cols;
   const long ntiles = (L + a.tile - 1) / a.tile * a.batch;

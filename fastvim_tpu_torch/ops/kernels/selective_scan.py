@@ -35,7 +35,10 @@ selective_scan_plain = selective_scan_ref
 CHUNK = 64        # steps per chunk in K1 and K2 (kChunk in csrc/)
 BWD_CHANNELS = 8  # channels per K2 block (kBwdChannels in csrc/)
 BWD_SLOT = 32     # channels per dB/dC partial of chunked K2 (kSlot in csrc/)
-LANES_CHUNK = 128  # steps per chunk of the lanes kernel: 4 per lane
+LANES_CHUNK = 128  # steps per chunk of the TPU lanes kernel, as its plain
+# version mirrors them
+LANES_SPAN = 256     # steps a block of the lanes kernel (kSpan in csrc/)
+LANES_CHANNELS = 4   # channels a group of the lanes kernel (kC in csrc/)
 # K1 takes its chunk-parallel form from this many steps on; shorter scans
 # (FastVim's pooled L = 128, Vim's 197 at 224 px) keep the sequential
 # kernel. Set from both forms' device times on the H100 (bf16, B = 2, d
@@ -252,10 +255,11 @@ def selective_scan_fwd_lanes(u, delta, A, B, C, D=None, delta_bias=None,
                              delta_softplus: bool = False):
     """The lanes variant of the forward scan, forward direction only;
     same contract as :func:`selective_scan_fwd` without ``reverse`` and
-    ``save_states``. The inputs are padded to whole 128-step chunks and
-    transposed to time-last, (batch, d, L) and (batch, n, L), as the TPU
-    launcher does, and y is transposed back. On CUDA, d must be a multiple
-    of 4 and n 8 or 16."""
+    ``save_states``. On CUDA, d must be a multiple of 4 and n 8 or 16;
+    u, delta, B and C are read (batch, L, ·) as they lie and y is written
+    so, with no copies. One call is one launch (``LAUNCHES``): a memset of
+    the carry's scratch and one kernel, the carry chained from 256-step
+    span to span."""
     if u.device.type == "cpu":
         return selective_scan_fwd_lanes_plain(u, delta, A, B, C, D=D,
                                               delta_bias=delta_bias,
@@ -265,21 +269,23 @@ def selective_scan_fwd_lanes(u, delta, A, B, C, D=None, delta_bias=None,
                             D=D, delta_bias=delta_bias)
     batch, L, d, n, code = _check_scan_args(name, u, delta, A, B, C, D,
                                             delta_bias)
-    if d % 4 or n not in (8, 16):
-        raise ValueError(f"{name}: needs d % 4 == 0 and n in (8, 16), got "
-                         f"d={d}, n={n}")
-    pad = (-L) % LANES_CHUNK
-    u_t, dt_t, B_t, C_t = (
-        (F.pad(t, (0, 0, 0, pad)) if pad else t).transpose(1, 2).contiguous()
-        for t in (u, delta, B, C))
-    out_t = torch.empty_like(u_t)
+    if d % LANES_CHANNELS or n not in (8, 16):
+        raise ValueError(f"{name}: needs d % {LANES_CHANNELS} == 0 and n in "
+                         f"(8, 16), got d={d}, n={n}")
+    kernels.check_aligned(name, u=u, delta=delta, B=B, C=C)
+    nspans = -(-L // LANES_SPAN)
+    out = torch.empty_like(u)
+    # each span's inclusive state and its flag, a 64-bit word each; the
+    # ticket counter
+    states = torch.empty(batch * nspans * d * n + 1, dtype=torch.int64,
+                         device=u.device)
     err = _build.library().fv_selective_scan_fwd_lanes(
-        *map(kernels.ptr, (u_t, dt_t, A, B_t, C_t, delta_bias, D, out_t)),
-        batch, L + pad, d, n, code, int(delta_softplus),
+        *map(kernels.ptr, (u, delta, A, B, C, delta_bias, D, out, states)),
+        batch, L, d, n, code, int(delta_softplus),
         kernels.stream_ptr(u.device))
     _build.check(err, name)
     kernels.LAUNCHES[name] += 1
-    return out_t[:, :, :L].transpose(1, 2).contiguous()
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -12,17 +12,21 @@ first CUDA device and prints one table::
 With ``--graph`` the forward is captured once as a CUDA graph and the
 replays are profiled, so that the forward's device time is read without
 the host's launches in the way (``--layer-fused recompute`` for the
-recompute configuration, ``--fused-kernels always`` for K8 and K9). With
+recompute configuration, ``--fused-kernels always`` for K8 and K9,
+``--fused-merge`` for K10). With
 ``--fwd-times`` / ``--bwd-times`` it instead times K3 and K4 / K5 and K6
 alone (bf16, CUDA events, both orientations) at the model's widths and
 grid, with ``--rc-times`` K7 and K3's pools-only form (the recompute
-configuration's two passes), with ``--fb-times`` K8 and K9, and
+configuration's two passes), with ``--fb-times`` K8 and K9, with
+``--mg-times`` K10 at FastVim-T's and FastVim-S's widths, both
+orientations, and
 with ``--bwd-phases`` it builds the kernels with their cycle counters
 compiled in and prints where a block of K5 and of K6 spends its cycles.
 ``--scan-times`` times the two forms, sequential and chunked, of K1 and
-of K2 in turns on the same inputs at L = 128 to 16,384 (bf16, B = 2,
-d_inner 384, n 16, both directions), and names the form each launcher
-picks at each length: what sets ``selective_scan.CHUNKED_MIN_L``.
+of K2, and the lanes scan, in turns on the same inputs at L = 128 to
+16,384 (bf16, B = 2, d_inner 384, n 16, both directions; lanes forward
+only), and names the form each launcher picks at each length: what sets
+``selective_scan.CHUNKED_MIN_L``.
 
 It needs a CUDA device; nothing here falls back to the CPU.
 """
@@ -323,12 +327,53 @@ def block_times(di: int, grid: int, batch: int, iters: int = 20) -> None:
                   f"abs err {err:.3e}, {differ:.2%} of the outputs differ")
 
 
+def merge_times(dis=(384, 768), grid: int = 128, batch: int = 2,
+                iters: int = 20) -> None:
+    """Print the device time of one K10 call with LayerNorm in bf16 (a
+    CUDA graph of ``iters`` calls, replayed) and a call's time by CUDA
+    events, at each d_inner and in both orientations, on a grid × grid
+    token grid, z the column half of one in-projection output, beside its
+    byte bound (inputs read once, out written once, at 3.35 TB/s) and its
+    largest difference from its plain version on the same inputs."""
+    from fastvim_tpu_torch.ops.kernels import merge_gate as mg
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    L = grid * grid
+    with torch.no_grad():
+        for di in dis:
+            xc = [rnd(batch, L, di).bfloat16() for _ in range(2)]
+            z = rnd(batch, L, 2 * di).bfloat16()[..., di:]
+            ys = [rnd(batch, grid, di).bfloat16() for _ in range(2)]
+            vec = (rnd(di), rnd(di), 1 + rnd(di) * 0.1, rnd(di) * 0.1)
+            n_bytes = (4 * batch * L * di * 2 + 2 * batch * grid * di * 2
+                       + 4 * di * 4)
+            bound = n_bytes / 3.35e12 * 1e3
+            for pool_axes in ((1,), (0,)):
+                args = (*xc, z, *ys, *vec, (grid, grid), pool_axes, 1e-5,
+                        True)
+                fn = lambda: mg.merge_ln_gate(*args)
+                ms = graph_ms(fn, iters)
+                ev = _event_ms(mg.merge_ln_gate, args, iters)
+                got, want = fn(), mg.merge_ln_gate_plain(*args)
+                err = (got.float() - want.float()).abs().max().item()
+                differ = (got != want).float().mean().item()
+                print(f"K10 bf16 d_inner={di} grid={grid}x{grid} B={batch} "
+                      f"pool_axes={pool_axes}: device {ms:.4f} ms, a call "
+                      f"by events {ev:.4f} ms, bound {bound:.4f} ms "
+                      f"(bytes), {bound / ms:.1%} of it; against the plain "
+                      f"version: max abs err {err:.3e}, {differ:.2%} of the "
+                      f"outputs differ", flush=True)
+
+
 def scan_times(lengths=(128, 256, 512, 1024, 4096, 16384), batch: int = 2,
                d: int = 384, n: int = 16) -> None:
-    """Print one call's times of K1 and of K2 in each form (bf16) at each
-    length and direction, with the form ``fwd_route`` / ``bwd_route``
-    picks: the device time of its kernels (``torch.profiler``), which sets
-    the route, and the time per call with CUDA events over a run of calls
+    """Print one call's times of K1 and of K2 in each form, and of the
+    lanes scan (forward direction), in bf16 at each length and direction,
+    with the form ``fwd_route`` / ``bwd_route`` picks: the device time
+    of its kernels (``torch.profiler``), which sets the route, and the
+    time per call with CUDA events over a run of calls
     after a warm-up one, which at short L is the host's enqueue time. The
     forms run in turns on the same inputs (sequential, chunked, chunked,
     sequential; each form's two readings printed), the chunked form's last
@@ -365,33 +410,37 @@ def scan_times(lengths=(128, 256, 512, 1024, 4096, 16384), batch: int = 2,
                 _, states = ss.selective_scan_fwd(
                     *args, D=D, delta_bias=bias, delta_softplus=True,
                     reverse=reverse, save_states=True)
+                both = ("sequential", "chunked")
                 calls = {
-                    "K1": (ss.fwd_route, lambda route: ss._launch_fwd(
-                        route, *args, D=D, delta_bias=bias,
-                        delta_softplus=True, reverse=reverse)),
-                    "K2": (ss.bwd_route, lambda route: ss._launch_bwd(
-                        route, *args, D, bias, gy, states, True, reverse))}
-                for name, (pick, launch) in calls.items():
-                    dev_ms = {"sequential": [], "chunked": []}
-                    ev_ms = {"sequential": [], "chunked": []}
-                    for route in ("sequential", "chunked", "chunked",
-                                  "sequential"):
-                        fn = lambda: launch(route)
+                    "K1": (both, ss.fwd_route(L), lambda r: ss._launch_fwd(
+                        r, *args, D=D, delta_bias=bias, delta_softplus=True,
+                        reverse=reverse)),
+                    "K2": (both, ss.bwd_route(L), lambda r: ss._launch_bwd(
+                        r, *args, D, bias, gy, states, True, reverse))}
+                if not reverse:  # the lanes scan runs forward only
+                    calls["lanes"] = (("kernel",), "kernel", lambda _: (
+                        ss.selective_scan_fwd_lanes(
+                            *args, D=D, delta_bias=bias,
+                            delta_softplus=True)))
+                for name, (forms, pick, launch) in calls.items():
+                    dev_ms = {form: [] for form in forms}
+                    ev_ms = {form: [] for form in forms}
+                    for form in (*forms, *reversed(forms)):
+                        fn = lambda: launch(form)
                         rows, busy, _ = device_time_by_kernel(fn, 1, 5)
-                        dev_ms[route].append(busy)
-                        ev_ms[route].append(_event_ms(fn, (), iters))
-                        if route == "chunked":  # its last profile, by kernel
+                        dev_ms[form].append(busy)
+                        ev_ms[form].append(_event_ms(fn, (), iters))
+                        if form == forms[-1]:  # its last profile, by kernel
                             phases = ", ".join(
                                 f"{kname} {ms:.4f}" for kname, (ms, _)
                                 in group_rows(rows).items())
                     show = lambda m: " / ".join(f"{v:.4f}" for v in m)
+                    each = lambda t: ", ".join(f"{form} {show(t[form])}"
+                                               for form in forms)
                     print(f"{name} bf16 B={batch} L={L} d={d} n={n} "
-                          f"reverse={reverse}: device ms sequential "
-                          f"{show(dev_ms['sequential'])}, chunked "
-                          f"{show(dev_ms['chunked'])} ({phases}); ms a call "
-                          f"sequential {show(ev_ms['sequential'])}, chunked "
-                          f"{show(ev_ms['chunked'])}; the launcher takes "
-                          f"{pick(L)}", flush=True)
+                          f"reverse={reverse}: device ms {each(dev_ms)} "
+                          f"({phases}); ms a call {each(ev_ms)}; the "
+                          f"launcher takes {pick}", flush=True)
 
 
 def bwd_phase_cycles(dm: int, di: int, grid: int, batch: int) -> None:
@@ -464,6 +513,9 @@ def main() -> None:
                     choices=("always", "merge"),
                     help="the mixers' ssm_cfg fused_kernels field (K8 and "
                          "K9, or K9 alone; layer_fused off unless given)")
+    ap.add_argument("--fused-merge", action="store_true",
+                    help="the mixers' ssm_cfg fused_merge field (K10; "
+                         "layer_fused off unless given)")
     ap.add_argument("--graph", action="store_true",
                     help="profile replays of the forward captured as a CUDA "
                          "graph")
@@ -474,6 +526,9 @@ def main() -> None:
                          "model's widths")
     ap.add_argument("--fb-times", action="store_true",
                     help="time K8 and K9 alone at the model's widths")
+    ap.add_argument("--mg-times", action="store_true",
+                    help="time K10 alone at FastVim-T's and FastVim-S's "
+                         "widths")
     ap.add_argument("--bwd-times", action="store_true",
                     help="time K5 and K6 alone at the model's widths")
     ap.add_argument("--bwd-phases", action="store_true",
@@ -488,6 +543,9 @@ def main() -> None:
         raise SystemExit("profiling: no CUDA device")
     if args.scan_times:
         return scan_times(tuple(int(L) for L in args.lengths.split(",")))
+    if args.mg_times:
+        print(card_line(), flush=True)
+        return merge_times(grid=args.img // 16, batch=args.batch)
     if args.graph and args.train:
         raise SystemExit("profiling: --graph captures a forward only")
     if (args.bwd_phases or args.bwd_times or args.fwd_times or args.rc_times
@@ -517,9 +575,10 @@ def main() -> None:
     dtype = getattr(torch, args.dtype)
     fields = {} if args.layer_fused is None else dict(
         layer_fused=args.layer_fused)
-    if args.fused_kernels is not None:
-        fields = {"layer_fused": "off", **fields,
-                  "ssm_cfg": {"fused_kernels": args.fused_kernels}}
+    if args.fused_kernels is not None or args.fused_merge:
+        cfg = ({"fused_merge": True} if args.fused_merge
+               else {"fused_kernels": args.fused_kernels})
+        fields = {"layer_fused": "off", **fields, "ssm_cfg": cfg}
     model = create_model(args.model, img_size=args.img, dtype=dtype,
                          drop_path_rate=0.0, **fields)
     gen = torch.Generator(device=dev).manual_seed(0)

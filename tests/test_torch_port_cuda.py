@@ -787,6 +787,81 @@ def test_merge_ln_gate_matches_plain(dev, dtype, pool_axes, grid, d, use_ln):
                TOL[dtype])
 
 
+def _merge_ln_gate_args(g, dtype, batch, H, W, d, pool_axes, use_ln,
+                        off=0):
+    """merge_ln_gate's arguments, z the second column block of a (batch,
+    L, 2d + off) array, ``off`` elements in (off 2: z only 4- or 8-byte
+    aligned)."""
+    P = H if pool_axes == (1,) else W
+    xz = _rand(g, batch, H * W, 2 * d + off).to(dtype)
+    ln = ((1 + _rand(g, d, scale=0.1), _rand(g, d, scale=0.1)) if use_ln
+          else (None, None))
+    return (_rand(g, batch, H * W, d).to(dtype),
+            _rand(g, batch, H * W, d).to(dtype), xz[..., d + off:],
+            _rand(g, batch, P, d).to(dtype), _rand(g, batch, P, d).to(dtype),
+            _rand(g, d), _rand(g, d), *ln, (H, W), pool_axes, 1e-5, use_ln)
+
+
+# K10 on grids of one token, odd rows and columns, and lines much longer
+# than the other axis; at the narrowest d, each width the registry uses
+# (its plan's exact splits: K 3 or 2 pieces a thread) and the widest d
+# fusable accepts; z aligned and as a slice 2 elements off 16 bytes
+MERGE_CASES = [((1, 1), 32), ((5, 7), 384), ((14, 14), 768), ((170, 5), 1536),
+               ((5, 7), 2048), ((14, 14), 2560), ((1, 1), 4096),
+               ((170, 5), 32), ((5, 7), 4096), ((14, 14), 384)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pool_axes", [(1,), (0,)])
+@pytest.mark.parametrize("grid,d", MERGE_CASES)
+def test_merge_ln_gate_odd_grids_widths_and_slices(dev, dtype, pool_axes,
+                                                   grid, d):
+    for use_ln in (True, False):
+        for off in (0, 2):
+            g = torch.Generator(device=dev).manual_seed(d + grid[0] + off)
+            args = _merge_ln_gate_args(g, dtype, 2, *grid, d, pool_axes,
+                                       use_ln, off)
+            with torch.no_grad():
+                _close(mg.merge_ln_gate(*args), mg.merge_ln_gate_plain(*args),
+                       TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_merge_ln_gate_launches_at_every_width(dev, dtype):
+    """Every d that fusable accepts launches with its plan (the kernel
+    refuses a plan that does not cover d or overflows its block) and
+    matches the plain version."""
+    d = 32
+    while mg.fusable((3, 5), (1,), d):
+        g = torch.Generator(device=dev).manual_seed(d)
+        args = _merge_ln_gate_args(g, dtype, 1, 3, 5, d, (d // 32 % 2,),
+                                   True)
+        with torch.no_grad():
+            _close(mg.merge_ln_gate(*args), mg.merge_ln_gate_plain(*args),
+                   TOL[dtype])
+        d += 32
+    assert d == mg.MAX_D + 32
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,d", [((128, 128), 384), ((6, 10), 768),
+                                    ((170, 5), 2560), ((7, 3), 160)])
+def test_merge_ln_gate_repeats_bitwise_in_one_launch(dev, dtype, grid, d):
+    """K10 launches one device kernel a call (no second pass, no atomics)
+    and gives the same bits from call to call, in both orientations."""
+    for pool_axes in ((1,), (0,)):
+        g = torch.Generator(device=dev).manual_seed(d)
+        args = _merge_ln_gate_args(g, dtype, 2, *grid, d, pool_axes, True)
+        fn = lambda: mg.merge_ln_gate(*args)
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            first = fn().clone()
+            for _ in range(2):
+                assert torch.equal(fn(), first)
+            assert kernels.launch_counts()["merge_ln_gate_fwd"] == 3
+            assert kernels_a_call(fn) == 1
+
+
 def _recompute_args(g, dtype, batch, H, W, dm, di, bias, use_ln,
                     transposed):
     P = W if transposed else H
@@ -872,30 +947,66 @@ def test_fastvim_small_recompute_fuses(dev):
     _close(got, want, 1e-3)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("L,n,batch,extras", [
-    (300, 16, 2, True),     # 2 whole chunks of 128 and a partial one
-    (16384, 16, 2, True),   # Vim-T's full-length scan
-    (31, 8, 1, False),      # less than a chunk, d_state 8, no D, no bias
-    (1, 16, 2, True),
-])
-def test_lanes_scan_matches_plain(dev, dtype, L, n, batch, extras):
-    """The lanes kernel against the doubling scan in tensor ops and
-    against K1."""
-    g = torch.Generator(device=dev).manual_seed(L + 2)
-    d = 64
+def _lanes_args(g, dtype, batch, L, d, n, extras):
+    """Without softplus (``extras`` False) delta is taken positive, a step
+    size as the softplus makes it: a negative step makes a > 1, and over
+    hundreds of steps the state grows without bound, where any two
+    summation orders part."""
+    delta = _rand(g, batch, L, d, scale=0.5)
     args = (_rand(g, batch, L, d).to(dtype),
-            _rand(g, batch, L, d, scale=0.5).to(dtype),
+            (delta if extras else delta.abs()).to(dtype),
             -torch.exp(_rand(g, d, n, scale=0.5)),
             _rand(g, batch, L, n).to(dtype), _rand(g, batch, L, n).to(dtype))
     kw = dict(D=_rand(g, d) if extras else None,
               delta_bias=_rand(g, d, scale=0.3) if extras else None,
               delta_softplus=extras)
+    return args, kw
+
+
+S = ss.LANES_SPAN  # steps a block of the lanes kernel
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,n,batch,extras", [
+    (1, 16, 2, True),
+    (127, 8, 1, False),     # less than a warp's 128 steps, no D, no bias
+    (128, 16, 3, True),
+    (129, 8, 2, True),
+    (S - 1, 16, 1, True),   # a span short of one step
+    (S + 1, 8, 3, True),    # a whole span and one step of the next
+    (300, 16, 2, False),
+    (16384, 16, 2, True),   # Vim-T's full-length scan: 64 spans
+    (16384, 8, 1, True),
+])
+def test_lanes_scan_matches_plain(dev, dtype, L, n, batch, extras):
+    """The lanes kernel against the doubling scan in tensor ops and
+    against K1, at d 64 (one block's 16 channels four times over) and at
+    d 36 (a last block of one 4-channel group)."""
+    for d in (64, 36):
+        g = torch.Generator(device=dev).manual_seed(L + d)
+        args, kw = _lanes_args(g, dtype, batch, L, d, n, extras)
+        with torch.no_grad():
+            got = ss.selective_scan_fwd_lanes(*args, **kw)
+            _close(got, ss.selective_scan_fwd_lanes_plain(*args, **kw),
+                   TOL[dtype])
+            _close(got, ss.selective_scan_fwd(*args, **kw), TOL[dtype])
+
+
+@pytest.mark.parametrize("L", [128, 16384])
+def test_lanes_launches_and_repeats_bitwise(dev, L):
+    """One launch a call, a memset node (the spans' flags and the ticket
+    counter) and one kernel; the same bits from call to call, whatever
+    order the spans ran in."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    args, kw = _lanes_args(g, torch.bfloat16, 2, L, 384, 16, True)
+    fn = lambda: ss.selective_scan_fwd_lanes(*args, **kw)
     with torch.no_grad():
-        got = ss.selective_scan_fwd_lanes(*args, **kw)
-        _close(got, ss.selective_scan_fwd_lanes_plain(*args, **kw),
-               TOL[dtype])
-        _close(got, ss.selective_scan_fwd(*args, **kw), TOL[dtype])
+        kernels.reset_launch_counts()
+        first = fn().clone()
+        for _ in range(4):
+            assert torch.equal(fn(), first)
+        assert kernels.launch_counts()["selective_scan_fwd_lanes"] == 5
+        assert kernels_a_call(fn) == 2
 
 
 def test_lanes_function_grads_match_cpu(dev):
