@@ -68,7 +68,20 @@ Phases, each of which raises on failure (exit code non-zero):
    ``layer_fused="recompute"`` (24 K3 pools-only, 24 K7, 48 K1; logits
    within 2e-2 of the largest of its default's), both replayed; one train
    step of ``fused_kernels="always"``; and the lanes scan through
-   ``selective_scan(variant="lanes")`` at L = 16,384 beside K1.
+   ``selective_scan(variant="lanes")`` at L = 16,384 beside K1;
+7. the classification CLIs, in-process, into a temporary directory:
+   ``train_classification --config_name FastVimT`` (``fastvim_tiny`` at
+   full width and depth, 224 px, 1000 classes, batch 128, fp32,
+   mixup/cutmix, drop path 0.05, EMA; the host loader with RandAugment
+   on 512 synthetic images, 4 steps an epoch) for one epoch, then
+   ``--resume`` to two: ``log.csv`` must hold epochs 0 and 1 with finite
+   numbers and the EMA columns, ``tb/`` an event file, the state step 8,
+   and each epoch exactly 4 × (24 K3, 24 K4, 48 K1, 24 K5, 24 K6, 48 K2)
+   plus 8 eval forwards (24 K3, 24 K4, 48 K1 each). Then
+   ``test_classification --ema`` on ``ckpt/step_8`` must give the last
+   row's ``val_loss_ema`` within 1e-5 relative. It prints the CLI's
+   img/s and step time of both epochs, and the device's idle share over
+   the resumed epoch's training (a torch.profiler trace of it).
 
 After a line with the card's name and power limit, the line before the
 last is a JSON object with one entry per kernel (``ms`` a call's time by
@@ -1289,6 +1302,166 @@ def run_config_path(dev, card):
     return total
 
 
+def device_idle_share(prof, span: str = "train_epoch"):
+    """(idle share, busy ms, wall ms) of the card over the first host span
+    named ``span`` of a torch.profiler run: the share of the span's wall
+    time in which no kernel, copy or memset ran (their intervals' union),
+    or None for the share when the profiler saw no device event."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    host = [e for e in events
+            if e.name == span and e.device_type == DeviceType.CPU]
+    t0, t1 = host[0].time_range.start, host[0].time_range.end
+    ivs = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and t0 <= e.time_range.start < t1)
+    busy, end = 0.0, t0
+    for a, b in ivs:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    wall = t1 - t0
+    return (1.0 - busy / wall if ivs else None), busy / 1e3, wall / 1e3
+
+
+def top_kernels(prof, n: int = 8) -> dict:
+    """The device ms of a torch.profiler run's ``n`` costliest kernel
+    groups (``utils/profiling.group_rows``: the port's kernels by id, the
+    rest by name)."""
+    from fastvim_tpu_torch.utils.profiling import group_rows
+
+    rows = []
+    for ev in prof.key_averages():
+        us = (getattr(ev, "self_device_time_total", None)
+              or getattr(ev, "self_cuda_time_total", 0))
+        if (us > 0 and str(ev.device_type).endswith("CUDA")
+                and not getattr(ev, "is_user_annotation", False)):
+            rows.append((ev.key, us / 1e3, ev.count))
+    return {k[:60]: (round(ms, 2), count) for k, (ms, count) in
+            list(group_rows(rows).items())[:n]}
+
+
+def run_cli_path(dev, card):
+    """Phase 7: the port's CLIs on the card, in-process, at FastVimT.yaml
+    (fastvim_tiny, 224 px, 1000 classes, batch 128, fp32, mixup/cutmix,
+    drop path 0.05, EMA) on 512 synthetic images, 4 steps an epoch: one
+    epoch, then ``--resume`` to two; checks the log, the step count, the
+    launches and the checkpoint round trip through test_classification.
+    Returns the launch counts of all three runs."""
+    import csv
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvim_tpu_torch.cli import test_classification, train_classification
+    from fastvim_tpu_torch.ops import kernels
+
+    batch, samples = 128, 512
+    steps, val_batches = samples // batch, samples // batch
+    fwd = {"selective_scan_fwd": 48, "pass_a_fwd": 24, "pass_b_fwd": 24}
+    bwd = {"selective_scan_bwd": 48, "pass_b_bwd": 24, "pass_a_bwd": 24}
+    none = dict.fromkeys(kernels.launch_counts(), 0)
+    # an epoch: its train steps, then each val batch through the raw and
+    # the EMA weights; the backward kernels launch in the steps only
+    per_epoch = {**none, **{k: v * (steps + 2 * val_batches)
+                            for k, v in fwd.items()},
+                 **{k: v * steps for k, v in bwd.items()}}
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    with tempfile.TemporaryDirectory() as out:
+        common = ["--config_name", "FastVimT", "--model_save_dir", out,
+                  "--synthetic_samples", str(samples), "--device", str(dev)]
+        kernels.reset_launch_counts()
+        state = train_classification.main(common + ["--epochs", "1"])
+        torch.cuda.synchronize()
+        seen = kernels.launch_counts()
+        if seen != per_epoch:
+            raise AssertionError(f"CLI epoch 1: launches {seen}, expected "
+                                 f"{per_epoch} ({steps} steps of 24 K3, 24 "
+                                 "K4, 48 K1, 24 K5, 24 K6, 48 K2; "
+                                 f"{2 * val_batches} eval forwards)")
+        total = {k: total[k] + v for k, v in seen.items()}
+        del state
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state = train_classification.main(
+                common + ["--epochs", "2", "--resume"])
+            torch.cuda.synchronize()
+        seen = kernels.launch_counts()
+        if seen != per_epoch:
+            raise AssertionError(f"CLI epoch 2 (resumed): launches {seen}, "
+                                 f"expected {per_epoch}")
+        total = {k: total[k] + v for k, v in seen.items()}
+        if state.step != 2 * steps:
+            raise AssertionError(f"CLI: step {state.step}, not {2 * steps}")
+        idle, busy_ms, wall_ms = device_idle_share(prof)
+        log(f"[cli] device ms by kernel over the resumed run (4 steps, 8 "
+            f"eval forwards): {top_kernels(prof)}")
+        del state, prof
+        with open(os.path.join(out, "log.csv")) as f:
+            rows = list(csv.DictReader(f))
+        if [int(r["epoch"]) for r in rows] != [0, 1]:
+            raise AssertionError(f"log.csv epochs "
+                                 f"{[r['epoch'] for r in rows]}, not [0, 1]")
+        cols = ("train_loss", "grad_norm", "val_loss", "val_acc",
+                "val_loss_ema", "val_acc_ema")
+        for r in rows:
+            if not all(math.isfinite(float(r[c])) for c in cols):
+                raise AssertionError(f"log.csv row not finite: {r}")
+        if not any(f.startswith("events.out.tfevents")
+                   for f in os.listdir(os.path.join(out, "tb"))):
+            raise AssertionError("no TensorBoard event file under tb/")
+        log(f"[cli] log.csv: {[{c: r[c] for c in ('epoch', *cols)} for r in rows]}")
+        kernels.reset_launch_counts()
+        result = test_classification.main(
+            common[:2] + ["--checkpoint",
+                          os.path.join(out, "ckpt", f"step_{2 * steps}"),
+                          "--ema"] + common[4:])
+        torch.cuda.synchronize()
+        seen = kernels.launch_counts()
+        want = {**none, **{k: v * val_batches for k, v in fwd.items()}}
+        if seen != want:
+            raise AssertionError(f"test_classification: launches {seen}, "
+                                 f"expected {want}")
+        total = {k: total[k] + v for k, v in seen.items()}
+        ema = float(rows[-1]["val_loss_ema"])
+        if not abs(result["test_loss"] - ema) <= 1e-5 * abs(ema):
+            raise AssertionError(f"test_classification --ema: test_loss "
+                                 f"{result['test_loss']} against the last "
+                                 f"val_loss_ema {ema}")
+        log(f"[cli] test_classification --ema on step_{2 * steps}: "
+            f"{result}, val_loss_ema {ema}")
+    # the host loader alone, as the CLI builds it: the rate the CLI's
+    # epochs could reach if the card took no time
+    from fastvim_tpu_torch.config import load_config
+    from fastvim_tpu_torch.data import create_imagenet_loader
+
+    cfg = load_config("FastVimT", "classification")
+    loader = create_imagenet_loader(
+        None, "train", batch, cfg["img_size"], training=True,
+        num_workers=cfg["num_workers"], seed=cfg["seed"],
+        synthetic_samples=samples)
+    t0 = time.perf_counter()
+    n = sum(b["image"].shape[0] for b in loader)
+    loader_img_s = n / (time.perf_counter() - t0)
+    sps = [float(r["steps_per_sec"]) for r in rows]
+    share = "not measured (no device event)" if idle is None else \
+        f"{idle:.4f}"
+    log(f"[time] CLI train_classification FastVimT.yaml B={batch} fp32 224px:"
+        f" epoch 1 {sps[0] * batch:.2f} img/s ({1e3 / sps[0]:.1f} ms a "
+        f"step), epoch 2 (resumed, under the profiler) {sps[1] * batch:.2f} "
+        f"img/s ({1e3 / sps[1]:.1f} ms a step); device idle share over "
+        f"epoch 2's training {share} (busy {busy_ms:.1f} of {wall_ms:.1f} "
+        f"ms); the host loader alone (RandAugment, {cfg['num_workers']} "
+        f"threads) {loader_img_s:.2f} img/s ({card})")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1339,6 +1512,8 @@ def main() -> int:
     for name, count in run_train_path(dev, card).items():
         launches[name] += count
     for name, count in run_config_path(dev, card).items():
+        launches[name] += count
+    for name, count in run_cli_path(dev, card).items():
         launches[name] += count
 
     # each kernel's files: the main path's (bf16) kernel, then the fp32

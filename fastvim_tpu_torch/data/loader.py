@@ -1,0 +1,215 @@
+"""Host data loading: folder datasets, threaded prefetch, synthetic data.
+
+Counterpart of ``fastvim_tpu/data/loader.py`` without its native JPEG
+path: an ImageFolder-style dataset decoded with PIL, a thread-pool
+prefetching loader producing NHWC float32 numpy batches, and a synthetic
+dataset for smoke runs. For the same seed, epoch and dataset the batches
+are bitwise the JAX package's: the same shuffle
+(``default_rng(seed + epoch)``) and the same per-image
+``random.Random(hash((seed, epoch, j)))``. The training loop sets
+``epoch`` before each epoch, so a resumed run draws what an uninterrupted
+one would. PIL is imported inside the functions that decode.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import threading
+from typing import Callable, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+
+
+class ImageFolderDataset:
+    """<root>/<class_name>/<image> layout, classes sorted alphabetically."""
+
+    def __init__(self, root: str):
+        self.root = root
+        classes = sorted(
+            d for d in os.listdir(root)
+            if os.path.isdir(os.path.join(root, d)))
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples: List[Tuple[str, int]] = []
+        for c in classes:
+            cdir = os.path.join(root, c)
+            for fname in sorted(os.listdir(cdir)):
+                if fname.lower().endswith(IMG_EXTENSIONS):
+                    self.samples.append(
+                        (os.path.join(cdir, fname), self.class_to_idx[c]))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def load(self, idx: int):
+        from PIL import Image
+
+        path, label = self.samples[idx]
+        with Image.open(path) as img:
+            return img.convert("RGB"), label
+
+
+class SyntheticDataset:
+    """Deterministic fake images for smoke tests and benchmarks."""
+
+    def __init__(self, num_samples: int, size: int, channels: int = 3,
+                 num_classes: int = 1000):
+        self.num_samples = num_samples
+        self.size = size
+        self.channels = channels
+        self.num_classes = num_classes
+
+    def __len__(self):
+        return self.num_samples
+
+    def load(self, idx: int):
+        from PIL import Image
+
+        rng = np.random.default_rng(idx)
+        arr = rng.integers(0, 256, (self.size, self.size, self.channels),
+                           dtype=np.uint8)
+        img = Image.fromarray(arr[..., :3] if self.channels >= 3 else
+                              np.repeat(arr, 3, axis=-1))
+        return img, idx % self.num_classes
+
+
+class DataLoader:
+    """Threaded prefetching loader → NHWC float32 numpy batches."""
+
+    def __init__(self, dataset, batch_size: int,
+                 transform: Callable, shuffle: bool = True,
+                 num_workers: int = 4, seed: int = 0,
+                 drop_last: bool = True, prefetch: int = 2):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.transform = transform
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.epoch = 0
+
+    def __len__(self):
+        n = len(self.dataset) // self.batch_size
+        if not self.drop_last and len(self.dataset) % self.batch_size:
+            n += 1
+        return n
+
+    def _batches(self) -> Iterator[List[int]]:
+        idxs = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idxs)
+        for i in range(0, len(idxs), self.batch_size):
+            chunk = idxs[i : i + self.batch_size]
+            if len(chunk) < self.batch_size and self.drop_last:
+                return
+            yield list(chunk)
+
+    def _load_batch(self, batch_idx: List[int], epoch: int) -> dict:
+        """Decode + transform one batch → dict of stacked arrays.
+        Subclasses (e.g. detection) override this collate."""
+        imgs, labels = [], []
+        for j in batch_idx:
+            img, label = self.dataset.load(int(j))
+            rng = random.Random(hash((self.seed, epoch, int(j))))
+            imgs.append(self.transform(img, rng))
+            labels.append(label)
+        return {"image": np.stack(imgs).astype(np.float32),
+                "label": np.asarray(labels, np.int64)}
+
+    def __iter__(self):
+        """num_workers decode+augment threads over whole batches; results
+        are yielded in deterministic batch order regardless of worker
+        completion order, with a ``prefetch``-deep backpressure window so
+        at most prefetch+num_workers batches are in flight. PIL's decode
+        and resampling release the GIL, so the threads overlap there."""
+        batches = list(self._batches())
+        self.epoch += 1
+        epoch = self.epoch
+        if not batches:
+            return
+
+        cond = threading.Condition()
+        results: dict = {}
+        next_in = [0]     # next batch index a worker should claim
+        next_out = [0]    # next batch index the consumer will yield
+        error: list = [None]
+
+        def worker():
+            while True:
+                with cond:
+                    if error[0] is not None or next_in[0] >= len(batches):
+                        return
+                    bi = next_in[0]
+                    next_in[0] += 1
+                    # backpressure: stay within the prefetch window
+                    while (error[0] is None
+                           and bi - next_out[0] > self.prefetch
+                           + self.num_workers):
+                        cond.wait(timeout=0.5)
+                    if error[0] is not None:
+                        return
+                try:
+                    batch = self._load_batch(batches[bi], epoch)
+                except BaseException as e:  # propagate to the consumer
+                    with cond:
+                        error[0] = e
+                        cond.notify_all()
+                    return
+                with cond:
+                    results[bi] = batch
+                    cond.notify_all()
+
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(min(self.num_workers, len(batches)))]
+        for t in threads:
+            t.start()
+        try:
+            for bi in range(len(batches)):
+                with cond:
+                    while bi not in results and error[0] is None:
+                        cond.wait(timeout=0.5)
+                    if error[0] is not None:
+                        raise error[0]
+                    item = results.pop(bi)
+                    next_out[0] = bi + 1
+                    cond.notify_all()
+                yield item
+        finally:
+            with cond:
+                if error[0] is None:
+                    error[0] = GeneratorExit("loader closed")
+                cond.notify_all()
+
+
+def create_imagenet_loader(
+    data_dir: Optional[str], split: str, batch_size: int, img_size: int,
+    training: bool, num_workers: int = 4, seed: int = 0,
+    synthetic_samples: int = 512,
+):
+    """Folder loader if ``data_dir/split`` exists, else synthetic.
+    ``data_dir="digits"`` selects the offline digits dataset
+    (data/digits.py)."""
+    from fastvim_tpu_torch.data import transforms as T
+
+    if data_dir == "digits":
+        from fastvim_tpu_torch.data.digits import create_digits_loader
+
+        return create_digits_loader(
+            "train" if split == "train" else "val", batch_size, img_size,
+            training=training, num_workers=num_workers, seed=seed)
+
+    if training:
+        tf = lambda img, rng: T.train_transform(img, img_size, rng)
+    else:
+        tf = lambda img, rng: T.eval_transform(img, img_size)
+
+    if data_dir and os.path.isdir(os.path.join(data_dir, split)):
+        ds = ImageFolderDataset(os.path.join(data_dir, split))
+    else:
+        ds = SyntheticDataset(synthetic_samples, img_size)
+    return DataLoader(ds, batch_size, tf, shuffle=training,
+                      num_workers=num_workers, seed=seed)

@@ -30,14 +30,13 @@ def rotate_grid(x: torch.Tensor, grid_shape: Sequence[int],
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, layer_idx: int, token_size: Sequence[int],
+    def __init__(self, dim: int, layer_idx: int,
                  mixer_kwargs: Optional[dict] = None,
                  rotate_every_block: bool = True, rms_norm: bool = True,
                  residual_in_fp32: bool = True, norm_eps: float = 1e-5,
                  drop_path: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layer_idx = layer_idx
-        self.token_size = tuple(token_size)
         self.rotate_every_block = rotate_every_block
         self.residual_in_fp32 = residual_in_fp32
         self.dtype = dtype
@@ -53,13 +52,14 @@ class Block(nn.Module):
         self.mixer.reset_parameters(generator)
 
     def forward(self, hidden: torch.Tensor,
-                residual: Optional[torch.Tensor]):
+                residual: Optional[torch.Tensor], grid: Sequence[int]):
+        """``grid``: the (rows, cols) token grid of this input."""
         if residual is not None:
             hidden = self.drop_path(hidden)
         hidden, residual = self.norm(
             hidden, residual, prenorm=True,
             residual_in_fp32=self.residual_in_fp32, out_dtype=self.dtype)
-        grid = self.token_size
+        grid = tuple(grid)
         rotated = self.rotate_every_block and self.layer_idx % 2 != 0
         transposed = (rotated and len(grid) == 2
                       and self.mixer.collapse_method in ("mean", "max")

@@ -4,7 +4,8 @@ Counterpart of ``fastvim_tpu/models/patch_embed.py``: images are NHWC;
 patchify is a space-to-depth reshape plus one matmul (not a strided
 conv). The parameters keep the reference conv's names and layout,
 ``proj.weight (D, C, p, p)`` and ``proj.bias``. ``scanpath_type="colwise"``
-transposes the grid after patchify.
+transposes the grid after patchify. :func:`resize_pos_embed` resizes a
+position embedding between token grids as the JAX package does.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from fastvim_tpu_torch.models.layers import lecun_normal_init_
+from fastvim_tpu_torch.ops.resize import resize
 
 
 class PatchProj(nn.Module):
@@ -71,3 +73,26 @@ class PatchEmbed(nn.Module):
         else:
             rows, cols = gh, gw
         return x.reshape(B, rows * cols, self.embed_dim), (rows, cols)
+
+
+def resize_pos_embed(pos_embed: torch.Tensor, new_hw: Tuple[int, int],
+                     old_hw: Tuple[int, int],
+                     scanpath_type: str = "rowwise") -> torch.Tensor:
+    """Bicubic-resize a (1, L, D) pos-embed between token grids, as
+    ``jax.image.resize(..., "bicubic")`` does (Keys' kernel, a = -0.5,
+    antialiased when shrinking; ``ops/resize.py``), including the colwise
+    transpose. Differentiable in ``pos_embed``."""
+    oh, ow = old_hw
+    nh, nw = new_hw
+    _, L, D = pos_embed.shape
+    if L != oh * ow:
+        raise ValueError(f"pos_embed has {L} tokens, grid {old_hw}")
+    grid = pos_embed.reshape(1, oh, ow, D)
+    if scanpath_type == "colwise":
+        grid = grid.transpose(1, 2)
+        nh, nw = nw, nh
+    grid = resize(grid, (nh, nw), "cubic")
+    if scanpath_type == "colwise":
+        grid = grid.transpose(1, 2)
+        nh, nw = nw, nh
+    return grid.reshape(1, nh * nw, D).to(pos_embed.dtype)

@@ -3,9 +3,14 @@ norm → mean pool (or the cls token) → head.
 
 Counterpart of the classification path of
 ``fastvim_tpu/models/vision_mamba.py``, including the Vim baseline's
-(middle) cls token. Images are NHWC. The input grid must be the one
-``img_size`` gives: there is no pos-embed resize and no ``out_indices``
-feature-map mode here. ``model.train()`` / ``model.eval()`` take the place
+(middle) cls token. Images are NHWC. At another resolution than
+``img_size`` the pos-embed is resized to the input's grid (bicubic, as
+the JAX package does), except with a cls token, which takes only the
+training grid; there is no ``out_indices`` feature-map mode here.
+``remat=True`` recomputes each block's activations in the backward pass
+(``torch.utils.checkpoint``) instead of keeping them; the recompute
+replays the DropPath draws of the forward, so the gradients are those
+of ``remat=False``. ``model.train()`` / ``model.eval()`` take the place
 of the JAX package's ``deterministic`` argument: they switch DropPath.
 ``layer_fused`` ("auto", "on", "off", "recompute") and ``layer_fused_bwd``
 are model fields; ``fused_kernels`` and ``fused_merge`` reach the mixers
@@ -16,6 +21,7 @@ tree.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -23,10 +29,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
+from torch.utils.checkpoint import checkpoint
 
 from fastvim_tpu_torch.models.blocks import Block
 from fastvim_tpu_torch.models.layers import DropPath, Norm, trunc_normal_init_
-from fastvim_tpu_torch.models.patch_embed import PatchEmbed
+from fastvim_tpu_torch.models.patch_embed import PatchEmbed, resize_pos_embed
 
 
 class VisionMamba(nn.Module):
@@ -43,7 +50,7 @@ class VisionMamba(nn.Module):
                  rotate_every_block: bool = True,
                  collapse_method: str = "mean", scaling_factor: float = 1.0,
                  scan_impl: str = "auto", layer_fused: str = "auto",
-                 layer_fused_bwd: str = "fused",
+                 layer_fused_bwd: str = "fused", remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if if_cls_token and (collapse_method != "none" or rotate_every_block):
@@ -57,6 +64,7 @@ class VisionMamba(nn.Module):
         self.if_cls_token = if_cls_token
         self.use_middle_cls_token = use_middle_cls_token
         self.scanpath_type = scanpath_type
+        self.remat = remat
         self.dtype = dtype
 
         self.patch_embed = PatchEmbed(patch_size, embed_dim, channels,
@@ -73,7 +81,7 @@ class VisionMamba(nn.Module):
         dpr = [float(r) for r in np.linspace(0, drop_path_rate, depth)]
         inter_dpr = [0.0] + dpr[:-1] if depth > 1 else [0.0]
         self.layers = nn.ModuleList(
-            Block(embed_dim, i, self.grid_size, mixer_kwargs,
+            Block(embed_dim, i, mixer_kwargs,
                   rotate_every_block=rotate_every_block, rms_norm=rms_norm,
                   residual_in_fp32=residual_in_fp32, norm_eps=norm_epsilon,
                   drop_path=inter_dpr[i], dtype=dtype)
@@ -124,10 +132,14 @@ class VisionMamba(nn.Module):
         or the pooled features (batch, embed_dim) when num_classes <= 0."""
         B = x.shape[0]
         tokens, grid = self.patch_embed(x)
+        pos = self.pos_embed
         if grid != self.grid_size:
-            raise ValueError(f"input grid {grid} differs from the model's "
-                             f"{self.grid_size} (img_size {self.img_size}); "
-                             "pos-embed resize is not supported")
+            if self.cls_token is not None:
+                raise ValueError(f"input grid {grid} differs from the "
+                                 f"model's {self.grid_size}: a cls-token "
+                                 "model takes its training grid only")
+            pos = resize_pos_embed(pos, grid, self.grid_size,
+                                   self.scanpath_type)
         cls_position = None
         if self.cls_token is not None:
             M = tokens.shape[1]
@@ -135,11 +147,17 @@ class VisionMamba(nn.Module):
             cls = self.cls_token.to(tokens.dtype).expand(B, 1, self.embed_dim)
             tokens = torch.cat([tokens[:, :cls_position], cls,
                                 tokens[:, cls_position:]], dim=1)
-        tokens = tokens + self.pos_embed.to(tokens.dtype)
+        tokens = tokens + pos.to(tokens.dtype)
 
         hidden, residual = tokens, None
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for blk in self.layers:
-            hidden, residual = blk(hidden, residual)
+            if remat:
+                hidden, residual = checkpoint(
+                    blk, hidden, residual, grid, use_reentrant=False,
+                    context_fn=lambda: _replay_drop_path(blk.drop_path))
+            else:
+                hidden, residual = blk(hidden, residual, grid)
         hidden = self.norm_f(self.drop_path(hidden), residual=residual,
                              residual_in_fp32=self.residual_in_fp32,
                              out_dtype=self.dtype)
@@ -150,3 +168,44 @@ class VisionMamba(nn.Module):
             return feat
         return F.linear(feat, self.head.weight.to(self.dtype),
                         self.head.bias.to(self.dtype))
+
+
+class _NoteState:
+    """Entered around a block's forward: note the generator's state."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.state = None
+
+    def __enter__(self):
+        self.state = self.generator.get_state()
+
+    def __exit__(self, *exc):
+        return False
+
+
+class _ReplayFrom:
+    """Entered around a recompute (as often as it runs): start the
+    generator from the noted state, and leave it where it was found."""
+
+    def __init__(self, noted: _NoteState):
+        self.noted = noted
+        self.now = None
+
+    def __enter__(self):
+        self.now = self.noted.generator.get_state()
+        self.noted.generator.set_state(self.noted.state)
+
+    def __exit__(self, *exc):
+        self.noted.generator.set_state(self.now)
+        return False
+
+
+def _replay_drop_path(drop_path: DropPath):
+    """``checkpoint``'s ``context_fn`` for a block whose DropPath draws
+    from its own generator, which ``checkpoint`` does not restore."""
+    gen = drop_path.generator if drop_path.rate > 0 else None
+    if gen is None:
+        return contextlib.nullcontext(), contextlib.nullcontext()
+    noted = _NoteState(gen)
+    return noted, _ReplayFrom(noted)

@@ -15,8 +15,8 @@ before every update. The names it reads are the port's
 from __future__ import annotations
 
 import re
-from typing import (Callable, Dict, Iterable, Mapping, Optional, Sequence,
-                    Union)
+from typing import (Any, Callable, Dict, Iterable, Mapping, Optional,
+                    Sequence, Union)
 
 import torch
 from torch import nn
@@ -154,6 +154,21 @@ class ScheduledAdamW:
         self.opt.zero_grad(set_to_none=True)
         self.count += 1
         return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a resumed run needs: the AdamW moments and step counts,
+        the updates done, the calls since the last update and the
+        gradients accumulated over them."""
+        return {"adamw": self.opt.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc": self._acc}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        self.opt.load_state_dict(state["adamw"])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        self._acc = (None if state["acc"] is None else
+                     {n: g.to(self.params[n].device)
+                      for n, g in state["acc"].items()})
 
 
 def make_optimizer(lr_schedule: Callable[[float], float],

@@ -4,13 +4,14 @@ float32 EMA copy of the parameters.
 Counterpart of ``fastvim_tpu/train/state.py``. The JAX state is an
 immutable pytree and ``apply_gradients`` returns a new one; here the
 parameters, the Adam moments and the EMA copy are updated in place and
-``apply_gradients`` returns the same object.
+``apply_gradients`` returns the same object. ``state_dict()`` is the
+checkpoint's payload, ``{params, ema_params, opt_state, step}``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch import nn
@@ -43,3 +44,22 @@ class TrainState:
             ema_update(self.ema_params, self.params, ema_decay)
         self.step += 1
         return self
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The parameters, the EMA copy (with EMA only), the optimizer's
+        state and the step, as tensors and numbers."""
+        state = {"params": self.model.state_dict(),
+                 "opt_state": self.tx.state_dict(), "step": self.step}
+        if self.ema_params is not None:
+            state["ema_params"] = self.ema_params
+        return state
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Restore, in place, what :meth:`state_dict` saved."""
+        self.model.load_state_dict(state["params"])
+        if self.ema_params is not None:
+            with torch.no_grad():
+                for name, e in self.ema_params.items():
+                    e.copy_(state["ema_params"][name])
+        self.tx.load_state_dict(state["opt_state"])
+        self.step = int(state["step"])

@@ -24,6 +24,12 @@ from fastvim_tpu_torch.train.optim import global_norm
 from fastvim_tpu_torch.train.state import TrainState
 
 
+def fold_seed(seed: int, *parts: int) -> int:
+    """A generator seed for (``seed``, ``parts``...): the same numbers
+    give the same seed in every process."""
+    return hash((seed, *parts)) & (2 ** 63 - 1)
+
+
 def make_supervised_train_step(
         model: nn.Module, num_classes: int,
         mixup_config: Optional[Dict[str, Any]] = None,
@@ -34,15 +40,21 @@ def make_supervised_train_step(
     batch: {"image": (B, H, W, C), "label": (B,) int64} on the model's
     device. ``generator`` (on that device) feeds mixup and DropPath; it is
     needed only when ``mixup_config`` is given or the model drops paths.
+    Each step first re-seeds it from (its seed when the step was made,
+    state.step), as the JAX step folds the step count into one key: a run
+    resumed from a checkpoint then draws what an uninterrupted one would.
     metrics: "train_loss" and "grad_norm" (before clipping), 0-d tensors.
     The state is updated in place."""
     if mixup_config and generator is None:
         raise ValueError("mixup needs a generator")
+    seed = generator.initial_seed() if generator is not None else None
     if hasattr(model, "set_drop_path_generator"):
         model.set_drop_path_generator(generator)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         model.train()
+        if generator is not None:
+            generator.manual_seed(fold_seed(seed, state.step))
         images, labels = batch["image"], batch["label"]
         if mixup_config:
             images, soft = mixup_cutmix(generator, images, labels,

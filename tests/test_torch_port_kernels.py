@@ -264,18 +264,25 @@ def test_ctypes_signatures_match_sources():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of fastvim_tpu_torch pulls in no JAX."""
+    """Importing every module of fastvim_tpu_torch pulls in no JAX, and
+    neither PIL nor scikit-learn: the card's Python has no scikit-learn,
+    so the data modules import both only inside the functions that use
+    them (PyYAML is there, and config.py imports it)."""
     mods = [m.name for m in pkgutil.walk_packages(
         fastvim_tpu_torch.__path__, "fastvim_tpu_torch.")]
     assert "fastvim_tpu_torch.ops.kernels.layer_fused" in mods
     assert "fastvim_tpu_torch.train.trainer" in mods
+    for m in ("config", "cli.train_classification", "cli.test_classification",
+              "data.loader", "data.transforms", "data.digits", "data.device",
+              "train.loop", "train.checkpoint", "utils.tboard"):
+        assert f"fastvim_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "new = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                                    'fastvim_tpu'))\n"
+        "                                    'fastvim_tpu', 'PIL', 'sklearn'))\n"
         "assert not new, new\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)

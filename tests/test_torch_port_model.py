@@ -114,6 +114,12 @@ def test_seeded_init_and_registry():
 
 
 def test_grid_mismatch_raises():
-    model = create_model("fastvim_tiny", img_size=64, **PORT)
-    with pytest.raises(ValueError, match="pos-embed resize"):
-        model(torch.zeros(1, 96, 64, 3))
+    """Another grid than img_size's resizes the pos-embed (held against
+    the JAX package in tests/test_torch_port_data.py); a cls-token model
+    takes its training grid only, as the JAX package's does."""
+    x = torch.zeros(1, 96, 64, 3)
+    assert create_model("fastvim_tiny", img_size=64, **PORT)(x).shape == \
+        (1, 10)
+    model = create_model("vim_tiny_midclstok", img_size=64, **PORT)
+    with pytest.raises(ValueError, match="training grid"):
+        model(x)
