@@ -24,7 +24,11 @@ Phases, each of which raises on failure (exit code non-zero):
    orientations, beside its pass A, K3's pools-only form; K8, K9 and K10
    at FastVim-T's and FastVim-S's widths (K10 in both orientations), each
    with its share of the bound; the lanes scan at L = 128 and 16,384,
-   beside K1;
+   beside K1; and K1 and K2 in fp32 at the MAE slice's shapes (batch,
+   L, d_inner): (128, 14, 1536), the masked encoder's row bins at MAE-B,
+   (128, 196, 1024), the decoder's tokens, and (128, 50, 1536), the
+   Vim-MAE-B encoder's visible tokens and cls token, both directions,
+   each timed beside its plain version and its bound;
 3. build ``fastvim_tiny`` and ``vim_tiny`` at 224 px, full width, fp32,
    from one seed, and compare their logits, then their loss and every
    parameter's gradient, on the card (kernels) with the same models on
@@ -81,7 +85,25 @@ Phases, each of which raises on failure (exit code non-zero):
    ``test_classification --ema`` on ``ckpt/step_8`` must give the last
    row's ``val_loss_ema`` within 1e-5 relative. It prints the CLI's
    img/s and step time of both epochs, and the device's idle share over
-   the resumed epoch's training (a torch.profiler trace of it).
+   the resumed epoch's training (a torch.profiler trace of it);
+8. MAE: ``mae_FastVim_base_dec512d2b`` (full width, encoder depth 4) and
+   ``mae_vim_base_dec512d2b`` (depth 2, its middle cls token) in fp32 at
+   224 px, B = 8, from one seed and one mask draw, card against CPU: the
+   loss, the prediction and every parameter's gradient within 1e-4 of
+   each tensor's largest entry, the masks equal, and 12 / 8 K1 and K2
+   launches. Then the MAE CLIs, in-process, at full width and depth on
+   512 synthetic images (4 steps of 128): ``pretrain_mae --config_name
+   pretrain_FastVimB`` for one epoch and ``--resume`` to two (52 K1 and
+   52 K2 a step: 24 masked layers and 2 decoder layers, two scans each;
+   the log's two rows, step 8, img/s, step time and the device's idle
+   share over the resumed epoch); ``finetune_mae --config_name
+   finetune_FastVimB`` from its newest checkpoint for one epoch
+   (``fastvim_base``: the printed counts show the sin-cos ``pos_embed``
+   and the kept-init head; 48 K1 + 48 K2 a step and 48 K1 an eval batch);
+   ``linear_probe --config_name linear_FastVimL model=fastvim_base
+   batch_size=128`` from the same checkpoint (48 K1 a step and an eval
+   batch; the frozen backbone bitwise as loaded, the BatchNorm statistics
+   moved).
 
 After a line with the card's name and power limit, the line before the
 last is a JSON object with one entry per kernel (``ms`` a call's time by
@@ -1462,6 +1484,312 @@ def run_cli_path(dev, card):
     return total
 
 
+# the MAE slice's scan shapes, fp32 (batch, L, d_inner): the masked
+# encoder's 14 row bins at MAE-B, the plain-Vim decoder's 196 tokens, the
+# Vim-MAE-B encoder's 49 visible tokens and its cls token
+MAE_SCANS = (("MAE-B encoder", 128, 14, 1536),
+             ("MAE decoder", 128, 196, 1024),
+             ("Vim-MAE-B encoder", 128, 50, 1536))
+
+
+def check_mae_scans(dev, card):
+    """Phase 2, the MAE shapes: K1 and K2 against their plain versions in
+    fp32 at ``MAE_SCANS``, both directions, with D = None as the mixers
+    call them; each timed by CUDA events beside its other form, its plain
+    version and its bound (reverse direction). Returns the largest
+    errors."""
+    import torch
+
+    from fastvim_tpu_torch.ops.kernels import selective_scan as ss
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    rnd = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    uni = lambda *s, bound: (torch.rand(*s, generator=g, device=dev) * 2
+                             - 1) * bound
+    errs = {"selective_scan_fwd": 0.0, "selective_scan_bwd": 0.0}
+    n = 16
+    order = (0, 1, 3, 4, 2, 5, 6)  # du, ddelta, dB, dC per step; then sums
+    pick = lambda grads: [grads[i] for i in order]
+    for what, batch, L, d in MAE_SCANS:
+        A = -torch.exp(uni(d, n, bound=1.0))
+        bias = uni(d, bound=0.5)
+        ins = (rnd(batch, L, d), rnd(batch, L, d, scale=0.5), A,
+               rnd(batch, L, n), rnd(batch, L, n))
+        gy = rnd(batch, L, d)
+        kw = dict(delta_bias=bias, delta_softplus=True)
+        for reverse in (False, True):
+            tag = f"{what} B={batch} L={L} d={d} fp32 reverse={reverse}"
+            y, states = ss.selective_scan_fwd(*ins, reverse=reverse,
+                                              save_states=True, **kw)
+            errs["selective_scan_fwd"] = max(
+                errs["selective_scan_fwd"],
+                compare(f"selective_scan_fwd {tag}", y,
+                        ss.selective_scan_plain(*ins, reverse=reverse, **kw),
+                        FP32_TOL))
+            got = ss.selective_scan_bwd(*ins, None, bias, gy, states, True,
+                                        reverse)
+            want = ss.selective_scan_bwd_plain(*ins, None, bias, gy, True,
+                                               reverse)
+            errs["selective_scan_bwd"] = max(
+                errs["selective_scan_bwd"],
+                compare_all(f"selective_scan_bwd {tag}", pick(got),
+                            pick(want), FP32_TOL, 4))
+            del want
+        k1 = lambda: ss.selective_scan_fwd(*ins, reverse=True,
+                                           save_states=True, **kw)
+        k1_plain = lambda: ss.selective_scan_plain(*ins, reverse=True, **kw)
+        k2 = lambda: ss.selective_scan_bwd(*ins, None, bias, gy, states, True,
+                                           True)
+        k2_plain = lambda: ss.selective_scan_bwd_plain(*ins, None, bias, gy,
+                                                       True, True)
+        other = {"sequential": "chunked", "chunked": "sequential"}
+        k1_alt = lambda: ss._launch_fwd(other[ss.fwd_route(L)], *ins,
+                                        reverse=True, save_states=True, **kw)
+        k2_alt = lambda: ss._launch_bwd(other[ss.bwd_route(L)], *ins, None,
+                                        bias, gy, states, True, True)
+        for name, kern, alt, plain, n_bytes, flops, route in (
+                ("selective_scan_fwd", k1, k1_alt, k1_plain,
+                 nbytes(*ins, bias, y, states), 9.0, ss.fwd_route(L)),
+                ("selective_scan_bwd", k2, k2_alt, k2_plain,
+                 nbytes(*ins, bias, gy, states, *got), 20.0,
+                 ss.bwd_route(L))):
+            k_ms = cuda_ms(kern, 50)
+            o_ms = cuda_ms(alt, 50)
+            p_ms = cuda_ms(plain, 3)
+            b_ms, by = bound(n_bytes, flops * batch * L * d * n, "fp32")
+            log(f"[time] {name} {tag}: kernel ({route}) {k_ms:.4f} ms, "
+                f"{other[route]} {o_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({by}) ({card})")
+        del ins, gy, y, states, got
+        torch.cuda.empty_cache()
+    return errs
+
+
+def compare_grads(name, got, want, tol=GRAD_TOL):
+    """Each tensor of ``got`` (name → tensor) within ``tol`` of the largest
+    entry of its ``want``; raises otherwise, logs the worst."""
+    import torch
+
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: tensors {sorted(set(got) ^ set(want))}"
+                             " on one side only")
+    worst, worst_name = 0.0, ""
+    for k, w in want.items():
+        e = (got[k].float() - w.float()).abs().max().item() / (
+            w.abs().max().item() + 1e-12)
+        if not torch.isfinite(got[k]).all() or e > tol:
+            raise AssertionError(f"{name}: {k} off by {e:.3e} of its largest "
+                                 f"entry (> {tol})")
+        if e > worst:
+            worst, worst_name = e, k
+    log(f"[check] {name}: {len(want)} tensors, worst {worst:.3e} of the "
+        f"largest entry ({worst_name}) tol={tol:g} ok")
+
+
+def check_mae_224(dev):
+    """Phase 8, card against CPU: ``mae_FastVim_base_dec512d2b`` at full
+    width, encoder depth 4, and ``mae_vim_base_dec512d2b`` (cls token) at
+    depth 2, fp32, B = 8, 224 px, one generator's weights, the same mask
+    noise: the loss, the prediction and every parameter's gradient within
+    1e-4 of each tensor's largest entry (phase 3's tolerance). Returns the
+    card's launches."""
+    import torch
+
+    from fastvim_tpu_torch.models import create_model
+    from fastvim_tpu_torch.ops import kernels
+
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(8, 224, 224, 3, generator=gen)
+    noise = torch.rand(8, 196, generator=gen)
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    for name, depth, scans in (("mae_FastVim_base_dec512d2b", 4, 2 * 4 + 4),
+                               ("mae_vim_base_dec512d2b", 2, 2 * 2 + 4)):
+        cpu_model = create_model(name, device="cpu", depth=depth,
+                                 generator=torch.Generator().manual_seed(0))
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        results = []
+        for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
+            kernels.reset_launch_counts()
+            loss, pred, mask = model(x.to(d), noise=noise.to(d))
+            params = dict(model.named_parameters())
+            grads = torch.autograd.grad(loss, list(params.values()))
+            seen = kernels.launch_counts()
+            results.append(({"loss": loss.detach().cpu(),
+                             "pred": pred.detach().cpu(),
+                             "mask": mask.cpu()},
+                            {n: gr.cpu() for n, gr in zip(params, grads)}))
+        want_launch = (scans, scans)
+        got_launch = (seen["selective_scan_fwd"], seen["selective_scan_bwd"])
+        if got_launch != want_launch:
+            raise AssertionError(f"{name} depth {depth}: K1, K2 launches "
+                                 f"{got_launch}, expected {want_launch}")
+        total = {k: total[k] + v for k, v in seen.items()}
+        (want_out, want), (got_out, got) = results
+        if not torch.equal(got_out.pop("mask"), want_out.pop("mask")):
+            raise AssertionError(f"{name}: the masks differ")
+        compare_grads(f"{name} depth {depth} 224px B=8 fp32 loss and pred, "
+                      "card vs CPU", got_out, want_out)
+        compare_grads(f"{name} depth {depth} 224px B=8 fp32 gradients, card "
+                      "vs CPU", got, want)
+        del cpu_model, gpu_model, results
+    return total
+
+
+def run_mae_cli_path(dev, card):
+    """Phase 8, the MAE CLIs on the card, in-process, at full width and
+    depth, on 512 synthetic images (4 steps of 128 an epoch):
+    ``pretrain_mae --config_name pretrain_FastVimB`` for one epoch and
+    ``--resume`` to two (52 K1 and 52 K2 a step; the device's idle share
+    over the resumed epoch); ``finetune_mae --config_name
+    finetune_FastVimB`` from its newest checkpoint for one epoch (the
+    sin-cos ``pos_embed`` and the kept-init head in the printed counts; 48
+    K1 and 48 K2 a step, 48 K1 an eval batch); ``linear_probe
+    --config_name linear_FastVimL model=fastvim_base batch_size=128`` from
+    the same checkpoint (48 K1 a step and an eval batch; the backbone
+    bitwise as loaded, the BatchNorm statistics moved). Returns the
+    launch counts of all runs."""
+    import contextlib
+    import csv
+    import io
+    import os
+    import re
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvim_tpu_torch.cli import finetune_mae, linear_probe, pretrain_mae
+    from fastvim_tpu_torch.ops import kernels
+    from fastvim_tpu_torch.train.checkpoint import restore_checkpoint
+
+    batch, samples = 128, 512
+    steps = samples // batch
+    none = dict.fromkeys(kernels.launch_counts(), 0)
+    total = dict(none)
+
+    def run(what, cli, argv, want):
+        """cli.main(argv) with its launches held to ``want`` and its
+        standard output returned beside its state."""
+        kernels.reset_launch_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            state = cli.main(argv)
+        torch.cuda.synchronize()
+        print(out.getvalue(), end="", flush=True)
+        seen = kernels.launch_counts()
+        want = {**none, **want}
+        if seen != want:
+            raise AssertionError(f"{what}: launches {seen}, expected {want}")
+        for k, v in seen.items():
+            total[k] += v
+        return state, out.getvalue()
+
+    def rates(path, what, extra=""):
+        with open(path) as f:
+            rows = list(csv.DictReader(f))
+        for r in rows:
+            if not math.isfinite(float(r["train_loss"])):
+                raise AssertionError(f"{what}: log row not finite: {r}")
+        sps = [float(r["steps_per_sec"]) for r in rows]
+        log(f"[time] CLI {what} B={batch} fp32 224px: " + ", ".join(
+            f"epoch {r['epoch']} {s * batch:.2f} img/s ({1e3 / s:.1f} ms a "
+            f"step)" for r, s in zip(rows, sps)) + f"{extra} ({card})")
+        return rows
+
+    def counts(text):
+        m = re.search(r"loaded (\d+), kept-init (\d+), sincos-filled (\d+)",
+                      text)
+        return tuple(map(int, m.groups()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. pretrain: 24 masked layers and 2 decoder layers, two scans each
+        pre = os.path.join(tmp, "pretrain")
+        common = ["--config_name", "pretrain_FastVimB", "--model_save_dir",
+                  pre, "--synthetic_samples", str(samples), "--device",
+                  str(dev)]
+        per_epoch = {"selective_scan_fwd": 52 * steps,
+                     "selective_scan_bwd": 52 * steps}
+        state, _ = run("pretrain_mae epoch 1", pretrain_mae,
+                       common + ["--epochs", "1"], per_epoch)
+        del state
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = run("pretrain_mae epoch 2 (resumed)", pretrain_mae,
+                           common + ["--epochs", "2", "--resume"], per_epoch)
+        if state.step != 2 * steps:
+            raise AssertionError(f"pretrain_mae: step {state.step}, not "
+                                 f"{2 * steps}")
+        del state
+        idle, busy_ms, wall_ms = device_idle_share(prof)
+        log(f"[cli] pretrain_mae device ms by kernel over the resumed epoch: "
+            f"{top_kernels(prof)}")
+        del prof
+        share = ("not measured (no device event)" if idle is None
+                 else f"{idle:.4f}")
+        rows = rates(os.path.join(pre, "log.csv"),
+                     "pretrain_mae pretrain_FastVimB.yaml",
+                     f"; device idle share over epoch 1's training (resumed,"
+                     f" under the profiler) {share} (busy {busy_ms:.1f} of "
+                     f"{wall_ms:.1f} ms); 52 K1 + 52 K2 a step")
+        if [int(r["epoch"]) for r in rows] != [0, 1]:
+            raise AssertionError(f"pretrain_mae log epochs "
+                                 f"{[r['epoch'] for r in rows]}")
+        ckpt = os.path.join(pre, "ckpt", f"step_{2 * steps}")
+
+        # 2. finetune fastvim_base from it: 24 unfused layers, two scans
+        ft = os.path.join(tmp, "finetune")
+        torch.cuda.reset_peak_memory_stats()
+        state, text = run(
+            "finetune_mae", finetune_mae,
+            ["--config_name", "finetune_FastVimB", "--model_save_dir", ft,
+             "--synthetic_samples", str(samples), "--device", str(dev),
+             "training_epochs=1", f"pretrained_checkpoint_path={ckpt}"],
+            {"selective_scan_fwd": 48 * (steps + steps),
+             "selective_scan_bwd": 48 * steps})
+        n = len(state.model.state_dict())
+        if counts(text) != (n - 3, 2, 1):
+            raise AssertionError(f"finetune_mae: counts {counts(text)}, "
+                                 f"expected {(n - 3, 2, 1)}")
+        log(f"[cli] finetune_mae: load_pretrained_backbone loaded, kept-init, "
+            f"sincos-filled {counts(text)} (pos_embed the sin-cos table, the"
+            f" head its init); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        del state
+        rates(os.path.join(ft, "log.csv"), "finetune_mae finetune_FastVimB."
+              "yaml (fastvim_base)", "; 48 K1 + 48 K2 a step")
+
+        # 3. the linear probe of the same checkpoint on fastvim_base
+        lp = os.path.join(tmp, "probe")
+        state, text = run(
+            "linear_probe", linear_probe,
+            ["--config_name", "linear_FastVimL", "--model_save_dir", lp,
+             "--synthetic_samples", str(samples), "--device", str(dev),
+             "model=fastvim_base", "batch_size=128", "training_epochs=1",
+             f"pretrained_checkpoint_path={ckpt}"],
+            {"selective_scan_fwd": 48 * (steps + steps)})
+        n = len(state.backbone.state_dict())
+        if counts(text) != (n - 1, 0, 1):
+            raise AssertionError(f"linear_probe: counts {counts(text)}, "
+                                 f"expected {(n - 1, 0, 1)}")
+        pretrained = restore_checkpoint(ckpt, dev)["params"]
+        for k, v in state.backbone.state_dict().items():
+            if k != "pos_embed" and not torch.equal(v, pretrained[k]):
+                raise AssertionError(f"linear_probe: backbone {k} changed")
+        bn = state.model.bn
+        if (torch.equal(bn.running_mean, torch.zeros_like(bn.running_mean))
+                or torch.equal(bn.running_var,
+                               torch.ones_like(bn.running_var))):
+            raise AssertionError("linear_probe: BatchNorm statistics did not "
+                                 "move")
+        log(f"[cli] linear_probe: counts {counts(text)}, backbone bitwise as "
+            "loaded, BatchNorm statistics moved")
+        del state, pretrained
+        rates(os.path.join(lp, "log.csv"), "linear_probe linear_FastVimL."
+              "yaml (fastvim_base, batch 128)", "; 48 K1 a step")
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1504,6 +1832,9 @@ def main() -> int:
         errs_cfg, times_cfg = check_config_kernels(dev, card, per_call)
     errs.update(errs_cfg)
     times.update(times_cfg)
+    with torch.no_grad():
+        for name, e in check_mae_scans(dev, card).items():
+            errs[name] = max(errs[name], e)
     with torch.inference_mode():
         check_models_224(dev)
     check_grads_224(dev)
@@ -1514,6 +1845,10 @@ def main() -> int:
     for name, count in run_config_path(dev, card).items():
         launches[name] += count
     for name, count in run_cli_path(dev, card).items():
+        launches[name] += count
+    for name, count in check_mae_224(dev).items():
+        launches[name] += count
+    for name, count in run_mae_cli_path(dev, card).items():
         launches[name] += count
 
     # each kernel's files: the main path's (bf16) kernel, then the fp32

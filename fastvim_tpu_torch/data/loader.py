@@ -187,12 +187,15 @@ class DataLoader:
 
 def create_imagenet_loader(
     data_dir: Optional[str], split: str, batch_size: int, img_size: int,
-    training: bool, num_workers: int = 4, seed: int = 0,
+    training: bool, mae: bool = False, num_workers: int = 4, seed: int = 0,
     synthetic_samples: int = 512,
 ):
     """Folder loader if ``data_dir/split`` exists, else synthetic.
     ``data_dir="digits"`` selects the offline digits dataset
-    (data/digits.py)."""
+    (data/digits.py). ``mae`` takes the MAE pretrain recipe for training
+    (``transforms.mae_transform``: random resized crop at scale 0.2-1,
+    flip, normalize) in its PIL form; the JAX package's native C++ path
+    computes the same recipe."""
     from fastvim_tpu_torch.data import transforms as T
 
     if data_dir == "digits":
@@ -202,7 +205,9 @@ def create_imagenet_loader(
             "train" if split == "train" else "val", batch_size, img_size,
             training=training, num_workers=num_workers, seed=seed)
 
-    if training:
+    if training and mae:
+        tf = lambda img, rng: T.mae_transform(img, img_size, rng)
+    elif training:
         tf = lambda img, rng: T.train_transform(img, img_size, rng)
     else:
         tf = lambda img, rng: T.eval_transform(img, img_size)

@@ -35,6 +35,21 @@ Dispatch, in this order (``forward``):
    broadcast + D-skip + merge + LN + gate in one kernel (K10).
 4. the plain unfused math.
 
+With ``row_ids`` (the masked encoder of MAE, ``models/mae.py``) the
+layer holds only the visible tokens, in raster order, and none of the
+above applies: a masked layer never fuses. Each branch pools its conv
+output into row bins (a scatter-add divided by the grid's full pooled
+extent, ``cols``; ``scaling_factor`` plays no part), scans the bins
+ascending in both directions, and gives each token its bin's output (a
+gather). Both are products with the one-hot (batch, tokens, rows)
+assignment, as in the JAX package: batched GEMMs of
+2·batch·tokens·rows·d_inner operations each (at MAE-B's 49 tokens and 14
+rows, 0.27 GFLOP a branch at batch 128), deterministic on the card where
+a scatter-add's float atomics are not. The reverse branch runs its
+anticausal conv in original order and assigns bins with the reversed
+row-id sequence: position for position what the reference computes on
+the flipped sequence with unflipped ids.
+
 Every scan goes through
 :func:`~fastvim_tpu_torch.ops.scan.selective_scan`. ``scan_impl="ref"``
 forces the sequential reference scan; any other value ("auto", and the
@@ -96,6 +111,7 @@ class MambaMixer(nn.Module):
                  scan_impl: str = "auto", layer_fused: str = "auto",
                  layer_fused_bwd: str = "fused",
                  fused_kernels: str = "never", fused_merge: bool = False,
+                 init_layer_scale: Optional[float] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if layer_fused not in ("auto", "on", "off", "recompute"):
@@ -145,6 +161,10 @@ class MambaMixer(nn.Module):
         self.layernorm = (skip_init(nn.LayerNorm, di)
                           if use_norm_after_ssm else None)
         self.out_proj = skip_init(nn.Linear, di, d_model, bias=bias)
+        # layer scale on the output (the JAX package's ``gamma``)
+        self.init_layer_scale = init_layer_scale
+        self.gamma = (nn.Parameter(torch.empty(d_model))
+                      if init_layer_scale is not None else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference init (see ``models/layers.py``), drawn from
@@ -174,6 +194,8 @@ class MambaMixer(nn.Module):
                            scale=1.0 / math.sqrt(self.n_layer))
         if self.out_proj.bias is not None:
             nn.init.zeros_(self.out_proj.bias)
+        if self.gamma is not None:
+            nn.init.constant_(self.gamma, self.init_layer_scale)
 
     def _conv_w(self, sfx: str) -> torch.Tensor:
         """conv1d{sfx}.weight (di, 1, w) as the ops' (w, di)."""
@@ -251,33 +273,42 @@ class MambaMixer(nn.Module):
 
     def forward(self, x: torch.Tensor, grid_shape: Sequence[int],
                 pool_axes: Optional[Sequence[int]] = None,
-                transposed: bool = False) -> torch.Tensor:
+                transposed: bool = False,
+                row_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (batch, L, d_model); grid_shape: the token grid in this
         mixer's orientation; pool_axes: grid axes pooled before the scan
-        (default: the last)."""
+        (default: the last). ``row_ids`` (batch, L) int64: x holds only
+        visible tokens, and these are their grid rows (the masked path;
+        ``grid_shape`` is then the full (rows, cols) grid)."""
         grid_shape = tuple(grid_shape)
         pool_axes = (tuple(pool_axes) if pool_axes is not None
                      else (len(grid_shape) - 1,))
         dtype = self.dtype
         x = x.to(dtype)
         recompute = self.layer_fused == "recompute"
-        if self.layer_fused != "off" and fusable(
+        if row_ids is None and self.layer_fused != "off" and fusable(
                 grid_shape, pool_axes, transposed, self.d_model, self.d_inner,
                 self.d_conv, self.collapse_method, recompute=recompute):
-            return fused_mixer_core(
+            out = fused_mixer_core(
                 x, self.fused_params(), grid_shape, transposed,
                 self.scaling_factor, self.norm_eps, self.use_norm_after_ssm,
                 dtype, self.scan_impl, bwd_mode=self.layer_fused_bwd,
                 recompute=recompute)
-        return self._unfused(x, grid_shape, pool_axes, transposed)
+        else:
+            out = self._unfused(x, grid_shape, pool_axes, transposed, row_ids)
+        if self.gamma is not None:
+            out = out * self.gamma.to(dtype)
+        return out
 
-    def _unfused(self, x, grid_shape, pool_axes, transposed):
+    def _unfused(self, x, grid_shape, pool_axes, transposed, row_ids):
         dtype = self.dtype
         di = self.d_inner
         xz = F.linear(x, self.in_proj.weight.to(dtype),
                       _cast(self.in_proj.bias, dtype))
         xin, z = xz[..., :di], xz[..., di:]
-        if self._use_fused(grid_shape, pool_axes):
+        if row_ids is not None:
+            merged = self._masked_merge(xin, z, grid_shape, row_ids)
+        elif self._use_fused(grid_shape, pool_axes):
             merged = self._fused_forward(xin, z, grid_shape)
         else:
             merged = self._conv_merge(xin, z, grid_shape, pool_axes,
@@ -285,14 +316,44 @@ class MambaMixer(nn.Module):
         return F.linear(merged, self.out_proj.weight.to(dtype),
                         _cast(self.out_proj.bias, dtype))
 
+    def _conv_args(self, xin):
+        """(xin, conv weights and biases of both directions) for the dual
+        conv ops, in the working dtype."""
+        dtype = self.dtype
+        return (xin, self._conv_w("").to(dtype),
+                _cast(self.conv1d.bias, dtype),
+                self._conv_w("_b").to(dtype),
+                _cast(self.conv1d_b.bias, dtype))
+
+    def _ln_gate(self, merged, z):
+        ln = self.layernorm
+        if ln is not None:
+            merged = layer_norm(merged, ln.weight, ln.bias, eps=self.norm_eps)
+        return merged * F.silu(z)
+
+    def _masked_merge(self, xin, z, grid_shape, row_ids):
+        """The masked path (see the module docstring): plain dual conv over
+        the visible tokens, each branch through its row bins, merge, LN
+        and gate."""
+        if self.collapse_method != "mean" or len(grid_shape) != 2:
+            raise ValueError("the masked path pools a 2-D grid by mean only")
+        dtype = self.dtype
+        rows, cols = grid_shape
+        xc_f, xc_b = dual_conv1d(*self._conv_args(xin))
+        ys = []
+        for xc, sfx, ids in ((xc_f, "", row_ids),
+                             (xc_b, "_b", row_ids.flip(1))):
+            onehot = F.one_hot(ids.long(), rows).to(dtype)  # (b, L, rows)
+            xp = torch.bmm(onehot.transpose(1, 2), xc) / cols
+            y = torch.bmm(onehot, self._proj_scan(xp, sfx, False).to(dtype))
+            ys.append(y + getattr(self, f"D{sfx}").to(dtype) * xc)
+        return self._ln_gate((ys[0] + ys[1]) * 0.5, z)
+
     def _conv_merge(self, xin, z, grid_shape, pool_axes, transposed):
         """Plain dual conv, then the scans and the merge: through K10
         with ``fused_merge``, else in plain ops."""
         dtype = self.dtype
-        conv_args = (xin, self._conv_w("").to(dtype),
-                     _cast(self.conv1d.bias, dtype),
-                     self._conv_w("_b").to(dtype),
-                     _cast(self.conv1d_b.bias, dtype))
+        conv_args = self._conv_args(xin)
         if transposed:
             xc_f, xc_b = grid_dual_conv1d(*conv_args, grid_shape, axis=0)
         else:
@@ -312,7 +373,4 @@ class MambaMixer(nn.Module):
                 self.norm_eps, ln is not None)
         y_f = self._scan_branch(xc_f, "", grid_shape, pool_axes, False)
         y_b = self._scan_branch(xc_b, "_b", grid_shape, pool_axes, True)
-        merged = (y_f + y_b) * 0.5
-        if ln is not None:
-            merged = layer_norm(merged, ln.weight, ln.bias, eps=self.norm_eps)
-        return merged * F.silu(z)
+        return self._ln_gate((y_f + y_b) * 0.5, z)

@@ -1,9 +1,12 @@
-"""Model zoo registry: the FastVim and Vim classification models.
+"""Model zoo registry: the FastVim and Vim classification models and
+the MAE models.
 
 Counterpart of ``fastvim_tpu/models/registry.py``, with the same names
 and sizes: tiny 192×24, small 384×24, base 768×24, large 1024×48, huge
 1280×64 (patch 14 for huge), plus the short aliases ``fastvim_{size}``,
-``vim_{size}`` and ``vim_{size}_midclstok``.
+``vim_{size}`` and ``vim_{size}_midclstok``; and the eight
+``models/mae.py`` models (``mae_FastVim_{size}_dec512d2b``,
+``mae_vim_{size}_dec512d2b``).
 """
 
 from __future__ import annotations
@@ -11,10 +14,12 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Union
 
 import torch
+from torch import nn
 
+from fastvim_tpu_torch.models.mae import MAE_MODELS
 from fastvim_tpu_torch.models.vision_mamba import VisionMamba
 
-_REGISTRY: Dict[str, Callable[..., VisionMamba]] = {}
+_REGISTRY: Dict[str, Callable[..., nn.Module]] = dict(MAE_MODELS)
 
 _COMMON = dict(rms_norm=True, residual_in_fp32=True)
 
@@ -58,7 +63,7 @@ for _size, _patch in [("tiny", 16), ("small", 16), ("base", 16),
 
 def create_model(name: str, *, device: Union[str, torch.device, None] = None,
                  generator: Optional[torch.Generator] = None,
-                 **kwargs) -> VisionMamba:
+                 **kwargs) -> nn.Module:
     """Build a registered model, initialize it on the CPU from
     ``generator`` (seed 0 if None), move it to ``device`` and return it
     in eval mode. ``device=None`` means the first CUDA device, and raises

@@ -12,6 +12,8 @@ training grid; there is no ``out_indices`` feature-map mode here.
 replays the DropPath draws of the forward, so the gradients are those
 of ``remat=False``. ``model.train()`` / ``model.eval()`` take the place
 of the JAX package's ``deterministic`` argument: they switch DropPath.
+``init_layer_scale`` gives every mixer a ``gamma`` on its output. ``forward(x,
+return_features=True)`` returns the pooled features before the head.
 ``layer_fused`` ("auto", "on", "off", "recompute") and ``layer_fused_bwd``
 are model fields; ``fused_kernels`` and ``fused_merge`` reach the mixers
 through ``ssm_cfg``, as in the JAX ``VisionMamba`` (see
@@ -51,6 +53,7 @@ class VisionMamba(nn.Module):
                  collapse_method: str = "mean", scaling_factor: float = 1.0,
                  scan_impl: str = "auto", layer_fused: str = "auto",
                  layer_fused_bwd: str = "fused", remat: bool = False,
+                 init_layer_scale: Optional[float] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if if_cls_token and (collapse_method != "none" or rotate_every_block):
@@ -75,6 +78,7 @@ class VisionMamba(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(1, n_pos, embed_dim))
         mixer_kwargs = dict(
             use_norm_after_ssm=use_norm_after_ssm,
+            init_layer_scale=init_layer_scale,
             collapse_method=collapse_method, scaling_factor=scaling_factor,
             n_layer=depth, scan_impl=scan_impl, layer_fused=layer_fused,
             layer_fused_bwd=layer_fused_bwd, **(ssm_cfg or {}))
@@ -127,9 +131,11 @@ class VisionMamba(nn.Module):
             if isinstance(m, DropPath):
                 m.generator = generator
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                return_features: bool = False) -> torch.Tensor:
         """x: (batch, H, W, C) images. Returns logits (batch, num_classes),
-        or the pooled features (batch, embed_dim) when num_classes <= 0."""
+        or the pooled features (batch, embed_dim) with ``return_features``
+        or when num_classes <= 0."""
         B = x.shape[0]
         tokens, grid = self.patch_embed(x)
         pos = self.pos_embed
@@ -164,7 +170,7 @@ class VisionMamba(nn.Module):
 
         feat = (hidden[:, cls_position] if cls_position is not None
                 else hidden.mean(dim=1))
-        if self.head is None:
+        if return_features or self.head is None:
             return feat
         return F.linear(feat, self.head.weight.to(self.dtype),
                         self.head.bias.to(self.dtype))

@@ -10,7 +10,9 @@ from fastvim_tpu_torch.train.mixup import (
 from fastvim_tpu_torch.train.optim import (
     ema_update,
     layer_decay_scales,
+    make_lars,
     make_optimizer,
+    make_sgd,
     wd_mask,
 )
 from fastvim_tpu_torch.train.schedules import (
@@ -21,6 +23,8 @@ from fastvim_tpu_torch.train.schedules import (
 )
 from fastvim_tpu_torch.train.state import TrainState
 from fastvim_tpu_torch.train.trainer import (
+    make_linear_probe_step,
+    make_mae_train_step,
     make_supervised_eval_step,
     make_supervised_train_step,
 )
@@ -34,7 +38,11 @@ __all__ = [
     "cross_entropy",
     "ema_update",
     "layer_decay_scales",
+    "make_lars",
+    "make_linear_probe_step",
+    "make_mae_train_step",
     "make_optimizer",
+    "make_sgd",
     "make_supervised_eval_step",
     "make_supervised_train_step",
     "mixup_cutmix",

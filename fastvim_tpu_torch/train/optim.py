@@ -1,5 +1,6 @@
 """AdamW with decay / no-decay groups, alternate-layer LR decay, gradient
-clipping, accumulation and scheduled LR / WD; and the EMA update.
+clipping, accumulation and scheduled LR / WD; SGD with momentum and LARS
+for the linear probe; and the EMA update.
 
 Counterpart of ``fastvim_tpu/train/optim.py``. The optax chain there
 (clip → Adam moments → + wd·p on the masked leaves → · per-leaf scale →
@@ -9,7 +10,9 @@ and the leaf's scale, which is what ``torch.optim.AdamW`` computes with
 So :class:`ScheduledAdamW` groups the parameters by (decays, scale),
 and sets each group's ``lr`` and ``weight_decay`` from the schedules
 before every update. The names it reads are the port's
-(``layers.3.mixer.dt_proj.bias``, ...).
+(``layers.3.mixer.dt_proj.bias``, ...). :class:`ScheduledSGD` and
+:class:`ScheduledLARS` follow optax's ``sgd`` and ``lars`` and present
+the same interface (``apply``, ``state_dict``, ``load_state_dict``).
 """
 
 from __future__ import annotations
@@ -169,6 +172,97 @@ class ScheduledAdamW:
         self._acc = (None if state["acc"] is None else
                      {n: g.to(self.params[n].device)
                       for n, g in state["acc"].items()})
+
+
+class ScheduledSGD:
+    """optax's ``add_decayed_weights(wd)`` then ``sgd(lr, momentum)``:
+    v ← (g + wd·p) + μ·v, p ← p − lr(count)·v, which is
+    ``torch.optim.SGD`` with ``dampening=0``; the schedule is indexed by
+    the updates done, as in :class:`ScheduledAdamW`."""
+
+    def __init__(self, params: Dict[str, torch.Tensor],
+                 lr_schedule: Callable[[float], float], momentum: float,
+                 weight_decay: float):
+        self.params = params
+        self.lr_schedule = lr_schedule
+        self.count = 0
+        self.opt = torch.optim.SGD(list(params.values()), lr=lr_schedule(0),
+                                   momentum=momentum,
+                                   weight_decay=weight_decay)
+
+    def apply(self, grads: Mapping[str, torch.Tensor]) -> bool:
+        self.opt.param_groups[0]["lr"] = self.lr_schedule(self.count)
+        for n, p in self.params.items():
+            p.grad = _laid_out_as(grads[n].to(p.dtype), p)
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+        self.count += 1
+        return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"sgd": self.opt.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        self.opt.load_state_dict(state["sgd"])
+        self.count = int(state["count"])
+
+
+class ScheduledLARS:
+    """optax's ``lars`` with its defaults (trust coefficient 0.001, eps 0,
+    both masks over every parameter): u = g + wd·p, scaled by
+    0.001·‖p‖ / ‖u‖ (by 1 where either norm is 0), then by −lr(count),
+    then the momentum trace v ← u + μ·v, and p ← p + v."""
+
+    def __init__(self, params: Dict[str, torch.Tensor],
+                 lr_schedule: Callable[[float], float], momentum: float,
+                 weight_decay: float, trust_coefficient: float = 0.001):
+        self.params = params
+        self.lr_schedule = lr_schedule
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.trust_coefficient = trust_coefficient
+        self.count = 0
+        self.trace = {n: torch.zeros_like(p) for n, p in params.items()}
+
+    @torch.no_grad()
+    def apply(self, grads: Mapping[str, torch.Tensor]) -> bool:
+        lr = self.lr_schedule(self.count)
+        for n, p in self.params.items():
+            u = grads[n].to(p.dtype) + self.weight_decay * p
+            p_norm, u_norm = torch.linalg.vector_norm(p), \
+                torch.linalg.vector_norm(u)
+            ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                torch.ones_like(p_norm),
+                                self.trust_coefficient * p_norm / u_norm)
+            t = self.trace[n]
+            t.copy_((u * ratio) * -lr + self.momentum * t)
+            p.add_(t)
+        self.count += 1
+        return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"trace": self.trace, "count": self.count}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        for n, t in self.trace.items():
+            t.copy_(state["trace"][n])
+        self.count = int(state["count"])
+
+
+def make_sgd(lr_schedule: Callable[[float], float], momentum: float = 0.9,
+             weight_decay: float = 0.0, *, params: Params) -> ScheduledSGD:
+    """SGD with momentum for the MAE linear probe, over ``params`` (a
+    module or a name → parameter mapping)."""
+    return ScheduledSGD(named_params(params), lr_schedule, momentum,
+                        weight_decay)
+
+
+def make_lars(lr_schedule: Callable[[float], float], momentum: float = 0.9,
+              weight_decay: float = 0.0, *, params: Params) -> ScheduledLARS:
+    """LARS, which the reference ships for the linear probe but leaves
+    unused; over ``params`` as :func:`make_sgd`."""
+    return ScheduledLARS(named_params(params), lr_schedule, momentum,
+                         weight_decay)
 
 
 def make_optimizer(lr_schedule: Callable[[float], float],

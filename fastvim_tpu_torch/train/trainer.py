@@ -1,9 +1,12 @@
-"""Supervised classification train and eval steps.
+"""Train and eval steps: supervised classification, MAE pretraining and
+the linear probe.
 
-Counterpart of ``make_supervised_train_step`` / ``make_supervised_eval_step``
-of ``fastvim_tpu/train/trainer.py``: mixup → forward → soft-target cross
-entropy (smoothed cross entropy without mixup) → AdamW update → EMA. The
-steps run eagerly on the device the model and the batch lie on.
+Counterpart of ``fastvim_tpu/train/trainer.py``. The supervised step is
+mixup → forward → soft-target cross entropy (smoothed cross entropy
+without mixup) → AdamW update → EMA; the MAE step draws the mask, takes
+the reconstruction loss and updates; the linear-probe step trains a head
+on a frozen backbone's features. The steps run eagerly on the device the
+model and the batch lie on.
 """
 
 from __future__ import annotations
@@ -93,3 +96,49 @@ def make_supervised_eval_step(model: nn.Module) -> Callable:
                 "acc": accuracy(logits, batch["label"])}
 
     return eval_step
+
+
+def make_mae_train_step(model: nn.Module, mask_ratio: float = 0.75,
+                        ema_decay: Optional[float] = None, *,
+                        generator: torch.Generator) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, {"train_loss"})`` for
+    a ``MaskedAutoencoderVim``. The mask is drawn from ``generator`` (on
+    the model's device), re-seeded before each step from (its seed when
+    the step was made, state.step), as the JAX step folds the step count
+    into its key: a resumed run masks as an uninterrupted one does."""
+    seed = generator.initial_seed()
+
+    def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
+        model.train()
+        generator.manual_seed(fold_seed(seed, state.step))
+        params = state.params
+        loss, _, _ = model(batch["image"], mask_ratio, generator=generator)
+        grads = dict(zip(params, torch.autograd.grad(loss,
+                                                     list(params.values()))))
+        state.apply_gradients(grads, ema_decay=ema_decay)
+        return state, {"train_loss": loss.detach()}
+
+    return train_step
+
+
+def make_linear_probe_step(backbone: nn.Module) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, {"train_loss",
+    "train_acc"})``, where ``state.model`` is the probe's head: the frozen
+    ``backbone`` (eval mode, no gradient) gives the pooled features, and
+    only the head is trained, by cross entropy."""
+
+    def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
+        backbone.eval()
+        with torch.no_grad():
+            feats = backbone(batch["image"], return_features=True)
+        head = state.model.train()
+        logits = head(feats)
+        loss = cross_entropy(logits, batch["label"])
+        params = state.params
+        grads = dict(zip(params, torch.autograd.grad(loss,
+                                                     list(params.values()))))
+        state.apply_gradients(grads)
+        return state, {"train_loss": loss.detach(),
+                       "train_acc": accuracy(logits.detach(), batch["label"])}
+
+    return train_step

@@ -1,8 +1,9 @@
 """Carry weights, gradients and optimizer-visible names between the JAX
 package and the port.
 
-``from_jax_params`` turns a flax ``VisionMamba`` parameter tree (nested
-mappings of array-likes, with or without the top-level ``"params"``) into
+``from_jax_params`` turns a flax ``VisionMamba`` or ``MaskedAutoencoderVim``
+parameter tree (nested mappings of array-likes, with or without the
+top-level ``"params"``) into
 the port's ``state_dict`` as numpy arrays, under the torch reference's
 names. A gradient tree from ``jax.grad`` has the parameters' structure,
 so the same function maps it onto the port's names, and so it does any
@@ -22,6 +23,10 @@ x_proj{_b}_weight / dt_proj...  ...mixer.x_proj{_b}.weight (.T) / ...
 A{_b}_log, D{_b}, layernorm_*   ...mixer.A{_b}_log, D{_b}, layernorm.*
 out_proj/kernel                 ...mixer.out_proj.weight (.T)
 norm_f_weight, head/kernel      norm_f.weight, head.weight (.T)
+...mixer/gamma                  ...mixer.gamma
+decoder_blocks_{i}/...          decoder_blocks.{i}.... (as layers_{i})
+decoder_embed/_pred kernel      decoder_embed/_pred.weight (.T)
+decoder_norm_weight, mask_token decoder_norm.weight, mask_token
 ==============================  =======================================
 """
 
@@ -55,33 +60,43 @@ def _mixer(m: Mapping[str, Any], pre: str) -> Dict[str, np.ndarray]:
     if "layernorm_weight" in m:
         sd[f"{pre}.layernorm.weight"] = _np(m["layernorm_weight"])
         sd[f"{pre}.layernorm.bias"] = _np(m["layernorm_bias"])
+    if "gamma" in m:
+        sd[f"{pre}.gamma"] = _np(m["gamma"])
     return sd
 
 
+_STACKS = ("layers", "decoder_blocks")
+_DENSE = ("in_proj", "out_proj", "head", "decoder_embed", "decoder_pred")
+
+
 def from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """flax VisionMamba params → the port's state_dict (numpy arrays);
-    load with ``{k: torch.from_numpy(v.copy()) for k, v in ...}``."""
+    """flax VisionMamba or MaskedAutoencoderVim params → the port's
+    state_dict (numpy arrays); load with ``{k: torch.from_numpy(v.copy())
+    for k, v in ...}``."""
     p = params.get("params", params)
     proj = p["patch_embed"]["proj"]
     sd = {"patch_embed.proj.weight": _np(proj["kernel"]).transpose(3, 2, 0, 1),
           "patch_embed.proj.bias": _np(proj["bias"])}
-    for name in ("pos_embed", "cls_token"):
+    for name in ("pos_embed", "cls_token", "mask_token"):
         if name in p:
             sd[name] = _np(p[name])
-    i = 0
-    while f"layers_{i}" in p:
-        lp = p[f"layers_{i}"]
-        sd[f"layers.{i}.norm.weight"] = _np(lp["norm_weight"])
-        if "norm_bias" in lp:
-            sd[f"layers.{i}.norm.bias"] = _np(lp["norm_bias"])
-        sd.update(_mixer(lp["mixer"], f"layers.{i}.mixer"))
-        i += 1
-    sd["norm_f.weight"] = _np(p["norm_f_weight"])
-    if "norm_f_bias" in p:
-        sd["norm_f.bias"] = _np(p["norm_f_bias"])
-    if "head" in p:
-        sd["head.weight"] = _np(p["head"]["kernel"]).T
-        sd["head.bias"] = _np(p["head"]["bias"])
+    for stack in _STACKS:
+        i = 0
+        while f"{stack}_{i}" in p:
+            lp = p[f"{stack}_{i}"]
+            sd[f"{stack}.{i}.norm.weight"] = _np(lp["norm_weight"])
+            if "norm_bias" in lp:
+                sd[f"{stack}.{i}.norm.bias"] = _np(lp["norm_bias"])
+            sd.update(_mixer(lp["mixer"], f"{stack}.{i}.mixer"))
+            i += 1
+    for norm in ("norm_f", "decoder_norm"):
+        for part in ("weight", "bias"):
+            if f"{norm}_{part}" in p:
+                sd[f"{norm}.{part}"] = _np(p[f"{norm}_{part}"])
+    for name in ("head", "decoder_embed", "decoder_pred"):
+        if name in p:
+            sd[f"{name}.weight"] = _np(p[name]["kernel"]).T
+            sd[f"{name}.bias"] = _np(p[name]["bias"])
     return sd
 
 
@@ -100,8 +115,8 @@ def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     for name, v in state_dict.items():
         v = _np(v)
         parts = name.split(".")
-        if parts[0] == "layers":
-            pre, rest = f"layers_{parts[1]}/", parts[2:]
+        if parts[0] in _STACKS:
+            pre, rest = f"{parts[0]}_{parts[1]}/", parts[2:]
         else:
             pre, rest = "", parts
         if rest[0] == "mixer":
@@ -111,7 +126,7 @@ def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
             _set(tree, "patch_embed/proj/kernel", v.transpose(2, 3, 1, 0))
         elif key == "patch_embed.proj.bias":
             _set(tree, "patch_embed/proj/bias", v)
-        elif rest[0] in ("in_proj", "out_proj", "head"):
+        elif rest[0] in _DENSE:
             _set(tree, f"{pre}{rest[0]}/" + ("kernel" if rest[1] == "weight"
                                              else "bias"),
                  v.T if rest[1] == "weight" else v)
@@ -119,7 +134,7 @@ def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
             _set(tree, f"{pre}{rest[0]}_weight", v[:, 0, :].T)
         elif rest[0].startswith(("x_proj", "dt_proj")) and rest[1] == "weight":
             _set(tree, f"{pre}{rest[0]}_weight", v.T)
-        else:  # norm.weight → norm_weight, A_log, D, pos_embed, ...
+        else:  # norm.weight → norm_weight, A_log, D, gamma, mask_token, ...
             _set(tree, pre + "_".join(rest), v)
     return {"params": tree}
 

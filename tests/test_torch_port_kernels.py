@@ -274,7 +274,8 @@ def test_port_imports_no_jax():
     assert "fastvim_tpu_torch.train.trainer" in mods
     for m in ("config", "cli.train_classification", "cli.test_classification",
               "data.loader", "data.transforms", "data.digits", "data.device",
-              "train.loop", "train.checkpoint", "utils.tboard"):
+              "train.loop", "train.checkpoint", "utils.tboard", "models.mae",
+              "cli.pretrain_mae", "cli.finetune_mae", "cli.linear_probe"):
         assert f"fastvim_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
