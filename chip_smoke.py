@@ -103,7 +103,30 @@ Phases, each of which raises on failure (exit code non-zero):
    ``linear_probe --config_name linear_FastVimL model=fastvim_base
    batch_size=128`` from the same checkpoint (48 K1 a step and an eval
    batch; the frozen backbone bitwise as loaded, the BatchNorm statistics
-   moved).
+   moved);
+9. ChannelVim (FastChannelVim), whose 3-D token grids never fuse: every
+   layer runs the unfused mixer with its scans on K1 and K2. K1 and K2
+   against their plain versions in fp32 at its scan shapes (batch, L,
+   d_inner): L = 1, 8, 14, 112 and 224 at batch 32, d_inner 768 (a
+   2dcompress channel scan of 1 and of 8 channels, a rows scan, ps16's
+   and ps8's rows·C), and the unpooled baseline's L = 1568 at batch 8
+   (the chunked forms), both directions, each timed beside its other
+   form, its plain version and its bound. Then FastChannelVim-S at full
+   width (depth 2) in both scan orders, with max pooling, and in its
+   2dcompress form (depth 3), fp32, 224 px, B = 4, each with all 8
+   channels and with the ids of 3 and of 1 channel, card against CPU:
+   logits, loss and every gradient within 1e-4 of each tensor's largest
+   entry, and 2 K1 and 2 K2 a layer. Then the cells CLI, in-process:
+   ``train_cells --config_name FastChannelVimS`` at full width and depth
+   (Channel-First, HCS, batch 32, fp32) on 128 synthetic images for one
+   epoch and ``--resume`` to two (the log's two rows, step 8, 48 K1 + 48
+   K2 a step and 48 K1 an eval batch; img/s, step time, the device's idle
+   share over the resumed epoch, peak memory). Last, train steps through
+   the model API: ``channelvim_small_ps16_baseline`` at full depth, B = 8
+   (its L = 1568 scans in the chunked forms), and
+   ``fastchannelvim_small_ps8`` at B = 32 with ``remat=True`` (a batch
+   that does not fit is halved until one does), with the step time and
+   the peak memory.
 
 After a line with the card's name and power limit, the line before the
 last is a JSON object with one entry per kernel (``ms`` a call's time by
@@ -1492,17 +1515,30 @@ MAE_SCANS = (("MAE-B encoder", 128, 14, 1536),
              ("Vim-MAE-B encoder", 128, 50, 1536))
 
 
-def check_mae_scans(dev, card):
-    """Phase 2, the MAE shapes: K1 and K2 against their plain versions in
-    fp32 at ``MAE_SCANS``, both directions, with D = None as the mixers
-    call them; each timed by CUDA events beside its other form, its plain
-    version and its bound (reverse direction). Returns the largest
-    errors."""
+# ChannelVim's scan shapes, fp32 (batch, L, d_inner), FastChannelVim-S
+# (d_inner 768) at batch 32: a 2dcompress channel scan of one channel
+# (HCS) and of all 8, a rows scan (2dcompress, or ps16 with one channel),
+# ps16's rows·C with 8 channels, ps8's; and the unpooled baseline's
+# full-length scan at batch 8, in the chunked forms
+CHANNEL_SCANS = (("ChannelVim C scan, 1 channel", 32, 1, 768),
+                 ("ChannelVim C scan, 8 channels", 32, 8, 768),
+                 ("ChannelVim rows scan", 32, 14, 768),
+                 ("FastChannelVim-S ps16, 8 channels", 32, 112, 768),
+                 ("FastChannelVim-S ps8, 8 channels", 32, 224, 768),
+                 ("ChannelVim-S baseline, unpooled", 8, 1568, 768))
+
+
+def check_mae_scans(dev, card, shapes=MAE_SCANS, seed=20):
+    """Phase 2, the MAE shapes (phase 9: ChannelVim's, ``CHANNEL_SCANS``):
+    K1 and K2 against their plain versions in fp32 at ``shapes``, both
+    directions, with D = None as the mixers call them; each timed by CUDA
+    events beside its other form, its plain version and its bound
+    (reverse direction). Returns the largest errors."""
     import torch
 
     from fastvim_tpu_torch.ops.kernels import selective_scan as ss
 
-    g = torch.Generator(device=dev).manual_seed(20)
+    g = torch.Generator(device=dev).manual_seed(seed)
     rnd = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
     uni = lambda *s, bound: (torch.rand(*s, generator=g, device=dev) * 2
                              - 1) * bound
@@ -1510,7 +1546,7 @@ def check_mae_scans(dev, card):
     n = 16
     order = (0, 1, 3, 4, 2, 5, 6)  # du, ddelta, dB, dC per step; then sums
     pick = lambda grads: [grads[i] for i in order]
-    for what, batch, L, d in MAE_SCANS:
+    for what, batch, L, d in shapes:
         A = -torch.exp(uni(d, n, bound=1.0))
         bias = uni(d, bound=0.5)
         ins = (rnd(batch, L, d), rnd(batch, L, d, scale=0.5), A,
@@ -1790,6 +1826,287 @@ def run_mae_cli_path(dev, card):
     return total
 
 
+class MaxPoolBranch:
+    """Max pooling is not differentiable where two candidates tie, and
+    the card's forward and the CPU's differ by ~1e-6: at a near-tie they
+    can pick different maxima, and the gradient then flows to another
+    token. While entered, this records the card's argmax of every max
+    pool (the model pools as it always does) or, with ``replay``, makes
+    the CPU's pools take the recorded argmax, so that both sides'
+    gradients are those of one branch; it counts the pooled groups whose
+    own argmax differs from the card's."""
+
+    def __init__(self):
+        self.recorded, self.replay, self.flips, self.groups = [], False, 0, 0
+
+    def __enter__(self):
+        from fastvim_tpu_torch.models import mixer
+
+        self.original = mixer.pool_grid
+        self.pos = 0
+        mixer.pool_grid = self.pool
+        return self
+
+    def __exit__(self, *exc):
+        from fastvim_tpu_torch.models import mixer
+
+        mixer.pool_grid = self.original
+        return False
+
+    def pool(self, x, grid_shape, pool_axes, method="mean",
+             scaling_factor=1.0):
+        if method != "max":
+            return self.original(x, grid_shape, pool_axes, method,
+                                 scaling_factor)
+        (axis,) = pool_axes
+        xg = x.reshape(x.shape[0], *grid_shape, x.shape[-1])
+        own = xg.detach().argmax(dim=axis + 1, keepdim=True)
+        if not self.replay:
+            self.recorded.append(own.cpu())
+            return self.original(x, grid_shape, pool_axes, method,
+                                 scaling_factor)
+        card = self.recorded[self.pos].to(x.device)
+        self.pos += 1
+        self.flips += int((own != card).sum())
+        self.groups += own.numel()
+        out = xg.take_along_dim(card, dim=axis + 1).squeeze(axis + 1)
+        return out.reshape(x.shape[0], -1, x.shape[-1])
+
+
+def check_channel_224(dev):
+    """Phase 9, card against CPU: FastChannelVim-S at full width (384),
+    depth 2, fp32, 224 px, B = 4, one generator's weights, in both scan
+    orders, with max pooling, and in its 2dcompress form at depth 3 (its
+    third layer scans the channels), each with all 8 channels and with
+    the channel ids of 3 and of 1: the logits, the loss and every
+    parameter's gradient within 1e-4 of each tensor's largest entry (the
+    CPU's max pools on the card's branch, ``MaxPoolBranch``), and exactly
+    2 K1 a layer in the forward and 2 K2 a layer in the backward (a 3-D
+    grid never fuses). Returns the card's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastvim_tpu_torch.models import create_model
+    from fastvim_tpu_torch.ops import kernels
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(4, 224, 224, 8, generator=gen)
+    labels = torch.randint(161, (4,), generator=gen)
+    none = dict.fromkeys(kernels.launch_counts(), 0)
+    total = dict(none)
+    for name, kw in (("fastchannelvim_small_ps16", dict(depth=2)),
+                     ("fastchannelvim_small_ps16",
+                      dict(depth=2, scan_order="Spatial-First")),
+                     ("fastchannelvim_small_ps16_maxpool", dict(depth=2)),
+                     ("fastchannelvim_small_ps16_2dcompress", dict(depth=3))):
+        cpu_model = create_model(name, device="cpu",
+                                 generator=torch.Generator().manual_seed(0),
+                                 **kw)
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        scans = 2 * kw["depth"]
+        for chans in (list(range(8)), [1, 4, 6], [5]):
+            results = []
+            branch = MaxPoolBranch()
+            for model, d in ((gpu_model, dev), (cpu_model, "cpu")):
+                kernels.reset_launch_counts()
+                branch.replay = d == "cpu"
+                with branch:
+                    logits = model(x[..., chans].to(d),
+                                   torch.tensor(chans, device=d))
+                loss = F.cross_entropy(logits, labels.to(d))
+                params = dict(model.named_parameters())
+                grads = torch.autograd.grad(loss, list(params.values()))
+                results.append(({"logits": logits.detach().cpu(),
+                                 "loss": loss.detach().cpu()},
+                                {n: gr.cpu() for n, gr in zip(params, grads)}))
+                if d != "cpu":
+                    seen = kernels.launch_counts()
+            if branch.groups:
+                log(f"[check] {name} channels {chans}: the CPU's own max pool"
+                    f" picks another token than the card's in {branch.flips}"
+                    f" of {branch.groups} pooled groups")
+            want = {**none, "selective_scan_fwd": scans,
+                    "selective_scan_bwd": scans}
+            if seen != want:
+                raise AssertionError(f"{name} {kw} channels {chans}: launches"
+                                     f" {seen}, expected {want}")
+            total = {k: total[k] + v for k, v in seen.items()}
+            (got_out, got_grads), (want_out, want_grads) = results
+            tag = f"{name} {kw} channels {chans} 224px B=4 fp32"
+            compare_grads(f"{tag} logits and loss, card vs CPU", got_out,
+                          want_out)
+            compare_grads(f"{tag} gradients, card vs CPU", got_grads,
+                          want_grads)
+        del cpu_model, gpu_model, results
+    return total
+
+
+def run_cells_cli_path(dev, card):
+    """Phase 9, the cells CLI on the card, in-process, at
+    FastChannelVimS.yaml (FastChannelVim-S at full width and depth,
+    Channel-First, HCS, mean pooling, batch 32, fp32) on 128 synthetic
+    images, 4 steps an epoch: one epoch, then ``--resume`` to two; checks
+    the log, the step count and 48 K1 + 48 K2 a step and 48 K1 an eval
+    batch; prints img/s, step time, the device's idle share over the
+    resumed epoch and the peak memory. Returns the launch counts."""
+    import contextlib
+    import csv
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvim_tpu_torch.cli import train_cells
+    from fastvim_tpu_torch.ops import kernels
+
+    batch, samples = 32, 128
+    steps, val_batches = samples // batch, samples // 4 // batch
+    none = dict.fromkeys(kernels.launch_counts(), 0)
+    per_epoch = {**none, "selective_scan_fwd": 48 * (steps + val_batches),
+                 "selective_scan_bwd": 48 * steps}
+    total = dict(none)
+    with tempfile.TemporaryDirectory() as out:
+        common = ["--config_name", "FastChannelVimS", "--model_save_dir", out,
+                  "--synthetic_samples", str(samples), "--device", str(dev)]
+        for what, more in (("epoch 1", ["--epochs", "1"]),
+                           ("epoch 2 (resumed)", ["--epochs", "2",
+                                                  "--resume"])):
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            resumed = more[-1] == "--resume"
+            with (profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA])
+                  if resumed else contextlib.nullcontext()) as traced:
+                state = train_cells.main(common + more)
+                torch.cuda.synchronize()
+            seen = kernels.launch_counts()
+            if seen != per_epoch:
+                raise AssertionError(f"train_cells {what}: launches {seen}, "
+                                     f"expected {per_epoch} ({steps} steps of"
+                                     f" 48 K1 + 48 K2, {val_batches} eval "
+                                     "batch of 48 K1)")
+            total = {k: total[k] + v for k, v in seen.items()}
+            if resumed:
+                prof = traced
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if state.step != 2 * steps:
+            raise AssertionError(f"train_cells: step {state.step}, not "
+                                 f"{2 * steps}")
+        del state
+        idle, busy_ms, wall_ms = device_idle_share(prof)
+        log(f"[cli] train_cells device ms by kernel over the resumed epoch: "
+            f"{top_kernels(prof)}")
+        del prof
+        with open(os.path.join(out, "log.csv")) as f:
+            rows = list(csv.DictReader(f))
+    if [int(r["epoch"]) for r in rows] != [0, 1]:
+        raise AssertionError(f"train_cells log epochs "
+                             f"{[r['epoch'] for r in rows]}, not [0, 1]")
+    cols = ("train_loss", "grad_norm", "val_loss", "val_acc")
+    for r in rows:
+        if not all(math.isfinite(float(r[c])) for c in cols):
+            raise AssertionError(f"train_cells log row not finite: {r}")
+    log(f"[cli] train_cells log.csv: "
+        f"{[{c: r[c] for c in ('epoch', *cols)} for r in rows]}")
+    sps = [float(r["steps_per_sec"]) for r in rows]
+    share = ("not measured (no device event)" if idle is None
+             else f"{idle:.4f}")
+    log(f"[time] CLI train_cells FastChannelVimS.yaml B={batch} fp32 224px "
+        f"8 channels, HCS: epoch 1 {sps[0] * batch:.2f} img/s "
+        f"({1e3 / sps[0]:.1f} ms a step), epoch 2 (resumed, under the "
+        f"profiler) {sps[1] * batch:.2f} img/s ({1e3 / sps[1]:.1f} ms a "
+        f"step); device idle share over epoch 2's training {share} (busy "
+        f"{busy_ms:.1f} of {wall_ms:.1f} ms); peak memory of the resumed "
+        f"run {peak:.2f} GiB; 48 K1 + 48 K2 a step ({card})")
+    return total
+
+
+def run_channel_steps(dev, card):
+    """Phase 9, train steps through the model API (AdamW, all 8
+    channels): ``channelvim_small_ps16_baseline`` (unpooled: its scans at
+    L = 1568 take K1's and K2's chunked forms) at full depth, B = 8, and
+    ``fastchannelvim_small_ps8`` (FastChannelVimS_ps8.yaml's model, L =
+    224 scans over 6272 tokens) at B = 32 with ``remat=True``, its fit
+    lever; a batch that does not fit is halved until one does, and the
+    one that fits is printed. Two steps each, the second timed; 48 K1 +
+    48 K2 a step (with remat 96 K1: the forward again in the backward).
+    Returns the launch counts."""
+    import torch
+
+    from fastvim_tpu_torch.models import create_model
+    from fastvim_tpu_torch.ops import kernels
+    from fastvim_tpu_torch.ops.kernels import selective_scan as ss
+    from fastvim_tpu_torch.train import (
+        TrainState,
+        constant,
+        make_optimizer,
+        make_supervised_train_step,
+    )
+
+    none = dict.fromkeys(kernels.launch_counts(), 0)
+    total = dict(none)
+
+    def two_steps(name, batch, **kw):
+        gen = torch.Generator(device=dev).manual_seed(9)
+        model = create_model(name, device=dev, **kw)
+        state = TrainState.create(model, make_optimizer(constant(1e-4),
+                                                        params=model))
+        step = make_supervised_train_step(
+            model, 161, label_smoothing=0.0, ema_decay=None,
+            generator=torch.Generator(device=dev).manual_seed(0),
+            channel_model=True)
+        data = {"image": torch.randn(batch, 224, 224, 8, generator=gen,
+                                     device=dev),
+                "label": torch.randint(161, (batch,), generator=gen,
+                                       device=dev),
+                "channel_ids": torch.arange(8, device=dev)}
+        losses = [step(state, data)[1]["train_loss"].item()]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses.append(step(state, data)[1]["train_loss"].item())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        seen = kernels.launch_counts()
+        # remat runs each block's forward again in the backward
+        want = {**none, "selective_scan_fwd": 96 if kw.get("remat") else 48,
+                "selective_scan_bwd": 48}
+        if seen != want or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name} B={batch} {kw}: launches {seen} "
+                                 f"(expected {want}), losses {losses}")
+        return ms, seen, losses
+
+    ms, seen, losses = two_steps("channelvim_small_ps16_baseline", 8)
+    total = {k: total[k] + v for k, v in seen.items()}
+    log(f"[time] channelvim_small_ps16_baseline train step, B=8 fp32 224px "
+        f"8 channels, L = 1568 scans (K1 {ss.fwd_route(1568)}, K2 "
+        f"{ss.bwd_route(1568)}): {ms:.1f} ms ({8e3 / ms:.2f} img/s), losses "
+        f"{losses} ({card})")
+    batch = 32
+    while True:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            ms, seen, losses = two_steps("fastchannelvim_small_ps8", batch,
+                                         remat=True)
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f"[check] fastchannelvim_small_ps8 remat=True B={batch}: out "
+                "of memory")
+            if batch == 1:
+                raise
+            batch //= 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = {k: total[k] + v for k, v in seen.items()}
+    log(f"[time] fastchannelvim_small_ps8 (FastChannelVimS_ps8.yaml) "
+        f"remat=True train step, B={batch} fp32 224px 8 channels, 6272 "
+        f"tokens, L = 224 scans: {ms:.1f} ms ({batch * 1e3 / ms:.2f} img/s), "
+        f"peak memory {peak:.2f} GiB, losses {losses} ({card})")
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1850,6 +2167,13 @@ def main() -> int:
         launches[name] += count
     for name, count in run_mae_cli_path(dev, card).items():
         launches[name] += count
+    with torch.no_grad():
+        for name, e in check_mae_scans(dev, card, CHANNEL_SCANS, 21).items():
+            errs[name] = max(errs[name], e)
+    for counts in (check_channel_224(dev), run_cells_cli_path(dev, card),
+                   run_channel_steps(dev, card)):
+        for name, count in counts.items():
+            launches[name] += count
 
     # each kernel's files: the main path's (bf16) kernel, then the fp32
     # route, the C entry points and the headers they include (K1 and K2:

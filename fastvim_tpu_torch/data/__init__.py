@@ -1,3 +1,10 @@
+from fastvim_tpu_torch.data.cells import (
+    CellDataset,
+    CellLoader,
+    SyntheticCellDataset,
+    cell_augment,
+    split_indices,
+)
 from fastvim_tpu_torch.data.loader import (
     DataLoader,
     ImageFolderDataset,
@@ -6,8 +13,13 @@ from fastvim_tpu_torch.data.loader import (
 )
 
 __all__ = [
+    "CellDataset",
+    "CellLoader",
     "DataLoader",
     "ImageFolderDataset",
+    "SyntheticCellDataset",
     "SyntheticDataset",
+    "cell_augment",
     "create_imagenet_loader",
+    "split_indices",
 ]

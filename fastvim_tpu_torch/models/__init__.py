@@ -1,4 +1,9 @@
 from fastvim_tpu_torch.models.blocks import Block, rotate_grid
+from fastvim_tpu_torch.models.channel import (
+    ChannelVisionMamba,
+    PatchEmbedPerChannel,
+    hcs_sample,
+)
 from fastvim_tpu_torch.models.mae import MaskedAutoencoderVim
 from fastvim_tpu_torch.models.mixer import MambaMixer
 from fastvim_tpu_torch.models.patch_embed import PatchEmbed
@@ -7,11 +12,14 @@ from fastvim_tpu_torch.models.vision_mamba import VisionMamba
 
 __all__ = [
     "Block",
+    "ChannelVisionMamba",
     "MambaMixer",
     "MaskedAutoencoderVim",
     "PatchEmbed",
+    "PatchEmbedPerChannel",
     "VisionMamba",
     "create_model",
+    "hcs_sample",
     "list_models",
     "rotate_grid",
 ]

@@ -102,10 +102,20 @@ class DropPath(nn.Module):
             raise RuntimeError("DropPath in training mode needs a generator "
                                "(set_drop_path_generator)")
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device,
+        mask = torch.rand(self.mask_shape(x), device=x.device,
                           generator=self.generator) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+    def mask_shape(self, x: torch.Tensor):
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
+
+
+class Dropout(DropPath):
+    """Element-wise dropout (flax ``nn.Dropout``): DropPath's draw, one
+    per element instead of one per sample, from the same generator."""
+
+    def mask_shape(self, x: torch.Tensor):
+        return x.shape
 
 
 class Norm(nn.Module):

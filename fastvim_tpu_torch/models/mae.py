@@ -86,7 +86,6 @@ class BlockMasked(Block):
                  mixer_kwargs: Optional[dict] = None, **kwargs):
         super().__init__(dim, layer_idx, mixer_kwargs, **kwargs)
         self.token_size = tuple(token_size)
-        self.rotated = self.rotate_every_block and layer_idx % 2 != 0
 
     def forward(self, hidden: torch.Tensor,
                 residual: Optional[torch.Tensor], ids_keep: torch.Tensor):

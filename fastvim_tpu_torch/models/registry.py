@@ -1,12 +1,14 @@
-"""Model zoo registry: the FastVim and Vim classification models and
-the MAE models.
+"""Model zoo registry: the FastVim and Vim classification models, the
+MAE models and the ChannelVim models.
 
 Counterpart of ``fastvim_tpu/models/registry.py``, with the same names
 and sizes: tiny 192×24, small 384×24, base 768×24, large 1024×48, huge
 1280×64 (patch 14 for huge), plus the short aliases ``fastvim_{size}``,
 ``vim_{size}`` and ``vim_{size}_midclstok``; and the eight
 ``models/mae.py`` models (``mae_FastVim_{size}_dec512d2b``,
-``mae_vim_{size}_dec512d2b``).
+``mae_vim_{size}_dec512d2b``); and the nine ``models/channel.py`` models
+(``fastchannelvim_small_ps{16,8}`` with ``_maxpool`` and ``_2dcompress``,
+``channelvim_small_ps{16,8}_baseline`` and the reference's long name).
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ from typing import Callable, Dict, Optional, Union
 import torch
 from torch import nn
 
+from fastvim_tpu_torch.models.channel import CHANNEL_MODELS
 from fastvim_tpu_torch.models.mae import MAE_MODELS
 from fastvim_tpu_torch.models.vision_mamba import VisionMamba
 
-_REGISTRY: Dict[str, Callable[..., nn.Module]] = dict(MAE_MODELS)
+_REGISTRY: Dict[str, Callable[..., nn.Module]] = {**MAE_MODELS,
+                                                  **CHANNEL_MODELS}
 
 _COMMON = dict(rms_norm=True, residual_in_fp32=True)
 

@@ -155,15 +155,9 @@ class VisionMamba(nn.Module):
                                 tokens[:, cls_position:]], dim=1)
         tokens = tokens + pos.to(tokens.dtype)
 
-        hidden, residual = tokens, None
-        remat = self.remat and self.training and torch.is_grad_enabled()
-        for blk in self.layers:
-            if remat:
-                hidden, residual = checkpoint(
-                    blk, hidden, residual, grid, use_reentrant=False,
-                    context_fn=lambda: _replay_drop_path(blk.drop_path))
-            else:
-                hidden, residual = blk(hidden, residual, grid)
+        hidden, residual = run_blocks(
+            self.layers, tokens, grid,
+            self.remat and self.training and torch.is_grad_enabled())
         hidden = self.norm_f(self.drop_path(hidden), residual=residual,
                              residual_in_fp32=self.residual_in_fp32,
                              out_dtype=self.dtype)
@@ -174,6 +168,22 @@ class VisionMamba(nn.Module):
             return feat
         return F.linear(feat, self.head.weight.to(self.dtype),
                         self.head.bias.to(self.dtype))
+
+
+def run_blocks(layers, hidden: torch.Tensor, grid, remat: bool):
+    """The residual stack: each block on (hidden, residual) and the token
+    ``grid``; with ``remat`` each block's activations are recomputed in
+    the backward pass, its DropPath draws replayed. Returns (hidden,
+    residual)."""
+    residual = None
+    for blk in layers:
+        if remat:
+            hidden, residual = checkpoint(
+                blk, hidden, residual, grid, use_reentrant=False,
+                context_fn=lambda: _replay_drop_path(blk.drop_path))
+        else:
+            hidden, residual = blk(hidden, residual, grid)
+    return hidden, residual
 
 
 class _NoteState:

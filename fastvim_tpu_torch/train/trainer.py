@@ -37,11 +37,14 @@ def make_supervised_train_step(
         model: nn.Module, num_classes: int,
         mixup_config: Optional[Dict[str, Any]] = None,
         label_smoothing: float = 0.1, ema_decay: Optional[float] = 0.9999,
-        generator: Optional[torch.Generator] = None) -> Callable:
+        generator: Optional[torch.Generator] = None,
+        channel_model: bool = False) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     batch: {"image": (B, H, W, C), "label": (B,) int64} on the model's
-    device. ``generator`` (on that device) feeds mixup and DropPath; it is
+    device, and with ``channel_model`` (ChannelVim) optionally
+    "channel_ids" (C,), the channels the images hold, passed to the model.
+    ``generator`` (on that device) feeds mixup, DropPath and dropout; it is
     needed only when ``mixup_config`` is given or the model drops paths.
     Each step first re-seeds it from (its seed when the step was made,
     state.step), as the JAX step folds the step count into one key: a run
@@ -67,7 +70,8 @@ def make_supervised_train_step(
         else:
             soft = one_hot_smooth(labels, num_classes, label_smoothing)
         params = state.params
-        loss = soft_target_cross_entropy(model(images), soft)
+        loss = soft_target_cross_entropy(
+            model(images, **_channel_kwargs(batch, channel_model)), soft)
         grads = dict(zip(params, torch.autograd.grad(loss,
                                                      list(params.values()))))
         metrics = {"train_loss": loss.detach(),
@@ -78,20 +82,30 @@ def make_supervised_train_step(
     return train_step
 
 
-def make_supervised_eval_step(model: nn.Module) -> Callable:
+def _channel_kwargs(batch: Mapping[str, torch.Tensor],
+                    channel_model: bool) -> Dict[str, torch.Tensor]:
+    if channel_model and "channel_ids" in batch:
+        return {"channel_ids": batch["channel_ids"]}
+    return {}
+
+
+def make_supervised_eval_step(model: nn.Module,
+                              channel_model: bool = False) -> Callable:
     """Returns ``eval_step(batch, params=None) -> {"loss", "acc"}``: the
     model in eval mode on its own parameters or, with ``params`` (name →
-    tensor, e.g. the EMA copy), on those."""
+    tensor, e.g. the EMA copy), on those; with ``channel_model`` the
+    batch's "channel_ids", where it has them, go to the model."""
 
     @torch.no_grad()
     def eval_step(batch: Mapping[str, torch.Tensor],
                   params: Optional[Mapping[str, torch.Tensor]] = None):
         model.eval()
+        kwargs = _channel_kwargs(batch, channel_model)
         if params is None:
-            logits = model(batch["image"])
+            logits = model(batch["image"], **kwargs)
         else:
             logits = torch.func.functional_call(model, dict(params),
-                                                (batch["image"],))
+                                                (batch["image"],), kwargs)
         return {"loss": cross_entropy(logits, batch["label"]),
                 "acc": accuracy(logits, batch["label"])}
 

@@ -1,11 +1,11 @@
 """Carry weights, gradients and optimizer-visible names between the JAX
 package and the port.
 
-``from_jax_params`` turns a flax ``VisionMamba`` or ``MaskedAutoencoderVim``
-parameter tree (nested mappings of array-likes, with or without the
-top-level ``"params"``) into
-the port's ``state_dict`` as numpy arrays, under the torch reference's
-names. A gradient tree from ``jax.grad`` has the parameters' structure,
+``from_jax_params`` turns a flax ``VisionMamba``, ``MaskedAutoencoderVim``
+or ``ChannelVisionMamba`` parameter tree (nested mappings of array-likes,
+with or without the top-level ``"params"``) into the port's
+``state_dict`` as numpy arrays, under the torch reference's names, and
+raises on a leaf it does not know rather than drop it. A gradient tree from ``jax.grad`` has the parameters' structure,
 so the same function maps it onto the port's names, and so it does any
 per-leaf tree (a weight-decay mask broadcast to the leaves' shapes).
 ``to_jax_params`` is the inverse, and ``grads_to_numpy`` collects a
@@ -16,6 +16,8 @@ They need numpy only:
 flax (``fastvim_tpu.models``)   port / reference torch name
 ==============================  =======================================
 patch_embed/proj/kernel (p,p,C,D)  patch_embed.proj.weight (D,C,p,p)
+ChannelVim's (p,p,1,D)          patch_embed.proj.weight (D,1,1,p,p)
+patch_embed/channel_embed       patch_embed.channel_embed.weight
 layers_{i}/norm_weight          layers.{i}.norm.weight
 layers_{i}/mixer/in_proj/kernel layers.{i}.mixer.in_proj.weight (.T)
 conv1d{_b}_weight (w, d)        ...mixer.conv1d{_b}.weight (d, 1, w)
@@ -75,8 +77,17 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     for k, v in ...}``."""
     p = params.get("params", params)
     proj = p["patch_embed"]["proj"]
-    sd = {"patch_embed.proj.weight": _np(proj["kernel"]).transpose(3, 2, 0, 1),
-          "patch_embed.proj.bias": _np(proj["bias"])}
+    kernel = _np(proj["kernel"])
+    if "channel_embed" in p["patch_embed"]:
+        # ChannelVim's filter shared by every channel: a Conv3d(1, D,
+        # (1, p, p)) in the reference
+        sd = {"patch_embed.proj.weight": kernel[:, :, 0, :].transpose(
+                  2, 0, 1)[:, None, None],
+              "patch_embed.channel_embed.weight": _np(
+                  p["patch_embed"]["channel_embed"])}
+    else:
+        sd = {"patch_embed.proj.weight": kernel.transpose(3, 2, 0, 1)}
+    sd["patch_embed.proj.bias"] = _np(proj["bias"])
     for name in ("pos_embed", "cls_token", "mask_token"):
         if name in p:
             sd[name] = _np(p[name])
@@ -97,7 +108,21 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         if name in p:
             sd[f"{name}.weight"] = _np(p[name]["kernel"]).T
             sd[f"{name}.bias"] = _np(p[name]["bias"])
+    dropped = (set(_leaf_paths(p))
+               - set(_leaf_paths(to_jax_params(sd)["params"])))
+    if dropped:
+        raise ValueError(f"from_jax_params: no port name for "
+                         f"{sorted(dropped)}")
     return sd
+
+
+def _leaf_paths(tree: Mapping[str, Any], prefix: str = ""):
+    """The "a/b/c" paths of a nested mapping's leaves."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaf_paths(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k
 
 
 def _set(tree: Dict[str, Any], path: str, value: np.ndarray) -> None:
@@ -122,8 +147,13 @@ def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
         if rest[0] == "mixer":
             pre, rest = pre + "mixer/", rest[1:]
         key = ".".join(rest)
-        if key == "patch_embed.proj.weight":
+        if key == "patch_embed.proj.weight" and v.ndim == 5:
+            _set(tree, "patch_embed/proj/kernel",
+                 v[:, 0, 0].transpose(1, 2, 0)[:, :, None, :])
+        elif key == "patch_embed.proj.weight":
             _set(tree, "patch_embed/proj/kernel", v.transpose(2, 3, 1, 0))
+        elif key == "patch_embed.channel_embed.weight":
+            _set(tree, "patch_embed/channel_embed", v)
         elif key == "patch_embed.proj.bias":
             _set(tree, "patch_embed/proj/bias", v)
         elif rest[0] in _DENSE:
