@@ -126,7 +126,24 @@ Phases, each of which raises on failure (exit code non-zero):
    (its L = 1568 scans in the chunked forms), and
    ``fastchannelvim_small_ps8`` at B = 32 with ``remat=True`` (a batch
    that does not fit is halved until one does), with the step time and
-   the peak memory.
+   the peak memory;
+10. segmentation: ``UperNetSegmentor`` over ``fastvim_tiny`` in feature
+   mode (maps after layers 5, 11, 17 and 23) at 512 px (a 32 × 32 grid,
+   which fuses), full depth, fp32, B = 1, from seed 0, card against CPU:
+   the eval-mode logits within 1e-3 (24 K3, 24 K4, 48 K1), and
+   ``slide_inference`` on one 512 × 683 image (two overlapping windows,
+   twice those launches); the same model at depth 4 in training mode
+   (LayerNorm heads, dropout off): the loss and every gradient within
+   1e-4 of each tensor's largest entry (4 K5, 4 K6, 8 K2). Then the CLIs,
+   in-process: ``train_segmentation --config_name
+   upernet_FastVimT_ade20k`` (B = 2, 512 px, 150 classes, synthetic
+   data) for 3 iterations and an mIoU eval, ``--resume`` to 9 and an
+   eval, and ``--eval_only`` from the checkpoint, which must give the
+   last row's mIoU; each step 24 K3, 24 K4, 48 K1, 24 K5, 24 K6, 48 K2,
+   each eval image 24 K3, 24 K4, 48 K1; img/s, step time, the device's
+   idle share over the resumed run's training and its peak memory; and
+   ``extract_features --with_fpn``: four (1, 32, 32, 192) maps and the
+   pyramid.
 
 After a line with the card's name and power limit, the line before the
 last is a JSON object with one entry per kernel (``ms`` a call's time by
@@ -1873,6 +1890,54 @@ class MaxPoolBranch:
         return out.reshape(x.shape[0], -1, x.shape[-1])
 
 
+class ReluBranch:
+    """ReLU is not differentiable at 0, and the card's forward and the
+    CPU's differ by ~1e-6: a pre-activation that near 0 can be kept on
+    one side and dropped on the other, and one such element of a head's
+    32 × 32 map moves its conv's weight gradient by about 1/1024 of its
+    largest entry. While entered, this records the card's ReLU mask of
+    every ``ConvModule`` (which computes as it always does) or, with
+    ``replay``, makes the CPU's ConvModules keep the recorded elements,
+    so that both sides' gradients are those of one branch; it counts the
+    elements whose own mask differs from the card's."""
+
+    def __init__(self):
+        self.recorded, self.replay, self.flips, self.elements = [], False, 0, 0
+
+    def __enter__(self):
+        from fastvim_tpu_torch.models import upernet
+
+        self.original = upernet.ConvModule.forward
+        self.pos = 0
+        branch = self
+
+        def forward(module, x):
+            return branch.relu(module.norm(upernet.conv_nhwc(module.conv,
+                                                              x)))
+
+        upernet.ConvModule.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        from fastvim_tpu_torch.models import upernet
+
+        upernet.ConvModule.forward = self.original
+        return False
+
+    def relu(self, y):
+        import torch
+
+        own = y.detach() > 0
+        if not self.replay:
+            self.recorded.append(own.cpu())
+            return torch.relu(y)
+        card = self.recorded[self.pos].to(y.device)
+        self.pos += 1
+        self.flips += int((own != card).sum())
+        self.elements += own.numel()
+        return torch.where(card, y, torch.zeros_like(y))
+
+
 def check_channel_224(dev):
     """Phase 9, card against CPU: FastChannelVim-S at full width (384),
     depth 2, fp32, 224 px, B = 4, one generator's weights, in both scan
@@ -2107,6 +2172,244 @@ def run_channel_steps(dev, card):
     return total
 
 
+SEG_CONFIG = "upernet_FastVimT_ade20k"
+SEG_FWD = {"pass_a_fwd": 24, "pass_b_fwd": 24, "selective_scan_fwd": 48}
+SEG_BWD = {"pass_b_bwd": 24, "pass_a_bwd": 24, "selective_scan_bwd": 48}
+# the share of the heads' ReLU elements whose mask may differ between the
+# card and the CPU (3 of 4,482,048 on an H100): past it the forwards
+# disagree by more than rounding, which the shared masks would hide
+RELU_FLIPS = 1e-5
+
+
+def seg_pair(dev, depth: int, out_indices):
+    """``UperNetSegmentor`` over ``fastvim_tiny`` at 512 px, fp32, 150
+    classes, weights from seed 0, on the CPU and a copy on the card."""
+    import torch
+
+    from fastvim_tpu_torch.models import UperNetSegmentor, create_model
+
+    gen = torch.Generator().manual_seed(0)
+    backbone = create_model("fastvim_tiny", device="cpu", generator=gen,
+                            img_size=512, num_classes=0, drop_path_rate=0.0,
+                            depth=depth, out_indices=out_indices)
+    cpu_seg = UperNetSegmentor(backbone, 150)
+    cpu_seg.decode_head.reset_parameters(gen)
+    cpu_seg.aux_head.reset_parameters(gen)
+    return cpu_seg.eval(), copy.deepcopy(cpu_seg).to(dev)
+
+
+def expect_launches(name, seen, want):
+    """Raise unless the kernels' launch counts are ``want`` (others 0)."""
+    want = {**dict.fromkeys(seen, 0), **want}
+    if seen != want:
+        raise AssertionError(f"{name}: launches {seen}, expected {want}")
+
+
+def scaled(counts, n):
+    return {k: v * n for k, v in counts.items()}
+
+
+def check_seg_512(dev):
+    """Phase 10, card against CPU: the segmentor's eval-mode logits at
+    512 px (full depth, B = 1) and slide inference on a 512 × 683 image
+    within 1e-3 (phase 3's tolerance); at depth 4 in training mode the
+    loss and gradients within 1e-4 of each tensor's largest entry (the
+    CPU's ReLUs on the card's branch, ``ReluBranch``, which may differ
+    from the CPU's own in at most ``RELU_FLIPS`` of the elements). Returns
+    the card's launches."""
+    import torch
+
+    from fastvim_tpu_torch.models.upernet import (
+        segmentation_loss,
+        slide_inference,
+    )
+    from fastvim_tpu_torch.ops import kernels
+
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn(1, 512, 512, 3, generator=gen)
+    wide = torch.randn(1, 512, 683, 3, generator=gen)
+    slide = dict(crop=512, stride=341, num_classes=150)
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    cpu_seg, gpu_seg = seg_pair(dev, 24, (5, 11, 17, 23))
+    with torch.no_grad():
+        want = cpu_seg(x)
+        kernels.reset_launch_counts()
+        got = gpu_seg(x.to(dev)).cpu()
+        seen = kernels.launch_counts()
+        expect_launches("segmentor 512px forward", seen, SEG_FWD)
+        total = {k: total[k] + v for k, v in seen.items()}
+        compare("UperNet fastvim_tiny 512px B=1 fp32 logits (1, 512, 512, "
+                "150), card vs CPU", got, want, MODEL_TOL)
+        want = slide_inference(cpu_seg, wide, **slide)
+        kernels.reset_launch_counts()
+        got = slide_inference(gpu_seg, wide.to(dev), **slide).cpu()
+        seen = kernels.launch_counts()
+        expect_launches("slide_inference 512 x 683 (2 windows)", seen,
+                        scaled(SEG_FWD, 2))
+        total = {k: total[k] + v for k, v in seen.items()}
+        compare("slide_inference 512 x 683, crop 512, stride 341, 2 windows,"
+                " card vs CPU", got, want, MODEL_TOL)
+    del cpu_seg, gpu_seg
+
+    labels = torch.randint(150, (1, 512, 512), generator=gen)
+    labels[:, :64] = 255
+    results = []
+    branch = ReluBranch()
+    for seg, d in zip(reversed(seg_pair(dev, 4, (0, 1, 2, 3))),
+                      (dev, "cpu")):
+        seg.train()
+        seg.decode_head.dropout.rate = seg.aux_head.dropout.rate = 0.0
+        kernels.reset_launch_counts()
+        branch.replay = d == "cpu"
+        with branch:
+            logits, aux = seg(x.to(d), with_aux=True)
+        loss = segmentation_loss(logits, labels.to(d), aux)
+        fwd = kernels.launch_counts()
+        params = dict(seg.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        bwd = {k: v - fwd[k] for k, v in kernels.launch_counts().items()}
+        results.append(({"loss": loss.detach().cpu(),
+                         "logits": logits.detach().cpu()},
+                        {n: g.cpu() for n, g in zip(params, grads)}))
+        if d != "cpu":
+            seen_fwd, seen_bwd = fwd, bwd
+    log(f"[check] segmentor depth 4: the CPU's own ReLU keeps another "
+        f"element than the card's in {branch.flips} of {branch.elements}")
+    if branch.flips > RELU_FLIPS * branch.elements:
+        raise AssertionError(f"segmentor depth 4: the CPU's ReLU masks differ "
+                             f"from the card's in {branch.flips} of "
+                             f"{branch.elements} elements, more than "
+                             f"{RELU_FLIPS:g} of them")
+    fwd, bwd = seen_fwd, seen_bwd
+    expect_launches("segmentor depth 4 forward", fwd,
+                    {k: v // 6 for k, v in SEG_FWD.items()})
+    expect_launches("segmentor depth 4 backward", bwd,
+                    {k: v // 6 for k, v in SEG_BWD.items()})
+    total = {k: total[k] + fwd[k] + bwd[k] for k in total}
+    (got_out, got), (want_out, want) = results
+    compare_grads("UperNet fastvim_tiny depth 4 512px B=1 fp32 train-mode "
+                  "loss and logits, card vs CPU", got_out, want_out)
+    compare_grads("UperNet fastvim_tiny depth 4 512px B=1 fp32 gradients, "
+                  "card vs CPU", got, want)
+    return total
+
+
+def run_seg_cli_path(dev, card):
+    """Phase 10, the segmentation CLIs on the card, in-process:
+    ``train_segmentation --config_name upernet_FastVimT_ade20k`` (B = 2,
+    512 px, 8 synthetic images: 4 steps an epoch; 8 eval images) for 3
+    iterations and an eval, ``--resume`` to 9 (mid-epoch) and an eval
+    under the profiler, then ``--eval_only``, which must give the last
+    row's mIoU; then ``extract_features --with_fpn``. Checks the launches
+    and prints img/s, step time, the idle share over the resumed run's
+    training and its peak memory. Returns the launch counts."""
+    import csv
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvim_tpu_torch.cli import extract_features, train_segmentation
+    from fastvim_tpu_torch.ops import kernels
+
+    batch, val, g = 2, 8, 32
+    step = {**SEG_FWD, **SEG_BWD}
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+
+    def run(argv, steps, name):
+        nonlocal total
+        kernels.reset_launch_counts()
+        result = train_segmentation.main(argv)
+        torch.cuda.synchronize()
+        seen = kernels.launch_counts()
+        want = {k: steps * step.get(k, 0) + val * SEG_FWD.get(k, 0)
+                for k in seen}
+        expect_launches(f"train_segmentation {name} ({steps} steps, {val} "
+                        "eval images)", seen, want)
+        total = {k: total[k] + v for k, v in seen.items()}
+        return result
+
+    with tempfile.TemporaryDirectory() as out:
+        common = ["--config_name", SEG_CONFIG, "--model_save_dir", out,
+                  "--synthetic_samples", str(val), "--device", str(dev)]
+        state = run(common + ["--total_iters", "3", "--eval_every", "3"], 3,
+                    "iterations 1-3")
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state = run(common + ["--total_iters", "9", "--eval_every", "9",
+                                  "--resume"], 6, "resumed, iterations 4-9")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if state.step != 9:
+            raise AssertionError(f"train_segmentation: step {state.step}, "
+                                 "not 9")
+        del state
+        idle, busy_ms, wall_ms = device_idle_share(prof, "train_iters")
+        log(f"[cli] train_segmentation device ms by kernel over the resumed "
+            f"run (6 steps, 8 eval images): {top_kernels(prof, 12)}")
+        del prof
+        miou = run(common + ["--eval_only"], 0, "--eval_only")
+        with open(os.path.join(out, "log.csv")) as f:
+            rows = list(csv.DictReader(f))
+    if [r["iter"] for r in rows] != ["3", "9"]:
+        raise AssertionError(f"train_segmentation log rows "
+                             f"{[r['iter'] for r in rows]}, not [3, 9]")
+    for r in rows:
+        vals = [float(r[c]) for c in ("train_loss", "mIoU", "steps_per_sec")]
+        if not (all(map(math.isfinite, vals)) and 0.0 <= vals[1] <= 1.0):
+            raise AssertionError(f"train_segmentation log row: {r}")
+    if abs(miou - float(rows[-1]["mIoU"])) > 1e-6:
+        raise AssertionError(f"--eval_only mIoU {miou} against the last "
+                             f"row's {rows[-1]['mIoU']}")
+    log(f"[cli] train_segmentation log.csv: {rows}; --eval_only mIoU {miou}")
+    # the host loader alone, as the CLI builds it: the rate its steps
+    # could reach if the card took no time
+    from fastvim_tpu_torch.config import load_config
+    from fastvim_tpu_torch.data import create_segmentation_loader
+
+    cfg = load_config(SEG_CONFIG, "segmentation")
+    loader = create_segmentation_loader(
+        None, "training", batch, cfg["img_size"], training=True,
+        num_classes=cfg["num_classes"], num_workers=cfg.get("num_workers", 2),
+        synthetic_samples=16)
+    t0 = time.perf_counter()
+    n = sum(b["image"].shape[0] for b in loader)
+    loader_img_s = n / (time.perf_counter() - t0)
+    sps = [float(r["steps_per_sec"]) for r in rows]
+    share = ("not measured (no device event)" if idle is None
+             else f"{idle:.4f}")
+    log(f"[time] CLI train_segmentation {SEG_CONFIG}.yaml B={batch} fp32 "
+        f"512px, 150 classes: iterations 1-3 {sps[0] * batch:.2f} img/s "
+        f"({1e3 / sps[0]:.1f} ms a step), resumed 4-9 under the profiler "
+        f"{sps[1] * batch:.2f} img/s ({1e3 / sps[1]:.1f} ms a step); device "
+        f"idle share over the resumed training {share} (busy {busy_ms:.1f} "
+        f"of {wall_ms:.1f} ms); peak memory of the resumed run {peak:.2f} "
+        f"GiB; the host loader alone ({cfg.get('num_workers', 2)} threads) "
+        f"{loader_img_s:.2f} img/s; a step launches {step} ({card})")
+
+    kernels.reset_launch_counts()
+    feats = extract_features.main(["--config_name", SEG_CONFIG, "--with_fpn",
+                                   "--device", str(dev)])
+    seen = kernels.launch_counts()
+    expect_launches("extract_features", seen, SEG_FWD)
+    total = {k: total[k] + v for k, v in seen.items()}
+    shapes = [tuple(f.shape) for f in feats["features"]]
+    pyramid = [tuple(f.shape) for f in feats["pyramid"]]
+    if (shapes != [(1, g, g, 192)] * 4 or pyramid != [
+            (1, g * 4, g * 4, 256), (1, g * 2, g * 2, 256), (1, g, g, 256),
+            (1, g // 2, g // 2, 256), (1, g // 4, g // 4, 256)] or not all(
+            torch.isfinite(f).all() for f in (*feats["features"],
+                                              *feats["pyramid"]))):
+        raise AssertionError(f"extract_features: maps {shapes}, pyramid "
+                             f"{pyramid}")
+    log(f"[check] extract_features --with_fpn: maps {shapes}, pyramid "
+        f"{pyramid} ok")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2174,6 +2477,11 @@ def main() -> int:
                    run_channel_steps(dev, card)):
         for name, count in counts.items():
             launches[name] += count
+    t0 = time.perf_counter()
+    for counts in (check_seg_512(dev), run_seg_cli_path(dev, card)):
+        for name, count in counts.items():
+            launches[name] += count
+    log(f"[time] phase 10 (segmentation) {time.perf_counter() - t0:.1f} s")
 
     # each kernel's files: the main path's (bf16) kernel, then the fp32
     # route, the C entry points and the headers they include (K1 and K2:

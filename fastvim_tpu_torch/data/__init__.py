@@ -11,15 +11,25 @@ from fastvim_tpu_torch.data.loader import (
     SyntheticDataset,
     create_imagenet_loader,
 )
+from fastvim_tpu_torch.data.segmentation import (
+    ADE20KDataset,
+    SegmentationLoader,
+    SyntheticSegDataset,
+    create_segmentation_loader,
+)
 
 __all__ = [
+    "ADE20KDataset",
     "CellDataset",
     "CellLoader",
     "DataLoader",
     "ImageFolderDataset",
+    "SegmentationLoader",
     "SyntheticCellDataset",
     "SyntheticDataset",
+    "SyntheticSegDataset",
     "cell_augment",
     "create_imagenet_loader",
+    "create_segmentation_loader",
     "split_indices",
 ]

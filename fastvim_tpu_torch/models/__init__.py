@@ -4,19 +4,32 @@ from fastvim_tpu_torch.models.channel import (
     PatchEmbedPerChannel,
     hcs_sample,
 )
+from fastvim_tpu_torch.models.heads import ChannelLayerNorm, SimpleFPN
 from fastvim_tpu_torch.models.mae import MaskedAutoencoderVim
 from fastvim_tpu_torch.models.mixer import MambaMixer
 from fastvim_tpu_torch.models.patch_embed import PatchEmbed
 from fastvim_tpu_torch.models.registry import create_model, list_models
+from fastvim_tpu_torch.models.upernet import (
+    FCNHead,
+    PSPModule,
+    UPerHead,
+    UperNetSegmentor,
+)
 from fastvim_tpu_torch.models.vision_mamba import VisionMamba
 
 __all__ = [
     "Block",
+    "ChannelLayerNorm",
     "ChannelVisionMamba",
+    "FCNHead",
     "MambaMixer",
     "MaskedAutoencoderVim",
+    "PSPModule",
     "PatchEmbed",
     "PatchEmbedPerChannel",
+    "SimpleFPN",
+    "UPerHead",
+    "UperNetSegmentor",
     "VisionMamba",
     "create_model",
     "hcs_sample",

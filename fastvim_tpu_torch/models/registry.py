@@ -25,7 +25,8 @@ from fastvim_tpu_torch.models.vision_mamba import VisionMamba
 _REGISTRY: Dict[str, Callable[..., nn.Module]] = {**MAE_MODELS,
                                                   **CHANNEL_MODELS}
 
-_COMMON = dict(rms_norm=True, residual_in_fp32=True)
+_COMMON = dict(rms_norm=True, residual_in_fp32=True, fused_add_norm=True,
+               final_pool_type="mean", if_abs_pos_embed=True)
 
 _SIZES = {
     "tiny": dict(embed_dim=192, depth=24, patch_size=16),

@@ -1,12 +1,20 @@
-"""VisionMamba classification trunk: patchify → pos-embed → N blocks →
-norm → mean pool (or the cls token) → head.
+"""VisionMamba trunk: patchify → pos-embed → N blocks → norm → pool →
+head, or, with ``out_indices``, multi-scale feature maps.
 
-Counterpart of the classification path of
-``fastvim_tpu/models/vision_mamba.py``, including the Vim baseline's
-(middle) cls token. Images are NHWC. At another resolution than
-``img_size`` the pos-embed is resized to the input's grid (bicubic, as
-the JAX package does), except with a cls token, which takes only the
-training grid; there is no ``out_indices`` feature-map mode here.
+Counterpart of ``fastvim_tpu/models/vision_mamba.py``, including the Vim
+baseline's (middle) cls token. Images are NHWC. At another resolution
+than ``img_size`` the pos-embed is resized to the input's grid (bicubic,
+as the JAX package does), except with a cls token, which takes only the
+training grid. ``final_pool_type`` is "mean", "none" (the last token),
+"max" (the head on every token, then the max over tokens) or "all" (the
+head on every token). ``drop_rate`` drops elements after the pos-embed
+add; ``if_abs_pos_embed=False`` builds no ``pos_embed``;
+``fused_add_norm`` is accepted for the configs and ignored (the add and
+the norm are always one step here). With ``out_indices`` (the
+segmentation / detection backbone) the forward returns, for each listed
+block, its mixer output under its own LayerNorm (``outnorm_{j}``, fp32,
+eps 1e-5) as a (batch, rows, cols, D) map, and the model has no final
+norm and no head.
 ``remat=True`` recomputes each block's activations in the backward pass
 (``torch.utils.checkpoint``) instead of keeping them; the recompute
 replays the DropPath draws of the forward, so the gradients are those
@@ -24,7 +32,7 @@ tree.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple, Union
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,7 +42,12 @@ from torch.nn.utils import skip_init
 from torch.utils.checkpoint import checkpoint
 
 from fastvim_tpu_torch.models.blocks import Block
-from fastvim_tpu_torch.models.layers import DropPath, Norm, trunc_normal_init_
+from fastvim_tpu_torch.models.layers import (
+    DropPath,
+    Dropout,
+    Norm,
+    trunc_normal_init_,
+)
 from fastvim_tpu_torch.models.patch_embed import PatchEmbed, resize_pos_embed
 
 
@@ -42,10 +55,11 @@ class VisionMamba(nn.Module):
     def __init__(self, img_size: Union[int, Tuple[int, int]] = 224,
                  patch_size: int = 16, depth: int = 24, embed_dim: int = 192,
                  channels: int = 3, num_classes: int = 1000,
-                 ssm_cfg: Optional[dict] = None,
+                 ssm_cfg: Optional[dict] = None, drop_rate: float = 0.0,
                  drop_path_rate: float = 0.1, norm_epsilon: float = 1e-5,
                  rms_norm: bool = True, residual_in_fp32: bool = True,
-                 if_cls_token: bool = False,
+                 fused_add_norm: bool = True, final_pool_type: str = "mean",
+                 if_abs_pos_embed: bool = True, if_cls_token: bool = False,
                  use_middle_cls_token: bool = False,
                  scanpath_type: str = "rowwise",
                  use_norm_after_ssm: bool = True,
@@ -54,11 +68,17 @@ class VisionMamba(nn.Module):
                  scan_impl: str = "auto", layer_fused: str = "auto",
                  layer_fused_bwd: str = "fused", remat: bool = False,
                  init_layer_scale: Optional[float] = None,
+                 out_indices: Optional[Sequence[int]] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if if_cls_token and (collapse_method != "none" or rotate_every_block):
             raise ValueError("cls token is only supported for the non-pooled, "
                              "non-rotating Vim baseline")
+        if if_cls_token and out_indices is not None:
+            raise ValueError("out_indices takes no cls token")
+        if final_pool_type not in ("mean", "none", "max", "all"):
+            raise ValueError(f"final_pool_type must be mean|none|max|all, got "
+                             f"{final_pool_type!r}")
         self.img_size = img_size
         self.patch_size = patch_size
         self.embed_dim = embed_dim
@@ -66,6 +86,9 @@ class VisionMamba(nn.Module):
         self.residual_in_fp32 = residual_in_fp32
         self.if_cls_token = if_cls_token
         self.use_middle_cls_token = use_middle_cls_token
+        self.final_pool_type = final_pool_type
+        self.out_indices = (None if out_indices is None
+                            else tuple(int(i) for i in out_indices))
         self.scanpath_type = scanpath_type
         self.remat = remat
         self.dtype = dtype
@@ -75,7 +98,9 @@ class VisionMamba(nn.Module):
         self.cls_token = (nn.Parameter(torch.empty(1, 1, embed_dim))
                           if if_cls_token else None)
         n_pos = self.num_patches + (1 if if_cls_token else 0)
-        self.pos_embed = nn.Parameter(torch.empty(1, n_pos, embed_dim))
+        self.pos_embed = (nn.Parameter(torch.empty(1, n_pos, embed_dim))
+                          if if_abs_pos_embed else None)
+        self.pos_drop = Dropout(drop_rate)
         mixer_kwargs = dict(
             use_norm_after_ssm=use_norm_after_ssm,
             init_layer_scale=init_layer_scale,
@@ -91,9 +116,15 @@ class VisionMamba(nn.Module):
                   drop_path=inter_dpr[i], dtype=dtype)
             for i in range(depth))
         self.drop_path = DropPath(drop_path_rate)
-        self.norm_f = Norm(embed_dim, rms=rms_norm, eps=norm_epsilon)
-        self.head = (skip_init(nn.Linear, embed_dim, num_classes)
-                     if num_classes > 0 else None)
+        self.norm_f = self.head = None
+        if self.out_indices is not None:
+            # the feature maps' norms (JAX ``outnorm_{j}_weight`` / _bias)
+            for j in range(len(self.out_indices)):
+                self.add_module(f"outnorm_{j}", Norm(embed_dim, rms=False))
+        else:
+            self.norm_f = Norm(embed_dim, rms=rms_norm, eps=norm_epsilon)
+            if num_classes > 0:
+                self.head = skip_init(nn.Linear, embed_dim, num_classes)
 
     @property
     def grid_size(self) -> Tuple[int, int]:
@@ -113,39 +144,48 @@ class VisionMamba(nn.Module):
         self.patch_embed.proj.reset_parameters(generator)
         if self.cls_token is not None:
             trunc_normal_init_(self.cls_token, 0.02, generator)
-        trunc_normal_init_(self.pos_embed, 0.02, generator)
+        if self.pos_embed is not None:
+            trunc_normal_init_(self.pos_embed, 0.02, generator)
         for blk in self.layers:
             blk.reset_parameters(generator)
-        nn.init.ones_(self.norm_f.weight)
-        if self.norm_f.bias is not None:
-            nn.init.zeros_(self.norm_f.bias)
+        for norm in self.out_norms():
+            nn.init.ones_(norm.weight)
+            nn.init.zeros_(norm.bias)
+        if self.norm_f is not None:
+            nn.init.ones_(self.norm_f.weight)
+            if self.norm_f.bias is not None:
+                nn.init.zeros_(self.norm_f.bias)
         if self.head is not None:
             trunc_normal_init_(self.head.weight, 0.02, generator)
             nn.init.zeros_(self.head.bias)
 
+    def out_norms(self) -> List[Norm]:
+        """The feature maps' norms, in ``out_indices`` order (none without
+        ``out_indices``)."""
+        n = 0 if self.out_indices is None else len(self.out_indices)
+        return [getattr(self, f"outnorm_{j}") for j in range(n)]
+
     def set_drop_path_generator(
             self, generator: Optional[torch.Generator]) -> None:
-        """Hand every DropPath the generator its training-mode masks are
-        drawn from (on the model's device)."""
+        """Hand every DropPath, the dropouts included, the generator its
+        training-mode masks are drawn from (on the model's device)."""
         for m in self.modules():
             if isinstance(m, DropPath):
                 m.generator = generator
 
-    def forward(self, x: torch.Tensor,
-                return_features: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_features: bool = False
+                ) -> Union[torch.Tensor, List[torch.Tensor]]:
         """x: (batch, H, W, C) images. Returns logits (batch, num_classes),
         or the pooled features (batch, embed_dim) with ``return_features``
-        or when num_classes <= 0."""
+        or when num_classes <= 0 ((batch, L, embed_dim) for the "max" and
+        "all" pools); with ``out_indices``, the list of (batch, rows, cols,
+        embed_dim) fp32 feature maps."""
         B = x.shape[0]
         tokens, grid = self.patch_embed(x)
-        pos = self.pos_embed
-        if grid != self.grid_size:
-            if self.cls_token is not None:
-                raise ValueError(f"input grid {grid} differs from the "
-                                 f"model's {self.grid_size}: a cls-token "
-                                 "model takes its training grid only")
-            pos = resize_pos_embed(pos, grid, self.grid_size,
-                                   self.scanpath_type)
+        if grid != self.grid_size and self.cls_token is not None:
+            raise ValueError(f"input grid {grid} differs from the "
+                             f"model's {self.grid_size}: a cls-token "
+                             "model takes its training grid only")
         cls_position = None
         if self.cls_token is not None:
             M = tokens.shape[1]
@@ -153,28 +193,51 @@ class VisionMamba(nn.Module):
             cls = self.cls_token.to(tokens.dtype).expand(B, 1, self.embed_dim)
             tokens = torch.cat([tokens[:, :cls_position], cls,
                                 tokens[:, cls_position:]], dim=1)
-        tokens = tokens + pos.to(tokens.dtype)
+        if self.pos_embed is not None:
+            pos = self.pos_embed
+            if grid != self.grid_size:
+                pos = resize_pos_embed(pos, grid, self.grid_size,
+                                       self.scanpath_type)
+            tokens = self.pos_drop(tokens + pos.to(tokens.dtype))
 
-        hidden, residual = run_blocks(
-            self.layers, tokens, grid,
-            self.remat and self.training and torch.is_grad_enabled())
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        if self.out_indices is not None:
+            maps = {}
+            for i, (hidden, _) in enumerate(iter_blocks(self.layers, tokens,
+                                                        grid, remat)):
+                if i in self.out_indices:
+                    maps[i] = hidden
+            return [norm(maps[i].float()).reshape(B, *grid, self.embed_dim)
+                    for i, norm in zip(self.out_indices, self.out_norms())]
+
+        hidden, residual = run_blocks(self.layers, tokens, grid, remat)
         hidden = self.norm_f(self.drop_path(hidden), residual=residual,
                              residual_in_fp32=self.residual_in_fp32,
                              out_dtype=self.dtype)
 
-        feat = (hidden[:, cls_position] if cls_position is not None
-                else hidden.mean(dim=1))
+        if cls_position is not None:
+            feat = hidden[:, cls_position]
+        elif self.final_pool_type == "mean":
+            feat = hidden.mean(dim=1)
+        elif self.final_pool_type == "none":
+            feat = hidden[:, -1]
+        else:  # "max" and "all": the head on every token
+            feat = hidden
         if return_features or self.head is None:
             return feat
-        return F.linear(feat, self.head.weight.to(self.dtype),
-                        self.head.bias.to(self.dtype))
+        logits = F.linear(feat, self.head.weight.to(self.dtype),
+                          self.head.bias.to(self.dtype))
+        if self.final_pool_type == "max":
+            logits = logits.amax(dim=1)
+        return logits
 
 
-def run_blocks(layers, hidden: torch.Tensor, grid, remat: bool):
-    """The residual stack: each block on (hidden, residual) and the token
-    ``grid``; with ``remat`` each block's activations are recomputed in
-    the backward pass, its DropPath draws replayed. Returns (hidden,
-    residual)."""
+def iter_blocks(layers, hidden: torch.Tensor, grid, remat: bool
+                ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """The residual stack, one block at a time: each block on (hidden,
+    residual) and the token ``grid``, yielding its (hidden, residual);
+    with ``remat`` each block's activations are recomputed in the
+    backward pass, its DropPath draws replayed."""
     residual = None
     for blk in layers:
         if remat:
@@ -183,6 +246,15 @@ def run_blocks(layers, hidden: torch.Tensor, grid, remat: bool):
                 context_fn=lambda: _replay_drop_path(blk.drop_path))
         else:
             hidden, residual = blk(hidden, residual, grid)
+        yield hidden, residual
+
+
+def run_blocks(layers, hidden: torch.Tensor, grid, remat: bool):
+    """The whole residual stack (``iter_blocks``). Returns the last
+    block's (hidden, residual)."""
+    residual = None
+    for hidden, residual in iter_blocks(layers, hidden, grid, remat):
+        pass
     return hidden, residual
 
 

@@ -7,6 +7,10 @@ from fastvim_tpu_torch.train.mixup import (
     sample_mixup_draws,
     soft_target_cross_entropy,
 )
+from fastvim_tpu_torch.train.metrics import (
+    confusion_matrix,
+    miou_from_confusion,
+)
 from fastvim_tpu_torch.train.optim import (
     ema_update,
     layer_decay_scales,
@@ -33,6 +37,7 @@ __all__ = [
     "TrainState",
     "accuracy",
     "apply_mixup_cutmix",
+    "confusion_matrix",
     "constant",
     "cosine_with_warmup",
     "cross_entropy",
@@ -45,6 +50,7 @@ __all__ = [
     "make_sgd",
     "make_supervised_eval_step",
     "make_supervised_train_step",
+    "miou_from_confusion",
     "mixup_cutmix",
     "one_hot_smooth",
     "sample_mixup_draws",

@@ -50,19 +50,20 @@ class CSVLogger:
                 w.writeheader()
             w.writerow(row)
 
-    def truncate_from_epoch(self, epoch: int):
-        """Drop rows with epoch >= ``epoch`` (crash-resume re-runs them).
+    def truncate_from(self, value: int, column: str = "epoch"):
+        """Drop rows whose ``column`` is >= ``value`` (crash-resume re-runs
+        them).
 
-        A row is logged before its epoch's checkpoint finishes writing,
-        so a crash between the two leaves a logged epoch whose state was
-        lost; on resume that epoch runs again and would otherwise appear
-        twice in the log.
+        A row is logged before its checkpoint finishes writing, so a crash
+        between the two leaves a logged epoch (or eval) whose state was
+        lost; on resume it runs again and would otherwise appear twice in
+        the log.
         """
         if not os.path.exists(self.path):
             return
         with open(self.path, newline="") as f:
             rows = list(csv.DictReader(f))
-        kept = [r for r in rows if int(float(r["epoch"])) < epoch]
+        kept = [r for r in rows if int(float(r[column])) < value]
         if len(kept) == len(rows):
             return
         with open(self.path, "w", newline="") as f:
@@ -130,7 +131,7 @@ def run_training(
             start_epoch = state.step // spe
             print(f"resumed from {path} at epoch {start_epoch}")
             if logger is not None:
-                logger.truncate_from_epoch(start_epoch)
+                logger.truncate_from(start_epoch)
 
     for epoch in range(start_epoch, epochs):
         t_epoch = time.perf_counter()

@@ -1,12 +1,15 @@
 """Carry weights, gradients and optimizer-visible names between the JAX
 package and the port.
 
-``from_jax_params`` turns a flax ``VisionMamba``, ``MaskedAutoencoderVim``
-or ``ChannelVisionMamba`` parameter tree (nested mappings of array-likes,
-with or without the top-level ``"params"``) into the port's
-``state_dict`` as numpy arrays, under the torch reference's names, and
-raises on a leaf it does not know rather than drop it. A gradient tree from ``jax.grad`` has the parameters' structure,
-so the same function maps it onto the port's names, and so it does any
+``from_jax_params`` turns a flax ``VisionMamba``, ``MaskedAutoencoderVim``,
+``ChannelVisionMamba``, ``UperNetSegmentor`` or ``SimpleFPN`` variable
+tree (nested mappings of array-likes, with or without the top-level
+``"params"``; a segmentor's ``"batch_stats"`` become its BatchNorms'
+running statistics) into the port's ``state_dict`` as numpy arrays,
+under the torch reference's names (the port's own for the heads), and
+raises on a leaf it does not know rather than drop it. A gradient tree
+from ``jax.grad`` has the parameters' structure, so the same function
+maps it onto the port's names, and so it does any
 per-leaf tree (a weight-decay mask broadcast to the leaves' shapes).
 ``to_jax_params`` is the inverse, and ``grads_to_numpy`` collects a
 model's ``.grad``s (or a name → gradient mapping) under the same names.
@@ -29,6 +32,26 @@ norm_f_weight, head/kernel      norm_f.weight, head.weight (.T)
 decoder_blocks_{i}/...          decoder_blocks.{i}.... (as layers_{i})
 decoder_embed/_pred kernel      decoder_embed/_pred.weight (.T)
 decoder_norm_weight, mask_token decoder_norm.weight, mask_token
+outnorm_{j}_weight / _bias      outnorm_{j}.weight / .bias
+backbone/...                    backbone.... (as above)
+decode_head/PSPModule_0/        decode_head.psp.stages.{k}
+  ConvModule_{k}
+decode_head/ConvModule_0        decode_head.bottleneck
+decode_head/ConvModule_{1+i}    decode_head.lateral_convs.{i}
+decode_head/ConvModule_{n+i}    decode_head.fpn_convs.{i} (n maps)
+decode_head/ConvModule_{2n-1}   decode_head.fpn_bottleneck
+decode_head/Conv_0              decode_head.conv_seg
+aux_head/ConvModule_0, Conv_0   aux_head.convs.0, aux_head.conv_seg
+.../Conv_0/kernel (kh,kw,I,O)   ....conv.weight (O,I,kh,kw)
+.../LayerNorm_0/scale, bias     ....ln.weight, .bias
+.../BatchNorm_0/scale, bias     ....bn.weight, .bias
+batch_stats/.../BatchNorm_0/    ....bn.running_mean, .running_var
+  mean, var
+SimpleFPN's {fpn1_deconv1,      the same names, .weight (in, out, kh,
+  fpn1_deconv2, fpn2_deconv}/   kw) = the kernel flipped on both
+  kernel (kh,kw,in,out)         spatial axes (flax does not flip)
+lateral_{i}, fpn_conv_{i}       .weight (O,I,kh,kw)
+..._norm_{i}/weight, bias       ..._norm_{i}.weight, .bias
 ==============================  =======================================
 """
 
@@ -72,10 +95,27 @@ _DENSE = ("in_proj", "out_proj", "head", "decoder_embed", "decoder_pred")
 
 
 def from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """flax VisionMamba or MaskedAutoencoderVim params → the port's
-    state_dict (numpy arrays); load with ``{k: torch.from_numpy(v.copy())
-    for k, v in ...}``."""
+    """flax variables (or params) → the port's state_dict (numpy arrays);
+    load with ``{k: torch.from_numpy(v.copy()) for k, v in ...}``."""
     p = params.get("params", params)
+    stats = params.get("batch_stats", {}) if "params" in params else {}
+    segmentor = any(k in p for k in _SEGMENTOR)
+    if segmentor or "fpn1_deconv1" in p:
+        sd = _segmentor_from_jax(p, stats) if segmentor else _fpn_from_jax(p)
+        jax_tree = to_jax_params(sd)
+        dropped = ((set(_leaf_paths(p)) - set(_leaf_paths(
+            jax_tree["params"])))
+            | {f"batch_stats/{k}" for k in set(_leaf_paths(stats)) - set(
+                _leaf_paths(jax_tree.get("batch_stats", {})))})
+        if dropped:
+            raise ValueError(f"from_jax_params: no port name for "
+                             f"{sorted(dropped)}")
+        return sd
+    return _trunk_from_jax(p)
+
+
+def _trunk_from_jax(p: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A VisionMamba / MAE / ChannelVim params tree → its state_dict."""
     proj = p["patch_embed"]["proj"]
     kernel = _np(proj["kernel"])
     if "channel_embed" in p["patch_embed"]:
@@ -100,6 +140,11 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
                 sd[f"{stack}.{i}.norm.bias"] = _np(lp["norm_bias"])
             sd.update(_mixer(lp["mixer"], f"{stack}.{i}.mixer"))
             i += 1
+    j = 0
+    while f"outnorm_{j}_weight" in p:
+        sd[f"outnorm_{j}.weight"] = _np(p[f"outnorm_{j}_weight"])
+        sd[f"outnorm_{j}.bias"] = _np(p[f"outnorm_{j}_bias"])
+        j += 1
     for norm in ("norm_f", "decoder_norm"):
         for part in ("weight", "bias"):
             if f"{norm}_{part}" in p:
@@ -114,6 +159,157 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         raise ValueError(f"from_jax_params: no port name for "
                          f"{sorted(dropped)}")
     return sd
+
+
+def _conv_to_torch(kernel) -> np.ndarray:
+    """flax conv kernel (kh, kw, in, out) → torch (out, in, kh, kw)."""
+    return _np(kernel).transpose(3, 2, 0, 1)
+
+
+def _conv_to_jax(weight) -> np.ndarray:
+    return _np(weight).transpose(2, 3, 1, 0)
+
+
+def _head_modules(head: str, n_maps: int, n_scales: int):
+    """(flax module path, port module prefix) of a head's ConvModules and
+    its classifier: ``n_maps`` input maps, ``n_scales`` pool scales."""
+    if head == "aux_head":
+        return [("aux_head/ConvModule_0", "aux_head.convs.0"),
+                ("aux_head/Conv_0", "aux_head.conv_seg")]
+    n = n_maps
+    pairs = [(f"decode_head/PSPModule_0/ConvModule_{k}",
+              f"decode_head.psp.stages.{k}") for k in range(n_scales)]
+    pairs.append(("decode_head/ConvModule_0", "decode_head.bottleneck"))
+    pairs += [(f"decode_head/ConvModule_{1 + i}",
+               f"decode_head.lateral_convs.{i}") for i in range(n - 1)]
+    pairs += [(f"decode_head/ConvModule_{n + i}",
+               f"decode_head.fpn_convs.{i}") for i in range(n - 1)]
+    pairs.append((f"decode_head/ConvModule_{2 * n - 1}",
+                  "decode_head.fpn_bottleneck"))
+    pairs.append(("decode_head/Conv_0", "decode_head.conv_seg"))
+    return pairs
+
+
+def _get(tree: Mapping[str, Any], path: str):
+    for k in path.split("/"):
+        if not isinstance(tree, Mapping) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def _count(tree: Mapping[str, Any], prefix: str) -> int:
+    """How many ``{prefix}{i}`` keys, from 0 up, ``tree`` holds."""
+    n = 0
+    while f"{prefix}{n}" in (tree or {}):
+        n += 1
+    return n
+
+
+_SEGMENTOR = ("backbone", "decode_head", "aux_head")
+
+
+def _segmentor_from_jax(p: Mapping[str, Any], stats: Mapping[str, Any]
+                        ) -> Dict[str, np.ndarray]:
+    """A segmentor's tree, or one of its heads' under its name."""
+    sd = ({f"backbone.{k}": v
+           for k, v in _trunk_from_jax(p["backbone"]).items()}
+          if "backbone" in p else {})
+    dh = p.get("decode_head", {})
+    n_maps = _count(dh, "ConvModule_") // 2
+    n_scales = _count(dh.get("PSPModule_0"), "ConvModule_")
+    for head in ("decode_head", "aux_head"):
+        if head not in p:
+            continue
+        for fpath, tpre in _head_modules(head, n_maps, n_scales):
+            m = _get(p, fpath)
+            if fpath.endswith("Conv_0"):  # the classifier
+                sd[f"{tpre}.weight"] = _conv_to_torch(m["kernel"])
+                sd[f"{tpre}.bias"] = _np(m["bias"])
+                continue
+            sd[f"{tpre}.conv.weight"] = _conv_to_torch(m["Conv_0"]["kernel"])
+            kind = "bn" if "BatchNorm_0" in m else "ln"
+            norm = m["BatchNorm_0" if kind == "bn" else "LayerNorm_0"]
+            sd[f"{tpre}.{kind}.weight"] = _np(norm["scale"])
+            sd[f"{tpre}.{kind}.bias"] = _np(norm["bias"])
+            bn = _get(stats, f"{fpath}/BatchNorm_0")
+            if bn is not None:
+                sd[f"{tpre}.bn.running_mean"] = _np(bn["mean"])
+                sd[f"{tpre}.bn.running_var"] = _np(bn["var"])
+    return sd
+
+
+def _segmentor_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    trunk = {k[len("backbone."):]: v for k, v in state_dict.items()
+             if k.startswith("backbone.")}
+    params: Dict[str, Any] = (
+        {"backbone": to_jax_params(trunk)["params"]} if trunk else {})
+    stats: Dict[str, Any] = {}
+    n_maps = sum(1 for k in state_dict
+                 if k.startswith("decode_head.lateral_convs.")
+                 and k.endswith(".conv.weight")) + 1
+    n_scales = sum(1 for k in state_dict
+                   if k.startswith("decode_head.psp.stages.")
+                   and k.endswith(".conv.weight"))
+    for head in ("decode_head", "aux_head"):
+        if f"{head}.conv_seg.weight" not in state_dict:
+            continue
+        for fpath, tpre in _head_modules(head, n_maps, n_scales):
+            if fpath.endswith("Conv_0"):
+                _set(params, f"{fpath}/kernel",
+                     _conv_to_jax(state_dict[f"{tpre}.weight"]))
+                _set(params, f"{fpath}/bias", _np(state_dict[f"{tpre}.bias"]))
+                continue
+            _set(params, f"{fpath}/Conv_0/kernel",
+                 _conv_to_jax(state_dict[f"{tpre}.conv.weight"]))
+            kind = "bn" if f"{tpre}.bn.weight" in state_dict else "ln"
+            norm = fpath + ("/BatchNorm_0" if kind == "bn" else "/LayerNorm_0")
+            _set(params, f"{norm}/scale",
+                 _np(state_dict[f"{tpre}.{kind}.weight"]))
+            _set(params, f"{norm}/bias",
+                 _np(state_dict[f"{tpre}.{kind}.bias"]))
+            if f"{tpre}.bn.running_mean" in state_dict:
+                _set(stats, f"{norm}/mean",
+                     _np(state_dict[f"{tpre}.bn.running_mean"]))
+                _set(stats, f"{norm}/var",
+                     _np(state_dict[f"{tpre}.bn.running_var"]))
+    tree = {"params": params}
+    if stats:
+        tree["batch_stats"] = stats
+    return tree
+
+
+_FPN_DECONVS = ("fpn1_deconv1", "fpn1_deconv2", "fpn2_deconv")
+
+
+def _fpn_from_jax(p: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    names = ["fpn1_deconv1", "fpn1_norm", "fpn1_deconv2", "fpn2_deconv"]
+    for i in range(_count(p, "lateral_")):
+        names += [f"lateral_{i}", f"lateral_norm_{i}", f"fpn_conv_{i}",
+                  f"fpn_norm_{i}"]
+    sd = {}
+    for name in names:
+        for leaf, v in p[name].items():
+            v = _np(v)
+            if leaf == "kernel":
+                v = (v[::-1, ::-1].transpose(2, 3, 0, 1)
+                     if name in _FPN_DECONVS else _conv_to_torch(v))
+            sd[f"{name}.{'weight' if leaf == 'kernel' else leaf}"] = v
+    return sd
+
+
+def _fpn_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, v in state_dict.items():
+        name, leaf = key.split(".")
+        v = _np(v)
+        is_norm = "norm" in name
+        if leaf == "weight" and not is_norm:
+            leaf = "kernel"
+            v = (v.transpose(2, 3, 0, 1)[::-1, ::-1]
+                 if name in _FPN_DECONVS else _conv_to_jax(v))
+        _set(tree, f"{name}/{leaf}", v)
+    return {"params": tree}
 
 
 def _leaf_paths(tree: Mapping[str, Any], prefix: str = ""):
@@ -135,7 +331,12 @@ def _set(tree: Dict[str, Any], path: str, value: np.ndarray) -> None:
 def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     """The port's state_dict (name → array-like; torch tensors go through
     ``.numpy()`` first) → the flax tree ``{"params": {...}}``: the inverse
-    of :func:`from_jax_params`."""
+    of :func:`from_jax_params`, with ``"batch_stats"`` beside
+    ``"params"`` where a segmentor has BatchNorms."""
+    if any(k.split(".")[0] in _SEGMENTOR for k in state_dict):
+        return _segmentor_to_jax(state_dict)
+    if "fpn1_deconv1.weight" in state_dict:
+        return _fpn_to_jax(state_dict)
     tree: Dict[str, Any] = {}
     for name, v in state_dict.items():
         v = _np(v)

@@ -275,7 +275,10 @@ def test_port_imports_no_jax():
     for m in ("config", "cli.train_classification", "cli.test_classification",
               "data.loader", "data.transforms", "data.digits", "data.device",
               "train.loop", "train.checkpoint", "utils.tboard", "models.mae",
-              "cli.pretrain_mae", "cli.finetune_mae", "cli.linear_probe"):
+              "cli.pretrain_mae", "cli.finetune_mae", "cli.linear_probe",
+              "models.upernet", "models.heads", "train.metrics",
+              "data.segmentation", "cli.train_segmentation",
+              "cli.extract_features"):
         assert f"fastvim_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
