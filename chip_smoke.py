@@ -144,6 +144,22 @@ Phases, each of which raises on failure (exit code non-zero):
    idle share over the resumed run's training and its peak memory; and
    ``extract_features --with_fpn``: four (1, 32, 32, 192) maps and the
    pyramid.
+11. detection: ``vitdet_FastVimT_coco``'s cascade Mask R-CNN as
+   ``train_detection`` builds it (``fastvim_tiny`` at full width and
+   depth, unfused as the config pins it, 1024 px: a 64 × 64 grid, scans
+   of L = 64; SimpleFPN 256, 80 classes), fp32, seed 0, B = 1, card
+   against CPU in training mode: the backbone's map, the FPN maps and the
+   RPN's outputs within 1e-3, then, with the card's proposals, samples,
+   head ReLU masks and FPN max-pool argmax replayed on the CPU
+   (``DetBranch``), the 11 losses and every gradient within 1e-4 of each
+   tensor's largest entry (48 K1, 48 K2); the same step with the backbone
+   built ``layer_fused="on"`` against it (24 K3, 24 K4, 48 K1, 24 K5, 24
+   K6, 48 K2); the exact and the fast NMS over the RPN's 4768 eval boxes,
+   timed. Then ``train_detection`` as shipped (B = 8) on 16 synthetic
+   images for one epoch, ``--resume`` to two under the profiler and
+   ``--eval_only`` on 8 images (48 K1 + 48 K2 a step, 48 K1 an eval
+   image): img/s, step time, the idle share, the peak memory, the loader
+   alone and the top kernels.
 
 After a line with the card's name and power limit, the line before the
 last is a JSON object with one entry per kernel (``ms`` a call's time by
@@ -2410,6 +2426,348 @@ def run_seg_cli_path(dev, card):
     return total
 
 
+DET_CONFIG = "vitdet_FastVimT_coco"
+DET_FWD = {"selective_scan_fwd": 48}
+DET_BWD = {"selective_scan_bwd": 48}
+DET_FUSED_FWD = {"pass_a_fwd": 24, "pass_b_fwd": 24, "selective_scan_fwd": 48}
+DET_FUSED_BWD = {"pass_b_bwd": 24, "pass_a_bwd": 24, "selective_scan_bwd": 48}
+
+
+class DetBranch:
+    """The detector's discrete choices, recorded while the card runs and
+    replayed where ``replay`` is set: each sampler's selection
+    (``random_sample``, whose draws are the same on both sides, but whose
+    inputs differ by rounding from the second stage on), the mask of
+    every ReLU of the heads (``torch.relu``, which only the RPN, the bbox
+    and the mask heads call) and the argmax of SimpleFPN's 2 × 2 max pool
+    (``F.max_pool2d``), so that both sides' gradients are those of one
+    branch. A replay counts the ReLU elements, the pooled windows and the
+    samples whose own choice differs from the recorded one."""
+
+    def __init__(self):
+        self.masks, self.samples, self.argmax = [], [], []
+        self.replay = False
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+
+        from fastvim_tpu_torch.models import detection
+
+        self.relu_fn, self.sample_fn = torch.relu, detection.random_sample
+        self.pool_fn = F.max_pool2d
+        self.pos_r = self.pos_s = self.pos_p = self.flips = self.elements = 0
+        self.sample_diffs = self.pool_flips = self.windows = 0
+        torch.relu, detection.random_sample = self.relu, self.sample
+        F.max_pool2d = self.max_pool
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        import torch.nn.functional as F
+
+        from fastvim_tpu_torch.models import detection
+
+        torch.relu, detection.random_sample = self.relu_fn, self.sample_fn
+        F.max_pool2d = self.pool_fn
+        return False
+
+    def max_pool(self, x, kernel_size):
+        out, own = self.pool_fn(x, kernel_size, return_indices=True)
+        if not self.replay:
+            self.argmax.append(own.cpu())
+            return out
+        kept = self.argmax[self.pos_p].to(x.device)
+        self.pos_p += 1
+        self.pool_flips += int((own != kept).sum())
+        self.windows += own.numel()
+        return x.flatten(2).gather(2, kept.flatten(2)).view_as(out)
+
+    def relu(self, y):
+        import torch
+
+        own = y.detach() > 0
+        if not self.replay:
+            self.masks.append(own.cpu())
+            return self.relu_fn(y)
+        kept = self.masks[self.pos_r].to(y.device)
+        self.pos_r += 1
+        self.flips += int((own != kept).sum())
+        self.elements += own.numel()
+        return torch.where(kept, y, torch.zeros_like(y))
+
+    def sample(self, generator, assigned, num, pos_fraction):
+        import torch
+
+        own = self.sample_fn(generator, assigned, num, pos_fraction)
+        if not self.replay:
+            self.samples.append(tuple(t.cpu() for t in own))
+            return own
+        kept = self.samples[self.pos_s]
+        self.pos_s += 1
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(own, kept)):
+            self.sample_diffs += 1
+        return tuple(t.to(assigned.device) for t in kept)
+
+
+def det_step(model, batch, branch, props=None):
+    """One detection train step's forward and backward, without an update,
+    through the detector's methods: the backbone's map, the FPN maps, the
+    RPN's outputs, the 11 losses (from ``props``, the proposals and their
+    validity, when given, else the RPN's own) and every gradient; the
+    samplers draw from a CPU generator seeded 0. Returns (outputs, losses,
+    grads, the gradient at the backbone's map, proposals, forward
+    launches, backward launches)."""
+    import torch
+
+    from fastvim_tpu_torch.models.detection import LOSS_NAMES
+    from fastvim_tpu_torch.ops import kernels
+
+    d = next(model.parameters()).device
+    b = {k: v.to(d) for k, v in batch.items()}
+    gt = dict(gt_boxes=b["boxes"], gt_labels=b["labels"],
+              gt_masks=b["masks"], gt_valid=b["gt_valid"])
+    model.train()
+    gen = torch.Generator().manual_seed(0)
+    seen = {}
+
+    def keep(module, inputs, out):
+        seen["map"] = out[-1].detach()
+        out[-1].register_hook(lambda g: seen.update(grad=g.detach().cpu()))
+
+    hook = model.backbone.register_forward_hook(keep)
+    kernels.reset_launch_counts()
+    with branch:
+        feats = model.features(b["image"])
+        logits, deltas = model.rpn(feats)
+        losses, own, pvalid = model.rpn_losses(
+            feats, logits, deltas, gt["gt_boxes"], gt["gt_valid"], gen)
+        if props is None:
+            props = (own.cpu(), pvalid.cpu())
+        losses.update(model.cascade_losses(
+            feats, props[0].to(d), props[1].to(d), **gt, generator=gen))
+        fwd = kernels.launch_counts()
+        total = losses[LOSS_NAMES[0]]
+        for k in LOSS_NAMES[1:]:
+            total = total + losses[k]
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(total, list(params.values()))
+    hook.remove()
+    bwd = {k: v - fwd[k] for k, v in kernels.launch_counts().items()}
+    outputs = {"backbone_map": seen["map"].cpu(),
+               **{f"fpn_{i}": f.detach().cpu() for i, f in enumerate(feats)},
+               "rpn_logits": logits.detach().cpu(),
+               "rpn_deltas": deltas.detach().cpu()}
+    losses = {k: v.detach().cpu() for k, v in losses.items()}
+    losses["loss"] = total.detach().cpu()
+    return (outputs, losses, {n: g.cpu() for n, g in zip(params, grads)},
+            seen["grad"], props, fwd, bwd)
+
+
+def check_det_1024(dev, card):
+    """Phase 11, card against CPU: ``vitdet_FastVimT_coco``'s detector as
+    the CLI builds it (fastvim_tiny at full width and depth, unfused as the
+    config pins it, 1024 px, a 64 × 64 grid, SimpleFPN 256, 80 classes),
+    fp32, weights from seed 0, B = 1 (one synthetic LSJ image): in training
+    mode the backbone's map, the five FPN maps and the RPN's logits and
+    deltas within 1e-3 (phase 3's tolerance); then, with the card's RPN
+    proposals, samples and head ReLU masks replayed on the CPU
+    (``DetBranch``, which may differ from the CPU's own in at most
+    ``RELU_FLIPS`` of the elements), the 11 losses and every gradient
+    within 1e-4 of each tensor's largest entry; 48 K1 in the forward and
+    48 K2 in the backward. Then the same step with the backbone built
+    ``layer_fused="on"`` (the config's pin lifted for this step only): 24
+    K3, 24 K4 and 48 K1, then 24 K5, 24 K6 and 48 K2, its losses and
+    gradients against the unfused step's on the same replay. Times the
+    exact and the fast NMS at the RPN's eval shape. Returns the card's
+    launches."""
+    import torch
+
+    from fastvim_tpu_torch.cli.train_detection import build_model
+    from fastvim_tpu_torch.config import load_config
+    from fastvim_tpu_torch.data import create_detection_loader
+    from fastvim_tpu_torch.ops import boxes
+
+    cfg = load_config(DET_CONFIG, "detection")
+    cpu_model, depth = build_model(cfg, torch.device("cpu"))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    loader = create_detection_loader(
+        None, "train", 1, cfg["img_size"], training=True,
+        max_gt=cfg.get("max_gt", 32), num_workers=1, synthetic_samples=1,
+        num_classes=cfg.get("num_classes", 80))
+    batch = {k: torch.as_tensor(v) for k, v in next(iter(loader)).items()}
+    branch = DetBranch()
+    got, got_l, got_g, got_m, props, fwd, bwd = det_step(gpu_model, batch,
+                                                         branch)
+    expect_launches("detector 1024px train forward", fwd, DET_FWD)
+    expect_launches("detector 1024px train backward", bwd, DET_BWD)
+    total = {k: fwd[k] + bwd[k] for k in fwd}
+    t0 = time.perf_counter()
+    branch.replay = True
+    want, want_l, want_g, want_m, *_ = det_step(cpu_model, batch, branch,
+                                                props)
+    cpu_s = time.perf_counter() - t0
+    log(f"[check] detector 1024px B=1: the CPU's own ReLU keeps another "
+        f"element than the card's in {branch.flips} of {branch.elements}, "
+        f"its own FPN max pool another token in {branch.pool_flips} of "
+        f"{branch.windows} windows, its own samples differ in "
+        f"{branch.sample_diffs} of {len(branch.samples)} draws (CPU step "
+        f"{cpu_s:.1f} s)")
+    if branch.flips > RELU_FLIPS * branch.elements:
+        raise AssertionError(f"detector: the CPU's ReLU masks differ from "
+                             f"the card's in {branch.flips} of "
+                             f"{branch.elements} elements")
+    for k, w in want.items():
+        compare(f"detector fastvim_tiny 1024px B=1 fp32 {k} {tuple(w.shape)}"
+                ", card vs CPU", got[k], w, MODEL_TOL)
+    compare_grads("detector 1024px B=1 fp32 11 losses and their sum, card "
+                  "vs CPU", got_l, want_l)
+    # the heads' gradient reaching the backbone, then the parameters'
+    compare_grads("detector 1024px B=1 fp32 gradient at the backbone's map "
+                  "(1, 64, 64, 192), card vs CPU", {"map": got_m},
+                  {"map": want_m})
+    compare_grads("detector 1024px B=1 fp32 gradients, card vs CPU", got_g,
+                  want_g)
+    del cpu_model, want, want_g
+
+    # ROADMAP fault 2, the card half: the fused adjoint in this program
+    fused, _ = build_model(dict(cfg, layer_fused="on"), torch.device("cpu"))
+    fused.load_state_dict(gpu_model.state_dict())
+    fused = fused.to(dev)
+    del gpu_model
+    _, f_l, f_g, _, _, ffwd, fbwd = det_step(fused, batch, branch, props)
+    expect_launches("detector 1024px layer_fused=on forward", ffwd,
+                    DET_FUSED_FWD)
+    expect_launches("detector 1024px layer_fused=on backward", fbwd,
+                    DET_FUSED_BWD)
+    total = {k: total[k] + ffwd[k] + fbwd[k] for k in total}
+    log(f"[check] detector layer_fused=on: its own ReLU keeps another "
+        f"element than the unfused step's in {branch.flips} of "
+        f"{branch.elements}, its max pool another token in "
+        f"{branch.pool_flips} of {branch.windows} windows")
+    if branch.flips > RELU_FLIPS * branch.elements:
+        raise AssertionError("detector layer_fused=on: the ReLU masks differ"
+                             " from the unfused step's")
+    compare_grads("detector 1024px layer_fused=on, losses against "
+                  "layer_fused=off (card)", f_l, got_l)
+    compare_grads("detector 1024px layer_fused=on, gradients against "
+                  "layer_fused=off (card)", f_g, got_g)
+    del fused
+    torch.cuda.empty_cache()
+
+    # the RPN's eval NMS (exact; a device sync a round) and the training
+    # one (fast), over nms_pre per level of 1024 px: 4 × 1000 + 768 boxes
+    g = torch.Generator(device=dev).manual_seed(11)
+    bx = torch.rand(4768, 4, generator=g, device=dev) * 900
+    bx[:, 2:] += bx[:, :2] + 10
+    sc = torch.rand(4768, generator=g, device=dev)
+    with torch.no_grad():
+        exact_ms = cuda_ms(lambda: boxes.nms(bx, sc, 0.7, 512), 10)
+        fast_ms = cuda_ms(lambda: boxes.fast_nms(bx, sc, 0.7, 512), 10)
+        i_e, v_e = boxes.nms(bx, sc, 0.7, 512)
+        i_s, v_s = boxes.nms_scan(bx, sc, 0.7, 512)
+    if not (torch.equal(v_e, v_s) and torch.equal(i_e, i_s)):
+        raise AssertionError("nms differs from nms_scan on the card")
+    log(f"[time] nms over 4768 RPN boxes at IoU 0.7, 512 kept: exact "
+        f"(fixpoint, a host sync a round) {exact_ms:.3f} ms, fast "
+        f"{fast_ms:.3f} ms a call; exact equals nms_scan ({card})")
+    return total
+
+
+def run_det_cli_path(dev, card):
+    """Phase 11, the detection CLI on the card, in-process:
+    ``train_detection --config_name vitdet_FastVimT_coco`` as shipped (B =
+    8, 1024 px, fp32, 80 classes; 16 synthetic images, 2 steps an epoch)
+    for one epoch, ``--resume`` to two under the profiler, then
+    ``--eval_only`` from the checkpoint on 8 val images (B = 1), which must
+    give box and mask AP in [0, 1]. Each step 48 K1 + 48 K2, each eval
+    image 48 K1. Prints img/s, step time, the idle share over the resumed
+    epoch's training (span ``train_epoch``), its peak memory, the host
+    loader alone and the top kernels. Returns the launch counts."""
+    import csv
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvim_tpu_torch.cli import train_detection
+    from fastvim_tpu_torch.config import load_config
+    from fastvim_tpu_torch.data import create_detection_loader
+    from fastvim_tpu_torch.ops import kernels
+
+    cfg = load_config(DET_CONFIG, "detection")
+    batch, n_train, val = cfg["batch_size"], 16, 8
+    steps = n_train // batch
+    step = {**DET_FWD, **DET_BWD}
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+
+    def run(argv, n_steps, n_eval, name):
+        nonlocal total
+        kernels.reset_launch_counts()
+        result = train_detection.main(argv)
+        torch.cuda.synchronize()
+        seen = kernels.launch_counts()
+        want = {k: n_steps * step.get(k, 0) + n_eval * DET_FWD.get(k, 0)
+                for k in seen}
+        expect_launches(f"train_detection {name}", seen, want)
+        total = {k: total[k] + v for k, v in seen.items()}
+        return result
+
+    with tempfile.TemporaryDirectory() as out:
+        common = ["--config_name", DET_CONFIG, "--model_save_dir", out,
+                  "--synthetic_samples", str(n_train), "--device", str(dev)]
+        state = run(common + ["--epochs", "1"], steps, 0, "epoch 1")
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state = run(common + ["--epochs", "2", "--resume"], steps, 0,
+                        "--resume, epoch 2")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if state.step != 2 * steps:
+            raise AssertionError(f"train_detection: step {state.step}")
+        del state
+        idle, busy_ms, wall_ms = device_idle_share(prof)
+        log(f"[cli] train_detection device ms by kernel over the resumed "
+            f"epoch ({steps} steps): {top_kernels(prof, 12)}")
+        del prof
+        torch.cuda.empty_cache()
+        aps = run(common + ["--eval_only"], 0, val, "--eval_only")
+        with open(os.path.join(out, "log.csv")) as f:
+            rows = list(csv.DictReader(f))
+    if [r["epoch"] for r in rows] != ["0", "1"]:
+        raise AssertionError(f"train_detection log rows {rows}")
+    for r in rows:
+        if not all(math.isfinite(float(v)) for k, v in r.items()
+                   if k != "epoch"):
+            raise AssertionError(f"train_detection log row: {r}")
+    if set(aps) != {"box_ap50", "mask_ap50"} or not all(
+            0.0 <= v <= 1.0 for v in aps.values()):
+        raise AssertionError(f"train_detection --eval_only: {aps}")
+    log(f"[cli] train_detection log.csv: {rows}; --eval_only {aps}")
+    loader = create_detection_loader(
+        None, "train", batch, cfg["img_size"], training=True,
+        max_gt=cfg.get("max_gt", 32), num_workers=cfg.get("num_workers", 4),
+        synthetic_samples=n_train, num_classes=cfg.get("num_classes", 80))
+    t0 = time.perf_counter()
+    n = sum(b["image"].shape[0] for b in loader)
+    loader_img_s = n / (time.perf_counter() - t0)
+    sps = [float(r["steps_per_sec"]) for r in rows]
+    share = ("not measured (no device event)" if idle is None
+             else f"{idle:.4f}")
+    log(f"[time] CLI train_detection {DET_CONFIG}.yaml B={batch} fp32 "
+        f"1024px, 80 classes: epoch 1 {sps[0] * batch:.2f} img/s "
+        f"({1e3 / sps[0]:.1f} ms a step), epoch 2 resumed under the profiler "
+        f"{sps[1] * batch:.2f} img/s ({1e3 / sps[1]:.1f} ms a step); device "
+        f"idle share over epoch 2's training {share} (busy {busy_ms:.1f} of "
+        f"{wall_ms:.1f} ms); peak memory of the resumed run {peak:.2f} GiB; "
+        f"the host loader alone ({cfg.get('num_workers', 4)} threads) "
+        f"{loader_img_s:.2f} img/s; a step launches {step} ({card})")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2482,6 +2840,11 @@ def main() -> int:
         for name, count in counts.items():
             launches[name] += count
     log(f"[time] phase 10 (segmentation) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for counts in (check_det_1024(dev, card), run_det_cli_path(dev, card)):
+        for name, count in counts.items():
+            launches[name] += count
+    log(f"[time] phase 11 (detection) {time.perf_counter() - t0:.1f} s")
 
     # each kernel's files: the main path's (bf16) kernel, then the fp32
     # route, the C entry points and the headers they include (K1 and K2:

@@ -4,6 +4,12 @@ from fastvim_tpu_torch.models.channel import (
     PatchEmbedPerChannel,
     hcs_sample,
 )
+from fastvim_tpu_torch.models.detection import (
+    CascadeMaskRCNN,
+    FCNMaskHead,
+    RPNHead,
+    Shared2FCBBoxHead,
+)
 from fastvim_tpu_torch.models.heads import ChannelLayerNorm, SimpleFPN
 from fastvim_tpu_torch.models.mae import MaskedAutoencoderVim
 from fastvim_tpu_torch.models.mixer import MambaMixer
@@ -19,14 +25,18 @@ from fastvim_tpu_torch.models.vision_mamba import VisionMamba
 
 __all__ = [
     "Block",
+    "CascadeMaskRCNN",
     "ChannelLayerNorm",
     "ChannelVisionMamba",
     "FCNHead",
+    "FCNMaskHead",
     "MambaMixer",
     "MaskedAutoencoderVim",
     "PSPModule",
     "PatchEmbed",
     "PatchEmbedPerChannel",
+    "RPNHead",
+    "Shared2FCBBoxHead",
     "SimpleFPN",
     "UPerHead",
     "UperNetSegmentor",

@@ -8,8 +8,12 @@ from fastvim_tpu_torch.train.mixup import (
     soft_target_cross_entropy,
 )
 from fastvim_tpu_torch.train.metrics import (
+    box_average_precision,
+    coco_map,
     confusion_matrix,
+    mask_average_precision,
     miou_from_confusion,
+    paste_mask,
 )
 from fastvim_tpu_torch.train.optim import (
     ema_update,
@@ -17,6 +21,7 @@ from fastvim_tpu_torch.train.optim import (
     make_lars,
     make_optimizer,
     make_sgd,
+    vitdet_layer_decay_scales,
     wd_mask,
 )
 from fastvim_tpu_torch.train.schedules import (
@@ -37,6 +42,8 @@ __all__ = [
     "TrainState",
     "accuracy",
     "apply_mixup_cutmix",
+    "box_average_precision",
+    "coco_map",
     "confusion_matrix",
     "constant",
     "cosine_with_warmup",
@@ -50,12 +57,15 @@ __all__ = [
     "make_sgd",
     "make_supervised_eval_step",
     "make_supervised_train_step",
+    "mask_average_precision",
     "miou_from_confusion",
     "mixup_cutmix",
     "one_hot_smooth",
+    "paste_mask",
     "sample_mixup_draws",
     "scale_lr",
     "soft_target_cross_entropy",
+    "vitdet_layer_decay_scales",
     "warmup_multistep",
     "wd_mask",
 ]

@@ -1,5 +1,5 @@
-"""AdamW with decay / no-decay groups, alternate-layer LR decay, gradient
-clipping, accumulation and scheduled LR / WD; SGD with momentum and LARS
+"""AdamW with decay / no-decay groups, alternate-layer (MAE) or per-layer
+(ViTDet) LR decay, gradient clipping, accumulation and scheduled LR / WD; SGD with momentum and LARS
 for the linear probe; and the EMA update.
 
 Counterpart of ``fastvim_tpu/train/optim.py``. The optax chain there
@@ -74,6 +74,27 @@ def layer_decay_scales(params: Params, layer_decay: float,
         return layer_decay ** (n // 2 + n % 2)
 
     return {name: scale_for(layer_id_from_path(name, num_layers))
+            for name in named_params(params)}
+
+
+def vitdet_layer_decay_scales(params: Params, decay_rate: float,
+                              num_layers: int) -> Dict[str, float]:
+    """Per-parameter LR scale with the ViTDet rule (every backbone layer
+    its own power): layer id 0 for the backbone's ``patch_embed``,
+    ``pos_embed`` and ``cls_token``, i + 1 for ``backbone.layers.{i}``,
+    num_layers + 1 for every other parameter (the backbone's ``outnorm_*``,
+    the neck, the RPN and the heads); scale = decay_rate^(num_layers + 1 −
+    id)."""
+    def layer_id(name: str) -> int:
+        if "backbone" not in name:
+            return num_layers + 1
+        if ("pos_embed" in name or "cls_token" in name
+                or "patch_embed" in name):
+            return 0
+        m = re.search(r"layers\.(\d+)\.", name)
+        return int(m.group(1)) + 1 if m else num_layers + 1
+
+    return {name: decay_rate ** (num_layers + 1 - layer_id(name))
             for name in named_params(params)}
 
 
@@ -273,15 +294,24 @@ def make_optimizer(lr_schedule: Callable[[float], float],
                    depth: Optional[int] = None,
                    grad_clip: Optional[float] = None,
                    wd_schedule: Optional[Callable[[float], float]] = None,
-                   accum_steps: int = 1) -> ScheduledAdamW:
+                   accum_steps: int = 1,
+                   layer_scales: Optional[Mapping[str, float]] = None
+                   ) -> ScheduledAdamW:
     """AdamW with the reference's grouping rules over ``params`` (a model
     or a name → parameter mapping; required). ``wd_schedule`` overrides
-    the constant ``weight_decay``; ``layer_decay`` needs ``depth``."""
+    the constant ``weight_decay``. The LR scale of each parameter follows
+    one of two rules: ``layer_scales``, a scale for every parameter
+    name, built beforehand (the ViTDet rule,
+    :func:`vitdet_layer_decay_scales`), or else ``layer_decay`` with
+    ``depth``, the MAE alternate-layer rule (:func:`layer_decay_scales`);
+    ``layer_scales`` takes precedence, as in the JAX package."""
     if params is None:
         raise ValueError("make_optimizer needs params (a model or a "
                          "name → parameter mapping)")
     scales = None
-    if layer_decay is not None:
+    if layer_scales is not None:
+        scales = dict(layer_scales)
+    elif layer_decay is not None:
         if depth is None:
             raise ValueError("layer_decay needs depth")
         scales = layer_decay_scales(params, layer_decay, depth)

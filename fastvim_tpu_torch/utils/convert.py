@@ -2,8 +2,8 @@
 package and the port.
 
 ``from_jax_params`` turns a flax ``VisionMamba``, ``MaskedAutoencoderVim``,
-``ChannelVisionMamba``, ``UperNetSegmentor`` or ``SimpleFPN`` variable
-tree (nested mappings of array-likes, with or without the top-level
+``ChannelVisionMamba``, ``UperNetSegmentor``, ``SimpleFPN`` or
+``CascadeMaskRCNN`` variable tree (nested mappings of array-likes, with or without the top-level
 ``"params"``; a segmentor's ``"batch_stats"`` become its BatchNorms'
 running statistics) into the port's ``state_dict`` as numpy arrays,
 under the torch reference's names (the port's own for the heads), and
@@ -52,7 +52,18 @@ SimpleFPN's {fpn1_deconv1,      the same names, .weight (in, out, kh,
   kernel (kh,kw,in,out)         spatial axes (flax does not flip)
 lateral_{i}, fpn_conv_{i}       .weight (O,I,kh,kw)
 ..._norm_{i}/weight, bias       ..._norm_{i}.weight, .bias
+neck/...                        neck.... (as SimpleFPN)
+rpn/{rpn_conv,rpn_cls,rpn_reg}  rpn.{...}.weight (O,I,kh,kw), .bias
+stages/head/{fc1,fc2,cls,reg}/  stages.{s}.head.{...}.weight (out, in)
+  kernel (3, in, out), bias       = kernel[s].T, .bias = bias[s]
+  (3, out)
+mask_head/{conv0..3,logits}     mask_head.{...}.weight (O,I,kh,kw)
+mask_head/upsample/kernel       mask_head.upsample.weight (in, out,
+                                  kh, kw), flipped like the FPN's
 ==============================  =======================================
+
+``fc1`` needs no permutation: the port's RoI features are NHWC, so its
+input is flax's flatten of (7, 7, C).
 """
 
 from __future__ import annotations
@@ -99,6 +110,14 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     load with ``{k: torch.from_numpy(v.copy()) for k, v in ...}``."""
     p = params.get("params", params)
     stats = params.get("batch_stats", {}) if "params" in params else {}
+    if any(k in p for k in _DETECTOR):
+        sd = _detector_from_jax(p)
+        dropped = (set(_leaf_paths(p))
+                   - set(_leaf_paths(to_jax_params(sd)["params"])))
+        if dropped:
+            raise ValueError(f"from_jax_params: no port name for "
+                             f"{sorted(dropped)}")
+        return sd
     segmentor = any(k in p for k in _SEGMENTOR)
     if segmentor or "fpn1_deconv1" in p:
         sd = _segmentor_from_jax(p, stats) if segmentor else _fpn_from_jax(p)
@@ -312,6 +331,76 @@ def _fpn_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     return {"params": tree}
 
 
+_DETECTOR = ("rpn", "stages", "mask_head")  # its "neck" is a SimpleFPN tree
+_RPN = ("rpn_conv", "rpn_cls", "rpn_reg")
+_BBOX_HEAD = ("fc1", "fc2", "cls", "reg")
+
+
+def _mask_convs(m: Mapping[str, Any]):
+    return [f"conv{i}" for i in range(_count(m, "conv"))] + ["logits"]
+
+
+def _detector_from_jax(p: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A ``CascadeMaskRCNN`` tree: the stacked (3, …) stage heads split
+    into ``stages.{s}.head``."""
+    sd = {}
+    if "backbone" in p:
+        sd.update({f"backbone.{k}": v
+                   for k, v in _trunk_from_jax(p["backbone"]).items()})
+    if "neck" in p:
+        sd.update({f"neck.{k}": v for k, v in _fpn_from_jax(p["neck"]).items()})
+    convs = [(f"rpn.{n}", p.get("rpn", {}).get(n)) for n in _RPN]
+    mh = p.get("mask_head", {})
+    convs += [(f"mask_head.{n}", mh.get(n)) for n in _mask_convs(mh)]
+    for pre, m in convs:
+        if m is not None:
+            sd[f"{pre}.weight"] = _conv_to_torch(m["kernel"])
+            sd[f"{pre}.bias"] = _np(m["bias"])
+    if "upsample" in mh:
+        sd["mask_head.upsample.weight"] = _np(
+            mh["upsample"]["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)
+        sd["mask_head.upsample.bias"] = _np(mh["upsample"]["bias"])
+    head = p.get("stages", {}).get("head", {})
+    for name, m in head.items():
+        kernel, bias = _np(m["kernel"]), _np(m["bias"])
+        for s in range(kernel.shape[0]):
+            sd[f"stages.{s}.head.{name}.weight"] = kernel[s].T
+            sd[f"stages.{s}.head.{name}.bias"] = bias[s]
+    return sd
+
+
+def _detector_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    params: Dict[str, Any] = {}
+    for sub in ("backbone", "neck"):
+        part = {k[len(sub) + 1:]: v for k, v in state_dict.items()
+                if k.startswith(sub + ".")}
+        if part:
+            params[sub] = to_jax_params(part)["params"]
+    heads: Dict[str, Dict[str, list]] = {}
+    for key, v in state_dict.items():
+        parts = key.split(".")
+        v = _np(v)
+        if parts[0] in ("rpn", "mask_head"):
+            name, leaf = parts[1], parts[2]
+            if leaf == "weight" and name == "upsample":
+                v = v.transpose(2, 3, 0, 1)[::-1, ::-1]
+            elif leaf == "weight":
+                v = _conv_to_jax(v)
+            _set(params, f"{parts[0]}/{name}/"
+                 + ("kernel" if leaf == "weight" else "bias"), v)
+        elif parts[0] == "stages":
+            s, name, leaf = int(parts[1]), parts[3], parts[4]
+            slots = heads.setdefault(name, {}).setdefault(leaf, [])
+            slots.extend([None] * (s + 1 - len(slots)))
+            slots[s] = v.T if leaf == "weight" else v
+    for name, leaves in heads.items():
+        for leaf, per_stage in leaves.items():
+            _set(params, f"stages/head/{name}/"
+                 + ("kernel" if leaf == "weight" else "bias"),
+                 np.stack(per_stage))
+    return {"params": params}
+
+
 def _leaf_paths(tree: Mapping[str, Any], prefix: str = ""):
     """The "a/b/c" paths of a nested mapping's leaves."""
     for k, v in tree.items():
@@ -333,6 +422,8 @@ def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     ``.numpy()`` first) → the flax tree ``{"params": {...}}``: the inverse
     of :func:`from_jax_params`, with ``"batch_stats"`` beside
     ``"params"`` where a segmentor has BatchNorms."""
+    if any(k.split(".")[0] in _DETECTOR for k in state_dict):
+        return _detector_to_jax(state_dict)
     if any(k.split(".")[0] in _SEGMENTOR for k in state_dict):
         return _segmentor_to_jax(state_dict)
     if "fpn1_deconv1.weight" in state_dict:

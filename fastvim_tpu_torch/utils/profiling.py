@@ -26,7 +26,10 @@ compiled in and prints where a block of K5 and of K6 spends its cycles.
 of K2, and the lanes scan, in turns on the same inputs at L = 128 to
 16,384 (bf16, B = 2, d_inner 384, n 16, both directions; lanes forward
 only), and names the form each launcher picks at each length: what sets
-``selective_scan.CHUNKED_MIN_L``.
+``selective_scan.CHUNKED_MIN_L``. ``--det vitdet_FastVimT_coco`` profiles
+a train step of that detection config's detector as ``train_detection``
+builds it (fp32, the config's batch unless ``--batch``), on synthetic
+loader batches already on the card, after the time of each of its phases.
 
 It needs a CUDA device; nothing here falls back to the CPU.
 """
@@ -480,6 +483,73 @@ def bwd_phase_cycles(dm: int, di: int, grid: int, batch: int) -> None:
                       f"{what}")
 
 
+def det_step(config: str, batch: int) -> Tuple[Callable[[], object], str]:
+    """A train-step callable of the detection config's detector, as
+    ``train_detection`` builds it and its optimizer, alternating over two
+    synthetic loader batches moved to the card beforehand; before
+    returning, print one step's phases (features, RPN, RPN losses and
+    proposals, the three stages, the backward), each timed alone."""
+    from fastvim_tpu_torch.cli.train_detection import (
+        build_model,
+        make_det_train_step,
+    )
+    from fastvim_tpu_torch.config import load_config
+    from fastvim_tpu_torch.data import create_detection_loader
+    from fastvim_tpu_torch.train import (
+        TrainState,
+        make_optimizer,
+        vitdet_layer_decay_scales,
+        warmup_multistep,
+    )
+    from fastvim_tpu_torch.train.loop import to_device
+
+    dev = torch.device("cuda", 0)
+    cfg = load_config(config, "detection")
+    model, depth = build_model(cfg, dev)
+    loader = create_detection_loader(
+        None, "train", batch, cfg["img_size"], training=True,
+        max_gt=cfg.get("max_gt", 32), synthetic_samples=2 * batch,
+        num_classes=cfg.get("num_classes", 80))
+    batches = [to_device(b, dev) for b in loader]
+    opt = cfg.get("optimizer", {})
+    state = TrainState.create(model, make_optimizer(
+        warmup_multistep(opt.get("lr", 1e-4), cfg.get("warmup_iters", 250),
+                         cfg.get("milestones", [163889, 177546])),
+        weight_decay=opt.get("weight_decay", 0.05), params=model,
+        layer_scales=vitdet_layer_decay_scales(
+            model, opt.get("layer_decay", 0.7), depth)))
+    step = make_det_train_step(model, cfg.get("seed", 0))
+    step(state, batches[1])  # warm-up
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        print(f"  {name}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        return out
+
+    b, gen = batches[0], torch.Generator().manual_seed(0)
+    model.train()
+    print(f"{config} B={batch} fp32 {cfg['img_size']}px, one step's phases:")
+    feats = timed("features (backbone, FPN)", lambda: model.features(
+        b["image"]))
+    logits, deltas = timed("RPN head", lambda: model.rpn(feats))
+    rpn, props, pvalid = timed("RPN losses and proposals", lambda: (
+        model.rpn_losses(feats, logits, deltas, b["boxes"], b["gt_valid"],
+                         gen)))
+    casc = timed("three cascade stages and the mask head", lambda: (
+        model.cascade_losses(feats, props, pvalid, b["boxes"], b["labels"],
+                             b["masks"], b["gt_valid"], gen)))
+    total = sum(rpn.values()) + sum(casc.values())
+    timed("backward", lambda: torch.autograd.grad(
+        total, list(model.parameters())))
+    del feats, logits, deltas, rpn, casc, total
+    calls = iter(range(1 << 30))
+    return (lambda: step(state, batches[next(calls) % 2]),
+            f"{config} B={batch} fp32 train step")
+
+
 def captured_forward(model, image: torch.Tensor) -> Callable[[], object]:
     """The model's forward on a static input, captured as a CUDA graph
     after three eager warm-up calls on a side stream; returns the replay,
@@ -501,7 +571,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="fastvim_tiny")
     ap.add_argument("--img", type=int, default=2048)
-    ap.add_argument("--batch", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 3; with --det the config's")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float32"))
     ap.add_argument("--train", action="store_true",
@@ -538,9 +609,19 @@ def main() -> None:
                          "and K2 at L = 128 to 16,384")
     ap.add_argument("--lengths", default="128,256,512,1024,4096,16384",
                     help="the scan lengths of --scan-times, comma-separated")
+    ap.add_argument("--det", default=None, metavar="CONFIG",
+                    help="profile a train step of this detection config")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")
+    if args.det:
+        from fastvim_tpu_torch.config import load_config
+
+        fn, what = det_step(args.det, args.batch or load_config(
+            args.det, "detection")["batch_size"])
+        return print_profile(fn, what, args.top)
+    if args.batch is None:
+        args.batch = 3
     if args.scan_times:
         return scan_times(tuple(int(L) for L in args.lengths.split(",")))
     if args.mg_times:
@@ -600,17 +681,22 @@ def main() -> None:
             with torch.inference_mode():
                 return model(batch["image"])
 
-    rows, busy_ms, wall_ms = device_time_by_kernel(fn)
-    card = card_line()
     what = ("train step" if args.train
             else "forward, CUDA-graph replay" if args.graph else "forward")
-    print(f"{args.model} {fields} {args.img}px B={args.batch} {args.dtype} "
-          f"{what} "
-          f"({card}): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-          f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, "
+    print_profile(fn, f"{args.model} {fields} {args.img}px B={args.batch} "
+                  f"{args.dtype} {what}", args.top)
+
+
+def print_profile(fn: Callable[[], object], what: str, top: int) -> None:
+    """``device_time_by_kernel(fn)`` as a table: wall and busy ms a call,
+    the idle share, and the ``top`` kernel groups."""
+    rows, busy_ms, wall_ms = device_time_by_kernel(fn)
+    print(f"{what} ({card_line()}): wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, "
           f"{sum(r[2] for r in rows)} kernels and copies launched")
     print(f"{'ms/step':>10} {'share':>7} {'launches':>9}  kernel")
-    for name, (ms, count) in list(group_rows(rows).items())[:args.top]:
+    for name, (ms, count) in list(group_rows(rows).items())[:top]:
         print(f"{ms:10.3f} {ms / busy_ms:7.1%} {count:9d}  {name[:90]}")
 
 

@@ -409,6 +409,8 @@ def test_fwd_kernels_bitwise_reproducible(dev, dtype, transposed):
     ((65, 3), True, 2, 128, 192, False, False),
     ((1, 40), False, 2, 64, 128, True, True),    # a 1 x N and an N x 1 grid
     ((40, 1), True, 2, 64, 128, True, True),
+    ((64, 64), False, 2, 192, 384, False, True),  # the detection backbone's
+    ((64, 64), True, 2, 192, 384, False, True),   # grid (FastVim-T, 1024 px)
 ])
 def test_pass_b_bwd_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
                                   bias, use_ln):
@@ -445,6 +447,8 @@ def test_pass_b_bwd_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
     ((4, 65), False, 2, 128, 192, True),   # an M tile + 1 tokens a line
     ((65, 4), True, 2, 128, 192, False),
     ((14, 14), True, 3, 192, 384, True),   # windows that straddle images' ends
+    ((64, 64), False, 2, 192, 384, False),  # the detection backbone's grid
+    ((64, 64), True, 2, 192, 384, False),   # (FastVim-T, 1024 px)
 ])
 def test_pass_a_bwd_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
                                   bias):

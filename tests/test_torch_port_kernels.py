@@ -278,7 +278,8 @@ def test_port_imports_no_jax():
               "cli.pretrain_mae", "cli.finetune_mae", "cli.linear_probe",
               "models.upernet", "models.heads", "train.metrics",
               "data.segmentation", "cli.train_segmentation",
-              "cli.extract_features"):
+              "cli.extract_features", "ops.boxes", "models.detection",
+              "data.detection", "cli.train_detection"):
         assert f"fastvim_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
