@@ -13,7 +13,11 @@ Phases, each of which raises on failure (exit code non-zero):
    the lanes scan) against its plain PyTorch version on the card, at the
    main path's shapes, in fp32 and bf16, and time both; K3-K6 also at
    FastVim-S's widths (d_model 384, d_inner 768, grid 128 × 128, batch 2,
-   both orientations), each timed beside its bound and with the number of
+   both orientations), K3 and K4 also at FastVim-B's (768 / 1536: grid
+   128 × 128, batch 2, and 14 × 14, batch 8), -L's (1024 / 2048, 14 × 14)
+   and -H's (1280 / 2560, 32 × 32), both orientations, where K3 streams x̂
+   through its ring and K4 splits d_model into groups of 384 columns,
+   each timed beside its bound and with the number of
    device kernels one call launches (counted by a child process from a
    CUDA graph of one call); K1 in both of its forms, sequential (L = 128)
    and chunked (Vim-T's L = 16,384 and 16,385, also held against its own
@@ -37,18 +41,21 @@ Phases, each of which raises on failure (exit code non-zero):
    ``embed_dim=96`` at depth 2, whose layers fuse forward (2 K3 and 2 K4
    launches) and take the remat backward (no K5 or K6 launch); the same
    for the logits of the four configurations of ``fastvim_tiny`` that
-   reach K7-K10, for ``fastvim_base`` (depth 2), which is too wide for
-   the fused layer and must run unfused, and for ``fastvim_small`` (depth
-   2) with ``layer_fused="recompute"``, which must fuse (2 K3, 2 K7),
-   and for ``fastvim_tiny`` at d_inner 4096 (depth 2) with
-   ``fused_merge``, the widest K10 takes (2 K10);
-4. run both models forward at 2048 px, batch 2, bf16. Logits must be
-   finite, and the kernels' launch counters must show 24 pass A + 24
-   pass B + 48 scans for FastVim-T and 48 scans for Vim-T per forward.
-   Then time forwards with CUDA events (median of 5 windows) and print
-   img/s, FastVim-T's also as a CUDA-graph replay (static input, captured
-   after warm-up), where its forward is the device's time and not the
-   host's;
+   reach K7-K10, for ``fastvim_small`` (depth 2) with
+   ``layer_fused="recompute"``, which must fuse (2 K3, 2 K7), and for
+   ``fastvim_tiny`` at d_inner 4096 (depth 2) with ``fused_merge``, the
+   widest K10 takes (2 K10); then ``fastvim_base`` and ``fastvim_large``
+   at 224 px and ``fastvim_huge`` at 448 px (patch 14, a 32 × 32 grid),
+   depth 2, which must fuse with their default fields (2 K3, 2 K4, 4 K1
+   a forward): their logits, and their loss and every gradient through
+   the remat backward, with no K5 or K6 launch;
+4. run FastVim-T, Vim-T and FastVim-B (full depth) forward at 2048 px,
+   batch 2, bf16. Logits must be finite, and the kernels' launch
+   counters must show 24 pass A + 24 pass B + 48 scans for FastVim-T and
+   FastVim-B and 48 scans for Vim-T per forward. Then time forwards with
+   CUDA events (median of 5 windows) and print img/s, FastVim-T's and
+   FastVim-B's also as a CUDA-graph replay (static input, captured after
+   warm-up), where the forward is the device's time and not the host's;
 5. train: ``fastvim_tiny`` at 2048 px, batch 3, bf16, built on the card by
    ``create_model`` → ``make_optimizer`` (AdamW, cosine schedule with
    warmup, weight decay 0.05) → ``TrainState`` →
@@ -85,7 +92,12 @@ Phases, each of which raises on failure (exit code non-zero):
    ``test_classification --ema`` on ``ckpt/step_8`` must give the last
    row's ``val_loss_ema`` within 1e-5 relative. It prints the CLI's
    img/s and step time of both epochs, and the device's idle share over
-   the resumed epoch's training (a torch.profiler trace of it);
+   the resumed epoch's training (a torch.profiler trace of it). Then
+   ``test_classification --config_name FastVimB`` (``fastvim_base`` at
+   full width and depth, 224 px, batch 128, fp32) on a checkpoint saved
+   from the CLI's seeded model, over 256 synthetic images: 24 K3 + 24 K4
+   + 48 K1 a batch, and a test_loss within 1e-4 relative of the same
+   checkpoint's with ``layer_fused=off``, with its img/s;
 8. MAE: ``mae_FastVim_base_dec512d2b`` (full width, encoder depth 4) and
    ``mae_vim_base_dec512d2b`` (depth 2, its middle cls token) in fp32 at
    224 px, B = 8, from one seed and one mask draw, card against CPU: the
@@ -98,11 +110,13 @@ Phases, each of which raises on failure (exit code non-zero):
    the log's two rows, step 8, img/s, step time and the device's idle
    share over the resumed epoch); ``finetune_mae --config_name
    finetune_FastVimB`` from its newest checkpoint for one epoch
-   (``fastvim_base``: the printed counts show the sin-cos ``pos_embed``
-   and the kept-init head; 48 K1 + 48 K2 a step and 48 K1 an eval batch);
-   ``linear_probe --config_name linear_FastVimL model=fastvim_base
-   batch_size=128`` from the same checkpoint (48 K1 a step and an eval
-   batch; the frozen backbone bitwise as loaded, the BatchNorm statistics
+   (``fastvim_base``, every layer fused: the printed counts show the
+   sin-cos ``pos_embed`` and the kept-init head; a step 24 K3 + 24 K4 +
+   96 K1 + 48 K2, the fused forward and the remat backward, an eval batch
+   24 K3 + 24 K4 + 48 K1; img/s and peak memory); ``linear_probe
+   --config_name linear_FastVimL model=fastvim_base batch_size=128`` from
+   the same checkpoint (24 K3 + 24 K4 + 48 K1 a step and an eval batch,
+   the frozen backbone fused; bitwise as loaded, the BatchNorm statistics
    moved);
 9. ChannelVim (FastChannelVim), whose 3-D token grids never fuse: every
    layer runs the unfused mixer with its scans on K1 and K2. K1 and K2
@@ -165,11 +179,13 @@ After a line with the card's name and power limit, the line before the
 last is a JSON object with one entry per kernel (``ms`` a call's time by
 CUDA events, for K8, K9, K10 and lanes also ``device_ms``, the device
 time a call from CUDA-graph replays; ``bound_ms`` is the larger of bytes
-/ 3.35 TB/s
-and operations / the H100's peak for their type, for the inputs of the
-timed call); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-without the rest of the repository beside it, the script exits non-zero
-and prints no result.
+/ 3.35 TB/s and operations / the H100's peak for their type, for the
+inputs of the timed call), K3 and K4 also once for each wide width
+(``"pass_a_fwd d_model=768"``: FastVim-B at 2048 px, -L and -H at their
+phase 2 shapes; launches from phase 4's FastVim-B forward and phase 3's
+-L and -H forwards); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the rest of the repository beside it,
+the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -268,7 +284,8 @@ def cuda_ms(fn, iters: int, windows: int = 1) -> float:
 def count_launches() -> int:
     """``chip_smoke.py --count-launches``: print, as JSON, how many device
     kernels (copies included) one call of K3-K10 launches in bf16 and in
-    fp32, from a CUDA graph captured from a small call, and
+    fp32, from a CUDA graph captured from a small call (K3 and K4 also at
+    FastVim-B's widths), and
     one call of K1 and of K2 in each of their forms and one of the lanes
     scan at L = 128 and 16,384 in bf16. It runs as a process of its own (see
     :func:`launches_per_call`), so that its captures and their memory
@@ -329,6 +346,23 @@ def count_launches() -> int:
                 *xc, xz[..., di:], *a, (H, W), (1,), 1e-5, True)
         for name, fn in calls.items():
             out.setdefault(name, {})[str(dtype)] = kernels_a_call(fn)
+        # K3's streamed form and K4's wide form, at FastVim-B's widths
+        wdm, wdi = 768, 1536
+        wx = rnd(batch, H, W, wdm).to(dtype)
+        wc = (rnd(wdi, 4), rnd(wdi), rnd(wdi, 4), rnd(wdi))
+        wide = {
+            "pass_a_fwd": lambda a=(wx, rnd(wdi, wdm).to(dtype), None, *wc,
+                                    1.0, False): lf.pass_a(*a),
+            "pass_b_fwd": lambda a=(
+                wx, rnd(batch, H, W, wdi).to(dtype),
+                rnd(batch, H, W, wdi).to(dtype), rnd(batch, H, wdi).to(dtype),
+                rnd(batch, H, wdi).to(dtype), rnd(wdi, wdm).to(dtype), None,
+                rnd(wdi), rnd(wdi), rnd(wdi), rnd(wdi),
+                rnd(wdm, wdi).to(dtype), None, 1e-5, True, False):
+                lf.pass_b(*a)}
+        for name, fn in wide.items():
+            out.setdefault(f"{name} d_model={wdm}", {})[str(dtype)] = \
+                kernels_a_call(fn)
     # K1 and K2 in both forms at FastVim's and Vim-T's lengths, bf16
     from fastvim_tpu_torch.ops.kernels import selective_scan as ss
 
@@ -363,14 +397,16 @@ def launches_per_call() -> dict:
     be its three phases and the sequential form one kernel; K2's chunked
     form its three phases and three fixed-order sums, the sequential form
     one kernel and the same sums; the lanes scan a memset (its flags) and
-    one kernel; K7, K8, K9 and K10 one kernel in either dtype."""
+    one kernel; K3 and K4 (also at FastVim-B's widths, ``"pass_a_fwd
+    d_model=768"``), K7, K8, K9 and K10 one kernel in either dtype."""
     run = subprocess.run([sys.executable, __file__, "--count-launches"],
                          capture_output=True, text=True, timeout=300)
     if run.returncode != 0:
         raise RuntimeError(f"--count-launches failed: {run.stderr[-2000:]}")
     counts = json.loads(run.stdout.strip().splitlines()[-1])
-    for name in ("pass_b_recompute_fwd", "conv_pool_fwd", "merge_gate_fwd",
-                 "merge_ln_gate_fwd"):
+    for name in ("pass_a_fwd", "pass_b_fwd", "pass_a_fwd d_model=768",
+                 "pass_b_fwd d_model=768", "pass_b_recompute_fwd",
+                 "conv_pool_fwd", "merge_gate_fwd", "merge_ln_gate_fwd"):
         if set(counts[name].values()) != {1}:
             raise AssertionError(f"{name}: {counts[name]} device kernels a "
                                  "call, not 1")
@@ -386,6 +422,14 @@ def launches_per_call() -> dict:
                 raise AssertionError(f"{kernel} {form} L={L}: {got} device "
                                      f"kernels a call, not {want}")
     return counts
+
+
+# K3 / K4 at FastVim-B's, -L's and -H's widths in phase 2: (d_model,
+# d_inner, ((grid, batch), ...)), the first shape the kernels line's
+WIDE_SHAPES = ((768, 1536, (((128, 128), 2), ((14, 14), 8))),
+               (1024, 2048, (((14, 14), 8),)),
+               (1280, 2560, (((32, 32), 8),)))
+WIDE_DM = tuple(dm for dm, _, _ in WIDE_SHAPES)
 
 
 def check_kernels(dev, card, per_call):
@@ -478,9 +522,15 @@ def check_kernels(dev, card, per_call):
         f"sequential kernel")
 
     # K3 / K4 at FastVim-T's widths (the main path: 2048 px, batch 2, and
-    # 224 px) and FastVim-S's (2048 px, batch 2)
+    # 224 px), FastVim-S's (2048 px, batch 2), and FastVim-B's, -L's and
+    # -H's (K3's streamed form, K4's wide one): B at 2048 px (batch 2) and
+    # 224 px (batch 8), L at 224 px, H at 448 px with patch 14 (a 32 × 32
+    # grid). The kernels line takes FastVim-T's times under the kernel's
+    # name and each wide width's first shape under "<name> d_model=<dm>"
     for dm, di, shapes in ((192, 384, (((128, 128), 2), ((14, 14), 8))),
-                           (384, 768, (((128, 128), 2),))):
+                           (384, 768, (((128, 128), 2),)),
+                           *WIDE_SHAPES):
+        wide = dm in WIDE_DM
         w_in = uni(2 * di, dm, bound=dm ** -0.5)
         conv = [uni(di, 4, bound=0.5) for _ in range(2)]
         cbias = [uni(di, bound=0.5) for _ in range(2)]
@@ -504,20 +554,27 @@ def check_kernels(dev, card, per_call):
                            f"B={batch} {dtype} transposed={transposed}")
                     got = lf.pass_a(*a_args)
                     want = lf.pass_a_plain(*a_args)
+                    key = lambda name: f"{name} d_model={dm}" if wide \
+                        else name
                     for part, gt, wt in zip(("xc_f", "xc_b", "pf", "pb"), got,
                                             want):
                         e = compare(f"pass_a_fwd {part} {tag}", gt, wt, tol)
-                        errs["pass_a_fwd"] = max(errs["pass_a_fwd"], e)
+                        errs[key("pass_a_fwd")] = max(
+                            errs.get(key("pass_a_fwd"), 0.0), e)
                     bb = {k: v.to(dtype) for k, v in base_b.items()}
                     b_args = (x4, bb["xc_f"], bb["xc_b"], bb["yf"], bb["yb"],
                               wz, None, d_f, d_b, ln_w, ln_b, w_out.to(dtype),
                               None, 1e-5, True, transposed)
                     e = compare(f"pass_b_fwd {tag}", lf.pass_b(*b_args),
                                 lf.pass_b_plain(*b_args), tol)
-                    errs["pass_b_fwd"] = max(errs["pass_b_fwd"], e)
-                    if not (dtype == torch.bfloat16 and (H, W) == (128, 128)):
+                    errs[key("pass_b_fwd")] = max(
+                        errs.get(key("pass_b_fwd"), 0.0), e)
+                    if not (dtype == torch.bfloat16
+                            and (wide or (H, W) == (128, 128))):
                         continue
                     gemm = 2.0 * batch * H * W * dm * di  # one GEMM's FLOP
+                    # the child counted the wide forms at FastVim-B's widths
+                    per = "" if not wide else f" d_model={WIDE_DM[0]}"
                     for name, kern, plain, args, outs, flops in (
                             ("pass_a_fwd", lf.pass_a, lf.pass_a_plain, a_args,
                              got, gemm),
@@ -529,12 +586,14 @@ def check_kernels(dev, card, per_call):
                             nbytes(*(a for a in args
                                      if isinstance(a, torch.Tensor)), *outs),
                             flops, "bf16")
+                        n = per_call[name + per]["torch.bfloat16"]
                         log(f"[time] {name} bf16 {tag}: kernel {k_ms:.4f} "
-                            f"ms in {per_call[name]['torch.bfloat16']:g} "
-                            f"launches, plain {p_ms:.4f} ms, bound "
-                            f"{b_ms:.4f} ms ({by}) ({card})")
-                        # the kernels line takes the main path's widths
-                        times.setdefault(name, (k_ms, p_ms, b_ms, by))
+                            f"ms in {n:g} launches, plain {p_ms:.4f} ms, "
+                            f"bound {b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} "
+                            f"of the bound ({card})")
+                        # the kernels line takes the main path's widths,
+                        # and each wide width's first shape
+                        times.setdefault(key(name), (k_ms, p_ms, b_ms, by))
                 del got, want
             del base_x, base_b
             torch.cuda.empty_cache()
@@ -984,8 +1043,6 @@ def check_models_224(dev):
     from fastvim_tpu_torch.ops.kernels import merge_gate
 
     x = torch.randn(4, 224, 224, 3, generator=torch.Generator().manual_seed(1))
-    # fastvim_base (d_inner 1536) is wider than pass A/B take: with the
-    # default fields it must run the unfused path (scans by K1).
     # fastvim_small in the recompute form: K7 launches in fp32 at the
     # widest d_inner fusable accepts (2 K3 pools-only, 2 K7)
     # fastvim_tiny at d_inner 4096 with fused_merge: K10 at the widest d
@@ -995,7 +1052,6 @@ def check_models_224(dev):
                         **CONFIGS["fused_merge"][0])
     models = [("fastvim_tiny", {}), ("vim_tiny", {}),
               *(("fastvim_tiny", kw) for kw, _ in CONFIGS.values()),
-              ("fastvim_base", dict(depth=2)),
               ("fastvim_small", recompute_s), ("fastvim_tiny", merge_widest)]
     for name, kw in models:
         cpu_model = create_model(name, img_size=224, device="cpu",
@@ -1017,13 +1073,49 @@ def check_models_224(dev):
             if k3_k7 != (2, 2):
                 raise AssertionError(f"{name} {kw}: K3, K7 launches {k3_k7}, "
                                      f"expected (2, 2)")
+    # FastVim-B, -L and -H at depth 2 fuse with their default fields: K3's
+    # streamed form and K4's wide one, 2 K3 + 2 K4 + 4 K1 a forward
+    wide = {}
+    for name, img, dm, x_ in wide_inputs():
+        cpu_model = create_model(name, img_size=img, depth=2, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        want = cpu_model(x_)
+        kernels.reset_launch_counts()
+        got = gpu_model(x_.to(dev)).cpu()
+        seen = kernels.launch_counts()
+        compare(f"{name} depth 2 {img}px fp32 logits (fused: K3 streamed, K4 "
+                f"wide), card vs CPU", got, want, MODEL_TOL)
+        expect_launches(f"{name} depth 2 {img}px forward", seen, WIDE_FWD)
+        for k in ("pass_a_fwd", "pass_b_fwd"):
+            wide[f"{k} d_model={dm}"] = seen[k]
+    return wide
+
+
+# a forward of a depth-2 FastVim-B/L/H: both layers fused
+WIDE_FWD = {"pass_a_fwd": 2, "pass_b_fwd": 2, "selective_scan_fwd": 4}
+
+
+def wide_inputs(batch: int = 2):
+    """(model, img_size, d_model, CPU images) of phase 3's FastVim-B, -L
+    and -H: 224 px, and FastVim-H at 448 px with its patch of 14, the 32 ×
+    32 grid of finetune_FastVimH_448.yaml."""
+    import torch
+
+    gen = torch.Generator().manual_seed(6)
+    return [(name, img, dm, torch.randn(batch, img, img, 3, generator=gen))
+            for name, img, dm in (("fastvim_base", 224, 768),
+                                  ("fastvim_large", 224, 1024),
+                                  ("fastvim_huge", 448, 1280))]
 
 
 def check_grads_224(dev):
     """Phase 3, training: the loss and every parameter's gradient at
     224 px in fp32, card (kernels) vs CPU (plain versions). The d_model 96
-    model fuses forward (K3, K4) but not backward: its layers take the
-    remat backward, so no K5 or K6 launches."""
+    model and FastVim-B, -L and -H (depth 2; -H at 448 px) fuse forward
+    (K3, K4) but not backward: their layers take the remat backward, so no
+    K5 or K6 launches. Returns the launches of the wide models' forwards
+    and backwards."""
     import torch
 
     from fastvim_tpu_torch.models import create_model
@@ -1034,35 +1126,42 @@ def check_grads_224(dev):
     x = torch.randn(2, 224, 224, 3, generator=gen)
     labels = torch.randint(1000, (2,), generator=gen)
     narrow = {"embed_dim": 96, "depth": 2}
-    for name, kw in (("fastvim_tiny", {}), ("vim_tiny", {}),
-                     ("fastvim_small", {"depth": 2}),
-                     ("fastvim_tiny", narrow)):
-        cpu_model = create_model(name, img_size=224, device="cpu",
-                                 drop_path_rate=0.0,
+    cases = [(name, kw, x, "") for name, kw in (
+        ("fastvim_tiny", {}), ("vim_tiny", {}),
+        ("fastvim_small", {"depth": 2}), ("fastvim_tiny", narrow))]
+    cases += [(name, {"depth": 2, "img_size": img}, x_, " remat backward")
+              for name, img, _, x_ in wide_inputs()]
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    for name, kw, x_, what in cases:
+        cpu_model = create_model(name, device="cpu", drop_path_rate=0.0,
                                  generator=torch.Generator().manual_seed(0),
-                                 **kw)
+                                 **{"img_size": 224, **kw})
         gpu_model = copy.deepcopy(cpu_model).to(dev)
         results = []
         for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
             model.train()
             kernels.reset_launch_counts()
-            loss = cross_entropy(model(x.to(d)), labels.to(d), 0.1)
+            loss = cross_entropy(model(x_.to(d)), labels.to(d), 0.1)
             fwd = kernels.launch_counts()
             params = dict(model.named_parameters())
             grads = torch.autograd.grad(loss, list(params.values()))
             bwd = {k: v - fwd[k] for k, v in kernels.launch_counts().items()}
             results.append((loss.detach().cpu(),
                             {n: gr.cpu() for n, gr in zip(params, grads)}))
-        if kw is narrow:
+        if kw is narrow or what:
             seen = (fwd["pass_a_fwd"], fwd["pass_b_fwd"], bwd["pass_b_bwd"],
                     bwd["pass_a_bwd"])
             log(f"[check] {name} {kw}: K3, K4 launches per forward "
-                f"{seen[:2]}, K5, K6 in its backward {seen[2:]}")
+                f"{seen[:2]}, K5, K6 in its backward {seen[2:]}; all "
+                f"{ {k: v for k, v in kernels.launch_counts().items() if v} }")
             if seen != (2, 2, 0, 0):
                 raise AssertionError(f"{name} {kw}: K3, K4, K5, K6 launches "
                                      f"{seen}, expected (2, 2, 0, 0)")
+        if what:
+            for k, v in kernels.launch_counts().items():
+                total[k] += v
         (want_loss, want), (got_loss, got) = results
-        compare(f"{name} {kw} 224px fp32 loss, card vs CPU", got_loss,
+        compare(f"{name} {kw} fp32 loss{what}, card vs CPU", got_loss,
                 want_loss, MODEL_TOL)
         worst, worst_name = 0.0, ""
         for n, w in want.items():
@@ -1073,13 +1172,16 @@ def check_grads_224(dev):
                                      f"of its largest entry (> {GRAD_TOL})")
             if e > worst:
                 worst, worst_name = e, n
-        log(f"[check] {name} {kw} 224px fp32 gradients of {len(want)} "
+        log(f"[check] {name} {kw} fp32 gradients{what} of {len(want)} "
             f"parameters, card vs CPU: worst {worst:.3e} of the largest "
             f"entry ({worst_name}) tol={GRAD_TOL:g} ok")
+        del cpu_model, gpu_model, results
+    return total
 
 
 def run_main_path(dev, card):
-    """Phase 4: FastVim-T and Vim-T at 2048 px, batch 2, bf16."""
+    """Phase 4: FastVim-T, Vim-T and FastVim-B at 2048 px, batch 2, bf16.
+    Returns the launch counts of the three forwards, and FastVim-B's."""
     import torch
 
     from fastvim_tpu_torch.models import create_model
@@ -1090,7 +1192,7 @@ def run_main_path(dev, card):
     models = {name: create_model(name, img_size=img, dtype=torch.bfloat16,
                                  device=dev,
                                  generator=torch.Generator().manual_seed(0))
-              for name in ("fastvim_tiny", "vim_tiny")}
+              for name in ("fastvim_tiny", "vim_tiny", "fastvim_base")}
     x = torch.randn(batch, img, img, 3, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(2),
                     dtype=torch.bfloat16)
@@ -1100,6 +1202,8 @@ def run_main_path(dev, card):
                          "pass_b_fwd": 24},
         "vim_tiny": {**none, "selective_scan_fwd": 48},
     }
+    # FastVim-B: K3's streamed form and K4's wide one in every layer
+    expected["fastvim_base"] = expected["fastvim_tiny"]
     kernels.reset_launch_counts()
     seen = {}
     for name, model in models.items():
@@ -1124,11 +1228,12 @@ def run_main_path(dev, card):
             f"{batch / ms * 1e3:.2f} img/s ({card})")
     # eager FastVim-T is host-bound; replayed as a CUDA graph (static input,
     # captured after warm-up) its forward is the device's time
-    replay = captured_forward(models["fastvim_tiny"], x)
-    ms = cuda_ms(replay, 10, windows=5)
-    log(f"[time] fastvim_tiny {img}px B={batch} bf16 forward, CUDA-graph "
-        f"replay: {ms:.3f} ms, {batch / ms * 1e3:.2f} img/s ({card})")
-    del replay
+    for name in ("fastvim_tiny", "fastvim_base"):
+        replay = captured_forward(models[name], x)
+        ms = cuda_ms(replay, 10, windows=5)
+        log(f"[time] {name} {img}px B={batch} bf16 forward, CUDA-graph "
+            f"replay: {ms:.3f} ms, {batch / ms * 1e3:.2f} img/s ({card})")
+        del replay
     b224 = 40
     x224 = torch.randn(b224, 224, 224, 3, device=dev, dtype=torch.bfloat16,
                        generator=torch.Generator(device=dev).manual_seed(3))
@@ -1137,7 +1242,7 @@ def run_main_path(dev, card):
     ms = cuda_ms(lambda: m224(x224), 10, windows=5)
     log(f"[time] fastvim_tiny 224px B={b224} bf16 forward: {ms:.3f} ms, "
         f"{b224 / ms * 1e3:.2f} img/s ({card})")
-    return total
+    return total, seen["fastvim_base"]
 
 
 def run_train_path(dev, card):
@@ -1540,6 +1645,93 @@ def run_cli_path(dev, card):
     return total
 
 
+def run_serving_path(dev, card):
+    """Phase 7, serving FastVim-B: ``test_classification --config_name
+    FastVimB`` (``fastvim_base`` at full width and depth, 224 px, batch
+    128, fp32), in-process, on a checkpoint saved here from the CLI's own
+    seeded ``create_classifier``, over 256 synthetic val images: each
+    batch 24 K3 + 24 K4 + 48 K1 (every layer fused), and its test_loss
+    within 1e-4 relative of the same checkpoint evaluated with
+    ``layer_fused=off`` (48 K1 a batch). Prints the CLI's img/s (its whole
+    call: the model built, the checkpoint restored, the loader) and the
+    forward's alone on a resident batch. Returns the launch counts."""
+    import os
+    import tempfile
+    import types
+
+    import torch
+
+    from fastvim_tpu_torch.cli import test_classification
+    from fastvim_tpu_torch.cli.train_classification import create_classifier
+    from fastvim_tpu_torch.config import load_config
+    from fastvim_tpu_torch.ops import kernels
+    from fastvim_tpu_torch.train.checkpoint import save_checkpoint
+
+    batch, samples = 128, 256
+    cfg = load_config("FastVimB", "classification")
+    model = create_classifier(cfg, dev, drop_path_rate=0.0)
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    results = {}
+    with tempfile.TemporaryDirectory() as out:
+        ckpt = save_checkpoint(os.path.join(out, "ckpt"), types.SimpleNamespace(
+            state_dict=lambda: {"params": model.state_dict()}), step=0)
+        for fused, extra, want in (
+                ("fused", [], FUSED_FWD),
+                ("layer_fused=off", ["layer_fused=off"],
+                 {"selective_scan_fwd": 48})):
+            argv = ["--config_name", "FastVimB", "--checkpoint", ckpt,
+                    "--synthetic_samples", str(samples), "--device",
+                    str(dev), *extra]
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            results[fused] = test_classification.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            seen = kernels.launch_counts()
+            expect_launches(f"test_classification FastVimB {fused}", seen,
+                            scaled(want, samples // batch))
+            for k, v in seen.items():
+                total[k] += v
+            log(f"[cli] test_classification --config_name FastVimB "
+                f"({fused}) on a seeded checkpoint, {samples} images: "
+                f"{results[fused]}; {samples / wall:.2f} img/s over the "
+                f"whole call ({wall:.2f} s) ({card})")
+    got, want = (results[k]["test_loss"] for k in ("fused", "layer_fused=off"))
+    if not abs(got - want) <= 1e-4 * abs(want):
+        raise AssertionError(f"test_classification FastVimB: fused test_loss "
+                             f"{got} against {want} unfused")
+    log(f"[check] test_classification FastVimB: test_loss fused {got} vs "
+        f"unfused {want}, relative {abs(got - want) / abs(want):.3e} "
+        f"(tol 1e-4) ok")
+    # the forward alone on a resident batch, fused (the serving path's)
+    # and unfused, in turns, then the fused one's device time by kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(batch, 224, 224, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    unfused = copy.deepcopy(model)
+    for m in unfused.modules():
+        if hasattr(m, "layer_fused"):
+            m.layer_fused = "off"
+    model.eval()
+    unfused.eval()
+    with torch.inference_mode():
+        for name, m in (("fused", model), ("unfused", unfused),
+                        ("unfused", unfused), ("fused", model)):
+            ms = cuda_ms(lambda: m(x), 2, windows=2)
+            log(f"[time] fastvim_base 224px B={batch} fp32 forward ({name}): "
+                f"{ms:.3f} ms, {batch / ms * 1e3:.2f} img/s ({card})")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+    log(f"[time] fastvim_base 224px B={batch} fp32 fused forward, device ms "
+        f"by kernel: {top_kernels(prof)} ({card})")
+    del model, unfused, prof
+    torch.cuda.empty_cache()
+    return total
+
+
 # the MAE slice's scan shapes, fp32 (batch, L, d_inner): the masked
 # encoder's 14 row bins at MAE-B, the plain-Vim decoder's 196 tokens, the
 # Vim-MAE-B encoder's 49 visible tokens and its cls token
@@ -1704,6 +1896,14 @@ def check_mae_224(dev):
     return total
 
 
+# a forward of a 24-layer fused FastVim, and what a train step of
+# FastVim-B adds to it: the remat backward, which runs each layer's scans
+# again (K1) and differentiates them (K2)
+FUSED_FWD = {"pass_a_fwd": 24, "pass_b_fwd": 24, "selective_scan_fwd": 48}
+FUSED_REMAT_STEP = {"pass_a_fwd": 24, "pass_b_fwd": 24,
+                    "selective_scan_fwd": 96, "selective_scan_bwd": 48}
+
+
 def run_mae_cli_path(dev, card):
     """Phase 8, the MAE CLIs on the card, in-process, at full width and
     depth, on 512 synthetic images (4 steps of 128 an epoch):
@@ -1711,12 +1911,14 @@ def run_mae_cli_path(dev, card):
     ``--resume`` to two (52 K1 and 52 K2 a step; the device's idle share
     over the resumed epoch); ``finetune_mae --config_name
     finetune_FastVimB`` from its newest checkpoint for one epoch (the
-    sin-cos ``pos_embed`` and the kept-init head in the printed counts; 48
-    K1 and 48 K2 a step, 48 K1 an eval batch); ``linear_probe
+    sin-cos ``pos_embed`` and the kept-init head in the printed counts;
+    every layer fused: a step 24 K3 + 24 K4 + 96 K1 + 48 K2, the fused
+    forward and the remat backward, an eval batch 24 K3 + 24 K4 + 48 K1;
+    its peak memory beside the unfused run's); ``linear_probe
     --config_name linear_FastVimL model=fastvim_base batch_size=128`` from
-    the same checkpoint (48 K1 a step and an eval batch; the backbone
-    bitwise as loaded, the BatchNorm statistics moved). Returns the
-    launch counts of all runs."""
+    the same checkpoint (24 K3 + 24 K4 + 48 K1 a step and an eval batch;
+    the backbone bitwise as loaded, the BatchNorm statistics moved).
+    Returns the launch counts of all runs."""
     import contextlib
     import csv
     import io
@@ -1805,7 +2007,9 @@ def run_mae_cli_path(dev, card):
                                  f"{[r['epoch'] for r in rows]}")
         ckpt = os.path.join(pre, "ckpt", f"step_{2 * steps}")
 
-        # 2. finetune fastvim_base from it: 24 unfused layers, two scans
+        # 2. finetune fastvim_base from it: 24 fused layers (K3, 2 K1, K4)
+        # whose backward is the remat one (the two scans again, then K2),
+        # and each eval batch the fused forward
         ft = os.path.join(tmp, "finetune")
         torch.cuda.reset_peak_memory_stats()
         state, text = run(
@@ -1813,21 +2017,26 @@ def run_mae_cli_path(dev, card):
             ["--config_name", "finetune_FastVimB", "--model_save_dir", ft,
              "--synthetic_samples", str(samples), "--device", str(dev),
              "training_epochs=1", f"pretrained_checkpoint_path={ckpt}"],
-            {"selective_scan_fwd": 48 * (steps + steps),
-             "selective_scan_bwd": 48 * steps})
+            scaled({k: v + FUSED_FWD.get(k, 0)
+                    for k, v in FUSED_REMAT_STEP.items()}, steps))
         n = len(state.model.state_dict())
         if counts(text) != (n - 3, 2, 1):
             raise AssertionError(f"finetune_mae: counts {counts(text)}, "
                                  f"expected {(n - 3, 2, 1)}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[cli] finetune_mae: load_pretrained_backbone loaded, kept-init, "
             f"sincos-filled {counts(text)} (pos_embed the sin-cos table, the"
-            f" head its init); peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+            f" head its init); peak memory {peak:.2f} GiB (unfused, PR 14: "
+            f"57.60 GiB)")
         del state
         rates(os.path.join(ft, "log.csv"), "finetune_mae finetune_FastVimB."
-              "yaml (fastvim_base)", "; 48 K1 + 48 K2 a step")
+              "yaml (fastvim_base)", "; a step 24 K3 + 24 K4 + 96 K1 + 48 K2"
+              " (the fused forward, the remat backward), an eval batch 24 K3"
+              f" + 24 K4 + 48 K1; peak {peak:.2f} GiB (unfused, PR 14: "
+              "114.51 img/s, 57.60 GiB)")
 
-        # 3. the linear probe of the same checkpoint on fastvim_base
+        # 3. the linear probe of the same checkpoint on fastvim_base: its
+        # frozen backbone runs without gradients, fused, in steps and evals
         lp = os.path.join(tmp, "probe")
         state, text = run(
             "linear_probe", linear_probe,
@@ -1835,7 +2044,7 @@ def run_mae_cli_path(dev, card):
              "--synthetic_samples", str(samples), "--device", str(dev),
              "model=fastvim_base", "batch_size=128", "training_epochs=1",
              f"pretrained_checkpoint_path={ckpt}"],
-            {"selective_scan_fwd": 48 * (steps + steps)})
+            scaled(FUSED_FWD, steps + steps))
         n = len(state.backbone.state_dict())
         if counts(text) != (n - 1, 0, 1):
             raise AssertionError(f"linear_probe: counts {counts(text)}, "
@@ -1854,7 +2063,8 @@ def run_mae_cli_path(dev, card):
             "loaded, BatchNorm statistics moved")
         del state, pretrained
         rates(os.path.join(lp, "log.csv"), "linear_probe linear_FastVimL."
-              "yaml (fastvim_base, batch 128)", "; 48 K1 a step")
+              "yaml (fastvim_base, batch 128)", "; 24 K3 + 24 K4 + 48 K1 a "
+              "step and an eval batch")
     torch.cuda.empty_cache()
     return total
 
@@ -2813,17 +3023,22 @@ def main() -> int:
     with torch.no_grad():
         for name, e in check_mae_scans(dev, card).items():
             errs[name] = max(errs[name], e)
+    t0 = time.perf_counter()
     with torch.inference_mode():
-        check_models_224(dev)
-    check_grads_224(dev)
+        wide = check_models_224(dev)
+    grads_wide = check_grads_224(dev)
+    log(f"[time] phase 3 {time.perf_counter() - t0:.1f} s")
     with torch.inference_mode():
-        launches = run_main_path(dev, card)
-    for name, count in run_train_path(dev, card).items():
-        launches[name] += count
-    for name, count in run_config_path(dev, card).items():
-        launches[name] += count
-    for name, count in run_cli_path(dev, card).items():
-        launches[name] += count
+        launches, base_2048 = run_main_path(dev, card)
+    # the wide widths' launches: FastVim-B's 2048 px forward, FastVim-L's
+    # and -H's depth-2 forwards
+    wide.update({f"{k} d_model=768": base_2048[k]
+                 for k in ("pass_a_fwd", "pass_b_fwd")})
+    for counts in (grads_wide, run_train_path(dev, card),
+                   run_config_path(dev, card), run_cli_path(dev, card),
+                   run_serving_path(dev, card)):
+        for name, count in counts.items():
+            launches[name] += count
     for name, count in check_mae_224(dev).items():
         launches[name] += count
     for name, count in run_mae_cli_path(dev, card).items():
@@ -2883,6 +3098,11 @@ def main() -> int:
         ("selective_scan_fwd_lanes", "selective_scan_lanes.cu", (),
          "fastvim_tpu/ops/pallas/selective_scan.py:115"),
     ]
+    # K3's streamed form and K4's wide one, at each wide width
+    table += [(f"{name} d_model={dm}", main_file, more, tpu)
+              for dm in WIDE_DM
+              for name, main_file, more, tpu in table[2:4]]
+    launches.update(wide)
     for name, *_ in table:
         if launches[name] < 1:
             raise AssertionError(f"{name}: not launched on the main path")

@@ -21,9 +21,11 @@ Dispatch, in this order (``forward``):
    whole layer runs as pass A (K3) → pooled scans (K1) → pass B (K4).
    ``layer_fused="recompute"`` (the JAX package's
    ``FASTVIM_LF_RECOMPUTE=1``) is the same layer with pass A writing the
-   pools only and pass B computing the conv stage again (K7). Wider
-   models than the passes take (d_inner > 768; > 384 for K7) run the
-   unfused path below, which computes the same function.
+   pools only and pass B computing the conv stage again (K7). K3 and K4
+   take every registry width (d_model up to 1280, d_inner up to 2560:
+   FastVim-T/S/B/L/H); K7 takes d_model <= 384 and d_inner <= 768, so
+   ``layer_fused="recompute"`` at FastVim-B/L/H widths runs the unfused
+   path below, which computes the same function.
 2. ``fused_kernels`` "auto" or "always" (the same here), for mean or max
    pooling over the last axis of a 2-D grid: conv + pool (K8) → pooled
    scans → conv again + merge + LN + gate (K9); "merge" runs the conv and
@@ -58,8 +60,10 @@ is needed, ``layer_fused_bwd`` picks the fused layer's backward: "fused"
 (the K5 and K6 adjoint kernels, scans by K2) or "remat" (autograd through
 the unfused math, recomputed; always so in the recompute mode). A fused
 layer whose widths the adjoint kernels do not take (d_model not a
-multiple of 64, d_model > 384 or > d_inner; ``fused_bwd_route``) takes
-"remat" whatever the field says, so every width that fuses trains. K8-K10
+multiple of 64, d_model > 384 or > d_inner, d_inner > 768;
+``fused_bwd_route``) takes "remat" whatever the field says, so every
+width that fuses trains: FastVim-B/L/H train through the fused forward
+(K3, K4) and the remat backward. K8-K10
 differentiate through their plain versions, and the unfused path's scans
 through K2.
 

@@ -45,7 +45,11 @@
 // channels, so LayerNorm statistics are a warp reduction over a full row.
 // z goes to a shared (32 × d_inner) tile, the merge/LN/gate runs over it
 // (one warp per 4 tokens), and the out projection reads the gated value
-// from shared memory.
+// from shared memory. Past d_inner 768 (a lane's m no longer fits its
+// registers) a first pass over d_inner takes the LayerNorm sums and the
+// second forms m again from xc_f, xc_b, yf, yb (from L1 / L2), in the
+// same order; where the (tokens × (d_model + d_inner)) tiles do not fit
+// at 32 tokens, the block owns 16 or 8 (FastVim-B/L: 16, -H: 8).
 
 #include "layer_fused.cuh"
 #include "layer_fused_fwd.cuh"
@@ -143,17 +147,20 @@ pass_a_kernel(const T* __restrict__ x, const T* __restrict__ w_x,
 // =====================================================================
 // K4: pass B
 // =====================================================================
-// shared memory of pass B's fp32 kernel, in bytes
-__host__ __device__ inline size_t pass_b_smem(int dm, int di) {
-  return (static_cast<size_t>(kBTok) * dm + static_cast<size_t>(kBTok) * di +
+// shared memory of pass B's fp32 kernel for tiles of `tok` tokens, in
+// bytes
+__host__ __device__ inline size_t pass_b_smem(int dm, int di,
+                                              int tok = kBTok) {
+  return (static_cast<size_t>(tok) * dm + static_cast<size_t>(tok) * di +
           static_cast<size_t>(kBKc) * (kBSlab + 1)) * sizeof(float);
 }
 
 // merge + LayerNorm + gate for the block's tokens: z (without bias) from
 // s_z (row stride ldz); the gated value, rounded to T, into g (row stride
-// ldg). One warp per 4 tokens; g may alias s_z (same element, same
-// thread).
-template <typename T>
+// ldg). One warp per kR tokens; g may alias s_z (same element, same
+// thread). kRegM: a lane keeps its m in registers between the LayerNorm
+// sums and the gate (d_inner <= kBMaxDi); else it forms m again.
+template <typename T, int kR, bool kRegM>
 __device__ __forceinline__ void merge_ln_gate(
     const float* s_z, int ldz, float* g, int ldg, long tok0, int ntile,
     const T* __restrict__ xc_f, const T* __restrict__ xc_b,
@@ -162,29 +169,32 @@ __device__ __forceinline__ void merge_ln_gate(
     const float* __restrict__ d_b, const float* __restrict__ ln_w,
     const float* __restrict__ ln_b, int H, int W, int di, bool transposed,
     bool use_ln, float eps) {
-  constexpr int kMaxJ = kBMaxDi / 32;
+  constexpr int kMaxJ = kRegM ? kBMaxDi / 32 : 1;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int nj = di / 32;
-  for (int r = 0; r < 4; ++r) {
-    const int t = 4 * warp + r;
+  const int kj = kRegM ? kMaxJ : nj;  // the loops' bound
+  for (int r = 0; r < kR; ++r) {
+    const int t = kR * warp + r;
     if (t >= ntile) break;
     const long tok = tok0 + t;
     const long pix = tok % (static_cast<long>(H) * W);
     const long line = transposed ? pix % W : pix / W;  // pooled index
     const long prow =
         (tok / (static_cast<long>(H) * W)) * (transposed ? W : H) + line;
+    auto merge = [&](int c) {
+      return (fv::to_f32(yf[prow * di + c]) +
+              d_f[c] * fv::to_f32(xc_f[tok * di + c]) +
+              fv::to_f32(yb[prow * di + c]) +
+              d_b[c] * fv::to_f32(xc_b[tok * di + c])) *
+             0.5f;
+    };
     float m[kMaxJ];
     float sum = 0.f, sumsq = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxJ; ++j) {
+    for (int j = 0; j < kj; ++j) {
       if (j < nj) {
-        const int c = lane + 32 * j;
-        const float v = (fv::to_f32(yf[prow * di + c]) +
-                         d_f[c] * fv::to_f32(xc_f[tok * di + c]) +
-                         fv::to_f32(yb[prow * di + c]) +
-                         d_b[c] * fv::to_f32(xc_b[tok * di + c])) *
-                        0.5f;
-        m[j] = v;
+        const float v = merge(lane + 32 * j);
+        if (kRegM) m[j] = v;
         sum += v;
         sumsq += v * v;
       }
@@ -197,10 +207,10 @@ __device__ __forceinline__ void merge_ln_gate(
     const float mu = sum / static_cast<float>(di);
     const float rstd = rsqrtf(sumsq / static_cast<float>(di) - mu * mu + eps);
 #pragma unroll
-    for (int j = 0; j < kMaxJ; ++j) {
+    for (int j = 0; j < kj; ++j) {
       if (j < nj) {
         const int c = lane + 32 * j;
-        float v = m[j];
+        float v = kRegM ? m[j] : merge(c);
         if (use_ln) v = (v - mu) * rstd * ln_w[c] + ln_b[c];
         const float z = s_z[t * ldz + c] + (b_z ? b_z[c] : 0.f);
         g[t * ldg + c] = fv::round_to<T>(v * fv::silu(z));
@@ -209,8 +219,8 @@ __device__ __forceinline__ void merge_ln_gate(
   }
 }
 
-// FMA GEMM path (fp32)
-template <typename T>
+// FMA GEMM path (fp32): tiles of 8·kR tokens (kR of them a warp)
+template <typename T, int kR, bool kRegM>
 __global__ void __launch_bounds__(kThreads, 2)
 pass_b_kernel(const T* __restrict__ x, const T* __restrict__ xc_f,
               const T* __restrict__ xc_b, const T* __restrict__ yf,
@@ -222,17 +232,18 @@ pass_b_kernel(const T* __restrict__ x, const T* __restrict__ xc_f,
               long ntokens, int H, int W, int dm, int di, bool transposed,
               bool use_ln, float eps) {
   constexpr int kVe = fv::kVec<T>;
+  constexpr int kTok = 8 * kR;
   extern __shared__ float smem_b[];
-  float* s_x = smem_b;                                  // [kBTok][dm]
-  float* s_g = s_x + static_cast<size_t>(kBTok) * dm;   // [kBTok][di]
-  float* s_w = s_g + static_cast<size_t>(kBTok) * di;   // [kBKc][kBSlab+1]
+  float* s_x = smem_b;                                  // [kTok][dm]
+  float* s_g = s_x + static_cast<size_t>(kTok) * dm;    // [kTok][di]
+  float* s_w = s_g + static_cast<size_t>(kTok) * di;    // [kBKc][kBSlab+1]
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const long tok0 = static_cast<long>(blockIdx.x) * kBTok;
-  const int ntile = ntokens - tok0 < kBTok ? static_cast<int>(ntokens - tok0)
-                                           : kBTok;
+  const long tok0 = static_cast<long>(blockIdx.x) * kTok;
+  const int ntile = ntokens - tok0 < kTok ? static_cast<int>(ntokens - tok0)
+                                          : kTok;
   // the tile's x̂ rows are one contiguous run of ntile·dm values
   const int nvalid = ntile * dm / kVe;
-  for (int i = threadIdx.x; i < kBTok * dm / kVe; i += kThreads) {
+  for (int i = threadIdx.x; i < kTok * dm / kVe; i += kThreads) {
     float f[kVe];
     if (i < nvalid) {
       fv::widen16<T>(fv::load16(x + tok0 * dm + i * kVe), f);
@@ -244,26 +255,27 @@ pass_b_kernel(const T* __restrict__ x, const T* __restrict__ xc_f,
     for (int e = 0; e < kVe; ++e) s_x[i * kVe + e] = f[e];
   }
 
-  float acc[4][kBCols];
+  float acc[kR][kBCols];
   for (int n0 = 0; n0 < di; n0 += kBSlab) {  // z = x̂·W_z (bias in merge)
     const int ncols = min(kBCols, (di - n0) / 32);
-    gemm_rows<T>(s_x, w_z, dm, n0, ncols, s_w, acc);
+    gemm_rows<T, kR>(s_x, w_z, dm, n0, ncols, s_w, acc);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < kR; ++r)
 #pragma unroll
       for (int j = 0; j < kBCols; ++j)
-        if (j < ncols) s_g[(4 * warp + r) * di + n0 + lane + 32 * j] = acc[r][j];
+        if (j < ncols)
+          s_g[(kR * warp + r) * di + n0 + lane + 32 * j] = acc[r][j];
   }
   __syncthreads();
-  merge_ln_gate<T>(s_g, di, s_g, di, tok0, ntile, xc_f, xc_b, yf, yb,
-                          b_z, d_f, d_b, ln_w, ln_b, H, W, di, transposed,
-                          use_ln, eps);
+  merge_ln_gate<T, kR, kRegM>(s_g, di, s_g, di, tok0, ntile, xc_f, xc_b, yf,
+                              yb, b_z, d_f, d_b, ln_w, ln_b, H, W, di,
+                              transposed, use_ln, eps);
   for (int n0 = 0; n0 < dm; n0 += kBSlab) {  // out = g·W_out + b_out
     const int ncols = min(kBCols, (dm - n0) / 32);
-    gemm_rows<T>(s_g, w_out, di, n0, ncols, s_w, acc);
+    gemm_rows<T, kR>(s_g, w_out, di, n0, ncols, s_w, acc);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int t = 4 * warp + r;
+    for (int r = 0; r < kR; ++r) {
+      const int t = kR * warp + r;
 #pragma unroll
       for (int j = 0; j < kBCols; ++j)
         if (j < ncols && t < ntile) {
@@ -278,6 +290,12 @@ pass_b_kernel(const T* __restrict__ x, const T* __restrict__ xc_f,
 // ---------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------
+template <int R, bool RegM>
+struct BTile {  // pass B's fp32 tile: 8·kR tokens, m in registers or not
+  static constexpr int kR = R;
+  static constexpr bool kRegM = RegM;
+};
+
 cudaError_t launch_a(const void* x, const void* w_x, const void* b_x,
                      const void* w_cf, const void* b_cf, const void* w_ab,
                      const void* b_ab, void* xc_f, void* xc_b, void* pf,
@@ -307,16 +325,29 @@ cudaError_t launch_b(const void* x, const void* xc_f, const void* xc_b,
                      int dm, int di, bool transposed, bool use_ln, float eps,
                      cudaStream_t stream) {
   const long ntokens = static_cast<long>(batch) * H * W;
-  const unsigned blocks = static_cast<unsigned>((ntokens + kBTok - 1) / kBTok);
-  cudaError_t err = fv::allow_max_smem<pass_b_kernel<float>>();
-  if (err != cudaSuccess) return err;
   auto cF = [](const void* p) { return static_cast<const float*>(p); };
-  pass_b_kernel<float><<<blocks, kThreads, pass_b_smem(dm, di), stream>>>(
-      cF(x), cF(xc_f), cF(xc_b), cF(yf), cF(yb), cF(w_z), cF(b_z), cF(d_f),
-      cF(d_b), cF(ln_w), cF(ln_b), cF(w_out), cF(b_out),
-      static_cast<float*>(out), ntokens, H, W, dm, di, transposed, use_ln,
-      eps);
-  return cudaGetLastError();
+  // 32-token tiles with m in registers up to d_inner 768 (FastVim-T/S);
+  // wider, the largest tile that fits, m formed again
+  auto run = [&](auto kind) -> cudaError_t {
+    constexpr int kR = decltype(kind)::kR;
+    constexpr bool kRegM = decltype(kind)::kRegM;
+    cudaError_t err = fv::allow_max_smem<pass_b_kernel<float, kR, kRegM>>();
+    if (err != cudaSuccess) return err;
+    const unsigned blocks =
+        static_cast<unsigned>((ntokens + 8 * kR - 1) / (8 * kR));
+    pass_b_kernel<float, kR, kRegM>
+        <<<blocks, kThreads, pass_b_smem(dm, di, 8 * kR), stream>>>(
+        cF(x), cF(xc_f), cF(xc_b), cF(yf), cF(yb), cF(w_z), cF(b_z), cF(d_f),
+        cF(d_b), cF(ln_w), cF(ln_b), cF(w_out), cF(b_out),
+        static_cast<float*>(out), ntokens, H, W, dm, di, transposed, use_ln,
+        eps);
+    return cudaGetLastError();
+  };
+  const bool tok32 = pass_b_smem(dm, di, 32) <= kMaxSmem;
+  if (tok32 && di <= kBMaxDi) return run(BTile<4, true>{});
+  if (tok32) return run(BTile<4, false>{});
+  if (pass_b_smem(dm, di, 16) <= kMaxSmem) return run(BTile<2, false>{});
+  return run(BTile<1, false>{});
 }
 
 }  // namespace
@@ -326,8 +357,8 @@ cudaError_t launch_b(const void* x, const void* xc_f, const void* xc_b,
 // null; w_cf, w_ab: (di, 4) fp32. Outputs xc_f, xc_b: (batch, H, W, di);
 // pf, pb: (batch, P, di), P = W if transposed else H; all of `dtype`. With
 // xc_f and xc_b both null only the pools are written.
-// dm % 32 == 0, di % 64 == 0, lines of >= 4 tokens, and in bf16 dm <= 384;
-// x and w_x 32-byte aligned. Returns a cudaError_t.
+// dm % 32 == 0, dm <= fvf::kFwdMaxDm, di % 64 == 0, di <= fvf::kFwdMaxDi,
+// lines of >= 4 tokens; x and w_x 32-byte aligned. Returns a cudaError_t.
 extern "C" int fv_pass_a_fwd(const void* x, const void* w_x, const void* b_x,
                              const void* w_cf, const void* b_cf,
                              const void* w_ab, const void* b_ab, void* xc_f,
@@ -339,8 +370,8 @@ extern "C" int fv_pass_a_fwd(const void* x, const void* w_x, const void* b_x,
   const bool bf = dtype == fv::kBF16;
   if ((dtype != fv::kF32 && !bf) || batch < 1 || batch > 65535 || P < 1 ||
       P > 65535 || ln < kPad + 1 || dm < kAKc || dm % kAKc != 0 ||
-      di < kACh || di % kACh != 0 || (bf && dm > fvf::kMaxDm) ||
-      (!bf && pass_a_smem(ln, dm) > kMaxSmem))
+      dm > fvf::kFwdMaxDm || di < kACh || di % kACh != 0 ||
+      di > fvf::kFwdMaxDi || (!bf && pass_a_smem(ln, dm) > kMaxSmem))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (bf)
@@ -355,8 +386,8 @@ extern "C" int fv_pass_a_fwd(const void* x, const void* w_x, const void* b_x,
 // di); w_z: (di, dm) (the z rows of in_proj.weight); w_out: (dm, di), all
 // of `dtype`. b_z, d_f, d_b, ln_w, ln_b: (di,) and b_out: (dm,) fp32; b_z,
 // b_out may be null, ln_w/ln_b are read only with use_ln. out: (batch, H,
-// W, dm) of `dtype`. dm, di % 32 == 0, di <= 768, and in bf16 dm <= 384;
-// x, w_z, w_out 32-byte aligned. Returns a cudaError_t.
+// W, dm) of `dtype`. dm, di % 32 == 0, dm <= fvf::kFwdMaxDm, di <=
+// fvf::kFwdMaxDi; x, w_z, w_out 32-byte aligned. Returns a cudaError_t.
 extern "C" int fv_pass_b_fwd(const void* x, const void* xc_f,
                              const void* xc_b, const void* yf, const void* yb,
                              const void* w_z, const void* b_z,
@@ -368,8 +399,8 @@ extern "C" int fv_pass_b_fwd(const void* x, const void* xc_f,
                              void* stream) {
   const bool bf = dtype == fv::kBF16;
   if ((dtype != fv::kF32 && !bf) || batch < 1 || H < 1 || W < 1 || dm < 32 ||
-      dm % 32 != 0 || di < 32 || di % 32 != 0 || di > kBMaxDi ||
-      (bf && dm > fvf::kMaxDm) || (!bf && pass_b_smem(dm, di) > kMaxSmem))
+      dm % 32 != 0 || dm > fvf::kFwdMaxDm || di < 32 || di % 32 != 0 ||
+      di > fvf::kFwdMaxDi)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (bf)

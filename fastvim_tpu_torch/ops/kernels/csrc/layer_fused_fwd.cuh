@@ -7,11 +7,15 @@
 
 namespace fvf {
 
-constexpr int kMaxDm = 384;  // each keeps a tile's x̂ (K4, K7 its out) on chip
+// The widths K3 and K4 take, in both dtypes: FastVim-H's (the widest
+// registry model). ops/kernels/layer_fused.py's FWD_MAX_DM and FWD_MAX_DI
+// state the same limits.
+constexpr int kFwdMaxDm = 1280;
+constexpr int kFwdMaxDi = 2560;
 
-// K3: x (batch, H, W, dm), w_x (di, dm) bf16; dm % 32 == 0, dm <= 384,
-// di % 64 == 0, lines of >= 4 tokens. xc_f, xc_b may both be null (pools
-// only). One launch.
+// K3: x (batch, H, W, dm), w_x (di, dm) bf16; dm % 32 == 0, dm <= kFwdMaxDm,
+// di % 64 == 0, di <= kFwdMaxDi, lines of >= 4 tokens. xc_f, xc_b may both
+// be null (pools only). One launch.
 cudaError_t pass_a_fwd_bf16(const void* x, const void* w_x, const void* b_x,
                             const void* w_cf, const void* b_cf,
                             const void* w_ab, const void* b_ab, void* xc_f,
@@ -19,7 +23,7 @@ cudaError_t pass_a_fwd_bf16(const void* x, const void* w_x, const void* b_x,
                             int W, int dm, int di, bool transposed,
                             float scaling, cudaStream_t stream);
 
-// K4: dm, di % 32 == 0, dm <= 384, di <= 768. One launch.
+// K4: dm, di % 32 == 0, dm <= kFwdMaxDm, di <= kFwdMaxDi. One launch.
 cudaError_t pass_b_fwd_bf16(const void* x, const void* xc_f,
                             const void* xc_b, const void* yf, const void* yb,
                             const void* w_z, const void* b_z, const void* d_f,

@@ -27,17 +27,27 @@
 //   in registers across slabs (the warpgroups split d_model). The out rows
 //   leave through shared memory in 16-byte vectors. No whole-width tile
 //   needs to stay on chip, so d_inner <= 768 with d_model <= 384 fits.
+//   Past those widths (FastVim-B/L/H, up to fvf::kFwdMaxDm and
+//   fvf::kFwdMaxDi) the wide form: a block owns 64 tokens and a group of
+//   at most 384 d_model columns, x̂ streams through the ring beside W_z,
+//   and z and the gate are computed again for each group (see the
+//   kernel).
 // - K3: a block owns a line (in segments of up to 186 tokens, one at
 //   2048 px) and all of d_inner, so the pool over the line stays in the
 //   block. The segment's x̂ plus its 3-token halo on each side is brought
-//   once; d_inner is walked in slabs of 128 channels (64 where the tiles
-//   would not fit), half a warpgroup; xin = x̂·W_xᵀ covers the extended
+//   once (up to d_model 384; wider, its K blocks come through the ring
+//   beside W_x's, once for each slab); d_inner is walked in slabs of 64
+//   channels, half a warpgroup; xin = x̂·W_xᵀ covers the extended
 //   rows in M tiles of 64 (the last one
 //   overlapping the one before it rather than running past the tile),
 //   goes with b_x to an fp32 tile, and the dual conv, SiLU, the xc stores
 //   and the pool sums run from there with each thread on 8 consecutive
 //   channels, so that every xc store is 16 bytes and a warp writes whole
 //   128-byte runs.
+// - At FastVim-B's widths and up a token costs 4·d_model·d_inner FLOP
+//   (K4: 4.7 MFLOP at -B, 13.1 at -H) against 4·(d_model + d_inner)
+//   bytes, 512-853 FLOP a byte: K4 is then bound by the tensor cores, and
+//   its wide form does 1.5-2.5× the FLOP of one pass (z again a group).
 // - d_model that is not a multiple of 64 is zero-padded in shared memory
 //   (and d_inner of K4 to its slab): the copies of the missing columns are
 //   zero-filled, not read.
@@ -82,18 +92,23 @@ constexpr int kBStages = 4;
 constexpr int kBStageBytes = 2 * kBlkBytes;   // 128 rows or 128 K of a weight
 constexpr int kMLd = kBSlab + 4;              // fp32 row of the m tile, skewed
 constexpr int kWholeDi = 512;  // widest d_inner whose tile of m may stay
-constexpr int kBMaxDi = 768;
+constexpr int kBMaxDi = 768;   // ... the first pass's registers: kBMaxDi / 256
+constexpr int kBMaxNU = 6;     // widest out a block accumulates: d_model 384
+// the wide form's W_z stages also carry the x̂ block of their K step
+constexpr int kBWideStageBytes = kBStageBytes + kBlkBytes;
 
 struct BSmem {  // byte offsets from the 1024-aligned base
   size_t x, g, ring, m, stats, total;
 };
-// whole_di: d_inner when m of the whole tile stays, else 0 (one slab's)
-__host__ __device__ inline BSmem b_smem(int nu, int whole_di) {
+// whole_di: d_inner when m of the whole tile stays, else 0 (one slab's);
+// wide: the wide form's stages
+__host__ __device__ inline BSmem b_smem(int nu, int whole_di,
+                                        bool wide = false) {
   BSmem L;
   L.x = 0;                        // x̂, then the out rows: nu blocks
   L.g = static_cast<size_t>(nu) * kBlkBytes;  // gated slab: 2 blocks
   L.ring = L.g + 2 * kBlkBytes;
-  L.m = L.ring + kBStages * kBStageBytes;
+  L.m = L.ring + kBStages * (wide ? kBWideStageBytes : kBStageBytes);
   L.stats = L.m + static_cast<size_t>(kTM) *
                      (whole_di ? whole_di + 4 : kMLd) * sizeof(float);
   // mu, rstd [64] fp32; pooled row of each token [64] int
@@ -124,10 +139,28 @@ __device__ __forceinline__ void ldg_f8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// kWhole: the first pass keeps m of the whole tile in shared memory
-// (d_inner <= 512 where it fits: FastVim-T), so xc_f, xc_b, yf, yb are
-// read once; else each slab forms its m again from them (from L2)
-template <int kNU, bool kWhole>  // kNU = ceil(d_model / 64)
+// kNU = ceil(d_model / 64) <= kBMaxNU with d_inner <= kBMaxDi: a block
+// owns 64 tokens and all of d_model, its x̂ whole in shared memory. kWhole:
+// the first pass keeps m of the whole tile in shared memory (d_inner <=
+// 512 where it fits: FastVim-T), so xc_f, xc_b, yf, yb are read once;
+// else each slab forms its m again from them (from L2).
+//
+// kNU = 0, the wide form (FastVim-B/L/H: d_model 768-1280, d_inner
+// 1536-2560). Its out accumulators would need 192-320 registers a thread
+// and its x̂ tile 96-160 KB. So a block owns 64 tokens and a group of
+// kBMaxNU 64-column units of d_model (a grid of column groups × token
+// tiles, the groups of a tile side by side so that they share its xc in
+// L2), the x̂ block of each K step comes through the ring beside its W_z
+// block, and each block computes z and the gate of all of d_inner again:
+// z's GEMM runs once for each group (2× at FastVim-B, 3× at -L, 4× at
+// -H), but there is one launch and nothing more goes through device
+// memory. The other designs: the gated slab written to device memory and
+// a second wgmma GEMM for out (4·d_inner more bytes a token, a second
+// launch), or a cluster whose blocks share each gated slab through
+// distributed shared memory (wgmma reads only its own block's shared
+// memory, so each slab would be copied in anyway). This one reuses every
+// piece of the narrow form and is the simplest that is right.
+template <int kNU, bool kWhole>
 __global__ void __launch_bounds__(kThreads, 1)
 pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
                     const bf16* __restrict__ xc_b, const bf16* __restrict__ yf,
@@ -141,9 +174,12 @@ pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
                     const float* __restrict__ b_out, bf16* __restrict__ out,
                     int ntokens, int H, int W, int dm, int di,
                     bool transposed, bool use_ln, float eps) {
+  constexpr bool kWide = kNU == 0;
+  static_assert(!(kWide && kWhole), "the wide form walks d_inner in slabs");
+  constexpr int kOU = kWide ? kBMaxNU : kNU;  // 64-column units of out
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
-  const BSmem L = b_smem(kNU, kWhole ? di : 0);
+  const BSmem L = b_smem(kOU, kWhole ? di : 0, kWide);
   const int ldm = kWhole ? di + 4 : kMLd;
   const uint32_t sx = smem_u32(sm + L.x), sg = smem_u32(sm + L.g);
   float* s_m = reinterpret_cast<float*>(sm + L.m);        // [64][ldm]
@@ -153,20 +189,25 @@ pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wg = warp / 4, w4 = warp % 4, q = lane % 4, rq = lane / 4;
-  const int tok0 = blockIdx.x * kTM;
+  const int nu = kWide ? (dm + 63) / 64 : kNU;  // K blocks of z's GEMM
+  const int ngroups = kWide ? (nu + kOU - 1) / kOU : 1;
+  const int tok0 = static_cast<int>(blockIdx.x) / ngroups * kTM;
+  const int c0 = static_cast<int>(blockIdx.x) % ngroups * 64 * kOU;
+  const int dmo = imin(64 * kOU, dm - c0);  // this block's out columns
   const int nval = imin(kTM, ntokens - tok0);
   const int HW = H * W, P = transposed ? W : H;
   const int nslab = (di + kBSlab - 1) / kBSlab;
-  const int total = nslab * 2 * kNU;
+  const int per_slab = nu + kOU;
+  const int total = nslab * per_slab;
 
-  // stage s: per slab kNU K blocks of W_z (128 channel rows, 64 a
-  // warpgroup), then kNU stages of 64 rows of W_out over the slab's
-  // channels (see fv::cp_out_stage); rows and columns past the widths
-  // zero-filled
+  // stage s: per slab nu K blocks of W_z (128 channel rows, 64 a
+  // warpgroup; in the wide form with the x̂ block of the same K), then kOU
+  // stages of 64 rows of W_out's columns c0.. over the slab's channels
+  // (see fv::cp_out_stage); rows and columns past the widths zero-filled
   auto fetch = [&](int s, uint32_t dst) {
     if (s >= total) return;
-    const int n0 = s / (2 * kNU) * kBSlab, kb = s % kNU;
-    if (s / kNU % 2 == 0) {
+    const int n0 = s / per_slab * kBSlab, kb = s % per_slab;
+    if (kb < nu) {
       for (int i = tid; i < 2 * kTM * 8; i += kThreads) {
         const int r = i >> 3, ch = i & 7, col = 64 * kb + 8 * ch;
         const bool ok = n0 + r < di && col < dm;
@@ -174,22 +215,36 @@ pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
                    w_z + (ok ? static_cast<size_t>(n0 + r) * dm + col : 0),
                    ok);
       }
+      if constexpr (kWide) {
+        for (int i = tid; i < kTM * 8; i += kThreads) {
+          const int r = i >> 3, ch = i & 7, col = 64 * kb + 8 * ch;
+          const bool ok = r < nval && col < dm;
+          cp_async16(dst + kBStageBytes + swz(r, 8 * ch),
+                     x + (ok ? static_cast<size_t>(tok0 + r) * dm + col : 0),
+                     ok);
+        }
+      }
     } else {
-      fv::cp_out_stage(dst, w_out, n0, kb, kNU, dm, di, tid);
+      fv::cp_out_stage(dst, w_out + static_cast<size_t>(c0) * di, n0,
+                       kb - nu, kOU, dmo, di, tid);
     }
   };
-  fv::Ring<kBStages, kBStageBytes, decltype(fetch)> ring(smem_u32(sm + L.ring),
-                                                         fetch);
+  fv::Ring<kBStages, kWide ? kBWideStageBytes : kBStageBytes,
+           decltype(fetch)>
+      ring(smem_u32(sm + L.ring), fetch);
   ring.start();
 
   // the tile's x̂, rows past the last token and columns past d_model 0
-  for (int i = tid; i < kTM * 8 * kNU; i += kThreads) {
-    const int r = i / (8 * kNU), c = i % (8 * kNU);
-    const bool ok = r < nval && 8 * c < dm;
-    cp_async16(sx + (c / 8) * kBlkBytes + swz(r, (c % 8) * 8),
-               x + (ok ? static_cast<size_t>(tok0 + r) * dm + 8 * c : 0), ok);
+  if constexpr (!kWide) {
+    for (int i = tid; i < kTM * 8 * kNU; i += kThreads) {
+      const int r = i / (8 * kNU), c = i % (8 * kNU);
+      const bool ok = r < nval && 8 * c < dm;
+      cp_async16(sx + (c / 8) * kBlkBytes + swz(r, (c % 8) * 8),
+                 x + (ok ? static_cast<size_t>(tok0 + r) * dm + 8 * c : 0),
+                 ok);
+    }
+    fv::cp_async_commit();
   }
-  fv::cp_async_commit();
   if (tid < kTM) {  // the pooled row (b·P + line) of each token
     const int t = tok0 + imin(tid, nval - 1), pix = t % HW;
     s_prow[tid] = t / HW * P + (transposed ? pix % W : pix / W);
@@ -202,9 +257,54 @@ pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
   // clamped address where its row or vector is masked
   const int ncg = di / 8;  // 8-channel groups
   const float inv_di = 1.f / static_cast<float>(di);
-  constexpr int kK = kWhole ? kWholeDi / 256 : kBMaxDi / 256;  // vectors/lane
-  constexpr int kRows = kWhole ? 4 : 2;
-  if (use_ln || kWhole) {
+  if constexpr (kWide) {
+    // two rows at a time, a lane's vectors lane + 32k in turn: the sums
+    // in the order of the narrow form's registers, at any d_inner
+    for (int rr = warp * 8; use_ln && rr < warp * 8 + 8; rr += 2) {
+      float sum[2] = {0.f, 0.f}, sumsq[2] = {0.f, 0.f};
+      for (int v = lane; v < ncg; v += 32) {
+        float df[8], db[8];
+        ldg_f8(d_f + 8 * v, df);
+        ldg_f8(d_b + 8 * v, db);
+        uint4 va[2], vb[2], ya[2], yb2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = imin(rr + e, nval - 1);
+          const size_t o = static_cast<size_t>(tok0 + r) * di + 8 * v;
+          const size_t po = static_cast<size_t>(s_prow[r]) * di + 8 * v;
+          va[e] = fv::load16(xc_f + o);
+          vb[e] = fv::load16(xc_b + o);
+          ya[e] = fv::load16(yf + po);
+          yb2[e] = fv::load16(yb + po);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float m[8];
+          merge8(va[e], vb[e], ya[e], yb2[e], df, db, m);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            sum[e] += m[i];
+            sumsq[e] += m[i] * m[i];
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], o);
+          sumsq[e] += __shfl_xor_sync(0xffffffffu, sumsq[e], o);
+        }
+        if (lane == 0) {
+          const float mu = sum[e] * inv_di;
+          s_mu[rr + e] = mu;
+          s_rstd[rr + e] = rsqrtf(sumsq[e] * inv_di - mu * mu + eps);
+        }
+      }
+    }
+  } else if (use_ln || kWhole) {
+    constexpr int kK = kWhole ? kWholeDi / 256 : kBMaxDi / 256;  // vectors/lane
+    constexpr int kRows = kWhole ? 4 : 2;
     float df[kK][8], db[kK][8];  // D_f, D_b of this lane's vectors
 #pragma unroll
     for (int k = 0; k < kK; ++k) {
@@ -265,9 +365,9 @@ pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
     }
   }
 
-  float oacc[16 * kNU];
+  float oacc[16 * kOU];
 #pragma unroll
-  for (int i = 0; i < 16 * kNU; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < 16 * kOU; ++i) oacc[i] = 0.f;
   const int r0 = 16 * w4 + rq;  // this thread's rows: r0 and r0 + 8
   const int mch = tid % 16, mr0 = tid / 16;  // m staging: 8 channels, rows
 
@@ -309,9 +409,24 @@ pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
       }
     }
     // z = x̂·W_z[slab]ᵀ, 64 channels a warpgroup (the acquires' barriers
-    // also publish s_m)
+    // also publish s_m); the wide form's A blocks lie in the stages
     float z[32];
-    fv::slab_gemm<0>(z, sx, kNU, ring, wg * kBlkBytes, true);
+    if constexpr (kWide) {
+      for (int b = 0; b < nu; ++b) {
+        const uint32_t st = ring.acquire();
+        fv::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          fv::wgmma_n64<0, 0>(z, gmma_desc(st + kBStageBytes + 32 * kk),
+                              gmma_desc(st + wg * kBlkBytes + 32 * kk),
+                              (b | kk) != 0);
+        fv::wgmma_commit();
+        ring.refill();
+        fv::wgmma_wait();
+      }
+    } else {
+      fv::slab_gemm<0>(z, sx, kNU, ring, wg * kBlkBytes, true);
+    }
 
     // g = LN(m)·silu(z + b_z), rounded to bf16, into the swizzled slab
     float mu[2] = {0.f, 0.f}, rs[2] = {1.f, 1.f};
@@ -352,20 +467,20 @@ pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
             __floats2bfloat162_rn(gv[0], gv[1]);
       }
     }
-    // out += g·W_out[:, slab]ᵀ (the first acquire publishes the slab)
-    fv::out_gemm<kNU>(oacc, sg, ring, wg);
+    // out += g·W_out[c0.., slab]ᵀ (the first acquire publishes the slab)
+    fv::out_gemm<kOU>(oacc, sg, ring, wg);
   }
 
-  // out + b_out in bf16, staged in x̂'s blocks (every product that read
-  // them was waited for before the last slab's barriers), then whole rows
-  // in 16-byte vectors
+  // out + b_out in bf16, staged in x̂'s blocks (the wide form's own; every
+  // product that read them was waited for before the last slab's
+  // barriers), then whole rows in 16-byte vectors
 #pragma unroll
-  for (int u = 0; u < kNU; ++u)
+  for (int u = 0; u < kOU; ++u)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int col = wg * 32 * kNU + 32 * u + 8 * j + 2 * q;
-      const float2 bo = b_out && col < dm ? ld_f2(b_out + col)
-                                          : make_float2(0.f, 0.f);
+      const int col = wg * 32 * kOU + 32 * u + 8 * j + 2 * q;
+      const float2 bo = b_out && col < dmo ? ld_f2(b_out + c0 + col)
+                                           : make_float2(0.f, 0.f);
 #pragma unroll
       for (int e = 0; e < 2; ++e)
         *reinterpret_cast<bf162*>(sm + L.x + (col / 64) * kBlkBytes +
@@ -374,10 +489,10 @@ pass_b_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xc_f,
                                   oacc[16 * u + 4 * j + 2 * e + 1] + bo.y);
     }
   __syncthreads();
-  const int cpr = dm / 8;  // 16-byte chunks per row
+  const int cpr = dmo / 8;  // 16-byte chunks per row
   for (int i = tid; i < nval * cpr; i += kThreads) {
     const int r = i / cpr, ch = i % cpr;
-    *reinterpret_cast<uint4*>(out + static_cast<size_t>(tok0 + r) * dm +
+    *reinterpret_cast<uint4*>(out + static_cast<size_t>(tok0 + r) * dm + c0 +
                               8 * ch) =
         *reinterpret_cast<const uint4*>(sm + L.x + (ch / 8) * kBlkBytes +
                                         swz(r, (ch % 8) * 8));
@@ -395,16 +510,21 @@ constexpr int kAStageBytes = kSW * kRowBytes;  // the slab's W_x rows × 64 K
 constexpr int kXLd = kSW + 4;   // fp32 row of the xin tile, skewed
 constexpr int kAMaxRows = 3 * kTM;          // extended rows of a segment
 constexpr int kAMaxSeg = kAMaxRows - 2 * kPad;
+constexpr int kAMaxNU = 6;  // widest x̂ tile a block holds whole: d_model 384
+// the streamed form's stage: the W_x block, then the segment's x̂ rows × the
+// same 64 K
+constexpr int kAStreamStageBytes = kAStageBytes + kAMaxRows * kRowBytes;
 
 struct ASmem {  // byte offsets from the 1024-aligned base
   size_t x, ring, xin, red, pool, total;
 };
-// rows: the extended rows a segment's x̂ tile holds, a multiple of 8
+// rows: the extended rows a segment's x̂ tile holds, a multiple of 8; nu
+// 0: the streamed form, whose x̂ blocks come through the ring
 __host__ __device__ inline ASmem a_smem(int nu, int rows, int di) {
   ASmem L;
   L.x = 0;  // nu K blocks of rows × 64 bf16
   L.ring = static_cast<size_t>(nu) * rows * kRowBytes;
-  L.xin = L.ring + kAStages * kAStageBytes;
+  L.xin = L.ring + kAStages * (nu ? kAStageBytes : kAStreamStageBytes);
   L.red = L.xin + static_cast<size_t>(rows) * kXLd * sizeof(float);
   L.pool = L.red + 8 * 2 * kSW * sizeof(float);  // [warp][f, b][kSW]
   L.total = L.pool + 2 * static_cast<size_t>(di) * sizeof(float) + 1024;
@@ -414,7 +534,12 @@ __host__ __device__ inline int a_rows(int seg) {
   return imax(kTM, round8(seg + 2 * kPad));
 }
 
-template <int kNU>  // ceil(d_model / 64)
+// kNU = ceil(d_model / 64) <= kAMaxNU: the segment's x̂ tile is brought
+// whole and stays while d_inner is walked. kNU = 0, the streamed form
+// (d_model > 384, where that tile alone would take 160 KB at 1280): each
+// ring stage carries the x̂ block of its K step beside the W_x block, so
+// the segment's x̂ is read again from L2 for each slab
+template <int kNU>
 __global__ void __launch_bounds__(kThreads, 1)
 pass_a_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_x,
                     const float* __restrict__ b_x,
@@ -442,27 +567,11 @@ pass_a_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_x,
   const int p = blockIdx.x, b = blockIdx.y;
   const int P = transposed ? W : H, ln = transposed ? H : W;
   const size_t img = static_cast<size_t>(b) * H * W;
+  const int nu = kNU ? kNU : (dm + 63) / 64;  // K blocks of d_model
   const int nseg = (ln + seg - 1) / seg;
   const int nslab = di / kSW;
-  const int per_seg = nslab * kNU;
+  const int per_seg = nslab * nu;
   const int total = nseg * per_seg;
-
-  // stage s: K block kb of W_x's rows n0..n0+kSW-1 (half a warpgroup),
-  // for each slab of each segment; columns past d_model zero-filled
-  auto fetch = [&](int s, uint32_t dst) {
-    if (s >= total) return;
-    const int r = s % per_seg;
-    const int n0 = r / kNU * kSW, kb = r % kNU;
-    for (int i = tid; i < kSW * 8; i += kThreads) {
-      const int rr = i >> 3, ch = i & 7, col = 64 * kb + 8 * ch;
-      const bool ok = col < dm;
-      cp_async16(dst + rr * kRowBytes + (((ch ^ rr) & 7) << 4),
-                 w_x + static_cast<size_t>(n0 + rr) * dm + (ok ? col : 0), ok);
-    }
-  };
-  fv::Ring<kAStages, kAStageBytes, decltype(fetch)> ring(smem_u32(sm + L.ring),
-                                                         fetch);
-  ring.start();
 
   // the token of extended row j of the segment whose own rows start at
   // s0 (rows 0-2 and the last 3 are the halo: the previous line's tail
@@ -481,6 +590,37 @@ pass_a_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_x,
     return transposed ? static_cast<long>(pos) * W + line
                       : static_cast<long>(line) * W + pos;
   };
+
+  // stage s: K block kb of W_x's rows n0..n0+kSW-1 (half a warpgroup),
+  // for each slab of each segment; columns past d_model zero-filled. The
+  // streamed form adds K block kb of the segment's extended x̂ rows, as
+  // the whole tile below holds them
+  auto fetch = [&](int s, uint32_t dst) {
+    if (s >= total) return;
+    const int r = s % per_seg;
+    const int n0 = r / nu * kSW, kb = r % nu;
+    for (int i = tid; i < kSW * 8; i += kThreads) {
+      const int rr = i >> 3, ch = i & 7, col = 64 * kb + 8 * ch;
+      const bool ok = col < dm;
+      cp_async16(dst + rr * kRowBytes + (((ch ^ rr) & 7) << 4),
+                 w_x + static_cast<size_t>(n0 + rr) * dm + (ok ? col : 0), ok);
+    }
+    if constexpr (kNU == 0) {
+      const int s0 = s / per_seg * seg;
+      const int ns = imin(seg, ln - s0), R = a_rows(ns);
+      for (int i = tid; i < R * 8; i += kThreads) {
+        const int j = i >> 3, ch = i & 7, col = 64 * kb + 8 * ch;
+        const long t = j < ns + 2 * kPad ? token(s0, j) : -1;
+        const bool ok = t >= 0 && col < dm;
+        cp_async16(dst + kAStageBytes + swz(j, 8 * ch),
+                   x + (ok ? (img + t) * dm + col : 0), ok);
+      }
+    }
+  };
+  fv::Ring<kAStages, kNU ? kAStageBytes : kAStreamStageBytes,
+           decltype(fetch)>
+      ring(smem_u32(sm + L.ring), fetch);
+  ring.start();
   for (int i = tid; i < 2 * di; i += kThreads) s_pool[i] = 0.f;
 
   const int r0 = 16 * w4 + rq;  // this thread's rows of an M tile
@@ -493,15 +633,17 @@ pass_a_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_x,
     // x̂ of the extended rows; rows outside the sequence (and past them)
     // zero-filled and never read. The previous segment's products were
     // all waited for before its last conv barrier.
-    for (int i = tid; i < R * 8 * kNU; i += kThreads) {
-      const int j = i / (8 * kNU), c = i % (8 * kNU);
-      const long t = j < next ? token(s0, j) : -1;
-      const bool ok = t >= 0 && 8 * c < dm;
-      cp_async16(sx + (c / 8) * blk + swz(j, (c % 8) * 8),
-                 x + (ok ? (img + t) * dm + 8 * c : 0), ok);
+    if constexpr (kNU != 0) {
+      for (int i = tid; i < R * 8 * kNU; i += kThreads) {
+        const int j = i / (8 * kNU), c = i % (8 * kNU);
+        const long t = j < next ? token(s0, j) : -1;
+        const bool ok = t >= 0 && 8 * c < dm;
+        cp_async16(sx + (c / 8) * blk + swz(j, (c % 8) * 8),
+                   x + (ok ? (img + t) * dm + 8 * c : 0), ok);
+      }
+      fv::cp_async_commit();
+      fv::cp_async_wait<0>();  // the first acquire's barrier publishes it
     }
-    fv::cp_async_commit();
-    fv::cp_async_wait<0>();  // the first acquire's barrier publishes it
 
     for (int n0 = 0; n0 < di; n0 += kSW) {
       // xin = x̂·W_x[slab]ᵀ over three M tiles starting at min(64 t, R -
@@ -509,13 +651,14 @@ pass_a_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_x,
       // one before (alike), so that no product sits in a branch, which
       // would make the compiler serialize them
       float acc[3][kSW / 4];
-      for (int kb = 0; kb < kNU; ++kb) {
-        const uint32_t st = ring.acquire() + wg * (kSW / 2) * kRowBytes;
+      for (int kb = 0; kb < nu; ++kb) {
+        const uint32_t sw = ring.acquire();
+        const uint32_t st = sw + wg * (kSW / 2) * kRowBytes;
+        const uint32_t sa = kNU ? sx + kb * blk : sw + kAStageBytes;
         fv::wgmma_fence();
 #pragma unroll
         for (int t = 0; t < 3; ++t) {
-          const uint32_t a0 =
-              sx + kb * blk + imin(kTM * t, R - kTM) * kRowBytes;
+          const uint32_t a0 = sa + imin(kTM * t, R - kTM) * kRowBytes;
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             fv::wgmma_n32<0, 0>(acc[t], gmma_desc(a0 + 32 * kk),
@@ -671,7 +814,8 @@ cudaError_t pass_a_fwd_bf16(const void* x, const void* w_x, const void* b_x,
                             void* xc_b, void* pf, void* pb, int batch, int H,
                             int W, int dm, int di, bool transposed,
                             float scaling, cudaStream_t stream) {
-  const int nu = (dm + 63) / 64;
+  // past d_model 384 the streamed form (nu 0 in a_smem and the template)
+  const int nu = (dm + 63) / 64 <= kAMaxNU ? (dm + 63) / 64 : 0;
   const int ln = transposed ? H : W;
   // the longest segment whose tiles fit
   int seg = imin(ln, kAMaxSeg);
@@ -687,6 +831,7 @@ cudaError_t pass_a_fwd_bf16(const void* x, const void* w_x, const void* b_x,
       cF(w_ab), cF(b_ab), mT(xc_f), mT(xc_b), mT(pf), mT(pb), H, W, dm, di,  \
       transposed, scaling, seg)
   switch (nu) {
+    case 0: return FV_A(0);
     case 1: return FV_A(1);
     case 2: return FV_A(2);
     case 3: return FV_A(3);
@@ -706,12 +851,19 @@ cudaError_t pass_b_fwd_bf16(const void* x, const void* xc_f,
                             const void* b_out, void* out, int batch, int H,
                             int W, int dm, int di, bool transposed,
                             bool use_ln, float eps, cudaStream_t stream) {
-  const int nu = (dm + 63) / 64;
+  // the narrow form up to d_model 384 and d_inner 768, else the wide one
+  // (nu 0), in groups of kBMaxNU column units
+  const int nu = (dm + 63) / 64 <= kBMaxNU && di <= kBMaxDi ? (dm + 63) / 64
+                                                            : 0;
+  const long groups = nu ? 1 : ((dm + 63) / 64 + kBMaxNU - 1) / kBMaxNU;
   const long ntokens = static_cast<long>(batch) * H * W;
-  if (ntokens > 0x7fffffffL - kTM) return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>((ntokens + kTM - 1) / kTM));
-  const bool whole = di <= kWholeDi && b_smem(nu, di).total <= kMaxSmem;
-  const size_t smem = b_smem(nu, whole ? di : 0).total;
+  const long blocks = (ntokens + kTM - 1) / kTM * groups;
+  if (ntokens > 0x7fffffffL - kTM || blocks > 0x7fffffffL)
+    return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(blocks));
+  const bool whole = nu && di <= kWholeDi && b_smem(nu, di).total <= kMaxSmem;
+  const size_t smem =
+      nu ? b_smem(nu, whole ? di : 0).total : b_smem(kBMaxNU, 0, true).total;
   auto cT = [](const void* p) { return static_cast<const bf16*>(p); };
   auto cF = [](const void* p) { return static_cast<const float*>(p); };
 #define FV_B(n)                                                              \
@@ -723,6 +875,7 @@ cudaError_t pass_b_fwd_bf16(const void* x, const void* xc_f,
       static_cast<bf16*>(out), static_cast<int>(ntokens), H, W, dm, di,      \
       transposed, use_ln, eps)
   switch (nu) {
+    case 0: return FV_BW(0, false);
     case 1: return FV_B(1);
     case 2: return FV_B(2);
     case 3: return FV_B(3);

@@ -39,7 +39,8 @@
 
 namespace {
 
-constexpr int kRcMaxDi = 768;              // K4's widths (fvf::kMaxDm: 384)
+constexpr int kRcMaxDi = 768;              // FastVim-S's widths: x̂ and out
+constexpr int kRcMaxDm = 384;              // of a tile stay on chip
 constexpr int kRcRows = kBTok + 2 * kPad;  // 38 rows of x̂ and xin
 constexpr int kRcSlab = 128;               // d_inner channels of an xin slab
 
@@ -252,7 +253,7 @@ extern "C" int fv_pass_b_recompute_fwd(
     int transposed, int dtype, int use_ln, float eps, void* stream) {
   if ((dtype != fv::kF32 && dtype != fv::kBF16) || batch < 1 ||
       batch > 65535 || H < 4 || W < 4 || dm < 32 || dm % 32 != 0 ||
-      dm > fvf::kMaxDm || di < 32 || di % 32 != 0 || di > kRcMaxDi)
+      dm > kRcMaxDm || di < 32 || di % 32 != 0 || di > kRcMaxDi)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == fv::kBF16)

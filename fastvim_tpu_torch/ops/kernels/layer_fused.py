@@ -43,27 +43,29 @@ from fastvim_tpu_torch.ops.scan import (
 )
 
 
-FWD_MAX_DI = 768        # widest d_inner K4 takes (kBMaxDi)
-FWD_MAX_DM = 384        # K3 / K4 keep a tile's x̂ and K4 its out on chip
-BWD_MAX_DI = 768        # ... and K5 / K6 take (kBwdMaxDi): K4's limit
+FWD_MAX_DM = 1280       # widest d_model K3 / K4 take (fvf::kFwdMaxDm)
+FWD_MAX_DI = 2560       # ... and d_inner (fvf::kFwdMaxDi): FastVim-H's
+BWD_MAX_DI = 768        # widest d_inner K5 / K6 take (kBwdMaxDi)
 BWD_MAX_DM = 384        # K5 / K6 keep a tile's dx̂ in registers
 A_BWD_WINDOW = 58       # tokens a K6 block of the bf16 path owns (kAWin)
 RECOMPUTE_MAX_DI = 768  # ... and K7, which walks d_inner (kRcMaxDi)
-RECOMPUTE_MAX_DM = 384  # K7 keeps a tile's x̂ and out on chip, as K4
+RECOMPUTE_MAX_DM = 384  # K7 keeps a tile's x̂ and out on chip (kRcMaxDm)
 RC_CONV_SLAB = 64       # d_inner channels of a K7 conv slab in bf16 (kCS)
 
 
 def pass_a_widths_ok(d_model: int, d_inner: int) -> bool:
     """The widths K3's launcher takes: d_model in multiples of 32 (zero-
-    padded to 64 in bf16) up to 384, d_inner in slabs of 64 channels."""
-    return 0 < d_model <= FWD_MAX_DM and d_model % 32 == 0 and d_inner > 0 \
-        and d_inner % 64 == 0
+    padded to 64 in bf16) up to 1280, d_inner in slabs of 64 channels up
+    to 2560."""
+    return (0 < d_model <= FWD_MAX_DM and d_model % 32 == 0
+            and 0 < d_inner <= FWD_MAX_DI and d_inner % 64 == 0)
 
 
 def pass_b_widths_ok(d_model: int, d_inner: int,
                      recompute: bool = False) -> bool:
-    """The widths K4's launcher takes, or K7's with ``recompute`` (the
-    same): whole 32-column tiles, d_model <= 384 and d_inner <= 768."""
+    """The widths K4's launcher takes: whole 32-column tiles, d_model <=
+    1280 and d_inner <= 2560; with ``recompute`` K7's, d_model <= 384 and
+    d_inner <= 768."""
     if d_model <= 0 or d_model % 32 or d_inner <= 0 or d_inner % 32:
         return False
     if recompute:
@@ -178,8 +180,9 @@ def pass_a(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling: float,
             raise ValueError(f"{name}: {arg} must be float32 {shape}")
     if not pass_a_widths_ok(dm, di) or min(H, W) < 4:
         raise ValueError(f"{name}: needs d_model % 32 == 0, d_model <= "
-                         f"{FWD_MAX_DM}, d_inner % 64 == 0 and H, W >= 4, "
-                         f"got d_model={dm}, d_inner={di}, grid=({H}, {W})")
+                         f"{FWD_MAX_DM}, d_inner % 64 == 0, d_inner <= "
+                         f"{FWD_MAX_DI} and H, W >= 4, got d_model={dm}, "
+                         f"d_inner={di}, grid=({H}, {W})")
     kernels.check_aligned(name, x4=x4, w_x=w_x)
     P = W if transposed else H
     xc_f = x4.new_empty(B, H, W, di) if write_xc else None
@@ -270,7 +273,7 @@ def pass_b(x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b, w_out,
     if not pass_b_widths_ok(dm, di):
         raise ValueError(f"{name}: needs d_model, d_inner % 32 == 0, "
                          f"d_model <= {FWD_MAX_DM} and d_inner <= "
-                         f"{FWD_MAX_DI}, got {dm}, {di}")
+                         f"{FWD_MAX_DI}, got d_model={dm}, d_inner={di}")
     kernels.check_aligned(name, x4=x4, w_z=w_z, w_out=w_out)
     out = torch.empty_like(x4)
     err = _build.library().fv_pass_b_fwd(
@@ -344,9 +347,8 @@ def pass_b_recompute(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z, b_z,
                      use_ln: bool, transposed: bool):
     """Pass B in its recompute form (K7); same contract as
     :func:`pass_b_recompute_plain`. On CUDA the widths must pass
-    :func:`pass_b_widths_ok` with ``recompute`` (K4's: d_model <= 384,
-    d_inner <= 768, multiples of 32) and H, W >= 4; a call is one
-    launch."""
+    :func:`pass_b_widths_ok` with ``recompute`` (d_model <= 384, d_inner
+    <= 768, multiples of 32) and H, W >= 4; a call is one launch."""
     if x4.device.type == "cpu":
         return pass_b_recompute_plain(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab,
                                       b_ab, w_z, b_z, d_f, d_b, ln_w, ln_b,
@@ -920,10 +922,11 @@ def fused_mixer_core(x_hat: torch.Tensor, p: FusedParams,
     :class:`FusedMixerCoreRematFn` (autograd through
     :func:`reference_core`) where it says "remat": for ``bwd_mode="remat"``,
     and for any ``bwd_mode`` at widths the adjoint kernels do not take
-    (d_model not a multiple of 64, d_model > 384 or > d_inner). With
-    ``recompute``, which keeps no conv outputs for the adjoint kernels, it
-    is always the latter. On CUDA, widths the forward kernels do not take
-    raise here, before anything is launched."""
+    (d_model not a multiple of 64, d_model > 384 or > d_inner, d_inner >
+    768: FastVim-B/L/H among them). With ``recompute``, which keeps no conv
+    outputs for the adjoint kernels, it is always the latter. On CUDA,
+    widths the forward kernels do not take raise here, before anything is
+    launched."""
     dm, di = x_hat.shape[-1], p.conv_f_w.shape[0]
     route = fused_bwd_route(dm, di, bwd_mode)
     if x_hat.is_cuda and not (pass_a_widths_ok(dm, di)

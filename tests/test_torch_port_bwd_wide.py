@@ -220,7 +220,7 @@ def test_wide_model_train_step_matches_jax(img_size):
     (320, 640, True),
     (384, 832, False),   # d_inner beyond 768
     (448, 768, False),   # d_model beyond 384
-    (768, 1536, False),  # FastVim-B: runs unfused
+    (768, 1536, False),  # FastVim-B: fuses forward, remat backward
     (96, 384, False),    # d_model not a multiple of 64
     (192, 416, False),   # d_inner not a multiple of 64
     (256, 128, False),   # d_model > d_inner
@@ -228,11 +228,18 @@ def test_wide_model_train_step_matches_jax(img_size):
 ])
 def test_bwd_width_predicate(dm, di, ok):
     """What K5 and K6 take; K3 and K4 take every such width too, so a
-    layer whose backward fuses also fuses forward."""
+    layer whose backward fuses also fuses forward. K3 and K4 take more:
+    every case here but a d_inner that is not a multiple of 64 (and the
+    empty one) fuses forward, and those K5 and K6 refuse take the remat
+    backward."""
     assert lf.pass_bwd_widths_ok(dm, di) is ok
+    fwd = lf.pass_a_widths_ok(dm, di) and lf.pass_b_widths_ok(dm, di)
+    assert fwd is (dm > 0 and di % 64 == 0)
+    assert lf.fusable((8, 8), (1,), False, dm, di, 4, "mean") is fwd
     if ok:
-        assert lf.pass_a_widths_ok(dm, di) and lf.pass_b_widths_ok(dm, di)
-        assert lf.fusable((8, 8), (1,), False, dm, di, 4, "mean")
+        assert fwd
+    elif fwd:
+        assert lf.fused_bwd_route(dm, di, "fused") == "remat"
 
 
 @pytest.mark.parametrize("dm,di,fused", [

@@ -308,6 +308,20 @@ def test_pass_a_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
             _close(got, want, TOL[dtype])
 
 
+def _pass_b_args(g, dtype, batch, H, W, dm, di, bias, use_ln, transposed):
+    P = W if transposed else H
+    cb = (lambda k: _rand(g, k, scale=0.3)) if bias else (lambda k: None)
+    return (_rand(g, batch, H, W, dm).to(dtype),
+            _rand(g, batch, H, W, di).to(dtype),
+            _rand(g, batch, H, W, di).to(dtype),
+            _rand(g, batch, P, di).to(dtype), _rand(g, batch, P, di).to(dtype),
+            _rand(g, di, dm, scale=dm ** -0.5).to(dtype), cb(di),
+            _rand(g, di), _rand(g, di), 1 + _rand(g, di, scale=0.1),
+            _rand(g, di, scale=0.1),
+            _rand(g, dm, di, scale=di ** -0.5).to(dtype), cb(dm), 1e-5,
+            use_ln, transposed)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("grid,transposed,batch,dm,di,bias,use_ln", [
     ((6, 10), False, 3, 64, 128, False, True),   # 180 tokens: partial tile
@@ -327,20 +341,71 @@ def test_pass_a_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
 def test_pass_b_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
                               bias, use_ln):
     g = torch.Generator(device=dev).manual_seed(di + grid[1])
-    H, W = grid
-    P = W if transposed else H
-    cb = (lambda k: _rand(g, k, scale=0.3)) if bias else (lambda k: None)
-    args = (_rand(g, batch, H, W, dm).to(dtype),
-            _rand(g, batch, H, W, di).to(dtype),
-            _rand(g, batch, H, W, di).to(dtype),
-            _rand(g, batch, P, di).to(dtype), _rand(g, batch, P, di).to(dtype),
-            _rand(g, di, dm, scale=dm ** -0.5).to(dtype), cb(di),
-            _rand(g, di), _rand(g, di), 1 + _rand(g, di, scale=0.1),
-            _rand(g, di, scale=0.1),
-            _rand(g, dm, di, scale=di ** -0.5).to(dtype), cb(dm), 1e-5,
-            use_ln, transposed)
+    args = _pass_b_args(g, dtype, batch, *grid, dm, di, bias, use_ln,
+                        transposed)
     with torch.no_grad():
         _close(lf.pass_b(*args), lf.pass_b_plain(*args), TOL[dtype])
+
+
+# FastVim-B, -L and -H: K3's streamed form (d_model > 384) and K4's wide
+# form (column groups of 384; d_model > 384 or d_inner > 768)
+REGISTRY_WIDE = [(768, 1536), (1024, 2048), (1280, 2560)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,transposed,batch,dm,di,bias", [
+    *[((14, 14), tr, 2, dm, di, tr) for dm, di in REGISTRY_WIDE
+      for tr in (False, True)],
+    ((4, 200), False, 1, 768, 1536, True),   # two streamed segments
+    ((6, 10), True, 2, 800, 1600, False),    # d_model zero-padded to 832
+    ((8, 8), False, 2, 384, 1536, True),     # K3's whole tile, wide d_inner
+])
+def test_pass_a_wide_matches_plain(dev, dtype, grid, transposed, batch, dm,
+                                   di, bias):
+    g = torch.Generator(device=dev).manual_seed(dm + di + grid[0])
+    args = _pass_a_args(g, dtype, batch, *grid, dm, di, bias, transposed)
+    with torch.no_grad():
+        for got, want in zip(lf.pass_a(*args), lf.pass_a_plain(*args)):
+            _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,transposed,batch,dm,di,bias,use_ln", [
+    *[((14, 14), tr, 2, dm, di, tr, True) for dm, di in REGISTRY_WIDE
+      for tr in (False, True)],
+    ((6, 10), False, 3, 768, 1536, True, False),  # partial tile, no LN
+    ((6, 10), True, 2, 800, 1600, True, True),    # a 32-column last group
+    ((8, 8), False, 2, 384, 1536, False, True),   # one group, d_inner 1536
+    ((5, 13), False, 1, 1024, 2080, True, True),  # 65 tokens, a 32-wide slab
+])
+def test_pass_b_wide_matches_plain(dev, dtype, grid, transposed, batch, dm,
+                                   di, bias, use_ln):
+    g = torch.Generator(device=dev).manual_seed(dm + di + grid[1])
+    args = _pass_b_args(g, dtype, batch, *grid, dm, di, bias, use_ln,
+                        transposed)
+    with torch.no_grad():
+        _close(lf.pass_b(*args), lf.pass_b_plain(*args), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dm,di", [(768, 1536), (1280, 2560)])
+def test_wide_fwd_kernels_repeat_bitwise(dev, dtype, dm, di):
+    """The wide forms write every output from one block, without atomics:
+    two calls on the same inputs agree bit for bit, each one launch."""
+    g = torch.Generator(device=dev).manual_seed(dm)
+    a_args = _pass_a_args(g, dtype, 2, 10, 14, dm, di, True, True)
+    b_args = _pass_b_args(g, dtype, 2, 10, 14, dm, di, True, True, False)
+    with torch.no_grad():
+        for fn, args in ((lf.pass_a, a_args), (lf.pass_b, b_args)):
+            out = fn(*args)
+            first = [t.clone() for t in (out if isinstance(out, tuple)
+                                         else (out,))]
+            again = fn(*args)
+            for a, b in zip(first, again if isinstance(again, tuple)
+                            else (again,)):
+                assert torch.equal(a, b)
+        assert kernels_a_call(lambda: lf.pass_a(*a_args)) == 1
+        assert kernels_a_call(lambda: lf.pass_b(*b_args)) == 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -585,7 +650,8 @@ def test_wrappers_refuse(dev):
         ss.selective_scan_bwd(u, u, A, B, B, None, None, u, states[:, :, :8])
     x4, wide = _rand(g, 1, 8, 8, 64), _rand(g, 1, 8, 8, 832)
     y, v = _rand(g, 1, 8, 832), _rand(g, 832)
-    wide_p = lf.FusedParams(*([None] * 2), v.new_zeros(832, 4),
+    # d_inner past the forward kernels' 2560
+    wide_p = lf.FusedParams(*([None] * 2), v.new_zeros(2624, 4),
                             *([None] * 17))
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="fused forward kernels"):
@@ -598,17 +664,25 @@ def test_wrappers_refuse(dev):
     with pytest.raises(ValueError, match="d_inner <= 768"):
         lf.pass_b_bwd(x4, x4, wide, wide, y, y, _rand(g, 832, 64), None, v, v,
                       v, v, _rand(g, 64, 832), 1e-5, True, False)
-    # the forward kernels keep a tile's x̂ on chip: d_model <= 384
-    x416 = _rand(g, 1, 8, 8, 416)
-    with pytest.raises(ValueError, match="d_model <= 384"):
-        lf.pass_a(x416, _rand(g, 128, 416), None, _rand(g, 128, 4), None,
+    # the forward kernels take FastVim-H's widths and no more: d_model <=
+    # 1280, d_inner <= 2560
+    x1312 = _rand(g, 1, 8, 8, 1312)
+    with pytest.raises(ValueError, match="d_model <= 1280"):
+        lf.pass_a(x1312, _rand(g, 128, 1312), None, _rand(g, 128, 4), None,
                   _rand(g, 128, 4), None, 1.0, False)
-    with pytest.raises(ValueError, match="d_model <= 384"):
-        y128 = _rand(g, 1, 8, 128)
-        v128 = _rand(g, 128)
-        lf.pass_b(x416, _rand(g, 1, 8, 8, 128), _rand(g, 1, 8, 8, 128), y128,
-                  y128, _rand(g, 128, 416), None, v128, v128, v128, v128,
-                  _rand(g, 416, 128), None, 1e-5, True, False)
+    with pytest.raises(ValueError, match="d_inner <= 2560"):
+        lf.pass_a(x4, _rand(g, 2624, 64), None, _rand(g, 2624, 4), None,
+                  _rand(g, 2624, 4), None, 1.0, False)
+    y128, v128 = _rand(g, 1, 8, 128), _rand(g, 128)
+    with pytest.raises(ValueError, match="d_model <= 1280"):
+        lf.pass_b(x1312, _rand(g, 1, 8, 8, 128), _rand(g, 1, 8, 8, 128), y128,
+                  y128, _rand(g, 128, 1312), None, v128, v128, v128, v128,
+                  _rand(g, 1312, 128), None, 1e-5, True, False)
+    y2592, v2592 = _rand(g, 1, 8, 2592), _rand(g, 2592)
+    with pytest.raises(ValueError, match="d_inner <= 2560"):
+        lf.pass_b(x4, _rand(g, 1, 8, 8, 2592), _rand(g, 1, 8, 8, 2592), y2592,
+                  y2592, _rand(g, 2592, 64), None, v2592, v2592, v2592, v2592,
+                  _rand(g, 64, 2592), None, 1e-5, True, False)
     with pytest.raises(ValueError, match="d_inner <= 768"):
         lf.pass_a_bwd(x4, _rand(g, 1, 8, 8, 64), wide, wide, y, y,
                       _rand(g, 832, 64), None, _rand(g, 832, 4), None,

@@ -649,14 +649,16 @@ def test_train_step_fused_kernels_always_matches_jax():
 @pytest.mark.parametrize("d_model,fused,recompute", [
     (192, True, True),     # FastVim-T: d_inner 384
     (384, True, True),     # FastVim-S: 768, which K7 walks in slabs
-    (768, False, False),   # FastVim-B: 1536 runs unfused
-    (1280, False, False),  # FastVim-H: 2560
+    (768, True, False),    # FastVim-B: 1536, past K7's 768
+    (1280, True, False),   # FastVim-H: 2560, the widest K3 and K4 take
 ])
 def test_wide_mixers_dispatch_to_the_unfused_path(d_model, fused, recompute):
-    """fusable is false for every width the K3 or K4 launcher refuses,
-    and the mixer asks it with its own widths: a mixer of FastVim-B's
-    width, built on the CPU, dispatches as it would on the card. No
-    kernel runs here; the launchers' own limits are the same predicates."""
+    """fusable is false for every width the K3 or K4 launcher refuses
+    (with ``recompute``: K7), and the mixer asks it with its own widths: a
+    mixer of FastVim-B's or -H's width, built on the CPU, dispatches as it
+    would on the card, to the fused layer by default and to the unfused
+    path in the recompute mode. No kernel runs here; the launchers' own
+    limits are the same predicates."""
     mixer = MambaMixer(d_model=d_model, n_layer=2)
     grid, di = (14, 14), 2 * d_model
     assert mixer.d_inner == di
@@ -672,20 +674,31 @@ def test_wide_mixers_dispatch_to_the_unfused_path(d_model, fused, recompute):
     assert fb.fusable(*grid, di) and mg.fusable(grid, (0,), di)
 
 
-def test_wide_mixer_forward_runs_unfused_on_cpu():
+def test_wide_mixer_forward_runs_unfused_on_cpu(monkeypatch):
     """d_model 768 (FastVim-B) at a short grid: the default dispatch takes
-    the unfused path and gives what layer_fused="off" gives, bit for bit."""
+    fused_mixer_core (its plain versions here) and gives what
+    layer_fused="off" gives, the unfused path, within 1e-4 of the largest
+    entry; the recompute mode, which K7 does not take at this width, runs
+    unfused."""
+    from fastvim_tpu_torch.models import mixer as mixer_mod
+
     g = torch.Generator().manual_seed(0)
     a = MambaMixer(d_model=768, n_layer=2)
     a.reset_parameters(g)
     b = MambaMixer(d_model=768, n_layer=2, layer_fused="off")
     b.load_state_dict(a.state_dict())
+    c = MambaMixer(d_model=768, n_layer=2, layer_fused="recompute")
+    c.load_state_dict(a.state_dict())
     x = torch.randn(1, 16, 768, generator=g)
-    calls = []
-    a._unfused = lambda *args: calls.append(1) or MambaMixer._unfused(a, *args)
+    fused = []
+    monkeypatch.setattr(mixer_mod, "fused_mixer_core", lambda *args, **kw:
+                        fused.append(1) or lf.fused_mixer_core(*args, **kw))
     with torch.no_grad():
-        assert torch.equal(a(x, (4, 4)), b(x, (4, 4)))
-    assert calls == [1]
+        got, want, rc = a(x, (4, 4)), b(x, (4, 4)), c(x, (4, 4))
+    assert fused == [1]
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    assert torch.equal(rc, want)
 
 
 # ----------------------------------------------------------------------

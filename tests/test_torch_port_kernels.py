@@ -163,9 +163,13 @@ def test_fusable_limits():
     assert not fusable((14, 14), (1,), False, *w, 3, "mean")
     assert not fusable((3, 14), (1,), False, *w, 4, "mean")
     assert not fusable((4, 4, 4), (2,), False, *w, 4, "mean")
-    # widths: K4 holds d_inner <= 768 in a block, K3 owns 64 channels
+    # widths: up to FastVim-H's (d_model 1280, d_inner 2560), K3 owns 64
+    # channels
     assert fusable((14, 14), (1,), False, 384, 768, 4, "mean")
-    assert not fusable((14, 14), (1,), False, 768, 1536, 4, "mean")
+    assert fusable((14, 14), (1,), False, 768, 1536, 4, "mean")
+    assert fusable((14, 14), (0,), True, 1280, 2560, 4, "mean")
+    assert not fusable((14, 14), (1,), False, 1312, 2624, 4, "mean")
+    assert not fusable((14, 14), (1,), False, 1280, 2624, 4, "mean")
     assert not fusable((14, 14), (1,), False, 48, 96, 4, "mean")
     assert not fusable((14, 14), (1,), False, 192, 352, 4, "mean")
 
