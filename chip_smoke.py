@@ -17,12 +17,16 @@ Phases, each of which raises on failure (exit code non-zero):
    128 × 128, batch 2, and 14 × 14, batch 8), -L's (1024 / 2048, 14 × 14)
    and -H's (1280 / 2560, 32 × 32), both orientations, where K3 streams x̂
    through its ring and K4 splits d_model into groups of 384 columns,
-   each timed beside its bound and with the number of
-   device kernels one call launches (counted by a child process from a
-   CUDA graph of one call); K1 in both of its forms, sequential (L = 128)
-   and chunked (Vim-T's L = 16,384 and 16,385, also held against its own
-   plain version and the sequential kernel, y and the saved states),
-   with the form the launcher picks at each length; K2 likewise, in its
+   and K5 and K6 at the same wide shapes, their wide forms (x̂ and g
+   streamed through the ring, dx̂ a product of its own), each timed beside
+   its bound and with the number of device kernels one call launches
+   (counted by a child process from a CUDA graph of one call, and
+   checked for K5 and K6: 3 in bf16 at FastVim-T's widths, 4 in the wide
+   forms, fp32 as ``BWD_KERNELS_A_CALL`` states); K1 in both of its
+   forms, sequential (L = 128) and chunked (Vim-T's L = 16,384 and
+   16,385, also held against its own plain version and the sequential
+   kernel, y and the saved states), with the form the launcher picks at
+   each length; K2 likewise, in its
    sequential (L = 128) and chunked (L = 16,384 and 16,385) forms, all
    seven gradients; K7 at FastVim-T's and FastVim-S's widths, both
    orientations, beside its pass A, K3's pools-only form; K8, K9 and K10
@@ -47,8 +51,11 @@ Phases, each of which raises on failure (exit code non-zero):
    widest K10 takes (2 K10); then ``fastvim_base`` and ``fastvim_large``
    at 224 px and ``fastvim_huge`` at 448 px (patch 14, a 32 × 32 grid),
    depth 2, which must fuse with their default fields (2 K3, 2 K4, 4 K1
-   a forward): their logits, and their loss and every gradient through
-   the remat backward, with no K5 or K6 launch;
+   a forward): their logits, and, built with ``layer_fused_bwd="fused"``
+   (fp32's "auto" takes the remat backward at these widths on lines of
+   up to 16 tokens, B's and L's here), their loss and every gradient
+   through the fused adjoint (2 K5 and 2 K6 a backward, their wide
+   forms);
 4. run FastVim-T, Vim-T and FastVim-B (full depth) forward at 2048 px,
    batch 2, bf16. Logits must be finite, and the kernels' launch
    counters must show 24 pass A + 24 pass B + 48 scans for FastVim-T and
@@ -62,10 +69,13 @@ Phases, each of which raises on failure (exit code non-zero):
    ``make_supervised_train_step`` (label smoothing 0.1, no EMA): 5 steps
    on one fixed batch. Every loss must be finite, the last below the
    first, the parameters changed, and each step must launch 24 K3, 24 K4,
-   48 K1, 24 K5, 24 K6 and 48 K2. Then 3 steps of ``fastvim_small`` at
-   batch 2, full width and depth, with its default fields (the same
-   launches per step) and one step of ``vim_tiny`` at batch 2 (48 K1, 48
-   K2), and the step time of each as img/s;
+   48 K1, 24 K5, 24 K6 and 48 K2. Then 3 steps of ``fastvim_small`` and
+   of ``fastvim_base`` at batch 2, full width and depth, with their
+   default fields (the same launches per step; FastVim-B's K5 and K6 in
+   their wide forms), one step of ``fastvim_base`` with
+   ``layer_fused_bwd="remat"`` (24 K3, 24 K4, 96 K1, 48 K2) and one step
+   of ``vim_tiny`` at batch 2 (48 K1, 48 K2), and the step time of each
+   as img/s;
 6. the configurations: ``fastvim_tiny`` at 2048 px, batch 2, bf16, full
    depth, with ``fused_kernels="always"`` (24 K8, 24 K9, 48 K1 per
    forward), ``fused_kernels="merge"`` (24 K9, 48 K1), ``fused_merge``
@@ -112,9 +122,9 @@ Phases, each of which raises on failure (exit code non-zero):
    finetune_FastVimB`` from its newest checkpoint for one epoch
    (``fastvim_base``, every layer fused: the printed counts show the
    sin-cos ``pos_embed`` and the kept-init head; a step 24 K3 + 24 K4 +
-   96 K1 + 48 K2, the fused forward and the remat backward, an eval batch
-   24 K3 + 24 K4 + 48 K1; img/s and peak memory); ``linear_probe
-   --config_name linear_FastVimL model=fastvim_base batch_size=128`` from
+   96 K1 + 48 K2, the fused forward and fp32's default remat backward
+   on 14-token lines, an eval batch 24 K3 + 24 K4 + 48 K1; img/s and peak memory);
+   ``linear_probe --config_name linear_FastVimL model=fastvim_base batch_size=128`` from
    the same checkpoint (24 K3 + 24 K4 + 48 K1 a step and an eval batch,
    the frozen backbone fused; bitwise as loaded, the BatchNorm statistics
    moved);
@@ -157,7 +167,15 @@ Phases, each of which raises on failure (exit code non-zero):
    each eval image 24 K3, 24 K4, 48 K1; img/s, step time, the device's
    idle share over the resumed run's training and its peak memory; and
    ``extract_features --with_fpn``: four (1, 32, 32, 192) maps and the
-   pyramid.
+   pyramid. Then ``train_segmentation --config_name
+   upernet_FastVimB_ade20k`` as shipped (``fastvim_base``, B = 2, 512 px,
+   fp32) for 3 iterations on 2 synthetic images and their eval: each
+   step 24 K3, 24 K4, 48 K1, 24 K5, 24 K6, 48 K2 (fp32's default takes
+   the fused adjoint on its 32-token lines), each eval image 24 K3, 24
+   K4, 48 K1; img/s, step time, peak memory; then its segmentor's train
+   step on one batch with the mixers set to ``layer_fused_bwd="fused"``
+   and to "remat" (24 K3, 24 K4, 96 K1, 48 K2), timed in turns, with
+   each route's peak memory.
 11. detection: ``vitdet_FastVimT_coco``'s cascade Mask R-CNN as
    ``train_detection`` builds it (``fastvim_tiny`` at full width and
    depth, unfused as the config pins it, 1024 px: a 64 × 64 grid, scans
@@ -183,7 +201,9 @@ time a call from CUDA-graph replays; ``bound_ms`` is the larger of bytes
 inputs of the timed call), K3 and K4 also once for each wide width
 (``"pass_a_fwd d_model=768"``: FastVim-B at 2048 px, -L and -H at their
 phase 2 shapes; launches from phase 4's FastVim-B forward and phase 3's
--L and -H forwards); the last line is ``{"ok": true, "device": {...}}``.
+-L and -H forwards), and so K5 and K6 (``"pass_b_bwd d_model=768"``;
+launches from phase 5's FastVim-B train step and phase 3's -L and -H
+backwards); the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
 """
@@ -360,6 +380,18 @@ def count_launches() -> int:
                 rnd(wdi), rnd(wdi), rnd(wdi), rnd(wdi),
                 rnd(wdm, wdi).to(dtype), None, 1e-5, True, False):
                 lf.pass_b(*a)}
+        # K5's and K6's wide forms there too
+        wtok = lambda c: rnd(batch, H, W, c).to(dtype)
+        wpool = lambda: rnd(batch, H, wdi).to(dtype)
+        wide["pass_b_bwd"] = lambda a=(
+            wtok(wdm), wtok(wdm), wtok(wdi), wtok(wdi), wpool(), wpool(),
+            rnd(wdi, wdm).to(dtype), None, rnd(wdi), rnd(wdi), rnd(wdi),
+            rnd(wdi), rnd(wdm, wdi).to(dtype), 1e-5, True, False): \
+            lf.pass_b_bwd(*a)
+        wide["pass_a_bwd"] = lambda a=(
+            wtok(wdm), rnd(batch, H, W, wdm), wtok(wdi), wtok(wdi), wpool(),
+            wpool(), rnd(wdi, wdm).to(dtype), None, rnd(wdi, 4), rnd(wdi),
+            rnd(wdi, 4), rnd(wdi), 1.0, False): lf.pass_a_bwd(*a)
         for name, fn in wide.items():
             out.setdefault(f"{name} d_model={wdm}", {})[str(dtype)] = \
                 kernels_a_call(fn)
@@ -398,7 +430,13 @@ def launches_per_call() -> dict:
     form its three phases and three fixed-order sums, the sequential form
     one kernel and the same sums; the lanes scan a memset (its flags) and
     one kernel; K3 and K4 (also at FastVim-B's widths, ``"pass_a_fwd
-    d_model=768"``), K7, K8, K9 and K10 one kernel in either dtype."""
+    d_model=768"``), K7, K8, K9 and K10 one kernel in either dtype; K5 and
+    K6 at FastVim-T's widths 3 kernels in bf16 (the main kernel, the
+    weight-gradient product, the fixed-order sums), in fp32 K5 the same
+    and K6 one more (dx̂), and at FastVim-B's (``"pass_b_bwd
+    d_model=768"``), their wide forms, 4 in either dtype (the dx̂ product
+    after the main kernel); in fp32 each beside the wrapper's weight
+    transposes (K5 two, K6 one), which the graph counts too."""
     run = subprocess.run([sys.executable, __file__, "--count-launches"],
                          capture_output=True, text=True, timeout=300)
     if run.returncode != 0:
@@ -410,6 +448,11 @@ def launches_per_call() -> dict:
         if set(counts[name].values()) != {1}:
             raise AssertionError(f"{name}: {counts[name]} device kernels a "
                                  "call, not 1")
+    for name, want in BWD_KERNELS_A_CALL.items():
+        got = {k: counts[name][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{name}: {got} device kernels a call, not "
+                                 f"{want}")
     for L in (128, 16384):
         for kernel, form, want in (
                 ("selective_scan_fwd", "sequential", 1),
@@ -424,7 +467,18 @@ def launches_per_call() -> dict:
     return counts
 
 
-# K3 / K4 at FastVim-B's, -L's and -H's widths in phase 2: (d_model,
+# device kernels one call of K5 and of K6 launches (the main kernel, the
+# weight-gradient product, the fixed-order sums; the wide forms past
+# d_model 384 or d_inner 768, and fp32's K6, also the dx̂ product), with
+# the fp32 wrapper's weight transposes (K5: w_z and w_out, K6: w_x)
+BWD_KERNELS_A_CALL = {
+    "pass_b_bwd": {"torch.bfloat16": 3, "torch.float32": 3 + 2},
+    "pass_a_bwd": {"torch.bfloat16": 3, "torch.float32": 4 + 1},
+    "pass_b_bwd d_model=768": {"torch.bfloat16": 4, "torch.float32": 4 + 2},
+    "pass_a_bwd d_model=768": {"torch.bfloat16": 4, "torch.float32": 4 + 1},
+}
+
+# K3-K6 at FastVim-B's, -L's and -H's widths in phase 2: (d_model,
 # d_inner, ((grid, batch), ...)), the first shape the kernels line's
 WIDE_SHAPES = ((768, 1536, (((128, 128), 2), ((14, 14), 8))),
                (1024, 2048, (((14, 14), 8),)),
@@ -706,15 +760,22 @@ def check_bwd_kernels(dev, card, per_call):
         f"sequential kernel")
 
     # K5 / K6 at FastVim-T's widths (the main path: 2048 px, batch 3) and
-    # FastVim-S's (batch 2): grid 128×128 (2048 px) and 14×14 (224 px)
-    for dm, di, big_batch in ((192, 384, 3), (384, 768, 2)):
+    # FastVim-S's (batch 2): grid 128×128 (2048 px) and 14×14 (224 px);
+    # then FastVim-B's, -L's and -H's (the wide forms) at phase 2's wide
+    # shapes. The kernels line takes FastVim-T's times under the kernel's
+    # name and each wide width's first shape under "<name> d_model=<dm>"
+    for dm, di, shapes in ((192, 384, (((128, 128), 3), ((14, 14), 8))),
+                           (384, 768, (((128, 128), 2), ((14, 14), 8))),
+                           *WIDE_SHAPES):
+        wide = dm in WIDE_DM
+        key = lambda name: f"{name} d_model={dm}" if wide else name
         w_in = uni(2 * di, dm, bound=dm ** -0.5)
         conv = [uni(di, 4, bound=0.5) for _ in range(2)]
         cbias = [uni(di, bound=0.5) for _ in range(2)]
         w_out = uni(dm, di, bound=di ** -0.5)
         d_f, d_b = uni(di, bound=1.0), uni(di, bound=1.0)
         ln_w, ln_b = 1 + uni(di, bound=0.1), uni(di, bound=0.1)
-        for (H, W), batch in (((128, 128), big_batch), ((14, 14), 8)):
+        for (H, W), batch in shapes:
             base = dict(x=rnd(batch, H, W, dm), g=rnd(batch, H, W, dm),
                         xc_f=rnd(batch, H, W, di), xc_b=rnd(batch, H, W, di),
                         dxc_f=rnd(batch, H, W, di), dxc_b=rnd(batch, H, W, di))
@@ -739,7 +800,8 @@ def check_bwd_kernels(dev, card, per_call):
                     tol = BF16_TOL if bf else FP32_TOL
                     e = compare_all(f"pass_b_bwd {tag}", got_b,
                                     lf.pass_b_bwd_plain(*b_args), tol, 4)
-                    errs["pass_b_bwd"] = max(errs["pass_b_bwd"], e)
+                    errs[key("pass_b_bwd")] = max(
+                        errs.get(key("pass_b_bwd"), 0.0), e)
                     # K6: dx per token; 6 gradients summed over every token
                     a_args = (t["x"], dx_b, t["dxc_f"], t["dxc_b"], t["dpf"],
                               t["dpb"], wx, None, conv[0], cbias[0], conv[1],
@@ -747,10 +809,13 @@ def check_bwd_kernels(dev, card, per_call):
                     got_a = lf.pass_a_bwd(*a_args)
                     e = compare_all(f"pass_a_bwd {tag}", got_a,
                                     lf.pass_a_bwd_plain(*a_args), tol, 1)
-                    errs["pass_a_bwd"] = max(errs["pass_a_bwd"], e)
-                    if not (bf and (H, W) == (128, 128)):
+                    errs[key("pass_a_bwd")] = max(
+                        errs.get(key("pass_a_bwd"), 0.0), e)
+                    if not (bf and (wide or (H, W) == (128, 128))):
                         continue
                     gemm = 2.0 * batch * H * W * dm * di  # one GEMM's FLOP
+                    # the child counted the wide forms at FastVim-B's widths
+                    per = "" if not wide else f" d_model={WIDE_DM[0]}"
                     for name, kern, plain, args, outs, flops in (
                             ("pass_b_bwd", lf.pass_b_bwd, lf.pass_b_bwd_plain,
                              b_args, got_b, 5 * gemm),
@@ -762,12 +827,14 @@ def check_bwd_kernels(dev, card, per_call):
                             nbytes(*(a for a in args
                                      if isinstance(a, torch.Tensor)), *outs),
                             flops, "bf16")
+                        n = per_call[name + per]["torch.bfloat16"]
                         log(f"[time] {name} bf16 {tag}: kernel {k_ms:.4f} "
-                            f"ms in {per_call[name]['torch.bfloat16']:g} "
-                            f"launches, plain {p_ms:.4f} ms, bound "
-                            f"{b_ms:.4f} ms ({by}) ({card})")
-                        # the kernels line takes the main path's widths
-                        times.setdefault(name, (k_ms, p_ms, b_ms, by))
+                            f"ms in {n:g} launches, plain {p_ms:.4f} ms, "
+                            f"bound {b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} "
+                            f"of the bound ({card})")
+                        # the kernels line takes the main path's widths,
+                        # and each wide width's first shape
+                        times.setdefault(key(name), (k_ms, p_ms, b_ms, by))
             del base, dx_b, t
             torch.cuda.empty_cache()
     return errs, times
@@ -1112,10 +1179,15 @@ def wide_inputs(batch: int = 2):
 def check_grads_224(dev):
     """Phase 3, training: the loss and every parameter's gradient at
     224 px in fp32, card (kernels) vs CPU (plain versions). The d_model 96
-    model and FastVim-B, -L and -H (depth 2; -H at 448 px) fuse forward
-    (K3, K4) but not backward: their layers take the remat backward, so no
-    K5 or K6 launches. Returns the launches of the wide models' forwards
-    and backwards."""
+    model fuses forward (K3, K4) but not backward: its layers take the
+    remat backward, so no K5 or K6 launches. FastVim-B, -L and -H (depth
+    2; -H at 448 px), built with ``layer_fused_bwd="fused"`` (fp32's
+    "auto" takes the remat backward at these widths on 14- and 16-token
+    lines), fuse both ways: 2
+    K3 + 2 K4 a forward and 2 K5 + 2 K6 a backward, the wide forms of the
+    adjoint. Returns the launches of the
+    wide models' forwards and backwards, and their K5 and K6 launches by
+    d_model."""
     import torch
 
     from fastvim_tpu_torch.models import create_model
@@ -1129,9 +1201,13 @@ def check_grads_224(dev):
     cases = [(name, kw, x, "") for name, kw in (
         ("fastvim_tiny", {}), ("vim_tiny", {}),
         ("fastvim_small", {"depth": 2}), ("fastvim_tiny", narrow))]
-    cases += [(name, {"depth": 2, "img_size": img}, x_, " remat backward")
-              for name, img, _, x_ in wide_inputs()]
+    wide = wide_inputs()
+    cases += [(name, {"depth": 2, "img_size": img,
+                      "layer_fused_bwd": "fused"}, x_, " fused backward")
+              for name, img, _, x_ in wide]
+    wide_dm = {name: dm for name, _, dm, _ in wide}
     total = dict.fromkeys(kernels.launch_counts(), 0)
+    by_dm = {}
     for name, kw, x_, what in cases:
         cpu_model = create_model(name, device="cpu", drop_path_rate=0.0,
                                  generator=torch.Generator().manual_seed(0),
@@ -1154,12 +1230,15 @@ def check_grads_224(dev):
             log(f"[check] {name} {kw}: K3, K4 launches per forward "
                 f"{seen[:2]}, K5, K6 in its backward {seen[2:]}; all "
                 f"{ {k: v for k, v in kernels.launch_counts().items() if v} }")
-            if seen != (2, 2, 0, 0):
+            want = (2, 2, 2, 2) if what else (2, 2, 0, 0)
+            if seen != want:
                 raise AssertionError(f"{name} {kw}: K3, K4, K5, K6 launches "
-                                     f"{seen}, expected (2, 2, 0, 0)")
+                                     f"{seen}, expected {want}")
         if what:
             for k, v in kernels.launch_counts().items():
                 total[k] += v
+            by_dm[wide_dm[name]] = {"pass_b_bwd": bwd["pass_b_bwd"],
+                                    "pass_a_bwd": bwd["pass_a_bwd"]}
         (want_loss, want), (got_loss, got) = results
         compare(f"{name} {kw} fp32 loss{what}, card vs CPU", got_loss,
                 want_loss, MODEL_TOL)
@@ -1176,7 +1255,7 @@ def check_grads_224(dev):
             f"parameters, card vs CPU: worst {worst:.3e} of the largest "
             f"entry ({worst_name}) tol={GRAD_TOL:g} ok")
         del cpu_model, gpu_model, results
-    return total
+    return total, by_dm
 
 
 def run_main_path(dev, card):
@@ -1247,7 +1326,10 @@ def run_main_path(dev, card):
 
 def run_train_path(dev, card):
     """Phase 5: supervised train steps at 2048 px in bf16, through the
-    entry points a user calls. Returns the launch counts of all steps."""
+    entry points a user calls; FastVim-B's (full depth, B = 2) through the
+    wide forms of K5 and K6, timed beside the same step with
+    ``layer_fused_bwd="remat"``. Returns the launch counts of all steps,
+    and those counted in one FastVim-B step through the fused adjoint."""
     import torch
 
     from fastvim_tpu_torch.models import create_model
@@ -1268,15 +1350,26 @@ def run_train_path(dev, card):
         "vim_tiny": {**none, "selective_scan_fwd": 48,
                      "selective_scan_bwd": 48},
     }
-    # FastVim-S: 24 layers too, each through the same six kernels
+    # FastVim-S and -B: 24 layers too, each through the same six kernels
+    # (FastVim-B's K5 and K6 in their wide forms); FastVim-B with the remat
+    # backward runs each layer's two scans again and no K5 or K6
     per_step["fastvim_small"] = per_step["fastvim_tiny"]
+    per_step["fastvim_base"] = per_step["fastvim_tiny"]
+    remat = {**per_step["fastvim_tiny"], "selective_scan_fwd": 96,
+             "pass_b_bwd": 0, "pass_a_bwd": 0}
     total = dict.fromkeys(kernels.launch_counts(), 0)
-    for name, batch, steps in (("fastvim_tiny", 3, 5), ("fastvim_small", 2, 3),
-                               ("vim_tiny", 2, 1)):
+    step_ms, base_step = {}, None
+    for name, batch, steps, fields in (
+            ("fastvim_tiny", 3, 5, {}), ("fastvim_small", 2, 3, {}),
+            ("fastvim_base", 2, 3, {}),
+            ("fastvim_base", 2, 1, {"layer_fused_bwd": "remat"}),
+            ("vim_tiny", 2, 1, {})):
+        want = remat if fields else per_step[name]
         # no device argument: the entry point builds on the card
         model = create_model(name, img_size=img, dtype=torch.bfloat16,
                              drop_path_rate=0.0,
-                             generator=torch.Generator().manual_seed(0))
+                             generator=torch.Generator().manual_seed(0),
+                             **fields)
         if next(model.parameters()).device.type != "cuda":
             raise AssertionError("create_model did not build on the card")
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -1298,15 +1391,17 @@ def run_train_path(dev, card):
             torch.cuda.synchronize()
             seen = kernels.launch_counts()
             losses.append(metrics["train_loss"].item())
-            if seen != per_step[name]:
-                raise AssertionError(f"{name} step {i}: launches {seen}, "
-                                     f"expected {per_step[name]}")
+            if seen != want:
+                raise AssertionError(f"{name} {fields} step {i}: launches "
+                                     f"{seen}, expected {want}")
+            if name == "fastvim_base" and not fields:
+                base_step = seen
             for k, v in seen.items():
                 total[k] += v
-        log(f"[train] {name} {img}px B={batch} bf16: losses "
+        log(f"[train] {name} {fields} {img}px B={batch} bf16: losses "
             f"{[round(v, 5) for v in losses]}, grad_norm "
             f"{metrics['grad_norm'].item():.4f}, launches per step "
-            f"{ {k: v for k, v in per_step[name].items() if v} }, peak memory "
+            f"{ {k: v for k, v in want.items() if v} }, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         if not all(map(math.isfinite, losses)):
             raise AssertionError(f"{name}: non-finite loss {losses}")
@@ -1320,11 +1415,17 @@ def run_train_path(dev, card):
             raise AssertionError(f"{name}: step count {state.step}")
         iters, windows = (1, 3) if name == "vim_tiny" else (3, 3)
         ms = cuda_ms(lambda: train_step(state, batch_), iters, windows)
-        log(f"[time] {name} {img}px B={batch} bf16 train step: {ms:.3f} ms, "
-            f"{batch / ms * 1e3:.2f} img/s ({card})")
+        step_ms[(name, bool(fields))] = ms
+        log(f"[time] {name} {fields} {img}px B={batch} bf16 train step: "
+            f"{ms:.3f} ms, {batch / ms * 1e3:.2f} img/s ({card})")
         del model, state, tx, train_step, before, batch_
         torch.cuda.empty_cache()
-    return total
+    fused, rematted = (step_ms[("fastvim_base", r)] for r in (False, True))
+    log(f"[time] fastvim_base {img}px B=2 bf16 train step: fused adjoint "
+        f"(K5, K6) {fused:.3f} ms, {2 / fused * 1e3:.2f} img/s; remat "
+        f"backward {rematted:.3f} ms, {2 / rematted * 1e3:.2f} img/s "
+        f"({card})")
+    return total, base_step
 
 
 def run_config_path(dev, card):
@@ -1896,12 +1997,13 @@ def check_mae_224(dev):
     return total
 
 
-# a forward of a 24-layer fused FastVim, and what a train step of
-# FastVim-B adds to it: the remat backward, which runs each layer's scans
-# again (K1) and differentiates them (K2)
+# a forward of a 24-layer fused FastVim, and a train step of FastVim-B in
+# fp32 at 224 px: the fused forward and the remat backward ("auto" past
+# FastVim-S's widths on lines of up to 16 tokens in fp32), which runs
+# each layer's two scans again
 FUSED_FWD = {"pass_a_fwd": 24, "pass_b_fwd": 24, "selective_scan_fwd": 48}
-FUSED_REMAT_STEP = {"pass_a_fwd": 24, "pass_b_fwd": 24,
-                    "selective_scan_fwd": 96, "selective_scan_bwd": 48}
+FUSED_REMAT_STEP = {**FUSED_FWD, "selective_scan_fwd": 96,
+                    "selective_scan_bwd": 48}
 
 
 def run_mae_cli_path(dev, card):
@@ -1912,9 +2014,11 @@ def run_mae_cli_path(dev, card):
     over the resumed epoch); ``finetune_mae --config_name
     finetune_FastVimB`` from its newest checkpoint for one epoch (the
     sin-cos ``pos_embed`` and the kept-init head in the printed counts;
-    every layer fused: a step 24 K3 + 24 K4 + 96 K1 + 48 K2, the fused
-    forward and the remat backward, an eval batch 24 K3 + 24 K4 + 48 K1;
-    its peak memory beside the unfused run's); ``linear_probe
+    every layer fused forward, fp32's default remat backward on 14-token
+    lines: a step 24
+    K3 + 24 K4 + 96 K1 + 48 K2, an eval batch 24 K3 + 24 K4 + 48 K1; its
+    img/s and peak memory beside the fused adjoint's and the unfused
+    run's); ``linear_probe
     --config_name linear_FastVimL model=fastvim_base batch_size=128`` from
     the same checkpoint (24 K3 + 24 K4 + 48 K1 a step and an eval batch;
     the backbone bitwise as loaded, the BatchNorm statistics moved).
@@ -2008,8 +2112,8 @@ def run_mae_cli_path(dev, card):
         ckpt = os.path.join(pre, "ckpt", f"step_{2 * steps}")
 
         # 2. finetune fastvim_base from it: 24 fused layers (K3, 2 K1, K4)
-        # whose backward is the remat one (the two scans again, then K2),
-        # and each eval batch the fused forward
+        # whose backward is fp32's default, the remat one (2 K1, 2 K2), and
+        # each eval batch the fused forward
         ft = os.path.join(tmp, "finetune")
         torch.cuda.reset_peak_memory_stats()
         state, text = run(
@@ -2026,14 +2130,15 @@ def run_mae_cli_path(dev, card):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[cli] finetune_mae: load_pretrained_backbone loaded, kept-init, "
             f"sincos-filled {counts(text)} (pos_embed the sin-cos table, the"
-            f" head its init); peak memory {peak:.2f} GiB (unfused, PR 14: "
-            f"57.60 GiB)")
+            f" head its init); peak memory {peak:.2f} GiB (PERF.md §2: the "
+            f"fused adjoint 16.83 GiB, unfused 57.60 GiB)")
         del state
         rates(os.path.join(ft, "log.csv"), "finetune_mae finetune_FastVimB."
               "yaml (fastvim_base)", "; a step 24 K3 + 24 K4 + 96 K1 + 48 K2"
               " (the fused forward, the remat backward), an eval batch 24 K3"
-              f" + 24 K4 + 48 K1; peak {peak:.2f} GiB (unfused, PR 14: "
-              "114.51 img/s, 57.60 GiB)")
+              f" + 24 K4 + 48 K1; peak {peak:.2f} GiB (PERF.md §2: the fused "
+              "adjoint 46.33-53.39 img/s, 16.83 GiB; unfused 114.51 img/s, "
+              "57.60 GiB)")
 
         # 3. the linear probe of the same checkpoint on fastvim_base: its
         # frozen backbone runs without gradients, fused, in steps and evals
@@ -2399,8 +2504,12 @@ def run_channel_steps(dev, card):
 
 
 SEG_CONFIG = "upernet_FastVimT_ade20k"
+SEG_B_CONFIG = "upernet_FastVimB_ade20k"
 SEG_FWD = {"pass_a_fwd": 24, "pass_b_fwd": 24, "selective_scan_fwd": 48}
 SEG_BWD = {"pass_b_bwd": 24, "pass_a_bwd": 24, "selective_scan_bwd": 48}
+# FastVim-B's step through the remat backward: the fused forward, each
+# layer's two scans again and their backward on K2
+SEG_B_REMAT = {**SEG_FWD, "selective_scan_fwd": 96, "selective_scan_bwd": 48}
 # the share of the heads' ReLU elements whose mask may differ between the
 # card and the CPU (3 of 4,482,048 on an H100): past it the forwards
 # disagree by more than rounding, which the shared masks would hide
@@ -2633,6 +2742,134 @@ def run_seg_cli_path(dev, card):
                              f"{pyramid}")
     log(f"[check] extract_features --with_fpn: maps {shapes}, pyramid "
         f"{pyramid} ok")
+    return total
+
+
+def run_seg_base_cli(dev, card):
+    """Phase 10, FastVim-B: ``train_segmentation --config_name
+    upernet_FastVimB_ade20k`` as shipped (``fastvim_base`` in feature mode,
+    B = 2, 512 px, fp32) for 3 iterations on 2 synthetic images and the
+    eval at the last one: each step 24 K3, 24 K4, 48 K1, 24 K5, 24 K6 and
+    48 K2 (every layer fused both ways: fp32's default takes the adjoint
+    on 32-token lines, K5 and K6 in their wide forms), each eval image 24 K3 + 24 K4 + 48 K1. Prints img/s, step time and the
+    peak memory. Returns the launch counts."""
+    import csv
+    import os
+    import tempfile
+
+    import torch
+
+    from fastvim_tpu_torch.cli import train_segmentation
+    from fastvim_tpu_torch.ops import kernels
+
+    batch, images, iters = 2, 2, 3
+    step = {**SEG_FWD, **SEG_BWD}
+    with tempfile.TemporaryDirectory() as out:
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_segmentation.main([
+            "--config_name", SEG_B_CONFIG, "--model_save_dir", out,
+            "--synthetic_samples", str(images), "--device", str(dev),
+            "--total_iters", str(iters), "--eval_every", str(iters)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seen = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if state.step != iters:
+            raise AssertionError(f"train_segmentation {SEG_B_CONFIG}: step "
+                                 f"{state.step}, not {iters}")
+        del state
+        with open(os.path.join(out, "log.csv")) as f:
+            rows = list(csv.DictReader(f))
+    expect_launches(f"train_segmentation {SEG_B_CONFIG} ({iters} steps, "
+                    f"{images} eval images)", seen,
+                    {k: iters * step.get(k, 0) + images * SEG_FWD.get(k, 0)
+                     for k in seen})
+    if [r["iter"] for r in rows] != [str(iters)]:
+        raise AssertionError(f"train_segmentation {SEG_B_CONFIG} log rows "
+                             f"{[r['iter'] for r in rows]}, not [{iters}]")
+    vals = [float(rows[0][c]) for c in ("train_loss", "mIoU",
+                                        "steps_per_sec")]
+    if not (all(map(math.isfinite, vals)) and 0.0 <= vals[1] <= 1.0):
+        raise AssertionError(f"train_segmentation {SEG_B_CONFIG} log row: "
+                             f"{rows[0]}")
+    sps = vals[2]
+    log(f"[time] CLI train_segmentation {SEG_B_CONFIG}.yaml B={batch} fp32 "
+        f"512px, 150 classes: iterations 1-{iters} {sps * batch:.2f} img/s "
+        f"({1e3 / sps:.1f} ms a step), train_loss {vals[0]:.4f}, mIoU "
+        f"{vals[1]:.4f}; peak memory {peak:.2f} GiB; the whole call "
+        f"{wall:.1f} s; a step launches {step} ({card})")
+    return seen
+
+
+def time_seg_base_routes(dev, card):
+    """Phase 10, FastVim-B's segmentation step through both backwards: the
+    segmentor ``train_segmentation`` builds from ``upernet_FastVimB_ade20k``
+    (B = 2, 512 px, fp32; every mixer "auto", which takes the fused
+    adjoint there), with its mixers' ``layer_fused_bwd`` set to "fused"
+    (24 K5, 24 K6, 48 K2 a step) and to "remat" (96 K1, 48 K2), on one
+    batch on the card: each route
+    built anew, its first step's launches checked, then timed (CUDA
+    events), in the order fused, remat, remat, fused; the peak memory of
+    each route's steps. Returns the launch counts."""
+    import torch
+
+    from fastvim_tpu_torch.cli.train_segmentation import (
+        build_segmentor,
+        make_seg_train_step,
+    )
+    from fastvim_tpu_torch.config import load_config
+    from fastvim_tpu_torch.models.mixer import MambaMixer
+    from fastvim_tpu_torch.ops import kernels
+    from fastvim_tpu_torch.train import TrainState, constant, make_optimizer
+
+    cfg = load_config(SEG_B_CONFIG, "segmentation")
+    batch, img = cfg["batch_size"], cfg["img_size"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    data = {"image": torch.randn(batch, img, img, 3, device=dev,
+                                 generator=gen),
+            "label": torch.randint(cfg["num_classes"], (batch, img, img),
+                                   device=dev, generator=gen,
+                                   dtype=torch.int32)}
+    want = {"fused": {**SEG_FWD, **SEG_BWD}, "remat": SEG_B_REMAT}
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    ms, peak = {"fused": [], "remat": []}, {}
+    for bwd in ("fused", "remat", "remat", "fused"):
+        seg = build_segmentor(cfg, dev)
+        mixers = [m for m in seg.modules() if isinstance(m, MambaMixer)]
+        if {m.layer_fused_bwd for m in mixers} != {"auto"}:
+            raise AssertionError(f"{SEG_B_CONFIG}: the mixers' backward is "
+                                 "not the default")
+        for m in mixers:
+            m.layer_fused_bwd = bwd
+        state = TrainState.create(seg, make_optimizer(
+            constant(6e-5), weight_decay=0.01, params=seg))
+        step = make_seg_train_step(
+            seg, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        loss = step(state, data)
+        torch.cuda.synchronize()
+        seen = kernels.launch_counts()
+        expect_launches(f"{SEG_B_CONFIG} step, layer_fused_bwd={bwd}", seen,
+                        want[bwd])
+        if not math.isfinite(loss.item()):
+            raise AssertionError(f"{SEG_B_CONFIG} {bwd}: loss {loss.item()}")
+        for k, v in seen.items():
+            total[k] += v
+        ms[bwd].append(cuda_ms(lambda: step(state, data), 3, windows=3))
+        peak[bwd] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        del seg, mixers, state, step
+        torch.cuda.empty_cache()
+    for bwd, t in ms.items():
+        log(f"[time] {SEG_B_CONFIG} train step B={batch} {img}px fp32, "
+            f"layer_fused_bwd={bwd}: {t[0]:.3f} / {t[1]:.3f} ms, "
+            f"{batch / t[0] * 1e3:.2f} / {batch / t[1] * 1e3:.2f} img/s; "
+            f"the step's peak above the model and optimizer state "
+            f"{peak[bwd]:.2f} GiB ({card})")
     return total
 
 
@@ -3026,17 +3263,24 @@ def main() -> int:
     t0 = time.perf_counter()
     with torch.inference_mode():
         wide = check_models_224(dev)
-    grads_wide = check_grads_224(dev)
+    grads_wide, bwd_wide = check_grads_224(dev)
     log(f"[time] phase 3 {time.perf_counter() - t0:.1f} s")
     with torch.inference_mode():
         launches, base_2048 = run_main_path(dev, card)
-    # the wide widths' launches: FastVim-B's 2048 px forward, FastVim-L's
-    # and -H's depth-2 forwards
+    # the wide widths' launches: FastVim-B's 2048 px forward and train
+    # step, FastVim-L's and -H's depth-2 forwards and backwards
     wide.update({f"{k} d_model=768": base_2048[k]
                  for k in ("pass_a_fwd", "pass_b_fwd")})
-    for counts in (grads_wide, run_train_path(dev, card),
-                   run_config_path(dev, card), run_cli_path(dev, card),
-                   run_serving_path(dev, card)):
+    t0 = time.perf_counter()
+    train, base_step = run_train_path(dev, card)
+    log(f"[time] phase 5 {time.perf_counter() - t0:.1f} s")
+    # FastVim-B's from its train step, not from phase 3's depth-2 model
+    wide.update({f"{k} d_model={dm}": n
+                 for dm, counts in (*bwd_wide.items(), (768, base_step))
+                 for k, n in counts.items()
+                 if k in ("pass_b_bwd", "pass_a_bwd")})
+    for counts in (grads_wide, train, run_config_path(dev, card),
+                   run_cli_path(dev, card), run_serving_path(dev, card)):
         for name, count in counts.items():
             launches[name] += count
     for name, count in check_mae_224(dev).items():
@@ -3051,7 +3295,9 @@ def main() -> int:
         for name, count in counts.items():
             launches[name] += count
     t0 = time.perf_counter()
-    for counts in (check_seg_512(dev), run_seg_cli_path(dev, card)):
+    for counts in (check_seg_512(dev), run_seg_cli_path(dev, card),
+                   run_seg_base_cli(dev, card),
+                   time_seg_base_routes(dev, card)):
         for name, count in counts.items():
             launches[name] += count
     log(f"[time] phase 10 (segmentation) {time.perf_counter() - t0:.1f} s")
@@ -3098,10 +3344,11 @@ def main() -> int:
         ("selective_scan_fwd_lanes", "selective_scan_lanes.cu", (),
          "fastvim_tpu/ops/pallas/selective_scan.py:115"),
     ]
-    # K3's streamed form and K4's wide one, at each wide width
+    # K3's streamed form and K4's wide one, then K5's and K6's wide forms,
+    # at each wide width
     table += [(f"{name} d_model={dm}", main_file, more, tpu)
-              for dm in WIDE_DM
-              for name, main_file, more, tpu in table[2:4]]
+              for rows in (table[2:4], table[4:6]) for dm in WIDE_DM
+              for name, main_file, more, tpu in rows]
     launches.update(wide)
     for name, *_ in table:
         if launches[name] < 1:

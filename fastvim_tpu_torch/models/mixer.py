@@ -57,13 +57,17 @@ Every scan goes through
 forces the sequential reference scan; any other value ("auto", and the
 JAX package's "assoc"/"pallas") dispatches on the device. When a gradient
 is needed, ``layer_fused_bwd`` picks the fused layer's backward: "fused"
-(the K5 and K6 adjoint kernels, scans by K2) or "remat" (autograd through
-the unfused math, recomputed; always so in the recompute mode). A fused
+(the K5 and K6 adjoint kernels, scans by K2), "remat" (autograd through
+the unfused math, recomputed; always so in the recompute mode) or "auto"
+(the default), which each forward resolves from the widths, the dtype
+and the grid (``default_bwd_mode``): "fused" in bf16, in fp32 at
+FastVim-T/S widths and on lines of more than 16 tokens; "remat" for fp32
+FastVim-B/L/H on shorter lines (224 px), where the fused adjoint measured
+slower and does not fit FastVim-H at B = 128. A fused
 layer whose widths the adjoint kernels do not take (d_model not a
-multiple of 64, d_model > 384 or > d_inner, d_inner > 768;
-``fused_bwd_route``) takes "remat" whatever the field says, so every
-width that fuses trains: FastVim-B/L/H train through the fused forward
-(K3, K4) and the remat backward. K8-K10
+multiple of 64 or > d_inner; ``fused_bwd_route``) takes "remat" whatever
+the field says, so every width that fuses trains. K5 and K6 take every
+registry width (d_model up to 1280, d_inner up to 2560). K8-K10
 differentiate through their plain versions, and the unfused path's scans
 through K2.
 
@@ -91,6 +95,7 @@ from fastvim_tpu_torch.ops.conv import dual_conv1d, grid_dual_conv1d
 from fastvim_tpu_torch.ops.kernels import fused_block, merge_gate
 from fastvim_tpu_torch.ops.kernels.layer_fused import (
     FusedParams,
+    default_bwd_mode,
     fusable,
     fused_mixer_core,
     proj_scan,
@@ -113,7 +118,7 @@ class MambaMixer(nn.Module):
                  collapse_method: str = "mean", scaling_factor: float = 1.0,
                  n_layer: int = 24, norm_eps: float = 1e-5,
                  scan_impl: str = "auto", layer_fused: str = "auto",
-                 layer_fused_bwd: str = "fused",
+                 layer_fused_bwd: str = "auto",
                  fused_kernels: str = "never", fused_merge: bool = False,
                  init_layer_scale: Optional[float] = None,
                  dtype: torch.dtype = torch.float32):
@@ -124,8 +129,8 @@ class MambaMixer(nn.Module):
         if fused_kernels not in ("never", "auto", "always", "merge"):
             raise ValueError(f"fused_kernels must be never|auto|always|merge,"
                              f" got {fused_kernels!r}")
-        if layer_fused_bwd not in ("fused", "remat"):
-            raise ValueError(f"layer_fused_bwd must be fused|remat, got "
+        if layer_fused_bwd not in ("auto", "fused", "remat"):
+            raise ValueError(f"layer_fused_bwd must be auto|fused|remat, got "
                              f"{layer_fused_bwd!r}")
         if collapse_method not in ("mean", "max", "none"):
             raise ValueError(f"unknown collapse method {collapse_method!r}")
@@ -293,11 +298,14 @@ class MambaMixer(nn.Module):
         if row_ids is None and self.layer_fused != "off" and fusable(
                 grid_shape, pool_axes, transposed, self.d_model, self.d_inner,
                 self.d_conv, self.collapse_method, recompute=recompute):
+            bwd = self.layer_fused_bwd
+            if bwd == "auto":
+                bwd = default_bwd_mode(self.d_model, self.d_inner, dtype,
+                                       grid_shape[0 if transposed else 1])
             out = fused_mixer_core(
                 x, self.fused_params(), grid_shape, transposed,
                 self.scaling_factor, self.norm_eps, self.use_norm_after_ssm,
-                dtype, self.scan_impl, bwd_mode=self.layer_fused_bwd,
-                recompute=recompute)
+                dtype, self.scan_impl, bwd_mode=bwd, recompute=recompute)
         else:
             out = self._unfused(x, grid_shape, pool_axes, transposed, row_ids)
         if self.gamma is not None:

@@ -66,7 +66,7 @@ class VisionMamba(nn.Module):
                  rotate_every_block: bool = True,
                  collapse_method: str = "mean", scaling_factor: float = 1.0,
                  scan_impl: str = "auto", layer_fused: str = "auto",
-                 layer_fused_bwd: str = "fused", remat: bool = False,
+                 layer_fused_bwd: str = "auto", remat: bool = False,
                  init_layer_scale: Optional[float] = None,
                  out_indices: Optional[Sequence[int]] = None,
                  dtype: torch.dtype = torch.float32):

@@ -30,6 +30,17 @@
 // dgated, dx̂ and the two weight gradients: 5 × 2 × 192 × 384 = 0.74 MFLOP)
 // and four for K6 on FMA units, so it is FMA-bound.
 //
+// Widths: up to d_model 384 and d_inner 384 (FastVim-T) K5 holds d_inner
+// / 32 values a lane and whole-width z and dgated tiles, and forms dx̂ in
+// the block. Past them, up to fvb::kBwdMaxDm and kBwdMaxDi (FastVim-H),
+// its wide form (`pass_b_bwd_wide_kernel`)
+// walks d_inner in slabs of 384 channels with z and dgated of a slab in
+// registers, reads x̂ and g a K chunk at a time (`gemm_rows_g`), parks dm̂
+// in dxc_f until the LayerNorm's row sums are complete, as the bf16 path
+// does, and leaves dx̂ = dz·W_z to `dx_rows_kernel` over the dz it stores
+// for dW_z anyway. K6's kernels take every width: the conv adjoint reads
+// x̂ a K chunk at a time, and `dx_rows_kernel` forms dx̂(K5) + dxin·W_x.
+//
 // The cross-block sums, which the TPU kernel got from a sequential grid
 // that revisits one output block (`_acc`):
 // - dW_out, dW_z, dW_x contract over all tokens. The main kernels write
@@ -140,16 +151,135 @@ cudaError_t wgrad(const WgradJobs& jobs, int di, int dm, long T, int nsplit,
 }
 
 // =====================================================================
+// gemm_rows with the A tile read from device memory a K chunk at a time
+// =====================================================================
+// acc[r][j] = Σ_k A[tok[kR·warp + r]][k] · Wt[n0 + lane + 32j][k] for j <
+// ncols, as gemm_rows computes it (the same products in the same order),
+// but with row t of the (8·kR × K) A tile read from the row-major (rows ×
+// K) array A one K chunk at a time into s_a [8·kR][kBKc]; rows with
+// s_tok[t] < 0 are zeros and not read. Barriers inside.
+template <typename T, int kR>
+__device__ __forceinline__ void gemm_rows_g(const T* __restrict__ A,
+                                            const long* s_tok,
+                                            const T* __restrict__ Wt, int K,
+                                            int n0, int ncols, float* s_a,
+                                            float* s_w, float (*acc)[kBCols]) {
+  constexpr int kVe = fv::kVec<T>;  // elements per 16-byte vector
+  constexpr int kVpr = kBKc / kVe;  // vectors per row of a K chunk
+  constexpr int kIters = kBSlab * kVpr / kThreads;
+  constexpr int kAVecs = 8 * kR * kVpr;  // vectors of an A chunk
+  static_assert(kAVecs <= kThreads, "one A vector a thread");
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nn = 32 * ncols;
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+#pragma unroll
+    for (int j = 0; j < kBCols; ++j) acc[r][j] = 0.f;
+  const int at = threadIdx.x / kVpr, av = threadIdx.x % kVpr;
+  const long arow = threadIdx.x < kAVecs ? s_tok[at] : -1;
+  for (int k0 = 0; k0 < K; k0 += kBKc) {
+    uint4 v[kIters], a = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int i = threadIdx.x + it * kThreads;
+      if (i / kVpr < nn)
+        v[it] = fv::load16(Wt + static_cast<size_t>(n0 + i / kVpr) * K + k0 +
+                           (i % kVpr) * kVe);
+    }
+    if (arow >= 0)  // masked before the load
+      a = fv::load16(A + static_cast<size_t>(arow) * K + k0 + av * kVe);
+    __syncthreads();  // the previous chunk's readers are done
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int i = threadIdx.x + it * kThreads;
+      const int n = i / kVpr, kv = i % kVpr;
+      if (n < nn) {
+        float f[kVe];
+        fv::widen16<T>(v[it], f);
+#pragma unroll
+        for (int e = 0; e < kVe; ++e)
+          s_w[(kv * kVe + e) * (kBSlab + 1) + n] = f[e];
+      }
+    }
+    if (threadIdx.x < kAVecs) {
+      float f[kVe];
+      fv::widen16<T>(a, f);
+#pragma unroll
+      for (int e = 0; e < kVe; ++e) s_a[at * kBKc + av * kVe + e] = f[e];
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < kBKc; ++k) {
+      float wv[kBCols];
+#pragma unroll
+      for (int j = 0; j < kBCols; ++j)
+        wv[j] = j < ncols ? s_w[k * (kBSlab + 1) + lane + 32 * j] : 0.f;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const float x = s_a[(kR * warp + r) * kBKc + k];
+#pragma unroll
+        for (int j = 0; j < kBCols; ++j) acc[r][j] += x * wv[j];
+      }
+    }
+  }
+}
+
+// out = add + A·Wtᵀ over 32-token tiles of consecutive rows: A (ntokens,
+// K) of T, Wt (N, K) of T (w_z_t or w_x_t), add (ntokens, N) fp32 or
+// null. dx̂ of K6 (dx̂(K5) + dxin·W_x) and of K5's wide form (dz·W_z).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+dx_rows_kernel(const T* __restrict__ A, const T* __restrict__ Wt,
+               const float* __restrict__ add, float* __restrict__ out,
+               long ntokens, int N, int K) {
+  __shared__ __align__(16) float s_a[kBTok * kBKc];
+  __shared__ __align__(16) float s_w[kBKc * (kBSlab + 1)];
+  __shared__ long s_tok[kBTok];
+  const long tok0 = static_cast<long>(blockIdx.x) * kBTok;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (threadIdx.x < kBTok)
+    s_tok[threadIdx.x] = tok0 + threadIdx.x < ntokens ? tok0 + threadIdx.x : -1;
+  __syncthreads();
+  float acc[4][kBCols];
+  for (int n0 = 0; n0 < N; n0 += kBSlab) {
+    const int ncols = min(kBCols, (N - n0) / 32);
+    gemm_rows_g<T, 4>(A, s_tok, Wt, K, n0, ncols, s_a, s_w, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const long t = s_tok[4 * warp + r];
+#pragma unroll
+      for (int j = 0; j < kBCols; ++j)
+        if (j < ncols && t >= 0) {
+          const size_t o = static_cast<size_t>(t) * N + n0 + lane + 32 * j;
+          out[o] = add ? add[o] + acc[r][j] : acc[r][j];
+        }
+    }
+  }
+}
+
+cudaError_t dx_rows(const float* A, const float* Wt, const float* add,
+                    float* out, long ntokens, int N, int K,
+                    cudaStream_t stream) {
+  const long blocks = (ntokens + kBTok - 1) / kBTok;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  dx_rows_kernel<float><<<static_cast<unsigned>(blocks), kThreads, 0,
+                          stream>>>(A, Wt, add, out, ntokens, N, K);
+  return cudaGetLastError();
+}
+
+// =====================================================================
 // K5: pass B backward
 // =====================================================================
-// The fp32 kernel keeps d_inner / 32 values per lane in registers and z
-// and dgated as whole-width fp32 tiles in shared memory: 32-token tiles
-// (kR = 4 rows a warp) up to d_inner 384, 16-token tiles (kR = 2, kJ = 24:
-// the per-lane arrays spill; this path is for checking gradients, not for
-// speed) up to 768, the widest pass B takes.
-constexpr int kBwdMaxDi = 768;
+// The narrow fp32 kernel keeps d_inner / 32 values per lane in registers
+// and z and dgated as whole-width fp32 tiles in shared memory, in
+// 32-token tiles (kR = 4 rows a warp, kJ = 12), up to kF32NarrowDi = 384
+// (FastVim-T). Wider, the wide form below, which at FastVim-S's widths
+// beats a 16-token form of this kernel, whose per-lane arrays spill
+// (PERF.md §6).
 using fvb::kCVec;
 using fvb::kNVec;
+
+constexpr int kF32NarrowDi = 384;
 
 // shared memory of the K5 main kernel with 8·kR-token tiles, in bytes
 __host__ __device__ inline size_t pass_b_bwd_smem(int dm, int di, int kR) {
@@ -411,6 +541,229 @@ pass_b_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
   finish_b_bwd<T, kJ>(smem_f, acc, dbo, dm, di, prow, vec_part, dy);
 }
 
+// K5's wide form (fp32). A block owns one line and walks it in tiles of
+// 8·kR tokens; per tile:
+// 1. the LayerNorm statistics of m0 over all of d_inner, a warp per row;
+// 2. per slab of 384 channels, z = x̂·W_zᵀ and dgated = g·W_out for the
+//    warp's kR rows in registers (gemm_rows_g), the gate and LayerNorm
+//    backward on them (a lane per channel lane + 32j), mg and dz to device
+//    memory, dm̂ parked in dxc_f, the row sums Σdm̂, Σdm̂·m̂ kept a lane, and
+//    the slab's column sums (db_z, dln_w, dln_b) added over the 8 warps in
+//    order into s_vec;
+// 3. a second pass, a thread per 4 channels: dm0 from the parked dm̂,
+//    dxc_f, dxc_b and the column sums dd_f, dd_b, dy into s_vec.
+// Shared memory, in this order: s_tok [8·kR] (tokens, -1 past the
+// line), s_a [8·kR][kBKc] and s_w [kBKc][kBSlab+1] (gemm_rows_g's
+// staging), s_vec [6][di] (db_z, dln_w, dln_b, dd_f, dd_b, dy), s_red
+// [8][3][kBSlab], s_row [8·kR][4] (mu, rstd, Σdm̂, Σdm̂·m̂); fp32 but s_tok.
+__host__ __device__ inline size_t pass_b_bwd_wide_smem(int di, int kR) {
+  return 8 * kR * sizeof(long) +
+         (8 * kR * kBKc + kBKc * (kBSlab + 1) +
+          static_cast<size_t>(kNVec) * di + 8 * 3 * kBSlab + 8 * kR * 4) *
+             sizeof(float);
+}
+
+template <int kR>
+__global__ void __launch_bounds__(kThreads, 1)
+pass_b_bwd_wide_kernel(const float* __restrict__ g,
+                       const float* __restrict__ x,
+                       const float* __restrict__ xc_f,
+                       const float* __restrict__ xc_b,
+                       const float* __restrict__ yf,
+                       const float* __restrict__ yb,
+                       const float* __restrict__ w_z,
+                       const float* __restrict__ b_z,
+                       const float* __restrict__ d_f,
+                       const float* __restrict__ d_b,
+                       const float* __restrict__ ln_w,
+                       const float* __restrict__ ln_b,
+                       const float* __restrict__ w_out_t, float* dxc_f,
+                       float* __restrict__ dxc_b, float* __restrict__ dy,
+                       float* __restrict__ mg, float* __restrict__ dzs,
+                       float* __restrict__ vec_part, int H, int W, int dm,
+                       int di, bool transposed, bool use_ln, float eps) {
+  constexpr int kTok = 8 * kR;
+  constexpr int kDbo = (fvb::kBwdMaxDm + kThreads - 1) / kThreads;
+  extern __shared__ __align__(16) long smem_w[];
+  long* s_tok = smem_w;                                       // [kTok]
+  float* s_a = reinterpret_cast<float*>(s_tok + kTok);        // [kTok][16]
+  float* s_w = s_a + kTok * kBKc;                             // [16][385]
+  float* s_vec = s_w + kBKc * (kBSlab + 1);                   // [6][di]
+  float* s_red = s_vec + static_cast<size_t>(kNVec) * di;     // [8][3][384]
+  float* s_row = s_red + 8 * 3 * kBSlab;                      // [kTok][4]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.y;
+  const int P = transposed ? W : H, ln = transposed ? H : W;
+  Seg sg{H, W, ln, static_cast<int>(blockIdx.x), 0, transposed,
+         static_cast<size_t>(b) * H * W};
+  const size_t prow = static_cast<size_t>(b) * P + blockIdx.x;
+  const float inv_di = 1.f / static_cast<float>(di);
+  const float* yfr = yf + prow * di;
+  const float* ybr = yb + prow * di;
+  // m0 of channel c of token tok, in merge_bwd's order
+  auto merge = [&](size_t tok, int c) {
+    return (yfr[c] + d_f[c] * xc_f[tok * di + c] + ybr[c] +
+            d_b[c] * xc_b[tok * di + c]) *
+           0.5f;
+  };
+  for (int i = tid; i < kNVec * di; i += kThreads) s_vec[i] = 0.f;
+  float dbo[kDbo] = {};  // db_out of columns tid, tid + 256, ...
+
+  for (sg.i0 = 0; sg.i0 < ln; sg.i0 += kTok) {
+    __syncthreads();  // the previous tile's readers are done
+    if (tid < kTok) s_tok[tid] = sg.valid(tid) ? sg.token(tid) : -1;
+    // 1. LayerNorm statistics, a warp per row
+    for (int r = 0; r < kR; ++r) {
+      const int t = kR * warp + r;
+      if (!sg.valid(t)) continue;  // the same for the whole warp
+      const size_t tok = sg.token(t);
+      float sum = 0.f, sumsq = 0.f;
+      for (int c = lane; c < di; c += 32) {
+        const float v = merge(tok, c);
+        sum += v;
+        sumsq += v * v;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        sumsq += __shfl_xor_sync(0xffffffffu, sumsq, o);
+      }
+      if (lane == 0) {
+        const float mu = sum * inv_di;
+        s_row[t * 4] = mu;
+        s_row[t * 4 + 1] = rsqrtf(sumsq * inv_di - mu * mu + eps);
+      }
+    }
+    // db_out += Σ_rows g
+#pragma unroll
+    for (int k = 0; k < kDbo; ++k) {
+      const int c = tid + k * kThreads;
+      if (c < dm)
+        for (int t = 0; t < kTok; ++t)
+          if (sg.valid(t)) dbo[k] += g[sg.token(t) * dm + c];
+    }
+    __syncthreads();  // s_tok and s_row
+
+    // 2. the slabs
+    float s1[kR] = {}, s2[kR] = {};  // a lane's share of Σdm̂, Σdm̂·m̂
+    for (int n0 = 0; n0 < di; n0 += kBSlab) {
+      const int ncols = min(kBCols, (di - n0) / 32);
+      float z[kR][kBCols], dg[kR][kBCols];
+      gemm_rows_g<float, kR>(x, s_tok, w_z, dm, n0, ncols, s_a, s_w, z);
+      gemm_rows_g<float, kR>(g, s_tok, w_out_t, dm, n0, ncols, s_a, s_w, dg);
+      float cs[3][kBCols] = {};  // column sums over the warp's rows
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int t = kR * warp + r;
+        const long tok = s_tok[t];
+        if (tok < 0) continue;
+        const float mu = s_row[t * 4], rstd = s_row[t * 4 + 1];
+#pragma unroll
+        for (int j = 0; j < kBCols; ++j) {
+          if (j >= ncols) continue;
+          const int c = n0 + lane + 32 * j;
+          const size_t o = static_cast<size_t>(tok) * di + c;
+          const float zz = z[r][j] + (b_z ? b_z[c] : 0.f);
+          const float sig = 1.f / (1.f + expf(-zz));
+          const float sz = zz * sig;
+          const float m = merge(tok, c);
+          const float mhat = use_ln ? (m - mu) * rstd : m;
+          const float mln = use_ln ? mhat * ln_w[c] + ln_b[c] : mhat;
+          const float dgt = dg[r][j];
+          const float dmln = dgt * sz;
+          const float dz = dgt * mln * sig * (1.f + zz * (1.f - sig));
+          mg[o] = mln * sz;
+          dzs[o] = dz;
+          cs[0][j] += dz;
+          float dmh = dmln;
+          if (use_ln) {
+            cs[1][j] += dmln * mhat;
+            cs[2][j] += dmln;
+            dmh = dmln * ln_w[c];
+            s1[r] += dmh;
+            s2[r] += dmh * mhat;
+          }
+          dxc_f[o] = dmh;  // dm̂ waits here for the second pass
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int j = 0; j < kBCols; ++j)
+          if (j < ncols)
+            s_red[(warp * 3 + q) * kBSlab + lane + 32 * j] = cs[q][j];
+      __syncthreads();
+      for (int i = tid; i < 3 * 32 * ncols; i += kThreads) {
+        const int q = i / (32 * ncols), c = i % (32 * ncols);
+        float sum = 0.f;
+        for (int w = 0; w < kThreads / 32; ++w)
+          sum += s_red[(w * 3 + q) * kBSlab + c];
+        s_vec[q * di + n0 + c] += sum;
+      }
+      // (the next slab's GEMMs pass two barriers before s_red is written)
+    }
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s1[r] += __shfl_xor_sync(0xffffffffu, s1[r], o);
+        s2[r] += __shfl_xor_sync(0xffffffffu, s2[r], o);
+      }
+      if (lane == 0) {
+        s_row[(kR * warp + r) * 4 + 2] = s1[r];
+        s_row[(kR * warp + r) * 4 + 3] = s2[r];
+      }
+    }
+    __syncthreads();  // s_row, and the parked dm̂ in device memory
+
+    // 3. the second pass, a thread per 4 channels
+    for (int c0 = 4 * tid; c0 < di; c0 += 4 * kThreads) {
+      float af[4] = {}, ab[4] = {}, ay[4] = {};
+      for (int t = 0; t < kTok; ++t) {
+        const long tok = s_tok[t];
+        if (tok < 0) continue;
+        const float mu = s_row[t * 4], rstd = s_row[t * 4 + 1];
+        const float t1 = s_row[t * 4 + 2] * inv_di;
+        const float t2 = s_row[t * 4 + 3] * inv_di;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + e;
+          const size_t o = static_cast<size_t>(tok) * di + c;
+          const float dmh = __ldcg(dxc_f + o);
+          const float m = merge(tok, c);
+          const float dm0 =
+              use_ln ? rstd * (dmh - t1 - (m - mu) * rstd * t2) : dmh;
+          const float h = 0.5f * dm0;
+          dxc_f[o] = h * d_f[c];
+          dxc_b[o] = h * d_b[c];
+          af[e] += h * xc_f[o];
+          ab[e] += h * xc_b[o];
+          ay[e] += h;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s_vec[3 * di + c0 + e] += af[e];
+        s_vec[4 * di + c0 + e] += ab[e];
+        s_vec[5 * di + c0 + e] += ay[e];
+      }
+    }
+  }
+  __syncthreads();
+  // rows 0-4 and db_out to this block's slot of vec_part ([5·di | dm]),
+  // row 5 (the line sum) to dy
+  float* vp = vec_part + prow * (5 * static_cast<size_t>(di) + dm);
+  for (int i = tid; i < kNVec * di; i += kThreads) {
+    if (i < 5 * di)
+      vp[i] = s_vec[i];
+    else
+      dy[prow * di + i - 5 * di] = s_vec[i];
+  }
+#pragma unroll
+  for (int k = 0; k < kDbo; ++k)
+    if (tid + k * kThreads < dm) vp[5 * di + tid + k * kThreads] = dbo[k];
+}
+
 // =====================================================================
 // K6: pass A backward
 // =====================================================================
@@ -545,45 +898,6 @@ pass_a_bwd_conv_kernel(const T* __restrict__ x, const T* __restrict__ w_x,
   }
 }
 
-// dx̂ = dx̂(K5) + dxin·W_x over 32-token tiles; w_x_t: (dm, di).
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-pass_a_bwd_dx_kernel(const T* __restrict__ dxin, const T* __restrict__ w_x_t,
-                     const float* __restrict__ dx_b, float* __restrict__ dx,
-                     long ntokens, int dm, int di) {
-  extern __shared__ __align__(128) unsigned char smem_d[];
-  const long tok0 = static_cast<long>(blockIdx.x) * kBTok;
-  const int ntile = ntokens - tok0 < kBTok ? static_cast<int>(ntokens - tok0)
-                                           : kBTok;
-  {
-    float* s_a = reinterpret_cast<float*>(smem_d);          // [kBTok][di]
-    float* s_w = s_a + static_cast<size_t>(kBTok) * di;     // [kBKc][kBSlab+1]
-    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    for (int i = threadIdx.x; i < kBTok * di; i += kThreads)
-      s_a[i] = i < ntile * di ? fv::to_f32(dxin[tok0 * di + i]) : 0.f;
-    float acc[4][kBCols];
-    for (int n0 = 0; n0 < dm; n0 += kBSlab) {
-      const int ncols = min(kBCols, (dm - n0) / 32);
-      gemm_rows<T>(s_a, w_x_t, di, n0, ncols, s_w, acc);  // barriers inside
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int t = 4 * warp + r;
-#pragma unroll
-        for (int j = 0; j < kBCols; ++j)
-          if (j < ncols && t < ntile) {
-            const size_t o = (tok0 + t) * dm + n0 + lane + 32 * j;
-            dx[o] = dx_b[o] + acc[r][j];
-          }
-      }
-    }
-  }
-}
-
-__host__ inline size_t pass_a_bwd_dx_smem(int di) {
-  return (static_cast<size_t>(kBTok) * di +
-          static_cast<size_t>(kBKc) * (kBSlab + 1)) * sizeof(float);
-}
-
 // ---------------------------------------------------------------------
 // launchers (fp32)
 // ---------------------------------------------------------------------
@@ -612,6 +926,31 @@ cudaError_t launch_b_main(const void* g, const void* x, const void* xc_f,
   return cudaGetLastError();
 }
 
+template <int kR>
+cudaError_t launch_b_wide(const void* g, const void* x, const void* xc_f,
+                          const void* xc_b, const void* yf, const void* yb,
+                          const void* w_z, const void* b_z, const void* d_f,
+                          const void* d_b, const void* ln_w, const void* ln_b,
+                          const void* w_out_t, void* dxc_f, void* dxc_b,
+                          void* dy, void* mg, void* dz, void* vec_part,
+                          int batch, int H, int W, int dm, int di,
+                          bool transposed, bool use_ln, float eps,
+                          cudaStream_t stream) {
+  const size_t smem = pass_b_bwd_wide_smem(di, kR);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = fv::allow_max_smem<pass_b_bwd_wide_kernel<kR>>();
+  if (err != cudaSuccess) return err;
+  auto cT = [](const void* p) { return static_cast<const float*>(p); };
+  auto mT = [](void* p) { return static_cast<float*>(p); };
+  dim3 grid(transposed ? W : H, batch);
+  pass_b_bwd_wide_kernel<kR><<<grid, kThreads, smem, stream>>>(
+      cT(g), cT(x), cT(xc_f), cT(xc_b), cT(yf), cT(yb), cT(w_z), cT(b_z),
+      cT(d_f), cT(d_b), cT(ln_w), cT(ln_b), cT(w_out_t), mT(dxc_f),
+      mT(dxc_b), mT(dy), mT(mg), mT(dz), mT(vec_part), H, W, dm, di,
+      transposed, use_ln, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Pass B backward. g, x: (batch, H, W, dm); xc_f, xc_b: (batch, H, W, di);
@@ -623,8 +962,10 @@ cudaError_t launch_b_main(const void* g, const void* x, const void* xc_f,
 // dy (batch, P, di) of `dtype`; dw_out (dm, di), dw_z (di, dm) and vec =
 // [db_z | dln_w | dln_b | dd_f | dd_b | db_out] (5·di + dm) fp32. Scratch:
 // mg, dz (tokens, di) of `dtype`; vec_part (batch·P, 5·di + dm) and w_part
-// (2, nsplit, di·dm) fp32. dm, di % 64 == 0, dm <= di <= 768, dm <= 384.
-// Three launches. Returns a cudaError_t.
+// (2, nsplit, di·dm) fp32. dm, di % 64 == 0, dm <= di, dm <=
+// fvb::kBwdMaxDm, di <= fvb::kBwdMaxDi. Three launches up to d_model 384
+// and d_inner 768 (fp32: d_inner 384), else four (the wide forms' dx̂
+// product). Returns a cudaError_t.
 extern "C" int fv_pass_b_bwd(const void* g, const void* x, const void* xc_f,
                              const void* xc_b, const void* yf, const void* yb,
                              const void* w_z, const void* w_z_t,
@@ -639,8 +980,8 @@ extern "C" int fv_pass_b_bwd(const void* g, const void* x, const void* xc_f,
   const int P = transposed ? W : H;
   if ((dtype != fv::kF32 && dtype != fv::kBF16) || batch < 1 ||
       batch > 65535 || H < 1 || W < 1 || dm < kGT || dm % kGT != 0 ||
-      dm > 384 || di < dm || di % kGT != 0 || di > kBwdMaxDi || nsplit < 1 ||
-      2 * nsplit > 65535)
+      dm > fvb::kBwdMaxDm || di < dm || di % kGT != 0 ||
+      di > fvb::kBwdMaxDi || nsplit < 1 || 2 * nsplit > 65535)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == fv::kBF16)
@@ -649,20 +990,32 @@ extern "C" int fv_pass_b_bwd(const void* g, const void* x, const void* xc_f,
                                 dz, vec_part, vec, w_part, dw_out, dw_z, batch,
                                 H, W, dm, di, transposed, use_ln, nsplit, eps,
                                 st);
-  cudaError_t err =
-      di <= 384
-          ? launch_b_main<4, 12>(g, x, xc_f, xc_b, yf, yb, w_z, w_z_t, b_z,
-                                 d_f, d_b, ln_w, ln_b, w_out_t, dx, dxc_f,
-                                 dxc_b, dy, mg, dz, vec_part, batch, H, W, dm,
-                                 di, transposed, use_ln, eps, st)
-          : launch_b_main<2, 24>(g, x, xc_f, xc_b, yf, yb, w_z, w_z_t, b_z,
-                                 d_f, d_b, ln_w, ln_b, w_out_t, dx, dxc_f,
-                                 dxc_b, dy, mg, dz, vec_part, batch, H, W, dm,
-                                 di, transposed, use_ln, eps, st);
-  if (err != cudaSuccess) return err;
   const long T = static_cast<long>(batch) * H * W;
-  const size_t wn = static_cast<size_t>(di) * dm;
   auto cF = [](const void* p) { return static_cast<const float*>(p); };
+  cudaError_t err;
+  if (fvb::wide_form(dm, di) || di > kF32NarrowDi) {
+    // 16-token tiles on short lines (a 14-token line of 224 px)
+    err = (transposed ? H : W) <= 16
+              ? launch_b_wide<2>(g, x, xc_f, xc_b, yf, yb, w_z, b_z, d_f,
+                                 d_b, ln_w, ln_b, w_out_t, dxc_f, dxc_b, dy,
+                                 mg, dz, vec_part, batch, H, W, dm, di,
+                                 transposed, use_ln, eps, st)
+              : launch_b_wide<4>(g, x, xc_f, xc_b, yf, yb, w_z, b_z, d_f,
+                                 d_b, ln_w, ln_b, w_out_t, dxc_f, dxc_b, dy,
+                                 mg, dz, vec_part, batch, H, W, dm, di,
+                                 transposed, use_ln, eps, st);
+    if (err != cudaSuccess) return err;
+    // dx̂ (z half) = dz·W_z
+    err = dx_rows(cF(dz), cF(w_z_t), nullptr, static_cast<float*>(dx), T, dm,
+                  di, st);
+  } else {
+    err = launch_b_main<4, 12>(g, x, xc_f, xc_b, yf, yb, w_z, w_z_t, b_z,
+                               d_f, d_b, ln_w, ln_b, w_out_t, dx, dxc_f,
+                               dxc_b, dy, mg, dz, vec_part, batch, H, W, dm,
+                               di, transposed, use_ln, eps, st);
+  }
+  if (err != cudaSuccess) return err;
+  const size_t wn = static_cast<size_t>(di) * dm;
   auto* wp = static_cast<float*>(w_part);
   // dW_outᵀ (di, dm) = mgᵀ·g;  dW_z (di, dm) = dzᵀ·x̂
   err = wgrad(WgradJobs{{cF(mg), cF(dz)}, {cF(g), cF(x)}, 2}, di, dm, T,
@@ -688,8 +1041,9 @@ extern "C" int fv_pass_b_bwd(const void* g, const void* x, const void* xc_f,
 // dw_cf[:, 0..3], dw_ab[:, 0..3], db_cf, db_ab, db_x. Scratch: dxin (tokens,
 // di) of `dtype`; c_part (batch·nblk, 11·di) with nblk = P lines in fp32
 // and ceil(H·W / 58) windows in bf16; w_part (nsplit, di·dm) fp32. dm, di %
-// 64 == 0, dm <= di, dm <= 384 in bf16, lines of >= 4 tokens. Three
-// launches in bf16, four in fp32. Returns a cudaError_t.
+// 64 == 0, dm <= di, dm <= fvb::kBwdMaxDm, di <= fvb::kBwdMaxDi, lines of
+// >= 4 tokens. Three launches in bf16 up to d_model 384 and d_inner 768,
+// else four. Returns a cudaError_t.
 extern "C" int fv_pass_a_bwd(const void* x, const void* dx_b,
                              const void* dxc_f, const void* dxc_b,
                              const void* dpf, const void* dpb, const void* w_x,
@@ -704,8 +1058,8 @@ extern "C" int fv_pass_a_bwd(const void* x, const void* dx_b,
   const int P = transposed ? W : H;
   if ((dtype != fv::kF32 && dtype != fv::kBF16) || batch < 1 ||
       batch > 65535 || P < 1 || P > 65535 || ln < kPad + 1 || dm < kGT ||
-      dm % kGT != 0 || di < dm || di % kGT != 0 || nsplit < 1 ||
-      nsplit > 65535)
+      dm % kGT != 0 || dm > fvb::kBwdMaxDm || di < dm || di % kGT != 0 ||
+      di > fvb::kBwdMaxDi || nsplit < 1 || nsplit > 65535)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == fv::kBF16)
@@ -713,13 +1067,10 @@ extern "C" int fv_pass_a_bwd(const void* x, const void* dx_b,
                                 w_cf, b_cf, w_ab, b_ab, dx, dxin, c_part,
                                 c_vec, w_part, dw_x, batch, H, W, dm, di,
                                 transposed, nsplit, scaling, st);
-  if (pass_a_bwd_smem(ln) > kMaxSmem || pass_a_bwd_dx_smem(di) > kMaxSmem)
-    return cudaErrorInvalidValue;
+  if (pass_a_bwd_smem(ln) > kMaxSmem) return cudaErrorInvalidValue;
   const long ntokens = static_cast<long>(batch) * H * W;
   auto cF = [](const void* p) { return static_cast<const float*>(p); };
   cudaError_t err = fv::allow_max_smem<pass_a_bwd_conv_kernel<float>>();
-  if (err != cudaSuccess) return err;
-  err = fv::allow_max_smem<pass_a_bwd_dx_kernel<float>>();
   if (err != cudaSuccess) return err;
   dim3 grid(di / kACh, P, batch);
   pass_a_bwd_conv_kernel<float><<<grid, kThreads, pass_a_bwd_smem(ln), st>>>(
@@ -728,12 +1079,9 @@ extern "C" int fv_pass_a_bwd(const void* x, const void* dx_b,
       static_cast<float*>(c_part), H, W, dm, di, transposed, scaling);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((ntokens + kBTok - 1) / kBTok);
-  pass_a_bwd_dx_kernel<float>
-      <<<blocks, kThreads, pass_a_bwd_dx_smem(di), st>>>(
-          cF(dxin), cF(w_x_t), cF(dx_b), static_cast<float*>(dx), ntokens, dm,
-          di);
-  err = cudaGetLastError();
+  // dx̂ = dx̂(K5) + dxin·W_x
+  err = dx_rows(cF(dxin), cF(w_x_t), cF(dx_b), static_cast<float*>(dx),
+                ntokens, dm, di, st);
   if (err != cudaSuccess) return err;
   // dW_x (di, dm) = dxinᵀ·x̂
   err = wgrad(WgradJobs{{cF(dxin), nullptr}, {cF(x), nullptr}, 1}, di, dm,

@@ -10,6 +10,23 @@ namespace fvb {
 constexpr int kNVec = 6;   // K5 vector sums: db_z, dln_w, dln_b, dd_f, dd_b, dy
 constexpr int kCVec = 11;  // K6: dw_cf[4], dw_ab[4], db_cf, db_ab, db_x
 
+// The widths K5 and K6 take, in both dtypes: FastVim-H's (the widest
+// registry model), d_model <= d_inner, both multiples of 64.
+// ops/kernels/layer_fused.py's BWD_MAX_DM and BWD_MAX_DI state the same
+// limits.
+constexpr int kBwdMaxDm = 1280;
+constexpr int kBwdMaxDi = 2560;
+
+// Up to these widths (FastVim-T/S) the kernels keep a tile's dx̂ on chip
+// and add dz·W_z (K5) or dxin·W_x (K6) to it slab by slab. Past them
+// (FastVim-B/L/H) the wide forms store dz and dxin, which the weight
+// gradients read anyway, and one more launch forms dx̂ from them.
+constexpr int kNarrowDm = 384;
+constexpr int kNarrowDi = 768;
+inline bool wide_form(int dm, int di) {
+  return dm > kNarrowDm || di > kNarrowDi;
+}
+
 // One call's cross-block sums, all added by one launch in a fixed order
 // (no atomics): out[i] = Σ_s part[s·n + i], s < S (as 8 interleaved
 // partial sums). With cols > 0 the
@@ -65,7 +82,8 @@ inline cudaError_t sum_segments(const SumSegs& segs, cudaStream_t stream) {
 constexpr int kAWin = 58;
 
 // the bf16 paths (layer_fused_bwd_wgmma.cu); arguments as in the C entry
-// points of layer_fused_bwd.cu
+// points of layer_fused_bwd.cu. Three launches a call, four in the wide
+// forms.
 cudaError_t pass_b_bwd_bf16(
     const void* g, const void* x, const void* xc_f, const void* xc_b,
     const void* yf, const void* yb, const void* w_z, const void* b_z,

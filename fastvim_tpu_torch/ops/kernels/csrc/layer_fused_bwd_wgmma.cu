@@ -19,8 +19,21 @@
 //   the slab, its bf16 result (dz, dxin) goes to a swizzled tile, and
 //   dx̂ += dz·W_z (K6: dxin·W_x) accumulates in registers across slabs
 //   (the warpgroups split d_model). Nothing of d_inner's whole width lives
-//   in registers or shared memory, so d_inner <= 768 with d_model <= 384
-//   fits (FastVim-S).
+//   in registers, so d_inner <= 768 with d_model <= 384 fits (FastVim-S).
+// - Past those widths (fvb::wide_form: FastVim-B/L/H, up to fvb::kBwdMaxDm
+//   and kBwdMaxDi) the wide forms, template argument 0. The tile's x̂ and
+//   g (2 × 160 KB at d_model 1280) and a d_model-wide dx̂ accumulator (320
+//   floats a thread) no longer fit, so: x̂'s and g's K blocks come through
+//   the ring beside the weight blocks of the same K step, once a slab
+//   (from L2: the tile's rows are 64 × d_model), as K3's streamed form
+//   takes x̂; and the dx̂ products leave the kernel. K5 stores dz and K6
+//   dxin for the weight gradients anyway, so `dx_wgmma_kernel` forms dx̂ =
+//   dz·W_z (K6: dx̂(K5) + dxin·W_x) from them in one more launch, a
+//   128-token × 192-column tile a block with the weight read MN-major as
+//   it lies: no d_model-wide state on chip and nothing computed twice,
+//   for 2·d_inner bytes a token more through device memory. The
+//   LayerNorm's second pass walks channel groups in turn where d_inner/8
+//   exceeds the block's threads.
 // - Weights stream through a ring of four 16 KB stages filled by cp.async
 //   three stages ahead of the products that read them. The transposed
 //   operands (W_out, and W_z / W_x in the dx̂ product) are read MN-major
@@ -35,7 +48,7 @@
 //   row-major arrays, 128 × 192 output tiles per block, split over token
 //   slices; one launch does both of K5's. One `sum_segments` launch adds
 //   every partial of a call in a fixed order. No atomics anywhere.
-// A K5 or K6 call is three launches.
+// A K5 or K6 call is three launches, four in the wide forms.
 
 #include "layer_fused_bwd.cuh"
 #include "wgmma.cuh"
@@ -102,6 +115,10 @@ constexpr int kSlab = 128;         // d_inner channels per slab
 constexpr int kStages = 4;
 constexpr int kBlkBytes = 8192;    // a 64 × 64 bf16 tile block
 constexpr int kStageBytes = 2 * kBlkBytes;
+// the wide forms' stages also carry the x̂ (or g) block of their K step
+constexpr int kWideStageBytes = kStageBytes + kBlkBytes;
+// db_out columns a thread sums: d_model / 256, rounded up
+constexpr int kDbo = (fvb::kBwdMaxDm + kThreads - 1) / kThreads;
 
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
@@ -112,6 +129,43 @@ __device__ __forceinline__ float dsilu_fast(float v) {
 template <typename Fetch>
 using Ring = fv::Ring<kStages, kStageBytes, Fetch>;
 using fv::slab_gemm;
+
+// slab_gemm for the wide forms: the A operand of each K step is the block
+// kStageBytes into its stage, which the fetch filled beside the weight's
+template <int kTb, typename R>
+__device__ __forceinline__ void slab_gemm_streamed(float* acc, int nblk,
+                                                   R& ring, uint32_t boff,
+                                                   bool active) {
+  for (int b = 0; b < nblk; ++b) {
+    const uint32_t st = ring.acquire();
+    if (active) {
+      fv::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        fv::wgmma_n64<0, kTb>(acc, gmma_desc(st + kStageBytes + 32 * kk),
+                              gmma_desc(st + boff + (kTb ? 2048 : 32) * kk),
+                              (b | kk) != 0);
+      fv::wgmma_commit();
+    }
+    ring.refill();
+    if (active) fv::wgmma_wait();
+  }
+}
+
+// Copy the 64 × 64 block of rows `row(r)` (r < 64; < 0: zero-filled, not
+// read) × columns [c0, c0 + 64) of a row-major bf16 array with `ld`
+// elements a row into a swizzled tile block, by all threads
+template <typename Row>
+__device__ __forceinline__ void cp_rows(uint32_t sblk, const bf16* src,
+                                        size_t ld, int c0, Row row) {
+  for (int i = threadIdx.x; i < kTM * 8; i += kThreads) {
+    const int r = i >> 3, ch = i & 7;
+    const long t = row(r);
+    cp_async16(sblk + swz(r, 8 * ch),
+               src + (t >= 0 ? static_cast<size_t>(t) * ld + c0 + 8 * ch : 0),
+               t >= 0);
+  }
+}
 
 // dxa (64 × d_model/2 of this warpgroup, kNU units of 32 columns) +=
 // A (64 × sw, K-major blocks at `sa`) · W[slab rows, :] over the next kNU
@@ -178,17 +232,23 @@ __device__ __forceinline__ void slab_to_global(const unsigned char* s, int sw,
 struct BBwdSmem {  // byte offsets from the 1024-aligned base
   size_t x, g, dz, ring, colred, vec, acc2, stats, col, total;
 };
-__host__ __device__ inline BBwdSmem b_bwd_smem(int dm, int di) {
+// row lanes of K5's second pass: threads a group of 8 channels, at least 1
+__host__ __device__ inline int b_bwd_row_lanes(int di) {
+  const int r = kThreads / (di / 8);
+  return r > 1 ? r : 1;
+}
+// wide: the wide form, whose x̂ and g come through the ring
+__host__ __device__ inline BBwdSmem b_bwd_smem(int dm, int di, bool wide) {
   BBwdSmem L;
-  const size_t xg = static_cast<size_t>(dm / 64) * kBlkBytes;
+  const size_t xg = wide ? 0 : static_cast<size_t>(dm / 64) * kBlkBytes;
   L.x = 0;
   L.g = xg;
   L.dz = 2 * xg;
   L.ring = L.dz + 2 * kBlkBytes;
-  L.colred = L.ring + kStages * kStageBytes;
+  L.colred = L.ring + kStages * (wide ? kWideStageBytes : kStageBytes);
   L.vec = L.colred + 8 * 3 * 64 * sizeof(float);
   L.acc2 = L.vec + 3 * static_cast<size_t>(di) * sizeof(float);
-  const int nrl = kThreads / (di / 8);  // row lanes of the second pass
+  const int nrl = b_bwd_row_lanes(di);  // row lanes of the second pass
   L.stats = L.acc2 + static_cast<size_t>(nrl) * 3 * di * sizeof(float);
   // mu, rstd [64]; s1, s2 of both warpgroups [2][64][2]
   L.col = L.stats + (2 * kTM + 4 * kTM) * sizeof(float);
@@ -197,7 +257,9 @@ __host__ __device__ inline BBwdSmem b_bwd_smem(int dm, int di) {
   return L;
 }
 
-template <int kNU>  // d_model / 64
+// kNU: d_model / 64 (the narrow form), or 0: the wide form, which takes
+// d_model from dm_arg
+template <int kNU>
 __global__ void __launch_bounds__(kThreads, 1)
 pass_b_bwd_wgmma_kernel(
     const bf16* __restrict__ g, const bf16* __restrict__ x,
@@ -209,12 +271,14 @@ pass_b_bwd_wgmma_kernel(
     const bf16* __restrict__ w_out, float* __restrict__ dx,
     bf16* dxc_f, bf16* __restrict__ dxc_b, bf16* __restrict__ dy,
     bf16* __restrict__ mg, bf16* __restrict__ dzs,
-    float* __restrict__ vec_part, int H, int W, int di, bool transposed,
-    bool use_ln, float eps) {
-  constexpr int dm = 64 * kNU;
+    float* __restrict__ vec_part, int H, int W, int dm_arg, int di,
+    bool transposed, bool use_ln, float eps) {
+  constexpr bool kWide = kNU == 0;
+  const int dm = kWide ? dm_arg : 64 * kNU;
+  const int nu = kWide ? dm / 64 : kNU;  // K blocks of d_model
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const BBwdSmem L = b_bwd_smem(dm, di);
+  const BBwdSmem L = b_bwd_smem(dm, di, kWide);
   const uint32_t sx = smem_u32(sm + L.x), sgm = smem_u32(sm + L.g);
   unsigned char* s_dz = sm + L.dz;
   float* s_colred = reinterpret_cast<float*>(sm + L.colred);  // [8][3][64]
@@ -236,18 +300,20 @@ pass_b_bwd_wgmma_kernel(
                              : static_cast<size_t>(p) * W + i);
   };
   const int nslab = (di + kSlab - 1) / kSlab;
-  const int per_tile = nslab * 3 * kNU;
+  const int nph = kWide ? 2 : 3;  // the wide form has no dx̂ product
+  const int per_tile = nslab * nph * nu;
   const int ntile = (ln + kTM - 1) / kTM;
   const int total = ntile * per_tile;
   const float inv_di = 1.f / static_cast<float>(di);
-  const int ncg = di / 8, nrl = kThreads / ncg;
+  const int ncg = di / 8, nrl = b_bwd_row_lanes(di);
 
-  // stage s of a tile's sequence: per slab kNU blocks of W_z (z), kNU of
-  // W_out (dgated), the kNU blocks of W_z again (dx̂)
+  // stage s of a tile's sequence: per slab nu blocks of W_z (z), nu of
+  // W_out (dgated), the nu blocks of W_z again (dx̂; not in the wide
+  // form, whose stages carry the x̂ or g block of their K step instead)
   auto fetch = [&](int s, uint32_t dst) {
     if (s >= total) return;
     const int r = s % per_tile;
-    const int n0 = r / (3 * kNU) * kSlab, ph = r / kNU % 3, kb = r % kNU;
+    const int n0 = r / (nph * nu) * kSlab, ph = r / nu % nph, kb = r % nu;
     const int sw = imin(kSlab, di - n0);
     if (ph == 1) {
       for (int h = 0; h < sw / 64; ++h)
@@ -256,8 +322,16 @@ pass_b_bwd_wgmma_kernel(
     } else {
       fv::cp_block(dst, w_z, dm, n0, 64 * kb, sw, tid, kThreads);
     }
+    if constexpr (kWide) {
+      const int i0s = s / per_tile * kTM, nvs = imin(kTM, ln - i0s);
+      cp_rows(dst + kStageBytes, ph == 1 ? g : x, dm, 64 * kb,
+              [&](int row) -> long {  // masked before the load
+                return row < nvs ? static_cast<long>(token(i0s + row)) : -1;
+              });
+    }
   };
-  Ring<decltype(fetch)> ring(smem_u32(sm + L.ring), fetch);
+  fv::Ring<kStages, kWide ? kWideStageBytes : kStageBytes, decltype(fetch)>
+      ring(smem_u32(sm + L.ring), fetch);
   ring.start();
 
   for (int i = tid; i < 3 * di; i += kThreads) s_vec[i] = 0.f;
@@ -270,27 +344,59 @@ pass_b_bwd_wgmma_kernel(
     s_col[2 * di + i] = 0.5f * d_b[i];
   }
   __syncthreads();
-  float dbo[2] = {0.f, 0.f};  // db_out of columns tid, tid + 256
+  float dbo[kWide ? kDbo : 2] = {};  // db_out of columns tid, tid + 256, ...
 
   PROF_INIT
   for (int i0 = 0; i0 < ln; i0 += kTM) {
     const int nval = imin(kTM, ln - i0);
     __syncthreads();  // the previous tile's readers are done
     PROF(0)
-    for (int i = tid; i < kTM * 8 * kNU; i += kThreads) {
-      const int r = i / (8 * kNU), c = i % (8 * kNU);
-      const bool ok = r < nval;  // masked before the load
-      const size_t off = (ok ? token(i0 + r) : img) * dm + c * 8;
-      const uint32_t o = (c / 8) * kBlkBytes + swz(r, (c % 8) * 8);
-      cp_async16(sx + o, x + off, ok);
-      cp_async16(sgm + o, g + off, ok);
+    if constexpr (!kWide) {
+      for (int i = tid; i < kTM * 8 * kNU; i += kThreads) {
+        const int r = i / (8 * kNU), c = i % (8 * kNU);
+        const bool ok = r < nval;  // masked before the load
+        const size_t off = (ok ? token(i0 + r) : img) * dm + c * 8;
+        const uint32_t o = (c / 8) * kBlkBytes + swz(r, (c % 8) * 8);
+        cp_async16(sx + o, x + off, ok);
+        cp_async16(sgm + o, g + off, ok);
+      }
+      fv::cp_async_commit();
     }
-    fv::cp_async_commit();
     PROF(11)
 
-    // first pass: LayerNorm statistics of m0, a warp per row, the loads
-    // of 2 rows in flight together
-    for (int rg = warp * 8; rg < warp * 8 + 8; rg += 2) {
+    // first pass: LayerNorm statistics of m0, a warp per row; the wide
+    // form a row at a time over 96-vector chunks, the narrow one with the
+    // loads of 2 rows in flight together
+    for (int rg = warp * 8; kWide && rg < warp * 8 + 8; ++rg) {
+      const bool ok = use_ln && rg < nval;
+      float sum = 0.f, sumsq = 0.f;
+      const size_t o = token(i0 + imin(rg, nval - 1)) * di;
+      for (int v = lane; ok && v < ncg; v += 32) {
+        float a[8], c[8], c0[8], hf[8], hb[8];
+        fv::widen16<bf16>(fv::load16(xc_f + o + v * 8), a);
+        fv::widen16<bf16>(fv::load16(xc_b + o + v * 8), c);
+        lds_f8(s_col + v * 8, c0);
+        lds_f8(s_col + di + v * 8, hf);
+        lds_f8(s_col + 2 * di + v * 8, hb);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float m = c0[e] + hf[e] * a[e] + hb[e] * c[e];
+          sum += m;
+          sumsq += m * m;
+        }
+      }
+#pragma unroll
+      for (int o2 = 16; o2 > 0; o2 >>= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, o2);
+        sumsq += __shfl_xor_sync(0xffffffffu, sumsq, o2);
+      }
+      if (lane == 0) {
+        const float mu = sum * inv_di;
+        s_mu[rg] = ok ? mu : 0.f;
+        s_rstd[rg] = ok ? rsqrtf(sumsq * inv_di - mu * mu + eps) : 0.f;
+      }
+    }
+    for (int rg = warp * 8; !kWide && rg < warp * 8 + 8; rg += 2) {
       uint4 xa[2][3], xb[2][3];
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
@@ -340,21 +446,26 @@ pass_b_bwd_wgmma_kernel(
       }
     }
     PROF(12)
-    fv::cp_async_wait<0>();
+    if constexpr (!kWide) fv::cp_async_wait<0>();
     fv::fence_async_smem();
     __syncthreads();
 
     PROF(1)
-    // db_out += Σ_rows g
+    // db_out += Σ_rows g (the wide form reads g's rows from L2)
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
+    for (int k = 0; k < (kWide ? kDbo : 2); ++k) {
       const int c = tid + k * kThreads;
       if (c < dm) {
-        const unsigned char* col = sm + L.g + (c / 64) * kBlkBytes;
         float acc = 0.f;
-        for (int r = 0; r < kTM; ++r)
-          acc += __bfloat162float(
-              *reinterpret_cast<const bf16*>(col + swz(r, c % 64)));
+        if constexpr (kWide) {
+          for (int r = 0; r < nval; ++r)
+            acc += __bfloat162float(g[token(i0 + r) * dm + c]);
+        } else {
+          const unsigned char* col = sm + L.g + (c / 64) * kBlkBytes;
+          for (int r = 0; r < kTM; ++r)
+            acc += __bfloat162float(
+                *reinterpret_cast<const bf16*>(col + swz(r, c % 64)));
+        }
         dbo[k] += acc;
       }
     }
@@ -366,9 +477,9 @@ pass_b_bwd_wgmma_kernel(
     const float mu[2] = {s_mu[r0], s_mu[r0 + 8]};
     const float rs[2] = {s_rstd[r0], s_rstd[r0 + 8]};
     float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-    float dxa[16 * kNU];
+    float dxa[kWide ? 1 : 16 * kNU];
 #pragma unroll
-    for (int i = 0; i < 16 * kNU; ++i) dxa[i] = 0.f;
+    for (int i = 0; i < (kWide ? 1 : 16 * kNU); ++i) dxa[i] = 0.f;
 
     for (int n0 = 0; n0 < di; n0 += kSlab) {
       const int sw = imin(kSlab, di - n0);
@@ -379,7 +490,10 @@ pass_b_bwd_wgmma_kernel(
       // first pass brought them) and m0 (bf16) goes where the epilogue
       // puts dz: each element is read and overwritten by the same thread
       const int mch = tid % 16, mr0 = tid / 16;  // chunk of 8 channels; rows
-      slab_gemm<0>(z, sx, kNU, ring, wg * kBlkBytes, active);
+      if constexpr (kWide)
+        slab_gemm_streamed<0>(z, nu, ring, wg * kBlkBytes, active);
+      else
+        slab_gemm<0>(z, sx, kNU, ring, wg * kBlkBytes, active);
       PROF(3)
       uint4 ma[4], mb[4];
 #pragma unroll
@@ -413,7 +527,10 @@ pass_b_bwd_wgmma_kernel(
                                     swz(r, (mch % 8) * 8)) = pack8(m);
         }
       }
-      slab_gemm<1>(dg, sgm, kNU, ring, wg * kBlkBytes, active);
+      if constexpr (kWide)
+        slab_gemm_streamed<1>(dg, nu, ring, wg * kBlkBytes, active);
+      else
+        slab_gemm<1>(dg, sgm, kNU, ring, wg * kBlkBytes, active);
       PROF(4)
       if (active) {
 #pragma unroll
@@ -514,7 +631,7 @@ pass_b_bwd_wgmma_kernel(
         return r < nval ? static_cast<long>(token(i0 + r)) : -1;
       });
       PROF(7)
-      dx_gemm<kNU>(dxa, smem_u32(s_dz), sw, ring, wg);
+      if constexpr (!kWide) dx_gemm<kNU>(dxa, smem_u32(s_dz), sw, ring, wg);
       PROF(8)
     }
 
@@ -545,9 +662,10 @@ pass_b_bwd_wgmma_kernel(
     __syncthreads();
     PROF(9)
 
-    // second pass: dm0 and what hangs on it, a thread per 8 channels
-    if (tid < nrl * ncg) {
-      const int cg = tid % ncg, rl = tid / ncg;
+    // second pass: dm0 and what hangs on it, a thread per 8 channels (in
+    // turn where there are more groups than threads)
+    for (int item = tid; item < nrl * ncg; item += kThreads) {
+      const int cg = item % ncg, rl = item / ncg;
       float c0[8], hf[8], hb[8];
       lds_f8(s_col + cg * 8, c0);
       lds_f8(s_col + di + cg * 8, hf);
@@ -623,7 +741,7 @@ pass_b_bwd_wgmma_kernel(
       dy[prow * di + i - 2 * di] = __float2bfloat16(s);
   }
 #pragma unroll
-  for (int k = 0; k < 2; ++k)
+  for (int k = 0; k < (kWide ? kDbo : 2); ++k)
     if (tid + k * kThreads < dm) vp[5 * di + tid + k * kThreads] = dbo[k];
 }
 
@@ -746,6 +864,118 @@ cudaError_t wgrad_wgmma(const WgradJobs& jobs, float* part, long T, int di,
 }
 
 // =====================================================================
+// dx̂ of the wide forms: out (T × dm, fp32) = add + A·W
+// =====================================================================
+// A (T, di) bf16 (dz of K5, dxin of K6), W (di, dm) bf16 (W_z or W_x as it
+// lies, read MN-major), add (T, dm) fp32 or null (K6: dx̂ of K5). A block
+// owns 128 tokens (64 a warpgroup) × up to 3 blocks of 64 columns and walks
+// d_inner in K steps of 64 through a ring of 40 KB stages (the tokens' A
+// block, then the W blocks). grid: token tiles × column tiles.
+constexpr int kDxM = 128;
+__global__ void __launch_bounds__(kThreads, 1)
+dx_wgmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Wm,
+                const float* __restrict__ add, float* __restrict__ out,
+                long T, int di, int dm, int ntile_n, int nb_per) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wg = warp / 4, w4 = warp % 4, q = lane % 4, rq = lane / 4;
+  const long t0 = static_cast<long>(blockIdx.x / ntile_n) * kDxM;
+  const int nb0 = blockIdx.x % ntile_n * nb_per;
+  const int nb = imin(nb_per, dm / 64 - nb0);  // column blocks of this tile
+  const int nk = di / 64;
+
+  auto fetch = [&](int s, uint32_t dst) {
+    if (s >= nk) return;
+    const int k0 = 64 * s;
+    for (int i = tid; i < 8 * (kDxM + 64 * nb); i += kThreads) {
+      const int r = i / 8, ch = i % 8;
+      if (r < kDxM) {
+        const bool ok = t0 + r < T;  // masked before the load
+        cp_async16(dst + (r / kTM) * kBlkBytes + swz(r % kTM, 8 * ch),
+                   A + (ok ? (t0 + r) * di + k0 + 8 * ch : 0), ok);
+      } else {
+        const int j = (r - kDxM) / 64, kr = (r - kDxM) % 64;
+        cp_async16(dst + (2 + j) * kBlkBytes + swz(kr, 8 * ch),
+                   Wm + static_cast<size_t>(k0 + kr) * dm + 64 * (nb0 + j) +
+                       8 * ch);
+      }
+    }
+  };
+  int cons = 0;
+  auto slot = [&](int s) { return base + (s % kStages) * kWgStage; };
+  for (int s = 0; s < kStages - 1; ++s) {
+    fetch(s, slot(s));
+    fv::cp_async_commit();
+  }
+  float acc[32 * kWgNB];
+#pragma unroll
+  for (int i = 0; i < 32 * kWgNB; ++i) acc[i] = 0.f;
+  for (int k = 0; k < nk; ++k) {
+    fv::cp_async_wait<kStages - 2>();
+    fv::fence_async_smem();
+    __syncthreads();
+    fetch(cons + kStages - 1, slot(cons + kStages - 1));
+    fv::cp_async_commit();
+    const uint32_t st = slot(cons++);
+    fv::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = gmma_desc(st + wg * kBlkBytes + 32 * kk);
+#pragma unroll
+      for (int j = 0; j < kWgNB; ++j)
+        if (j < nb)
+          fv::wgmma_n64<0, 1>(acc + 32 * j, da,
+                              gmma_desc(st + (2 + j) * kBlkBytes + 2048 * kk),
+                              1);
+    }
+    fv::wgmma_commit();
+    fv::wgmma_wait();
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const long row = t0 + 64 * wg + 16 * w4 + rq + 8 * e;
+    if (row >= T) continue;
+#pragma unroll
+    for (int j = 0; j < kWgNB; ++j)
+      if (j < nb)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const size_t o =
+              static_cast<size_t>(row) * dm + 64 * (nb0 + j) + 8 * i + 2 * q;
+          float2 v = make_float2(acc[32 * j + 4 * i + 2 * e],
+                                 acc[32 * j + 4 * i + 2 * e + 1]);
+          if (add) {
+            const float2 a = __ldg(reinterpret_cast<const float2*>(add + o));
+            v.x += a.x;
+            v.y += a.y;
+          }
+          *reinterpret_cast<float2*>(out + o) = v;
+        }
+  }
+}
+
+cudaError_t dx_wgmma(const void* A, const void* Wm, const void* add,
+                     void* out, long T, int di, int dm, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dx_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kWgSmem));
+  if (attr != cudaSuccess) return attr;
+  const int nblk = dm / 64;
+  const int ntile_n = (nblk + kWgNB - 1) / kWgNB;
+  const int nb_per = (nblk + ntile_n - 1) / ntile_n;
+  const long tiles = (T + kDxM - 1) / kDxM * ntile_n;
+  if (tiles > 0x7fffffffL) return cudaErrorInvalidValue;
+  dx_wgmma_kernel<<<static_cast<unsigned>(tiles), kThreads, kWgSmem,
+                    stream>>>(static_cast<const bf16*>(A),
+                              static_cast<const bf16*>(Wm),
+                              static_cast<const float*>(add),
+                              static_cast<float*>(out), T, di, dm, ntile_n,
+                              nb_per);
+  return cudaGetLastError();
+}
+
+// =====================================================================
 // K6: pass A backward
 // =====================================================================
 constexpr int kXinLd = kSlab + 4;  // fp32 row of the xin slab, skewed
@@ -756,12 +986,13 @@ constexpr int kMaxLines = kTM / 4 + 2;
 struct ABwdSmem {
   size_t x, dxin, ring, xin, dxcf, dxcb, cred, pool, total;
 };
-__host__ __device__ inline ABwdSmem a_bwd_smem(int dm) {
+// wide: the wide form, whose x̂ comes through the ring
+__host__ __device__ inline ABwdSmem a_bwd_smem(int dm, bool wide) {
   ABwdSmem L;
   L.x = 0;
-  L.dxin = static_cast<size_t>(dm / 64) * kBlkBytes;
+  L.dxin = wide ? 0 : static_cast<size_t>(dm / 64) * kBlkBytes;
   L.ring = L.dxin + 2 * kBlkBytes;
-  L.xin = L.ring + kStages * kStageBytes;
+  L.xin = L.ring + kStages * (wide ? kWideStageBytes : kStageBytes);
   L.dxcf = L.xin + static_cast<size_t>(kTM) * kXinLd * sizeof(float);
   L.dxcb = L.dxcf + static_cast<size_t>(kTM) * kSlab * sizeof(bf16);
   L.cred = L.dxcb + static_cast<size_t>(kTM) * kSlab * sizeof(bf16);
@@ -771,7 +1002,9 @@ __host__ __device__ inline ABwdSmem a_bwd_smem(int dm) {
   return L;
 }
 
-template <int kNU>  // d_model / 64
+// kNU: d_model / 64 (the narrow form), or 0: the wide form, which takes
+// d_model from dm_arg
+template <int kNU>
 __global__ void __launch_bounds__(kThreads, 1)
 pass_a_bwd_wgmma_kernel(
     const bf16* __restrict__ x, const float* __restrict__ dx_b,
@@ -781,12 +1014,14 @@ pass_a_bwd_wgmma_kernel(
     const float* __restrict__ w_cf, const float* __restrict__ b_cf,
     const float* __restrict__ w_ab, const float* __restrict__ b_ab,
     float* __restrict__ dx, bf16* __restrict__ dxin,
-    float* __restrict__ c_part, int batch, int H, int W, int di,
+    float* __restrict__ c_part, int batch, int H, int W, int dm_arg, int di,
     bool transposed, float scaling) {
-  constexpr int dm = 64 * kNU;
+  constexpr bool kWide = kNU == 0;
+  const int dm = kWide ? dm_arg : 64 * kNU;
+  const int nu = kWide ? dm / 64 : kNU;  // K blocks of d_model
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const ABwdSmem L = a_bwd_smem(dm);
+  const ABwdSmem L = a_bwd_smem(dm, kWide);
   const uint32_t sx = smem_u32(sm + L.x);
   unsigned char* s_dxin = sm + L.dxin;
   float* s_xin = reinterpret_cast<float*>(sm + L.xin);    // [64][kXinLd]
@@ -801,7 +1036,7 @@ pass_a_bwd_wgmma_kernel(
   const int Ltok = H * W;
   const int nwin = (Ltok + kAWin - 1) / kAWin;  // windows of an image
   const int nslab = (di + kSlab - 1) / kSlab;
-  const int per_win = nslab * 2 * kNU;
+  const int per_win = nslab * (kWide ? 1 : 2) * nu;
   // the block walks windows blockIdx.x, blockIdx.x + gridDim.x, ...
   const int nmine =
       (batch * nwin - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
@@ -809,15 +1044,29 @@ pass_a_bwd_wgmma_kernel(
   const int total = nmine * per_win;
   const float sw_pool = scaling / static_cast<float>(ln);
 
-  // per window and slab kNU blocks of W_x (xin), then the same again (dx̂)
+  // per window and slab nu blocks of W_x (xin), then the same again (dx̂;
+  // not in the wide form, whose stages carry the window's x̂ block of
+  // their K step instead: rows outside the sequence zero-filled, not read)
   auto fetch = [&](int s, uint32_t dst) {
     if (s >= total) return;
     const int r = s % per_win;
-    const int n0 = r / (2 * kNU) * kSlab, kb = r % kNU;
+    const int n0 = r / ((kWide ? 1 : 2) * nu) * kSlab, kb = r % nu;
     fv::cp_block(dst, w_x, dm, n0, 64 * kb, imin(kSlab, di - n0), tid,
                  kThreads);
+    if constexpr (kWide) {
+      const int w = static_cast<int>(blockIdx.x) +
+                    s / per_win * static_cast<int>(gridDim.x);
+      const int tw = w % nwin * kAWin - 3;
+      const long im = static_cast<long>(w / nwin) * Ltok;
+      cp_rows(dst + kStageBytes, x, dm, 64 * kb, [&](int row) -> long {
+        const int t = tw + row;
+        if (t < 0 || t >= Ltok) return -1;  // masked before the load
+        return im + (transposed ? static_cast<long>(t % H) * W + t / H : t);
+      });
+    }
   };
-  Ring<decltype(fetch)> ring(smem_u32(sm + L.ring), fetch);
+  fv::Ring<kStages, kWide ? kWideStageBytes : kStageBytes, decltype(fetch)>
+      ring(smem_u32(sm + L.ring), fetch);
   ring.start();
 
   const int r0 = 16 * w4 + rq;  // this thread's rows of a product
@@ -840,7 +1089,7 @@ pass_a_bwd_wgmma_kernel(
     }
     fv::cp_async_commit();
   };
-  load_x(blockIdx.x);
+  if constexpr (!kWide) load_x(blockIdx.x);
 
   for (int wi = blockIdx.x; wi < batch * nwin; wi += gridDim.x) {
     const int b = wi / nwin;
@@ -861,12 +1110,12 @@ pass_a_bwd_wgmma_kernel(
 
     // x̂ of the window: the first was asked for before the loop, the
     // others while the window before them ran its last slab
-    fv::cp_async_wait<0>();
+    if constexpr (!kWide) fv::cp_async_wait<0>();
     // (the first acquire's barrier publishes the tile)
     const bool rv[2] = {in_seq(r0), in_seq(r0 + 8)};
-    float dxa[16 * kNU];
+    float dxa[kWide ? 1 : 16 * kNU];
 #pragma unroll
-    for (int i = 0; i < 16 * kNU; ++i) dxa[i] = 0.f;
+    for (int i = 0; i < (kWide ? 1 : 16 * kNU); ++i) dxa[i] = 0.f;
     PROF(16)
 
     for (int n0 = 0; n0 < di; n0 += kSlab) {
@@ -874,8 +1123,9 @@ pass_a_bwd_wgmma_kernel(
       const bool active = 64 * wg < sw;
       float xin[32];
       // xin = x̂·W_xᵀ; the slab's cotangents travel with the first stage
-      for (int kb = 0; kb < kNU; ++kb) {
-        const uint32_t st = ring.acquire() + wg * kBlkBytes;
+      for (int kb = 0; kb < nu; ++kb) {
+        const uint32_t st0 = ring.acquire(), st = st0 + wg * kBlkBytes;
+        const uint32_t xa = kWide ? st0 + kStageBytes : sx + kb * kBlkBytes;
         if (kb == 0) {
           const int cpr = sw / 8;
           for (int i = tid; i < kTM * cpr; i += kThreads) {
@@ -891,7 +1141,7 @@ pass_a_bwd_wgmma_kernel(
           fv::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            fv::wgmma_n64<0, 0>(xin, gmma_desc(sx + kb * kBlkBytes + 32 * kk),
+            fv::wgmma_n64<0, 0>(xin, gmma_desc(xa + 32 * kk),
                                 gmma_desc(st + 32 * kk), (kb | kk) != 0);
           fv::wgmma_commit();
         }
@@ -931,7 +1181,8 @@ pass_a_bwd_wgmma_kernel(
       fv::cp_async_wait<0>();
       __syncthreads();
       // every warp is past the window's last x̂ product: its tile is free
-      if (n0 + kSlab >= di && wi + static_cast<int>(gridDim.x) < batch * nwin)
+      if (!kWide && n0 + kSlab >= di &&
+          wi + static_cast<int>(gridDim.x) < batch * nwin)
         load_x(wi + gridDim.x);
       PROF(19)
 
@@ -1032,7 +1283,7 @@ pass_a_bwd_wgmma_kernel(
         return own(r) ? static_cast<long>(img + token(r)) : -1;
       });
       PROF(22)
-      dx_gemm<kNU>(dxa, smem_u32(s_dxin), sw, ring, wg);
+      if constexpr (!kWide) dx_gemm<kNU>(dxa, smem_u32(s_dxin), sw, ring, wg);
       PROF(23)
     }
 
@@ -1065,9 +1316,9 @@ cudaError_t launch_b(const void* g, const void* x, const void* xc_f,
                      const void* d_b, const void* ln_w, const void* ln_b,
                      const void* w_out, void* dx, void* dxc_f, void* dxc_b,
                      void* dy, void* mg, void* dz, void* vec_part, int batch,
-                     int H, int W, int di, bool transposed, bool use_ln,
-                     float eps, cudaStream_t stream) {
-  const size_t smem = b_bwd_smem(64 * kNU, di).total;
+                     int H, int W, int dm, int di, bool transposed,
+                     bool use_ln, float eps, cudaStream_t stream) {
+  const size_t smem = b_bwd_smem(dm, di, kNU == 0).total;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = fv::allow_max_smem<pass_b_bwd_wgmma_kernel<kNU>>();
   if (err != cudaSuccess) return err;
@@ -1079,7 +1330,7 @@ cudaError_t launch_b(const void* g, const void* x, const void* xc_f,
       cT(g), cT(x), cT(xc_f), cT(xc_b), cT(yf), cT(yb), cT(w_z), cF(b_z),
       cF(d_f), cF(d_b), cF(ln_w), cF(ln_b), cT(w_out), static_cast<float*>(dx),
       mT(dxc_f), mT(dxc_b), mT(dy), mT(mg), mT(dz),
-      static_cast<float*>(vec_part), H, W, di, transposed, use_ln, eps);
+      static_cast<float*>(vec_part), H, W, dm, di, transposed, use_ln, eps);
   return cudaGetLastError();
 }
 
@@ -1089,9 +1340,9 @@ cudaError_t launch_a(const void* x, const void* dx_b, const void* dxc_f,
                      const void* w_x, const void* b_x, const void* w_cf,
                      const void* b_cf, const void* w_ab, const void* b_ab,
                      void* dx, void* dxin, void* c_part, int batch, int H,
-                     int W, int di, bool transposed, float scaling,
+                     int W, int dm, int di, bool transposed, float scaling,
                      cudaStream_t stream) {
-  const size_t smem = a_bwd_smem(64 * kNU).total;
+  const size_t smem = a_bwd_smem(dm, kNU == 0).total;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = fv::allow_max_smem<pass_a_bwd_wgmma_kernel<kNU>>();
   if (err != cudaSuccess) return err;
@@ -1111,8 +1362,8 @@ cudaError_t launch_a(const void* x, const void* dx_b, const void* dxc_f,
   pass_a_bwd_wgmma_kernel<kNU><<<blocks, kThreads, smem, stream>>>(
       cT(x), cF(dx_b), cT(dxc_f), cT(dxc_b), cT(dpf), cT(dpb), cT(w_x),
       cF(b_x), cF(w_cf), cF(b_cf), cF(w_ab), cF(b_ab), static_cast<float*>(dx),
-      static_cast<bf16*>(dxin), static_cast<float*>(c_part), batch, H, W, di,
-      transposed, scaling);
+      static_cast<bf16*>(dxin), static_cast<float*>(c_part), batch, H, W, dm,
+      di, transposed, scaling);
   return cudaGetLastError();
 }
 
@@ -1131,8 +1382,10 @@ cudaError_t pass_b_bwd_bf16(
   cudaError_t err;
 #define FV_B(n) launch_b<n>(g, x, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, \
     ln_w, ln_b, w_out, dx, dxc_f, dxc_b, dy, mg, dz, vec_part, batch, H, W, \
-    di, transposed, use_ln, eps, stream)
-  switch (dm / 64) {
+    dm, di, transposed, use_ln, eps, stream)
+  const bool wide = wide_form(dm, di);
+  switch (wide ? 0 : dm / 64) {
+    case 0: err = FV_B(0); break;
     case 1: err = FV_B(1); break;
     case 2: err = FV_B(2); break;
     case 3: err = FV_B(3); break;
@@ -1144,6 +1397,10 @@ cudaError_t pass_b_bwd_bf16(
 #undef FV_B
   if (err != cudaSuccess) return err;
   const long T = static_cast<long>(batch) * H * W;
+  if (wide) {  // dx̂ (z half) = dz·W_z
+    err = dx_wgmma(dz, w_z, nullptr, dx, T, di, dm, stream);
+    if (err != cudaSuccess) return err;
+  }
   const size_t wn = static_cast<size_t>(di) * dm;
   auto* wp = static_cast<float*>(w_part);
   // dW_outᵀ (di, dm) = mgᵀ·g;  dW_z (di, dm) = dzᵀ·x̂
@@ -1172,9 +1429,11 @@ cudaError_t pass_a_bwd_bf16(
     float scaling, cudaStream_t stream) {
   cudaError_t err;
 #define FV_A(n) launch_a<n>(x, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, \
-    b_cf, w_ab, b_ab, dx, dxin, c_part, batch, H, W, di, transposed, scaling, \
-    stream)
-  switch (dm / 64) {
+    b_cf, w_ab, b_ab, dx, dxin, c_part, batch, H, W, dm, di, transposed, \
+    scaling, stream)
+  const bool wide = wide_form(dm, di);
+  switch (wide ? 0 : dm / 64) {
+    case 0: err = FV_A(0); break;
     case 1: err = FV_A(1); break;
     case 2: err = FV_A(2); break;
     case 3: err = FV_A(3); break;
@@ -1187,6 +1446,10 @@ cudaError_t pass_a_bwd_bf16(
   if (err != cudaSuccess) return err;
   const long Ltok = static_cast<long>(H) * W;
   const long T = batch * Ltok;
+  if (wide) {  // dx̂ = dx̂(K5) + dxin·W_x
+    err = dx_wgmma(dxin, w_x, dx_b, dx, T, di, dm, stream);
+    if (err != cudaSuccess) return err;
+  }
   const int nwin = static_cast<int>((Ltok + kAWin - 1) / kAWin);
   WgradJobs jobs{{static_cast<const bf16*>(dxin), nullptr},
                  {static_cast<const bf16*>(x), nullptr}, 1};

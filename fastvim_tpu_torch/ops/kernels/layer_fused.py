@@ -45,8 +45,11 @@ from fastvim_tpu_torch.ops.scan import (
 
 FWD_MAX_DM = 1280       # widest d_model K3 / K4 take (fvf::kFwdMaxDm)
 FWD_MAX_DI = 2560       # ... and d_inner (fvf::kFwdMaxDi): FastVim-H's
-BWD_MAX_DI = 768        # widest d_inner K5 / K6 take (kBwdMaxDi)
-BWD_MAX_DM = 384        # K5 / K6 keep a tile's dx̂ in registers
+BWD_MAX_DM = 1280       # widest d_model K5 / K6 take (fvb::kBwdMaxDm)
+BWD_MAX_DI = 2560       # ... and d_inner (fvb::kBwdMaxDi): FastVim-H's
+BWD_NARROW_DM = 384     # past these K5 / K6 take their wide forms
+BWD_NARROW_DI = 768     # (fvb::kNarrowDm, kNarrowDi; fp32 K5 past 384)
+BWD_SHORT_LINE = 16     # fp32 K5's wide form takes 16-token tiles up to it
 A_BWD_WINDOW = 58       # tokens a K6 block of the bf16 path owns (kAWin)
 RECOMPUTE_MAX_DI = 768  # ... and K7, which walks d_inner (kRcMaxDi)
 RECOMPUTE_MAX_DM = 384  # K7 keeps a tile's x̂ and out on chip (kRcMaxDm)
@@ -75,7 +78,8 @@ def pass_b_widths_ok(d_model: int, d_inner: int,
 
 def pass_bwd_widths_ok(d_model: int, d_inner: int) -> bool:
     """The widths the launchers of K5 and K6 take: whole 64-column tiles,
-    d_model <= d_inner, and both within what a block holds."""
+    d_model <= d_inner, d_model <= 1280 and d_inner <= 2560 (every registry
+    width, FastVim-H's the widest)."""
     return (d_model >= 64 and d_model % 64 == 0 and d_inner % 64 == 0
             and d_model <= d_inner <= BWD_MAX_DI and d_model <= BWD_MAX_DM)
 
@@ -90,6 +94,24 @@ def fused_bwd_route(d_model: int, d_inner: int, bwd_mode: str) -> str:
     if bwd_mode not in ("fused", "remat"):
         raise ValueError(f"bwd_mode must be fused|remat, got {bwd_mode!r}")
     return bwd_mode if pass_bwd_widths_ok(d_model, d_inner) else "remat"
+
+
+def default_bwd_mode(d_model: int, d_inner: int, dtype: torch.dtype,
+                     line: int) -> str:
+    """The backward a mixer whose ``layer_fused_bwd`` is "auto" takes,
+    from what it sees before the forward: its widths, its dtype and the
+    tokens of each of its lines (the grid's columns, its rows when
+    transposed). "fused" in bf16, and in fp32 up to FastVim-S's widths or
+    on lines of more than ``BWD_SHORT_LINE`` tokens; "remat" for fp32 past
+    FastVim-S's widths on shorter lines (224 px: 14 tokens), where the FMA
+    tiles of the wide forms made a FastVim-B step slower than the remat
+    backward, and the conv outputs they keep a layer do not fit FastVim-H
+    at B = 128 on an 80 GB card; at 512 px (32-token lines) the fused
+    adjoint is the faster (PERF.md §6)."""
+    if dtype != torch.float32 or line > BWD_SHORT_LINE:
+        return "fused"
+    narrow = d_model <= BWD_NARROW_DM and d_inner <= BWD_NARROW_DI
+    return "fused" if narrow else "remat"
 
 
 def _check_bwd_widths(name: str, dm: int, di: int) -> None:
@@ -487,7 +509,8 @@ def pass_b_bwd(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
     On CUDA the widths must pass :func:`pass_bwd_widths_ok`. The sums
     over all tokens (weight and vector gradients) are written as
     per-block partials and added by one more kernel in a fixed order;
-    a call is three launches."""
+    a call is three launches, four past d_model 384 or d_inner 768 (fp32:
+    d_inner 384), where dx̂ = dz·W_z is a product of its own."""
     if x4.device.type == "cpu":
         return pass_b_bwd_plain(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f,
                                 d_b, ln_w, ln_b, w_out, eps, use_ln,
@@ -616,7 +639,8 @@ def pass_a_bwd(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, b_cf, w_ab,
     """Pass A backward (K6); same contract as :func:`pass_a_bwd_plain`.
     On CUDA the widths must pass :func:`pass_bwd_widths_ok`. The sums
     over all tokens are per-block partials added by one more kernel in a
-    fixed order; a call is three launches in bf16, four in fp32."""
+    fixed order; a call is three launches in bf16 up to d_model 384 and
+    d_inner 768, else four."""
     if x4.device.type == "cpu":
         return pass_a_bwd_plain(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x,
                                 w_cf, b_cf, w_ab, b_ab, scaling, transposed)
@@ -922,11 +946,11 @@ def fused_mixer_core(x_hat: torch.Tensor, p: FusedParams,
     :class:`FusedMixerCoreRematFn` (autograd through
     :func:`reference_core`) where it says "remat": for ``bwd_mode="remat"``,
     and for any ``bwd_mode`` at widths the adjoint kernels do not take
-    (d_model not a multiple of 64, d_model > 384 or > d_inner, d_inner >
-    768: FastVim-B/L/H among them). With ``recompute``, which keeps no conv
-    outputs for the adjoint kernels, it is always the latter. On CUDA,
-    widths the forward kernels do not take raise here, before anything is
-    launched."""
+    (d_model not a multiple of 64 or > d_inner). Every registry width,
+    FastVim-T to -H, takes the adjoint kernels. With ``recompute``, which
+    keeps no conv outputs for the adjoint kernels, it is always the
+    latter. On CUDA, widths the forward kernels do not take raise here,
+    before anything is launched."""
     dm, di = x_hat.shape[-1], p.conv_f_w.shape[0]
     route = fused_bwd_route(dm, di, bwd_mode)
     if x_hat.is_cuda and not (pass_a_widths_ok(dm, di)

@@ -30,6 +30,9 @@ only), and names the form each launcher picks at each length: what sets
 a train step of that detection config's detector as ``train_detection``
 builds it (fp32, the config's batch unless ``--batch``), on synthetic
 loader batches already on the card, after the time of each of its phases.
+A profile also prints the peak device memory, e.g. of a train step with
+``--model fastvim_huge --img 224 --batch 128 --dtype float32 --train
+--layer-fused-bwd remat``.
 
 It needs a CUDA device; nothing here falls back to the CPU.
 """
@@ -131,12 +134,12 @@ K6_PHASES = ((16, "dx̂ store of the window before + wait for x̂"),
              (23, "dx̂ product"))
 
 
-def _bwd_args(dm: int, di: int, grid: int, batch: int, transposed: bool):
-    """Random bf16 arguments of ``pass_b_bwd`` and ``pass_a_bwd`` on a
-    grid × grid token grid."""
+def _bwd_args(dm: int, di: int, grid: int, batch: int, transposed: bool,
+              dt: torch.dtype = torch.bfloat16):
+    """Random arguments of ``pass_b_bwd`` and ``pass_a_bwd`` on a grid ×
+    grid token grid, their tensors of ``dt`` where the kernels take it."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    dt = torch.bfloat16
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -155,10 +158,11 @@ def _bwd_args(dm: int, di: int, grid: int, batch: int, transposed: bool):
     return b_args, a_args
 
 
-def _fwd_args(dm: int, di: int, grid: int, batch: int, transposed: bool):
-    """Random bf16 arguments of ``pass_b`` and ``pass_a``, as
+def _fwd_args(dm: int, di: int, grid: int, batch: int, transposed: bool,
+              dt: torch.dtype = torch.bfloat16):
+    """Random arguments of ``pass_b`` and ``pass_a``, as
     :func:`_bwd_args`."""
-    b_args, a_args = _bwd_args(dm, di, grid, batch, transposed)
+    b_args, a_args = _bwd_args(dm, di, grid, batch, transposed, dt)
     # pass_b: x̂, xc_f, xc_b, yf, yb, w_z, b_z, D_f, D_b, ln_w, ln_b, w_out,
     # b_out, eps, use_ln, transposed; pass_a: x̂, w_x, b_x, the convs
     return (b_args[1:12] + (b_args[12], None) + b_args[13:],
@@ -187,10 +191,12 @@ def _event_ms(fn, args, iters: int) -> float:
 
 
 def kernel_times(dm: int, di: int, grid: int, batch: int, fwd: bool,
-                 iters: int = 20, recompute: bool = False) -> None:
+                 iters: int = 20, recompute: bool = False,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
     """Print the time of one call of K4 and K3 (``fwd``), of K7 and K3's
-    pools-only form (``recompute``) or of K5 and K6 in bf16 (CUDA events
-    over ``iters`` calls after a warm-up one), on even and odd layers."""
+    pools-only form (``recompute``) or of K5 and K6 in ``dtype`` (CUDA
+    events over ``iters`` calls after a warm-up one), on even and odd
+    layers."""
     from fastvim_tpu_torch.ops.kernels import layer_fused as lf
 
     names = ("K4", "K3") if fwd else ("K5", "K6")
@@ -201,7 +207,7 @@ def kernel_times(dm: int, di: int, grid: int, batch: int, fwd: bool,
                lambda *a: lf.pass_a(*a, write_xc=False))
     for transposed in (False, True):
         args = (_fwd_args if fwd else _bwd_args)(dm, di, grid, batch,
-                                                 transposed)
+                                                 transposed, dtype)
         if recompute:
             # pass_b_recompute: x̂, yf, yb, pass_a's weights, then pass_b's
             # from w_z on
@@ -209,9 +215,9 @@ def kernel_times(dm: int, di: int, grid: int, batch: int, fwd: bool,
             args = ((b[0], b[3], b[4], *a[1:7], *b[5:]), a)
         with torch.no_grad():
             ms = [_event_ms(fn, a, iters) for fn, a in zip(fns, args)]
-        print(f"bf16 d_model={dm} d_inner={di} grid={grid}x{grid} B={batch} "
-              f"transposed={transposed}: {names[0]} {ms[0]:.4f} ms, "
-              f"{names[1]} {ms[1]:.4f} ms")
+        print(f"{str(dtype)[6:]} d_model={dm} d_inner={di} grid={grid}x"
+              f"{grid} B={batch} transposed={transposed}: {names[0]} "
+              f"{ms[0]:.4f} ms, {names[1]} {ms[1]:.4f} ms")
 
 
 def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
@@ -580,6 +586,9 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--layer-fused", default=None,
                     help="the model's layer_fused field (e.g. recompute)")
+    ap.add_argument("--layer-fused-bwd", default=None,
+                    choices=("fused", "remat"),
+                    help="the model's layer_fused_bwd field")
     ap.add_argument("--fused-kernels", default=None,
                     choices=("always", "merge"),
                     help="the mixers' ssm_cfg fused_kernels field (K8 and "
@@ -642,7 +651,8 @@ def main() -> None:
             print(card_line(), flush=True)
             return block_times(*shape[1:])
         return kernel_times(*shape, fwd=args.fwd_times or args.rc_times,
-                            recompute=args.rc_times)
+                            recompute=args.rc_times,
+                            dtype=getattr(torch, args.dtype))
 
     from fastvim_tpu_torch.models import create_model
     from fastvim_tpu_torch.train import (
@@ -656,6 +666,8 @@ def main() -> None:
     dtype = getattr(torch, args.dtype)
     fields = {} if args.layer_fused is None else dict(
         layer_fused=args.layer_fused)
+    if args.layer_fused_bwd is not None:
+        fields["layer_fused_bwd"] = args.layer_fused_bwd
     if args.fused_kernels is not None or args.fused_merge:
         cfg = ({"fused_merge": True} if args.fused_merge
                else {"fused_kernels": args.fused_kernels})
@@ -689,12 +701,15 @@ def main() -> None:
 
 def print_profile(fn: Callable[[], object], what: str, top: int) -> None:
     """``device_time_by_kernel(fn)`` as a table: wall and busy ms a call,
-    the idle share, and the ``top`` kernel groups."""
+    the idle share, the peak device memory, and the ``top`` kernel
+    groups."""
+    torch.cuda.reset_peak_memory_stats()
     rows, busy_ms, wall_ms = device_time_by_kernel(fn)
     print(f"{what} ({card_line()}): wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, "
-          f"{sum(r[2] for r in rows)} kernels and copies launched")
+          f"{sum(r[2] for r in rows)} kernels and copies launched, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     print(f"{'ms/step':>10} {'share':>7} {'launches':>9}  kernel")
     for name, (ms, count) in list(group_rows(rows).items())[:top]:
         print(f"{ms:10.3f} {ms / busy_ms:7.1%} {count:9d}  {name[:90]}")

@@ -14,7 +14,8 @@ out, with the backward route of every width ``fusable`` accepts: a width
 the adjoint kernels refuse takes the remat backward, and a d_model 96
 model (d_inner 192, which the JAX package runs unfused) trains through it
 with default fields. Inputs and weights come from numpy with a seed and go to both sides,
-in fp32.
+in fp32. The JAX side of each model (its init, jitted, its loss and
+gradients and its train step) is computed once for the module.
 """
 
 import functools
@@ -135,40 +136,66 @@ WIDE = dict(patch_size=16, depth=1, embed_dim=256, num_classes=10,
             drop_path_rate=0.0)  # d_inner 512
 
 
-def _wide_models(img_size):
+def _jax_side(jmodel, x, labels, key):
+    """A JAX model's init (jitted: an eager flax init takes seconds), its
+    smoothed cross entropy and gradients, and the loss and parameters after
+    one make_supervised_train_step step."""
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(key), jnp.asarray(x))
+
+    def jloss(p):
+        return jax_cross_entropy(jmodel.apply(p, jnp.asarray(x)),
+                                 jnp.asarray(labels), 0.1)
+
+    loss, grads = jax.jit(jax.value_and_grad(jloss))(params)
+    jtx = joptim.make_optimizer(
+        jsched.cosine_with_warmup(2e-3, 1e-5, 20, 3, 5e-4), weight_decay=0.05,
+        params=params)
+    jstate = JaxTrainState.create(jax.tree_util.tree_map(jnp.array, params),
+                                  jtx, ema=False)
+    jstep = jax_make_train_step(jmodel, 10, label_smoothing=0.1,
+                                ema_decay=None)
+    jstate, jm = jstep(jstate, {"image": jnp.asarray(x),
+                                "label": jnp.asarray(labels)},
+                       jax.random.PRNGKey(0))
+    return (from_jax_params(params), float(loss), from_jax_params(grads),
+            float(jm["train_loss"]), from_jax_params(jstate.params))
+
+
+@functools.lru_cache(maxsize=2)
+def _wide_jax(img_size):
+    """The JAX side of the d_inner 512 model at one image size, once for
+    both of its tests: inputs, then :func:`_jax_side`'s weights, loss,
+    gradients, step loss and stepped parameters."""
     hw = img_size if isinstance(img_size, tuple) else (img_size, img_size)
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, *hw, 3)).astype(np.float32)
     labels = rng.integers(0, 10, 2)
     jmodel = jax_create_model("fastvim_tiny", img_size=img_size,
                               layer_fused="off", scan_impl="ref", **WIDE)
-    params = jmodel.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    return (x, labels) + _jax_side(jmodel, x, labels, 2)
+
+
+def _wide_model(img_size, params):
     model = create_model("fastvim_tiny", img_size=img_size, device="cpu",
                          **WIDE)  # default fields: fused layer, fused backward
     model.load_state_dict({k: torch.from_numpy(np.array(v))
-                           for k, v in from_jax_params(params).items()})
+                           for k, v in params.items()})
     assert model.layers[0].mixer.d_inner == 512
-    return jmodel, params, model, x, labels
+    return model
 
 
 @pytest.mark.parametrize("img_size", [128, (96, 160)])
 def test_wide_model_loss_and_grads_match_jax(img_size):
     """A model of d_inner 512 with default fields: the smoothed cross
     entropy and every parameter's gradient against jax.value_and_grad."""
-    jmodel, params, model, x, labels = _wide_models(img_size)
-
-    def jloss(p):
-        return jax_cross_entropy(jmodel.apply(p, jnp.asarray(x)),
-                                 jnp.asarray(labels), 0.1)
-
-    want_loss, want_grads = jax.jit(jax.value_and_grad(jloss))(params)
-    want = from_jax_params(want_grads)
+    x, labels, params, want_loss, want, _, _ = _wide_jax(img_size)
+    model = _wide_model(img_size, params)
     model.train()
     loss = cross_entropy(model(torch.from_numpy(x)),
                          torch.from_numpy(labels), 0.1)
     loss.backward()
     got = grads_to_numpy(model)
-    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=1e-5)
     assert sorted(got) == sorted(want)
     for k in want:
         assert np.abs(got[k] - want[k]).max() <= \
@@ -180,18 +207,8 @@ def test_wide_model_train_step_matches_jax(img_size):
     """One make_supervised_train_step step of that model on the CPU, from
     the same weights: the loss and every updated parameter agree with the
     JAX trainer's (the same AdamW arithmetic in another order)."""
-    jmodel, params, model, x, labels = _wide_models(img_size)
-    jtx = joptim.make_optimizer(
-        jsched.cosine_with_warmup(2e-3, 1e-5, 20, 3, 5e-4), weight_decay=0.05,
-        params=params)
-    jstate = JaxTrainState.create(jax.tree_util.tree_map(jnp.array, params),
-                                  jtx, ema=False)
-    jstep = jax_make_train_step(jmodel, 10, label_smoothing=0.1,
-                                ema_decay=None)
-    jstate, jm = jstep(jstate, {"image": jnp.asarray(x),
-                                "label": jnp.asarray(labels)},
-                       jax.random.PRNGKey(0))
-
+    x, labels, params, _, _, want_step_loss, want = _wide_jax(img_size)
+    model = _wide_model(img_size, params)
     tx = make_optimizer(cosine_with_warmup(2e-3, 1e-5, 20, 3, 5e-4),
                         weight_decay=0.05, params=model)
     state = TrainState.create(model, tx)
@@ -200,10 +217,9 @@ def test_wide_model_train_step_matches_jax(img_size):
     state, m = step(state, {"image": torch.from_numpy(x),
                             "label": torch.from_numpy(labels)})
     assert state.step == 1
-    np.testing.assert_allclose(m["train_loss"].item(),
-                               float(jm["train_loss"]), rtol=1e-5)
-    want = from_jax_params(jstate.params)
-    before = from_jax_params(params)
+    np.testing.assert_allclose(m["train_loss"].item(), want_step_loss,
+                               rtol=1e-5)
+    before = params
     moved = 0
     for k, v in state.params.items():
         np.testing.assert_allclose(v.detach().numpy(), want[k], rtol=1e-4,
@@ -214,13 +230,17 @@ def test_wide_model_train_step_matches_jax(img_size):
 
 @pytest.mark.parametrize("dm,di,ok", [
     (192, 384, True),    # FastVim-T
-    (384, 768, True),    # FastVim-S: the widest on both counts
+    (384, 768, True),    # FastVim-S: the widest narrow form
     (64, 64, True),      # the narrowest: half a slab
     (128, 512, True),
     (320, 640, True),
-    (384, 832, False),   # d_inner beyond 768
-    (448, 768, False),   # d_model beyond 384
-    (768, 1536, False),  # FastVim-B: fuses forward, remat backward
+    (384, 832, True),    # d_inner beyond 768: K5's wide form
+    (448, 768, True),    # d_model beyond 384: both wide forms
+    (768, 1536, True),   # FastVim-B
+    (1024, 2048, True),  # FastVim-L
+    (1280, 2560, True),  # FastVim-H: the widest on both counts
+    (1344, 2560, False),  # d_model beyond 1280
+    (1280, 2624, False),  # d_inner beyond 2560
     (96, 384, False),    # d_model not a multiple of 64
     (192, 416, False),   # d_inner not a multiple of 64
     (256, 128, False),   # d_model > d_inner
@@ -229,12 +249,12 @@ def test_wide_model_train_step_matches_jax(img_size):
 def test_bwd_width_predicate(dm, di, ok):
     """What K5 and K6 take; K3 and K4 take every such width too, so a
     layer whose backward fuses also fuses forward. K3 and K4 take more:
-    every case here but a d_inner that is not a multiple of 64 (and the
-    empty one) fuses forward, and those K5 and K6 refuse take the remat
-    backward."""
+    every case here but a d_inner that is not a multiple of 64, a width
+    past 1280 / 2560 (and the empty one) fuses forward, and those K5 and
+    K6 refuse take the remat backward."""
     assert lf.pass_bwd_widths_ok(dm, di) is ok
     fwd = lf.pass_a_widths_ok(dm, di) and lf.pass_b_widths_ok(dm, di)
-    assert fwd is (dm > 0 and di % 64 == 0)
+    assert fwd is (0 < dm <= 1280 and di % 64 == 0 and di <= 2560)
     assert lf.fusable((8, 8), (1,), False, dm, di, 4, "mean") is fwd
     if ok:
         assert fwd
@@ -251,6 +271,7 @@ def test_bwd_width_predicate(dm, di, ok):
     (384, 768, True),    # FastVim-S
     (224, 448, False),
     (320, 256, False),   # d_model > d_inner (expand < 2)
+    (1280, 2560, True),  # FastVim-H
 ])
 def test_fused_bwd_route(dm, di, fused):
     """Every width fusable accepts gets a backward that takes it: the
@@ -289,32 +310,13 @@ def _narrow_jax():
     labels = rng.integers(0, 10, 2)
     jmodel = jax_create_model("fastvim_tiny", layer_fused="off",
                               scan_impl="ref", **NARROW)
-    params = jmodel.init(jax.random.PRNGKey(4), jnp.asarray(x))
-
-    def jloss(p):
-        return jax_cross_entropy(jmodel.apply(p, jnp.asarray(x)),
-                                 jnp.asarray(labels), 0.1)
-
-    loss, grads = jax.jit(jax.value_and_grad(jloss))(params)
-    jtx = joptim.make_optimizer(
-        jsched.cosine_with_warmup(2e-3, 1e-5, 20, 3, 5e-4), weight_decay=0.05,
-        params=params)
-    jstate = JaxTrainState.create(jax.tree_util.tree_map(jnp.array, params),
-                                  jtx, ema=False)
-    jstep = jax_make_train_step(jmodel, 10, label_smoothing=0.1,
-                                ema_decay=None)
-    jstate, jm = jstep(jstate, {"image": jnp.asarray(x),
-                                "label": jnp.asarray(labels)},
-                       jax.random.PRNGKey(0))
-    return (x, labels, from_jax_params(params), float(loss),
-            from_jax_params(grads), float(jm["train_loss"]),
-            from_jax_params(jstate.params))
+    return (x, labels) + _jax_side(jmodel, x, labels, 4)
 
 
 @pytest.mark.parametrize("bwd", ["fused", "remat"])
 def test_narrow_model_trains_through_remat(monkeypatch, bwd):
     """A d_model 96 model fuses forward but not backward: with either
-    value of layer_fused_bwd (default "fused") both layers take
+    value of layer_fused_bwd both layers take
     FusedMixerCoreRematFn. Its loss and gradients, and one
     make_supervised_train_step step, against the JAX package, which runs
     those layers unfused (d_inner 192 fails its d_inner % 128): values to

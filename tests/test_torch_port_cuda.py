@@ -459,6 +459,32 @@ def test_fwd_kernels_bitwise_reproducible(dev, dtype, transposed):
                 assert torch.equal(a, b)
 
 
+def _pass_b_bwd_args(g, dtype, batch, H, W, dm, di, bias, use_ln,
+                     transposed):
+    P = W if transposed else H
+    return (_rand(g, batch, H, W, dm).to(dtype),
+            _rand(g, batch, H, W, dm).to(dtype),
+            _rand(g, batch, H, W, di).to(dtype),
+            _rand(g, batch, H, W, di).to(dtype),
+            _rand(g, batch, P, di).to(dtype), _rand(g, batch, P, di).to(dtype),
+            _rand(g, di, dm, scale=dm ** -0.5).to(dtype),
+            _rand(g, di, scale=0.3) if bias else None,
+            _rand(g, di), _rand(g, di), 1 + _rand(g, di, scale=0.1),
+            _rand(g, di, scale=0.1),
+            _rand(g, dm, di, scale=di ** -0.5).to(dtype), 1e-5, use_ln,
+            transposed)
+
+
+def _pass_a_bwd_args(g, dtype, batch, H, W, dm, di, bias, transposed):
+    P = W if transposed else H
+    x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling, _ = _pass_a_args(
+        g, dtype, batch, H, W, dm, di, bias, transposed)
+    return (x4, _rand(g, batch, H, W, dm), _rand(g, batch, H, W, di).to(dtype),
+            _rand(g, batch, H, W, di).to(dtype),
+            _rand(g, batch, P, di).to(dtype), _rand(g, batch, P, di).to(dtype),
+            w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling, transposed)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("grid,transposed,batch,dm,di,bias,use_ln", [
     ((6, 10), False, 3, 64, 128, False, True),
@@ -480,19 +506,8 @@ def test_fwd_kernels_bitwise_reproducible(dev, dtype, transposed):
 def test_pass_b_bwd_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
                                   bias, use_ln):
     g = torch.Generator(device=dev).manual_seed(di + grid[1] + 1)
-    H, W = grid
-    P = W if transposed else H
-    args = (_rand(g, batch, H, W, dm).to(dtype),
-            _rand(g, batch, H, W, dm).to(dtype),
-            _rand(g, batch, H, W, di).to(dtype),
-            _rand(g, batch, H, W, di).to(dtype),
-            _rand(g, batch, P, di).to(dtype), _rand(g, batch, P, di).to(dtype),
-            _rand(g, di, dm, scale=dm ** -0.5).to(dtype),
-            _rand(g, di, scale=0.3) if bias else None,
-            _rand(g, di), _rand(g, di), 1 + _rand(g, di, scale=0.1),
-            _rand(g, di, scale=0.1),
-            _rand(g, dm, di, scale=di ** -0.5).to(dtype), 1e-5, use_ln,
-            transposed)
+    args = _pass_b_bwd_args(g, dtype, batch, *grid, dm, di, bias, use_ln,
+                            transposed)
     with torch.no_grad():
         _close_all(lf.pass_b_bwd(*args), lf.pass_b_bwd_plain(*args),
                    TOL[dtype], 4)
@@ -518,14 +533,7 @@ def test_pass_b_bwd_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
 def test_pass_a_bwd_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
                                   bias):
     g = torch.Generator(device=dev).manual_seed(dm + grid[0] + 1)
-    H, W = grid
-    P = W if transposed else H
-    x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling, _ = _pass_a_args(
-        g, dtype, batch, H, W, dm, di, bias, transposed)
-    args = (x4, _rand(g, batch, H, W, dm), _rand(g, batch, H, W, di).to(dtype),
-            _rand(g, batch, H, W, di).to(dtype),
-            _rand(g, batch, P, di).to(dtype), _rand(g, batch, P, di).to(dtype),
-            w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling, transposed)
+    args = _pass_a_bwd_args(g, dtype, batch, *grid, dm, di, bias, transposed)
     with torch.no_grad():
         _close_all(lf.pass_a_bwd(*args), lf.pass_a_bwd_plain(*args),
                    TOL[dtype], 1)
@@ -557,6 +565,64 @@ def test_bwd_kernels_bitwise_reproducible(dev, dtype, transposed):
             first = [t.clone() for t in fn(*args)]
             for a, b in zip(first, fn(*args)):
                 assert torch.equal(a, b)
+
+
+# the wide forms of K5 and K6: FastVim-B/L/H on 224 px (14 × 14), 256 px
+# and 512 px (patch 16) grids, then partial tiles and the edges of the
+# narrow forms' widths; with bias, LayerNorm too
+BWD_WIDE_CASES = [
+    *[(grid, tr, 1, dm, di, tr) for dm, di in REGISTRY_WIDE
+      for grid in ((14, 14), (16, 16), (32, 32)) for tr in (False, True)],
+    ((6, 10), False, 3, 768, 1536, True),   # 10-token lines: a partial tile
+    ((5, 70), False, 2, 768, 1536, False),  # 70-token lines: 64 + 6
+    ((70, 5), True, 2, 1024, 2048, True),   # the same down columns
+    ((8, 8), True, 2, 384, 832, True),      # d_inner past 768, d_model 384
+    ((8, 8), False, 2, 448, 768, False),    # d_model past 384
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,transposed,batch,dm,di,bias", BWD_WIDE_CASES)
+def test_pass_b_bwd_wide_matches_plain(dev, dtype, grid, transposed, batch,
+                                       dm, di, bias):
+    g = torch.Generator(device=dev).manual_seed(dm + di + grid[1])
+    args = _pass_b_bwd_args(g, dtype, batch, *grid, dm, di, bias, bias,
+                            transposed)
+    with torch.no_grad():
+        _close_all(lf.pass_b_bwd(*args), lf.pass_b_bwd_plain(*args),
+                   TOL[dtype], 4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,transposed,batch,dm,di,bias", BWD_WIDE_CASES)
+def test_pass_a_bwd_wide_matches_plain(dev, dtype, grid, transposed, batch,
+                                       dm, di, bias):
+    g = torch.Generator(device=dev).manual_seed(dm + di + grid[0])
+    args = _pass_a_bwd_args(g, dtype, batch, *grid, dm, di, bias, transposed)
+    with torch.no_grad():
+        _close_all(lf.pass_a_bwd(*args), lf.pass_a_bwd_plain(*args),
+                   TOL[dtype], 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dm,di", [(768, 1536), (1280, 2560)])
+def test_wide_bwd_kernels_repeat_bitwise(dev, dtype, dm, di):
+    """The wide forms add their cross-block sums in a fixed order (no
+    atomics): two calls on the same inputs agree bit for bit. A call is
+    four launches (the main kernel, the dx̂ product, the weight-gradient
+    product, the sums), and in fp32 the wrapper's weight transposes: two
+    for K5, one for K6."""
+    g = torch.Generator(device=dev).manual_seed(dm + 1)
+    b_args = _pass_b_bwd_args(g, dtype, 2, 10, 70, dm, di, True, True, False)
+    a_args = _pass_a_bwd_args(g, dtype, 2, 10, 70, dm, di, True, True)
+    fp32 = dtype == torch.float32
+    with torch.no_grad():
+        for fn, args, n in ((lf.pass_b_bwd, b_args, 4 + 2 * fp32),
+                            (lf.pass_a_bwd, a_args, 4 + fp32)):
+            first = [t.clone() for t in fn(*args)]
+            for a, b in zip(first, fn(*args)):
+                assert torch.equal(a, b)
+            assert kernels_a_call(lambda: fn(*args)) == n
 
 
 @pytest.mark.parametrize("bwd_mode", ["fused", "remat"])
@@ -648,8 +714,9 @@ def test_wrappers_refuse(dev):
                               None, u, states)
     with pytest.raises(ValueError, match="states must be"):
         ss.selective_scan_bwd(u, u, A, B, B, None, None, u, states[:, :, :8])
-    x4, wide = _rand(g, 1, 8, 8, 64), _rand(g, 1, 8, 8, 832)
-    y, v = _rand(g, 1, 8, 832), _rand(g, 832)
+    x4, v = _rand(g, 1, 8, 8, 64), _rand(g, 832)
+    wide_bwd = _rand(g, 1, 8, 8, 2624)  # d_inner past the backward's 2560
+    y_bwd, v_bwd = _rand(g, 1, 8, 2624), _rand(g, 2624)
     # d_inner past the forward kernels' 2560
     wide_p = lf.FusedParams(*([None] * 2), v.new_zeros(2624, 4),
                             *([None] * 17))
@@ -661,9 +728,10 @@ def test_wrappers_refuse(dev):
         selective_scan(_rand(g, 1, 8, 12).requires_grad_(), _rand(g, 1, 8, 12),
                        -torch.ones(12, 16, device=dev), B, B)
     assert kernels.launch_counts()["pass_a_fwd"] == 0  # before the forward
-    with pytest.raises(ValueError, match="d_inner <= 768"):
-        lf.pass_b_bwd(x4, x4, wide, wide, y, y, _rand(g, 832, 64), None, v, v,
-                      v, v, _rand(g, 64, 832), 1e-5, True, False)
+    with pytest.raises(ValueError, match="d_inner <= 2560"):
+        lf.pass_b_bwd(x4, x4, wide_bwd, wide_bwd, y_bwd, y_bwd,
+                      _rand(g, 2624, 64), None, v_bwd, v_bwd, v_bwd, v_bwd,
+                      _rand(g, 64, 2624), 1e-5, True, False)
     # the forward kernels take FastVim-H's widths and no more: d_model <=
     # 1280, d_inner <= 2560
     x1312 = _rand(g, 1, 8, 8, 1312)
@@ -683,10 +751,10 @@ def test_wrappers_refuse(dev):
         lf.pass_b(x4, _rand(g, 1, 8, 8, 2592), _rand(g, 1, 8, 8, 2592), y2592,
                   y2592, _rand(g, 2592, 64), None, v2592, v2592, v2592, v2592,
                   _rand(g, 64, 2592), None, 1e-5, True, False)
-    with pytest.raises(ValueError, match="d_inner <= 768"):
-        lf.pass_a_bwd(x4, _rand(g, 1, 8, 8, 64), wide, wide, y, y,
-                      _rand(g, 832, 64), None, _rand(g, 832, 4), None,
-                      _rand(g, 832, 4), None, 1.0, False)
+    with pytest.raises(ValueError, match="d_inner <= 2560"):
+        lf.pass_a_bwd(x4, _rand(g, 1, 8, 8, 64), wide_bwd, wide_bwd, y_bwd,
+                      y_bwd, _rand(g, 2624, 64), None, _rand(g, 2624, 4), None,
+                      _rand(g, 2624, 4), None, 1.0, False)
 
 
 # ----------------------------------------------------------------------
