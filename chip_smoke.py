@@ -6,7 +6,9 @@
 Phases, each of which raises on failure (exit code non-zero):
 
 1. print the card's name and power limit, the torch / CUDA / nvcc
-   versions, and build the CUDA kernels from ``ops/kernels/csrc``;
+   versions, and build the CUDA kernels from ``ops/kernels/csrc`` and,
+   with g++, the native host pipeline's libraries from
+   ``native/csrc`` (augment; decode where libjpeg-turbo's header is);
 2. hold each of the eleven kernels (K1 scan, K3 pass A, K4 pass B; the
    backward kernels K2 scan, K5 pass B, K6 pass A; K7 pass B in its
    recompute form, K8 conv + pool, K9 and K10 the two merge kernels, and
@@ -117,8 +119,12 @@ Phases, each of which raises on failure (exit code non-zero):
    512 synthetic images (4 steps of 128): ``pretrain_mae --config_name
    pretrain_FastVimB`` for one epoch and ``--resume`` to two (52 K1 and
    52 K2 a step: 24 masked layers and 2 decoder layers, two scans each;
-   the log's two rows, step 8, img/s, step time and the device's idle
-   share over the resumed epoch); ``finetune_mae --config_name
+   the log's two rows, step 8, img/s, step time, the device's idle
+   share over the resumed epoch and its peak memory; epoch 1 with the
+   loader's MAE augment in the native library, the default, one
+   ``augment_batch`` call an image, counted; the resumed epoch from its
+   checkpoint twice, with the native path off, PIL, and on);
+   ``finetune_mae --config_name
    finetune_FastVimB`` from its newest checkpoint for one epoch
    (``fastvim_base``, every layer fused: the printed counts show the
    sin-cos ``pos_embed`` and the kept-init head; a step 24 K3 + 24 K4 +
@@ -145,7 +151,11 @@ Phases, each of which raises on failure (exit code non-zero):
    (Channel-First, HCS, batch 32, fp32) on 128 synthetic images for one
    epoch and ``--resume`` to two (the log's two rows, step 8, 48 K1 + 48
    K2 a step and 48 K1 an eval batch; img/s, step time, the device's idle
-   share over the resumed epoch, peak memory). Last, train steps through
+   share over the resumed epoch, peak memory; epoch 1 with the loaders'
+   augment in the native library, the default, one ``cell_augment_batch``
+   call a batch, counted; the resumed epoch from its checkpoint twice,
+   with the native path off, Python image by image, and on). Last, train
+   steps through
    the model API: ``channelvim_small_ps16_baseline`` at full depth, B = 8
    (its L = 1568 scans in the chunked forms), and
    ``fastchannelvim_small_ps8`` at B = 32 with ``remat=True`` (a batch
@@ -192,6 +202,22 @@ Phases, each of which raises on failure (exit code non-zero):
    ``--eval_only`` on 8 images (48 K1 + 48 K2 a step, 48 K1 an eval
    image): img/s, step time, the idle share, the peak memory, the loader
    alone and the top kernels.
+12. the native host pipeline (``fastvim_tpu_torch/native``): nproc and
+   whether libjpeg-turbo's header is there; each entry point against its
+   plain numpy version (``native/plain.py``; the resize within
+   ``plain.resize_tol``, the cell augment exactly, the decode within the
+   test JPEGs' noise as a mean per image) and timed per batch on the
+   host, on all cores and on one, beside its plain version and the
+   Python path: ``augment_batch`` and ``decode_augment_batch`` at B =
+   128, 224 px, from 500 × 375 JPEGs written here by Pillow,
+   ``cell_augment_batch`` at B = 32, 224 × 224 × 8, and ``jpeg_dims``
+   (the decode half reported unavailable, with the reason, where the
+   header is missing); the MAE and cells train loaders alone as phases 8
+   and 9 build them, native on and off in turns; then
+   ``test_classification --config_name
+   FastVimT --data_dir`` over 512 such JPEGs with the native path on and
+   off (24 K3 + 24 K4 + 48 K1 a batch, the native calls, img/s, the
+   device's idle share over the call, the loader alone).
 
 After a line with the card's name and power limit, the line before the
 last is a JSON object with one entry per kernel (``ms`` a call's time by
@@ -205,11 +231,14 @@ phase 2 shapes; launches from phase 4's FastVim-B forward and phase 3's
 launches from phase 5's FastVim-B train step and phase 3's -L and -H
 backwards); the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
-the script exits non-zero and prints no result.
+the script exits non-zero and prints no result. Before the ``kernels``
+line, a ``{"native": [...]}`` line holds phase 12's entries (these are
+not TPU kernels).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -1611,6 +1640,22 @@ def device_idle_share(prof, span: str = "train_epoch"):
     return (1.0 - busy / wall if ivs else None), busy / 1e3, wall / 1e3
 
 
+@contextlib.contextmanager
+def native_path(on: bool):
+    """With ``on`` False, the port's native libraries reported absent
+    in-process (``native.available`` patched to answer False): every
+    loader takes its Python path, as on a machine without them."""
+    from fastvim_tpu_torch import native
+
+    real = native.available
+    if not on:
+        native.available = lambda library="augment": False
+    try:
+        yield
+    finally:
+        native.available = real
+
+
 def top_kernels(prof, n: int = 8) -> dict:
     """The device ms of a torch.profiler run's ``n`` costliest kernel
     groups (``utils/profiling.group_rows``: the port's kernels by id, the
@@ -2009,9 +2054,12 @@ FUSED_REMAT_STEP = {**FUSED_FWD, "selective_scan_fwd": 96,
 def run_mae_cli_path(dev, card):
     """Phase 8, the MAE CLIs on the card, in-process, at full width and
     depth, on 512 synthetic images (4 steps of 128 an epoch):
-    ``pretrain_mae --config_name pretrain_FastVimB`` for one epoch and
-    ``--resume`` to two (52 K1 and 52 K2 a step; the device's idle share
-    over the resumed epoch); ``finetune_mae --config_name
+    ``pretrain_mae --config_name pretrain_FastVimB`` for one epoch (the
+    loader's MAE augment in the native library, the default) and, from
+    its checkpoint, ``--resume`` to two with the native path off (PIL)
+    and on (52 K1 and 52 K2 a step; the native calls; the device's idle
+    share and the peak memory over each resumed epoch); ``finetune_mae
+    --config_name
     finetune_FastVimB`` from its newest checkpoint for one epoch (the
     sin-cos ``pos_embed`` and the kept-init head in the printed counts;
     every layer fused forward, fp32's default remat backward on 14-token
@@ -2028,11 +2076,13 @@ def run_mae_cli_path(dev, card):
     import io
     import os
     import re
+    import shutil
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from fastvim_tpu_torch import native
     from fastvim_tpu_torch.cli import finetune_mae, linear_probe, pretrain_mae
     from fastvim_tpu_torch.ops import kernels
     from fastvim_tpu_torch.train.checkpoint import restore_checkpoint
@@ -2077,39 +2127,69 @@ def run_mae_cli_path(dev, card):
         return tuple(map(int, m.groups()))
 
     with tempfile.TemporaryDirectory() as tmp:
-        # 1. pretrain: 24 masked layers and 2 decoder layers, two scans each
-        pre = os.path.join(tmp, "pretrain")
-        common = ["--config_name", "pretrain_FastVimB", "--model_save_dir",
-                  pre, "--synthetic_samples", str(samples), "--device",
-                  str(dev)]
+        # 1. pretrain: 24 masked layers and 2 decoder layers, two scans
+        # each; the loader's MAE augment in the native library (the
+        # default: one augment_batch call an image). Epoch 1 once, then
+        # epoch 2 resumed from its checkpoint with the native path off
+        # (PIL) and on, each under the profiler
         per_epoch = {"selective_scan_fwd": 52 * steps,
                      "selective_scan_bwd": 52 * steps}
-        state, _ = run("pretrain_mae epoch 1", pretrain_mae,
-                       common + ["--epochs", "1"], per_epoch)
+        dirs = {m: os.path.join(tmp, m.replace(" ", "_"))
+                for m in ("native", "native off")}
+        common = lambda d: ["--config_name", "pretrain_FastVimB",
+                            "--model_save_dir", d, "--synthetic_samples",
+                            str(samples), "--device", str(dev)]
+        native.reset_call_counts()
+        state, _ = run("pretrain_mae (native) epoch 1", pretrain_mae,
+                       common(dirs["native"]) + ["--epochs", "1"], per_epoch)
         del state
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            state, _ = run("pretrain_mae epoch 2 (resumed)", pretrain_mae,
-                           common + ["--epochs", "2", "--resume"], per_epoch)
-        if state.step != 2 * steps:
-            raise AssertionError(f"pretrain_mae: step {state.step}, not "
-                                 f"{2 * steps}")
-        del state
-        idle, busy_ms, wall_ms = device_idle_share(prof)
-        log(f"[cli] pretrain_mae device ms by kernel over the resumed epoch: "
-            f"{top_kernels(prof)}")
-        del prof
-        share = ("not measured (no device event)" if idle is None
-                 else f"{idle:.4f}")
-        rows = rates(os.path.join(pre, "log.csv"),
-                     "pretrain_mae pretrain_FastVimB.yaml",
-                     f"; device idle share over epoch 1's training (resumed,"
-                     f" under the profiler) {share} (busy {busy_ms:.1f} of "
-                     f"{wall_ms:.1f} ms); 52 K1 + 52 K2 a step")
-        if [int(r["epoch"]) for r in rows] != [0, 1]:
-            raise AssertionError(f"pretrain_mae log epochs "
-                                 f"{[r['epoch'] for r in rows]}")
-        ckpt = os.path.join(pre, "ckpt", f"step_{2 * steps}")
+        if native.call_counts()["augment_batch"] != samples:
+            raise AssertionError(f"pretrain_mae epoch 1: native calls "
+                                 f"{native.call_counts()}, expected "
+                                 f"{samples} augment_batch")
+        shutil.copytree(dirs["native"], dirs["native off"])
+        for mode in ("native off", "native"):
+            with native_path(mode == "native"):
+                native.reset_call_counts()
+                torch.cuda.reset_peak_memory_stats()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    state, _ = run(f"pretrain_mae ({mode}) epoch 2 "
+                                   "(resumed)", pretrain_mae,
+                                   common(dirs[mode]) + ["--epochs", "2",
+                                                         "--resume"],
+                                   per_epoch)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                calls = native.call_counts()
+            want_calls = samples if mode == "native" else 0
+            if calls["augment_batch"] != want_calls or any(
+                    v for k, v in calls.items() if k != "augment_batch"):
+                raise AssertionError(f"pretrain_mae ({mode}): native calls "
+                                     f"{calls}, expected {want_calls} "
+                                     "augment_batch")
+            if state.step != 2 * steps:
+                raise AssertionError(f"pretrain_mae: step {state.step}, not "
+                                     f"{2 * steps}")
+            del state
+            idle, busy_ms, wall_ms = device_idle_share(prof)
+            log(f"[cli] pretrain_mae ({mode}) device ms by kernel over the "
+                f"resumed epoch: {top_kernels(prof)}")
+            del prof
+            share = ("not measured (no device event)" if idle is None
+                     else f"{idle:.4f}")
+            rows = rates(os.path.join(dirs[mode], "log.csv"),
+                         f"pretrain_mae pretrain_FastVimB.yaml (epoch 0 "
+                         f"native, epoch 1 resumed {mode})",
+                         f"; device idle share over epoch 1's training "
+                         f"(resumed, under the profiler) {share} (busy "
+                         f"{busy_ms:.1f} of {wall_ms:.1f} ms); peak memory "
+                         f"of the resumed run {peak:.2f} GiB; native "
+                         f"augment_batch calls {calls['augment_batch']}; 52 "
+                         "K1 + 52 K2 a step")
+            if [int(r["epoch"]) for r in rows] != [0, 1]:
+                raise AssertionError(f"pretrain_mae log epochs "
+                                     f"{[r['epoch'] for r in rows]}")
+        ckpt = os.path.join(tmp, "native", "ckpt", f"step_{2 * steps}")
 
         # 2. finetune fastvim_base from it: 24 fused layers (K3, 2 K1, K4)
         # whose backward is fp32's default, the remat one (2 K1, 2 K2), and
@@ -2341,18 +2421,23 @@ def run_cells_cli_path(dev, card):
     """Phase 9, the cells CLI on the card, in-process, at
     FastChannelVimS.yaml (FastChannelVim-S at full width and depth,
     Channel-First, HCS, mean pooling, batch 32, fp32) on 128 synthetic
-    images, 4 steps an epoch: one epoch, then ``--resume`` to two; checks
-    the log, the step count and 48 K1 + 48 K2 a step and 48 K1 an eval
-    batch; prints img/s, step time, the device's idle share over the
-    resumed epoch and the peak memory. Returns the launch counts."""
-    import contextlib
+    images, 4 steps an epoch: one epoch with the loaders' augment in the
+    native library (the default: one ``cell_augment_batch`` call a batch,
+    train and eval), then, from its checkpoint, ``--resume`` to two with
+    the native path off (the Python ``cell_augment``) and on; checks the
+    log, the step count, 48 K1 + 48 K2 a step and 48 K1 an eval batch,
+    and the native calls; prints img/s, step time, the device's idle
+    share over each resumed epoch and its peak memory. Returns the launch
+    counts."""
     import csv
     import os
+    import shutil
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from fastvim_tpu_torch import native
     from fastvim_tpu_torch.cli import train_cells
     from fastvim_tpu_torch.ops import kernels
 
@@ -2362,59 +2447,83 @@ def run_cells_cli_path(dev, card):
     per_epoch = {**none, "selective_scan_fwd": 48 * (steps + val_batches),
                  "selective_scan_bwd": 48 * steps}
     total = dict(none)
-    with tempfile.TemporaryDirectory() as out:
-        common = ["--config_name", "FastChannelVimS", "--model_save_dir", out,
-                  "--synthetic_samples", str(samples), "--device", str(dev)]
-        for what, more in (("epoch 1", ["--epochs", "1"]),
-                           ("epoch 2 (resumed)", ["--epochs", "2",
-                                                  "--resume"])):
+
+    def run(what, out, more, on):
+        """train_cells into ``out`` with the native path ``on``: its
+        state and the native calls, its launches held to an epoch's."""
+        with native_path(on):
+            native.reset_call_counts()
             kernels.reset_launch_counts()
-            torch.cuda.reset_peak_memory_stats()
-            resumed = more[-1] == "--resume"
-            with (profile(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA])
-                  if resumed else contextlib.nullcontext()) as traced:
-                state = train_cells.main(common + more)
-                torch.cuda.synchronize()
-            seen = kernels.launch_counts()
-            if seen != per_epoch:
-                raise AssertionError(f"train_cells {what}: launches {seen}, "
-                                     f"expected {per_epoch} ({steps} steps of"
-                                     f" 48 K1 + 48 K2, {val_batches} eval "
-                                     "batch of 48 K1)")
-            total = {k: total[k] + v for k, v in seen.items()}
-            if resumed:
-                prof = traced
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        if state.step != 2 * steps:
-            raise AssertionError(f"train_cells: step {state.step}, not "
-                                 f"{2 * steps}")
+            state = train_cells.main(
+                ["--config_name", "FastChannelVimS", "--model_save_dir",
+                 out, "--synthetic_samples", str(samples), "--device",
+                 str(dev), *more])
+            torch.cuda.synchronize()
+            calls = native.call_counts()
+        seen = kernels.launch_counts()
+        if seen != per_epoch:
+            raise AssertionError(
+                f"train_cells {what}: launches {seen}, expected {per_epoch}"
+                f" ({steps} steps of 48 K1 + 48 K2, {val_batches} eval "
+                "batch of 48 K1)")
+        for k, v in seen.items():
+            total[k] += v
+        want = steps + val_batches if on else 0
+        if calls["cell_augment_batch"] != want or any(
+                v for k, v in calls.items() if k != "cell_augment_batch"):
+            raise AssertionError(f"train_cells {what}: native calls {calls},"
+                                 f" expected {want} cell_augment_batch")
+        return state, calls
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {m: os.path.join(tmp, m.replace(" ", "_"))
+                for m in ("native", "native off")}
+        state, _ = run("(native) epoch 1", dirs["native"], ["--epochs", "1"],
+                       True)
         del state
-        idle, busy_ms, wall_ms = device_idle_share(prof)
-        log(f"[cli] train_cells device ms by kernel over the resumed epoch: "
-            f"{top_kernels(prof)}")
-        del prof
-        with open(os.path.join(out, "log.csv")) as f:
-            rows = list(csv.DictReader(f))
-    if [int(r["epoch"]) for r in rows] != [0, 1]:
-        raise AssertionError(f"train_cells log epochs "
-                             f"{[r['epoch'] for r in rows]}, not [0, 1]")
-    cols = ("train_loss", "grad_norm", "val_loss", "val_acc")
-    for r in rows:
-        if not all(math.isfinite(float(r[c])) for c in cols):
-            raise AssertionError(f"train_cells log row not finite: {r}")
-    log(f"[cli] train_cells log.csv: "
-        f"{[{c: r[c] for c in ('epoch', *cols)} for r in rows]}")
-    sps = [float(r["steps_per_sec"]) for r in rows]
-    share = ("not measured (no device event)" if idle is None
-             else f"{idle:.4f}")
-    log(f"[time] CLI train_cells FastChannelVimS.yaml B={batch} fp32 224px "
-        f"8 channels, HCS: epoch 1 {sps[0] * batch:.2f} img/s "
-        f"({1e3 / sps[0]:.1f} ms a step), epoch 2 (resumed, under the "
-        f"profiler) {sps[1] * batch:.2f} img/s ({1e3 / sps[1]:.1f} ms a "
-        f"step); device idle share over epoch 2's training {share} (busy "
-        f"{busy_ms:.1f} of {wall_ms:.1f} ms); peak memory of the resumed "
-        f"run {peak:.2f} GiB; 48 K1 + 48 K2 a step ({card})")
+        shutil.copytree(dirs["native"], dirs["native off"])
+        for mode in ("native off", "native"):
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, calls = run(f"({mode}) epoch 2 (resumed)",
+                                   dirs[mode], ["--epochs", "2", "--resume"],
+                                   mode == "native")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if state.step != 2 * steps:
+                raise AssertionError(f"train_cells: step {state.step}, not "
+                                     f"{2 * steps}")
+            del state
+            idle, busy_ms, wall_ms = device_idle_share(prof)
+            log(f"[cli] train_cells ({mode}) device ms by kernel over the "
+                f"resumed epoch: {top_kernels(prof)}")
+            del prof
+            with open(os.path.join(dirs[mode], "log.csv")) as f:
+                rows = list(csv.DictReader(f))
+            if [int(r["epoch"]) for r in rows] != [0, 1]:
+                raise AssertionError(f"train_cells log epochs "
+                                     f"{[r['epoch'] for r in rows]}, not "
+                                     "[0, 1]")
+            cols = ("train_loss", "grad_norm", "val_loss", "val_acc")
+            for r in rows:
+                if not all(math.isfinite(float(r[c])) for c in cols):
+                    raise AssertionError(f"train_cells log row not finite: "
+                                         f"{r}")
+            log(f"[cli] train_cells ({mode}) log.csv: "
+                f"{[{c: r[c] for c in ('epoch', *cols)} for r in rows]}")
+            sps = [float(r["steps_per_sec"]) for r in rows]
+            share = ("not measured (no device event)" if idle is None
+                     else f"{idle:.4f}")
+            log(f"[time] CLI train_cells FastChannelVimS.yaml B={batch} fp32"
+                f" 224px 8 channels, HCS: epoch 1 (native) "
+                f"{sps[0] * batch:.2f} img/s ({1e3 / sps[0]:.1f} ms a step),"
+                f" epoch 2 (resumed from it, {mode}, under the profiler) "
+                f"{sps[1] * batch:.2f} img/s ({1e3 / sps[1]:.1f} ms a step);"
+                f" device idle share over epoch 2's training {share} (busy "
+                f"{busy_ms:.1f} of {wall_ms:.1f} ms); peak memory of the "
+                f"resumed run {peak:.2f} GiB; native cell_augment_batch "
+                f"calls {calls['cell_augment_batch']}; 48 K1 + 48 K2 a step "
+                f"({card})")
     return total
 
 
@@ -3215,6 +3324,340 @@ def run_det_cli_path(dev, card):
     return total
 
 
+# the native pipeline's tolerances against its plain numpy versions
+# (fastvim_tpu_torch/native/plain.py): the resize within
+# plain.resize_tol(375, 500, std), 2.8e-4 (g++ may fuse a multiply and an
+# add under -march=native, numpy does not: a sample coordinate moves by up
+# to one float32 ulp of the source's width); the cell augment exactly; the
+# decode as a mean per image within the noise write_jpeg_folder puts in
+# its JPEGs, 16 grey levels / (255 · 0.225) = 0.279 in normalized units
+# (libjpeg's DCT scaling decodes a num/8 version of the image, which
+# averages that noise away, where PIL's full-size decode sampled
+# bilinearly keeps it)
+JPEG_NOISE = 16
+NATIVE_DECODE_MEAN_TOL = JPEG_NOISE / (255 * 0.225)
+
+
+def write_jpeg_folder(root, n, classes=8, seed=12):
+    """n 500 × 375 JPEGs (quality 90, the ImageNet val median's shape)
+    written by Pillow under ``root/val/class<k>/``: a few low-frequency
+    waves per channel plus noise of ±``JPEG_NOISE`` grey levels, from
+    ``seed`` (drawn in order, then made and encoded on 8 threads).
+    Returns their paths."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    y = np.arange(375, dtype=np.float32)[:, None]
+    x = np.arange(500, dtype=np.float32)[None, :]
+    noise = rng.integers(-JPEG_NOISE, JPEG_NOISE + 1,
+                         (375, 564, 3)).astype(np.float32)
+    waves = rng.uniform(0.5, 6, (n, 3, 2)) / (375, 500)
+    phases = rng.uniform(0, 2 * np.pi, (n, 3))
+    paths = [os.path.join(root, "val", f"class{i % classes}",
+                          f"img{i:04d}.jpg") for i in range(n)]
+    for k in range(classes):
+        os.makedirs(os.path.join(root, "val", f"class{k}"), exist_ok=True)
+
+    def write(i):
+        img = noise[:, i % 64:i % 64 + 500] + 128
+        for c in range(3):
+            img[..., c] += 60 * np.sin(
+                2 * np.pi * (waves[i, c, 0] * y + waves[i, c, 1] * x)
+                + phases[i, c])
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            paths[i], "JPEG", quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(n)))
+    return paths
+
+
+def host_ms(fn, reps: int) -> float:
+    """ms a call on the host's clock: the median of ``reps`` calls after
+    one warm-up call."""
+    import statistics
+
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_native(card, paths):
+    """Phase 12: the native host pipeline (fastvim_tpu_torch/native). Each
+    entry point against its plain numpy version on this run's inputs, and
+    timed per batch (host clock, median of 5 calls after a warm-up; with
+    all cores and with one thread, as the loaders call it from each of
+    their threads) beside one call of its plain version (the one checked)
+    and of the Python path the loaders take without it: ``augment_batch`` and
+    ``decode_augment_batch`` at B = 128 to 224 px, train and eval, from
+    ``paths`` (500 × 375 JPEGs, decoded by PIL for the former),
+    ``cell_augment_batch`` at B = 32, 224 × 224 × 8, train and eval, and
+    ``jpeg_dims`` over the 128 streams. Where this machine has no
+    libjpeg-turbo header the decode library is not built: its entry points
+    are reported unavailable, with the reason, and are tested on the CPU
+    only. Returns the ``native`` line's entries."""
+    import io
+    import os
+    import random
+
+    import numpy as np
+    from PIL import Image
+
+    from fastvim_tpu_torch import native
+    from fastvim_tpu_torch.data import cells
+    from fastvim_tpu_torch.data import transforms as T
+    from fastvim_tpu_torch.native import _build, plain
+
+    src = "fastvim_tpu_torch/native/csrc/"
+    no_jpeg = _build.missing("decode")
+    log(f"[native] nproc {os.cpu_count()}; compiler {_build.compiler()}; "
+        f"libjpeg-turbo's jpeglib.h: "
+        f"{'found' if no_jpeg is None else 'missing: ' + no_jpeg}; "
+        f"libraries: "
+        f"augment {_build.library_path('augment').name}, decode "
+        + (_build.library_path("decode").name if native.available("decode")
+           else "not built"))
+    if not native.available("augment"):
+        raise AssertionError("the native augment library is required")
+    if (no_jpeg is None) != native.available("decode"):
+        raise AssertionError("the decode library must be built where its "
+                             "header is found")
+    B, size = 128, 224
+    streams = []
+    for p in paths[:B]:
+        with open(p, "rb") as f:
+            streams.append(f.read())
+    pil = [Image.open(io.BytesIO(b)).convert("RGB") for b in streams]
+    rgb = np.stack([np.asarray(im, np.uint8) for im in pil])
+    kw = dict(mean=T.IMAGENET_MEAN, std=T.IMAGENET_STD, scale=(0.2, 1.0))
+    entries = []
+
+    def once(fn):
+        """(fn's result, its ms on the host's clock)."""
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def entry(name, source, shape, fn, plain_fn, python_fn, compare, tol):
+        native.reset_call_counts()
+        got = fn(None)
+        calls = sum(native.call_counts().values())
+        want, plain_ms = once(plain_fn)
+        err, mean_err = compare(got, want)
+        ok = err <= tol if mean_err is None else mean_err <= tol
+        log(f"[check] native {name}: max_abs_err={err:.3e}"
+            + ("" if mean_err is None else
+               f" largest per-image mean err={mean_err:.3e}")
+            + f" tol={tol:g} {'ok' if ok else 'FAIL'}")
+        if not ok or not calls:
+            raise AssertionError(f"native {name}: outside tolerance {tol} "
+                                 f"or not called ({calls} calls)")
+        e = {"name": name, "source": src + source, "shape": shape,
+             "max_abs_err": err, "tol": tol,
+             "threads": os.cpu_count(),
+             "ms": host_ms(lambda: fn(None), 5),
+             "ms_1_thread": host_ms(lambda: fn(1), 3),
+             "plain_ms": plain_ms,
+             "python_ms": None if python_fn is None else once(python_fn)[1]}
+        if mean_err is not None:
+            e["mean_abs_err"] = mean_err
+        log(f"[time] native {name} ({shape}): {e['ms']:.2f} ms a batch on "
+            f"{e['threads']} threads, {e['ms_1_thread']:.2f} ms on one; plain "
+            f"{e['plain_ms']:.2f} ms; the Python path "
+            + ("-" if e["python_ms"] is None else f"{e['python_ms']:.2f} ms")
+            + f" (host clock; {card})")
+        entries.append(e)
+
+    def exact(got, want):
+        return float(np.abs(got - want).max()), None
+
+    def per_image(got, want):
+        (g, gf), (w, wf) = got, want
+        if not np.array_equal(gf, wf):
+            raise AssertionError(f"decode fail flags {gf} vs {wf}")
+        d = np.abs(g - w).reshape(len(g), -1)
+        return float(d.max()), float(d.mean(axis=1).max())
+
+    for training in (True, False):
+        mode = "train" if training else "eval"
+        pil_tf = ((lambda im, r: T.mae_transform(im, size, r)) if training
+                  else (lambda im, r: T.eval_transform(im, size)))
+        entry(f"augment_batch {mode}", "augment.cpp",
+              f"{B} x 375 x 500 x 3 uint8 -> {size} px",
+              lambda nt, t=training: native.augment_batch(
+                  rgb, size, 7, t, num_threads=nt, **kw),
+              lambda t=training: plain.augment_batch(rgb, size, 7, t, **kw),
+              lambda f=pil_tf: [f(im, random.Random(i))
+                                for i, im in enumerate(pil)],
+              exact, plain.resize_tol(375, 500, T.IMAGENET_STD))
+    cx = np.random.default_rng(13).standard_normal(
+        (32, 224, 224, 8)).astype(np.float32)
+    cmean = np.linspace(-0.5, 0.5, 8).astype(np.float32)
+    cstd = np.linspace(0.5, 1.5, 8).astype(np.float32)
+    for training in (True, False):
+        mode = "train" if training else "eval"
+        entry(f"cell_augment_batch {mode}", "augment.cpp",
+              "32 x 224 x 224 x 8 float32",
+              lambda nt, t=training: native.cell_augment_batch(
+                  cx, 9, t, cmean, cstd, num_threads=nt),
+              lambda t=training: plain.cell_augment_batch(cx, 9, t, cmean,
+                                                          cstd),
+              lambda t=training: [cells.cell_augment(
+                  x, random.Random(i), 224, cmean, cstd, training=t)
+                  for i, x in enumerate(cx)],
+              exact, 0.0)
+    if no_jpeg is not None:
+        log(f"[native] decode_augment_batch and jpeg_dims not run here: "
+            f"{no_jpeg}; they are held against the JAX package's library and "
+            "their plain versions on the CPU (tests/test_torch_port_"
+            "native.py)")
+        for name in ("decode_augment_batch train", "decode_augment_batch "
+                     "eval", "jpeg_dims"):
+            entries.append({"name": name, "source": src + "decode.cpp",
+                            "available": False, "why": no_jpeg})
+        return entries
+    for training in (True, False):
+        mode = "train" if training else "eval"
+        pil_tf = ((lambda im, r: T.mae_transform(im, size, r)) if training
+                  else (lambda im, r: T.eval_transform(im, size)))
+        entry(f"decode_augment_batch {mode}", "decode.cpp",
+              f"{B} JPEGs 500 x 375 -> {size} px",
+              lambda nt, t=training: native.decode_augment_batch(
+                  streams, size, 11, t, num_threads=nt, **kw),
+              lambda t=training: plain.decode_augment_batch(
+                  streams, size, 11, t, **kw),
+              lambda f=pil_tf: [f(Image.open(io.BytesIO(b)).convert("RGB"),
+                                  random.Random(i))
+                                for i, b in enumerate(streams)],
+              per_image, NATIVE_DECODE_MEAN_TOL)
+    entry("jpeg_dims", "decode.cpp", f"{B} JPEGs 500 x 375",
+          lambda nt: [native.jpeg_dims(b) for b in streams],
+          lambda: [plain.jpeg_dims(b) for b in streams], None,
+          lambda g, w: (float(g != w), None), 0.0)
+    return entries
+
+
+def time_loaders(card):
+    """Phase 12, the loaders alone, as the CLIs of phases 8 and 9 build
+    them, with the native path on and off in turns (on, off, off, on):
+    the MAE train loader (pretrain_FastVimB.yaml: B = 128, 224 px, its
+    12 threads, 512 synthetic images) and the cells train loader
+    (FastChannelVimS.yaml: B = 32, 224 × 224 × 8, its normalization, 128
+    synthetic images, on the calling thread). img/s of a whole epoch on
+    the host's clock. Returns the ``native`` line's entries."""
+    from fastvim_tpu_torch.config import load_config
+    from fastvim_tpu_torch.data import (CellLoader, SyntheticCellDataset,
+                                        create_imagenet_loader)
+
+    mae = load_config("pretrain_FastVimB", "mae")
+    cells = load_config("FastChannelVimS", "cells")
+    makers = {
+        "MAE train loader": lambda on: create_imagenet_loader(
+            None, "train", mae["batch_size"], mae["img_size"],
+            training=True, mae=True, num_workers=mae["num_workers"],
+            seed=mae["seed"], synthetic_samples=512, use_native=on),
+        "cells train loader": lambda on: CellLoader(
+            SyntheticCellDataset(128, cells["img_size"], 8,
+                                 cells["num_classes"]),
+            cells["batch_size"], cells["img_size"], training=True,
+            seed=cells["seed"], mean=cells["data"]["normalization_mean"],
+            std=cells["data"]["normalization_std"]),
+    }
+    entries = []
+    for name, make in makers.items():
+        rates = {True: [], False: []}
+        for on in (True, False, False, True):
+            with native_path(on):
+                loader = make(on)
+                t0 = time.perf_counter()
+                n = sum(b["image"].shape[0] for b in loader)
+                rates[on].append(n / (time.perf_counter() - t0))
+        log(f"[time] native {name} alone, in turns (on, off, off, on): "
+            f"native {rates[True][0]:.2f} / {rates[True][1]:.2f} img/s, "
+            f"off {rates[False][0]:.2f} / {rates[False][1]:.2f} img/s "
+            f"(host clock; {card})")
+        entries.append({"name": f"{name} alone", "img_s_native": rates[True],
+                        "img_s_off": rates[False]})
+    return entries
+
+
+def run_folder_eval(dev, card, root, n):
+    """Phase 12, the folder eval: ``test_classification --config_name
+    FastVimT --data_dir root`` (fastvim_tiny at full width and depth,
+    seeded weights, batch 128, fp32) over the ``n`` JPEGs of
+    ``root/val``, in-process, with the native path on (the default: the
+    fused decode + augment where the decode library is built) and off
+    (PIL), each under the profiler: 24 K3 + 24 K4 + 48 K1 a batch, the
+    native calls, img/s over the whole call and the device's idle share
+    over it; and the host loader alone on both paths. Returns the launch
+    counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fastvim_tpu_torch import native
+    from fastvim_tpu_torch.cli import test_classification
+    from fastvim_tpu_torch.data import create_imagenet_loader
+    from fastvim_tpu_torch.ops import kernels
+
+    batch = 128
+    decode = native.available("decode")
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    for mode in ("native", "native off"):
+        with native_path(mode == "native"):
+            kernels.reset_launch_counts()
+            native.reset_call_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with record_function("folder_eval"):
+                    t0 = time.perf_counter()
+                    result = test_classification.main(
+                        ["--config_name", "FastVimT", "--data_dir", root,
+                         "--device", str(dev)])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            seen, calls = kernels.launch_counts(), native.call_counts()
+            expect_launches(f"test_classification --data_dir ({mode})", seen,
+                            scaled(FUSED_FWD, n // batch))
+            for k, v in seen.items():
+                total[k] += v
+            want = n // batch if mode == "native" and decode else 0
+            if calls["decode_augment_batch"] != want:
+                raise AssertionError(f"folder eval ({mode}): native calls "
+                                     f"{calls}, expected {want} "
+                                     "decode_augment_batch")
+            if not math.isfinite(result["test_loss"]):
+                raise AssertionError(f"folder eval ({mode}): {result}")
+            idle, busy_ms, wall_ms = device_idle_share(prof, "folder_eval")
+            del prof
+            loader = create_imagenet_loader(root, "val", batch, 224,
+                                            training=False)
+            t0 = time.perf_counter()
+            m = sum(b["image"].shape[0] for b in loader)
+            loader_img_s = m / (time.perf_counter() - t0)
+        share = ("not measured (no device event)" if idle is None
+                 else f"{idle:.4f}")
+        path = ("the fused native decode + augment" if mode == "native"
+                and decode else "PIL decode + eval_transform" + (
+                    " (no decode library here)" if mode == "native" else ""))
+        log(f"[time] CLI test_classification FastVimT --data_dir ({mode}: "
+            f"{path}) B={batch} fp32 224px, {n} JPEGs 500 x 375: {result}; "
+            f"{n / wall:.2f} img/s over the whole call ({wall:.2f} s); device"
+            f" idle share over the call {share} (busy {busy_ms:.1f} of "
+            f"{wall_ms:.1f} ms); native decode_augment_batch calls "
+            f"{calls['decode_augment_batch']}; the host loader alone "
+            f"{loader_img_s:.2f} img/s ({type(loader).__name__}, "
+            f"{loader.num_workers} threads) ({card})")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3242,6 +3685,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"[build] {_build.library_path().name} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the native host pipeline's libraries (g++), before any loader runs
+    from fastvim_tpu_torch import native
+
+    t0 = time.perf_counter()
+    built = {lib: native.available(lib) for lib in ("augment", "decode")}
+    log(f"[build] native libraries {built} in "
         f"{time.perf_counter() - t0:.1f} s")
 
     per_call = launches_per_call()
@@ -3306,6 +3756,19 @@ def main() -> int:
         for name, count in counts.items():
             launches[name] += count
     log(f"[time] phase 11 (detection) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as folder:
+        n_jpegs = 512
+        paths = write_jpeg_folder(folder, n_jpegs)
+        log(f"[native] {n_jpegs} JPEGs 500 x 375 written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        native_entries = check_native(card, paths) + time_loaders(card)
+        for name, count in run_folder_eval(dev, card, folder,
+                                           n_jpegs).items():
+            launches[name] += count
+    log(f"[time] phase 12 (native) {time.perf_counter() - t0:.1f} s")
 
     # each kernel's files: the main path's (bf16) kernel, then the fp32
     # route, the C entry points and the headers they include (K1 and K2:
@@ -3368,6 +3831,7 @@ def main() -> int:
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
         if dev_ms and dev_ms[0] is not None:
             entries[-1]["device_ms"] = dev_ms[0]
+    print(json.dumps({"native": native_entries}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,14 @@ multi-channel dataset stands in where there is no manifest.
 
 The manifest is a CSV file with columns ``path`` and ``label``, read
 without pandas; a ``.parquet`` manifest needs pandas, imported only
-then. ``CellLoader`` augments in Python, image by image, with the JAX
-package's per-image draws: its batches are bitwise those of the JAX
-loader without its native library (the C++ ``cell_augment_batch`` is
-not ported).
+then. ``CellLoader`` augments as the JAX package's does: where the
+native augment library is there, a batch of images already at ``size``
+goes through the C++ ``cell_augment_batch`` (flips, a reflect-padded
+shift, normalization: no coarse dropout, as in the JAX package's native
+path), and an image of another size first through the Python
+``cell_augment``; without the library every image takes the Python
+``cell_augment``, image by image. On either path its batches are
+bitwise the JAX loader's on the same path.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from fastvim_tpu_torch import native
 
 
 def split_indices(n: int, split: str, seed: int = 42) -> np.ndarray:
@@ -141,9 +147,11 @@ class SyntheticCellDataset:
 
 class CellLoader:
     """Batches of {"image" (B, H, W, C) float32, "label" (B,) int64};
-    drops failed reads. Each epoch shuffles with (seed + epoch) and draws
-    each image's augmentation from ``hash((seed, epoch + 1, index))``; a
-    caller may set ``epoch`` before iterating (a resumed run)."""
+    drops failed reads. Each epoch shuffles with (seed + epoch); the
+    native batch augment draws from ``seed * 10007 + (epoch + 1) * 101 +
+    i`` (i the batch's first position), the Python one each image's from
+    ``hash((seed, epoch + 1, index))``; a caller may set ``epoch`` before
+    iterating (a resumed run)."""
 
     def __init__(self, dataset, batch_size: int, size: int,
                  training: bool = True, seed: int = 0,
@@ -162,6 +170,7 @@ class CellLoader:
         return len(self.dataset) // self.batch_size
 
     def __iter__(self):
+        use_native = native.available("augment")
         idxs = np.arange(len(self.dataset))
         if self.training:
             np.random.default_rng(self.seed + self.epoch).shuffle(idxs)
@@ -173,11 +182,21 @@ class CellLoader:
                 if out is None:
                     continue
                 arr, label = out
-                rng = random.Random(hash((self.seed, self.epoch, int(j))))
-                imgs.append(cell_augment(arr, rng, self.size, self.mean,
-                                         self.std, training=self.training))
+                if use_native and arr.shape[:2] == (self.size, self.size):
+                    imgs.append(arr.astype(np.float32))
+                else:
+                    rng = random.Random(hash((self.seed, self.epoch,
+                                              int(j))))
+                    imgs.append(cell_augment(
+                        arr, rng, self.size, self.mean, self.std,
+                        training=self.training))
                 labels.append(label)
             if not imgs:
                 continue
-            yield {"image": np.stack(imgs).astype(np.float32),
-                   "label": np.asarray(labels, np.int64)}
+            batch = np.stack(imgs).astype(np.float32)
+            if use_native and batch.shape[1] == self.size:
+                # the threaded C++ flip / shift / normalize
+                batch = native.cell_augment_batch(
+                    batch, seed=self.seed * 10007 + self.epoch * 101 + i,
+                    training=self.training, mean=self.mean, std=self.std)
+            yield {"image": batch, "label": np.asarray(labels, np.int64)}

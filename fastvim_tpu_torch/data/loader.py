@@ -1,14 +1,18 @@
 """Host data loading: folder datasets, threaded prefetch, synthetic data.
 
-Counterpart of ``fastvim_tpu/data/loader.py`` without its native JPEG
-path: an ImageFolder-style dataset decoded with PIL, a thread-pool
-prefetching loader producing NHWC float32 numpy batches, and a synthetic
-dataset for smoke runs. For the same seed, epoch and dataset the batches
-are bitwise the JAX package's: the same shuffle
-(``default_rng(seed + epoch)``) and the same per-image
-``random.Random(hash((seed, epoch, j)))``. The training loop sets
-``epoch`` before each epoch, so a resumed run draws what an uninterrupted
-one would. PIL is imported inside the functions that decode.
+Counterpart of ``fastvim_tpu/data/loader.py``: an ImageFolder-style
+dataset decoded with PIL, a thread-pool prefetching loader producing NHWC
+float32 numpy batches, a synthetic dataset for smoke runs, and the native
+path (``fastvim_tpu_torch.native``): the MAE train recipe's per-image
+augment in C++, and ``NativeJpegDataLoader``, whose batches are decoded
+and augmented by one threaded C++ call. ``create_imagenet_loader`` routes
+as the JAX package's does. For the same seed, epoch and dataset the
+batches are bitwise the JAX package's on the same path: the same shuffle
+(``default_rng(seed + epoch)``), the same per-image
+``random.Random(hash((seed, epoch, j)))`` and the same native seeds and
+arithmetic. The training loop sets ``epoch`` before each epoch, so a
+resumed run draws what an uninterrupted one would. PIL is imported
+inside the functions that decode.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import threading
 from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from fastvim_tpu_torch import native
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
@@ -125,7 +131,8 @@ class DataLoader:
         are yielded in deterministic batch order regardless of worker
         completion order, with a ``prefetch``-deep backpressure window so
         at most prefetch+num_workers batches are in flight. PIL's decode
-        and resampling release the GIL, so the threads overlap there."""
+        and resampling and the native library's calls release the GIL, so
+        the threads overlap there."""
         batches = list(self._batches())
         self.epoch += 1
         epoch = self.epoch
@@ -185,17 +192,95 @@ class DataLoader:
                 cond.notify_all()
 
 
+class NativeJpegDataLoader(DataLoader):
+    """DataLoader whose batch collate sends the raw JPEG bytes through the
+    native fused decode + augment (``native/csrc/decode.cpp``): one C++
+    call per batch decodes (DCT-scaled), crops, flips, resizes and
+    normalizes it with the GIL released. A batch holding a non-JPEG file
+    takes the PIL path whole, and an image the library fails to decode
+    takes it alone, as in the JAX package."""
+
+    def __init__(self, dataset, batch_size, img_size: int, training: bool,
+                 scale=(0.2, 1.0), pil_transform: Optional[Callable] = None,
+                 **kw):
+        from fastvim_tpu_torch.data import transforms as T
+
+        if pil_transform is None:
+            pil_transform = (
+                (lambda img, rng: T.mae_transform(img, img_size, rng))
+                if training else
+                (lambda img, rng: T.eval_transform(img, img_size)))
+        super().__init__(dataset, batch_size, pil_transform, **kw)
+        self.img_size = img_size
+        self.training = training
+        self.scale = scale
+
+    def _load_batch(self, batch_idx: List[int], epoch: int) -> dict:
+        from fastvim_tpu_torch.data import transforms as T
+
+        paths, labels, jpegs = [], [], []
+        for j in batch_idx:
+            path, label = self.dataset.samples[int(j)]
+            paths.append(path)
+            labels.append(label)
+        if not all(p.lower().endswith((".jpg", ".jpeg")) for p in paths):
+            return super()._load_batch(batch_idx, epoch)
+        for p in paths:
+            with open(p, "rb") as f:
+                jpegs.append(f.read())
+        # the batch's seed mixes (loader seed, epoch, first index): the
+        # per-image native draws are deterministic and vary by epoch
+        seed = hash((self.seed, epoch, int(batch_idx[0]))) & (2**63 - 1)
+        imgs, fail = native.decode_augment_batch(
+            jpegs, self.img_size, seed, self.training,
+            T.IMAGENET_MEAN, T.IMAGENET_STD, scale=self.scale,
+            num_threads=1)
+        for i in np.nonzero(fail)[0]:  # a stream libjpeg refused: PIL
+            img, _ = self.dataset.load(int(batch_idx[i]))
+            rng = random.Random(hash((self.seed, epoch, int(batch_idx[i]))))
+            imgs[i] = self.transform(img, rng)
+        return {"image": imgs.astype(np.float32),
+                "label": np.asarray(labels, np.int64)}
+
+
+def make_native_rgb_transform(img_size: int, training: bool,
+                              scale=(0.2, 1.0)) -> Optional[Callable]:
+    """Per-image transform through ``native.augment_batch`` (random
+    resized crop or center crop, flip, bilinear resize, normalize), or
+    None where the augment library is unavailable. It computes the MAE
+    train recipe and the eval crop; the supervised train recipe needs
+    RandAugment and stays in Python."""
+    from fastvim_tpu_torch.data import transforms as T
+
+    if not native.available("augment"):
+        return None
+
+    def tf(img, rng):
+        arr = np.asarray(img.convert("RGB"), np.uint8)[None]
+        seed = rng.getrandbits(63) if rng is not None else 0
+        out = native.augment_batch(
+            arr, img_size, seed, training, T.IMAGENET_MEAN, T.IMAGENET_STD,
+            scale=scale, num_threads=1)
+        return out[0]
+
+    return tf
+
+
 def create_imagenet_loader(
     data_dir: Optional[str], split: str, batch_size: int, img_size: int,
     training: bool, mae: bool = False, num_workers: int = 4, seed: int = 0,
-    synthetic_samples: int = 512,
+    synthetic_samples: int = 512, use_native: bool = True,
 ):
     """Folder loader if ``data_dir/split`` exists, else synthetic.
     ``data_dir="digits"`` selects the offline digits dataset
     (data/digits.py). ``mae`` takes the MAE pretrain recipe for training
-    (``transforms.mae_transform``: random resized crop at scale 0.2-1,
-    flip, normalize) in its PIL form; the JAX package's native C++ path
-    computes the same recipe."""
+    (random resized crop at scale 0.2-1, flip, normalize). With
+    ``use_native`` the MAE train recipe runs in the native augment
+    library, on synthetic data too, and an ImageFolder's eval and MAE
+    train batches go through ``NativeJpegDataLoader`` where the decode
+    library is available; the supervised train recipe (RandAugment) stays
+    on PIL. Without it, or without the libraries, every path is PIL's
+    (``transforms.mae_transform`` for MAE)."""
     from fastvim_tpu_torch.data import transforms as T
 
     if data_dir == "digits":
@@ -205,15 +290,24 @@ def create_imagenet_loader(
             "train" if split == "train" else "val", batch_size, img_size,
             training=training, num_workers=num_workers, seed=seed)
 
-    if training and mae:
-        tf = lambda img, rng: T.mae_transform(img, img_size, rng)
-    elif training:
-        tf = lambda img, rng: T.train_transform(img, img_size, rng)
-    else:
+    if not training:
         tf = lambda img, rng: T.eval_transform(img, img_size)
+    elif not mae:
+        tf = lambda img, rng: T.train_transform(img, img_size, rng)
+    else:  # the MAE recipe, in C++ where the augment library is there
+        tf = (make_native_rgb_transform(img_size, True, (0.2, 1.0))
+              if use_native else None)
+        if tf is None:
+            tf = lambda img, rng: T.mae_transform(img, img_size, rng)
 
     if data_dir and os.path.isdir(os.path.join(data_dir, split)):
         ds = ImageFolderDataset(os.path.join(data_dir, split))
+        if (use_native and (not training or mae)
+                and native.available("decode")):
+            return NativeJpegDataLoader(
+                ds, batch_size, img_size, training, scale=(0.2, 1.0),
+                pil_transform=tf, shuffle=training,
+                num_workers=num_workers, seed=seed)
     else:
         ds = SyntheticDataset(synthetic_samples, img_size)
     return DataLoader(ds, batch_size, tf, shuffle=training,

@@ -1,7 +1,9 @@
 """The port's cell-imaging harness against the JAX package, on the CPU:
 ``split_indices`` and ``cell_augment`` bitwise on the same draws, the
-``CellLoader`` bitwise over two epochs (the JAX loader on its Python
-path, ``fastvim_tpu.native.available`` patched to False here only), a
+``CellLoader`` bitwise over two epochs (both loaders on their Python
+path: ``fastvim_tpu.native.available`` and the port's
+``fastvim_tpu_torch.native.available`` patched to False there only;
+tests/test_torch_port_native.py holds the native path), a
 CSV manifest read without pandas, the eight cells configs, one
 supervised train step with ``channel_model=True`` against the JAX step
 (AdamW with the cosine weight-decay schedule), and the ``train_cells``
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 import fastvim_tpu.native
+import fastvim_tpu_torch.native
 from fastvim_tpu import config as jconfig
 from fastvim_tpu.data import cells as jcells
 from fastvim_tpu.models import channel as jchannel
@@ -85,10 +88,13 @@ def test_cell_augment_bitwise(training):
 
 @pytest.mark.parametrize("training", [True, False])
 def test_cell_loader_bitwise_over_two_epochs(monkeypatch, training):
-    """Two epochs of the port's loader against the JAX loader on its
-    Python path; and a fresh loader set to epoch 1 (a resumed run) gives
-    the second epoch again."""
+    """Two epochs of the port's loader against the JAX loader, both on
+    their Python path (both packages' native libraries reported absent);
+    and a fresh loader set to epoch 1 (a resumed run) gives the second
+    epoch again."""
     monkeypatch.setattr(fastvim_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(fastvim_tpu_torch.native, "available",
+                        lambda library="augment": False)
     kw = dict(batch_size=4, size=32, training=training, seed=3, mean=MEAN,
               std=STD)
     got = pcells.CellLoader(pcells.SyntheticCellDataset(10, 32, 5, 7), **kw)

@@ -31,7 +31,10 @@ from fastvim_tpu_torch.utils import from_jax_params
 def test_synthetic_loader_batches_bitwise_equal_jax(split):
     """Two epochs of the synthetic loader (RRC + RandAugment + erasing for
     train, resize + center crop for val): every batch bitwise equal to the
-    JAX package's, with the same shuffle and per-image draws."""
+    JAX package's, with the same shuffle and per-image draws. Both sides
+    take PIL: neither package routes the supervised recipe or a
+    synthetic eval through its native library (tests/test_torch_port_
+    native.py holds the MAE recipe and the folder loader, which do)."""
     kw = dict(batch_size=4, img_size=32, training=split == "train",
               num_workers=3, seed=3, synthetic_samples=10)
     ours = create_imagenet_loader(None, split, **kw)

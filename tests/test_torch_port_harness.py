@@ -156,7 +156,9 @@ def test_tboard_event_files_bytewise_equal_jax(tmp_path, monkeypatch):
 def test_run_training_matches_jax(tmp_path):
     """run_training in both packages, 2 epochs × 2 steps, from the JAX
     init's weights on the same synthetic batches, mixup off, no drop path,
-    EMA 0.99: every CSV column to 1e-4 relative, the final parameters
+    EMA 0.99 (both packages' loaders on PIL: the supervised recipe and a
+    synthetic eval take no native path): every CSV column to 1e-4
+    relative, the final parameters
     and EMA copy to 1e-4 of the largest entry of each tree. (Per tensor
     that is too tight for AdamW: an entry whose gradient is near zero
     moves by lr · m / (√v + eps), which the order of fp32 sums decides.)"""

@@ -283,7 +283,8 @@ def test_port_imports_no_jax():
               "models.upernet", "models.heads", "train.metrics",
               "data.segmentation", "cli.train_segmentation",
               "cli.extract_features", "ops.boxes", "models.detection",
-              "data.detection", "cli.train_detection"):
+              "data.detection", "cli.train_detection", "native",
+              "native._build", "native.plain"):
         assert f"fastvim_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
