@@ -218,6 +218,16 @@ Phases, each of which raises on failure (exit code non-zero):
    FastVimT --data_dir`` over 512 such JPEGs with the native path on and
    off (24 K3 + 24 K4 + 48 K1 a batch, the native calls, img/s, the
    device's idle share over the call, the loader alone).
+13. data parallel (``fastvim_tpu_torch.parallel``): FastVim-T at full
+   width and depth, 224 px, fp32, DropPath 0.1, on a global batch of 8:
+   2 ranks on cuda:0 over gloo against the 1-rank step (the loss to 1e-5
+   relative, every gradient to ``GRAD_TOL``; 48 K1 + 24 K3 + 24 K4 + 48
+   K2 + 24 K5 + 24 K6 a step and rank), 1 rank over NCCL with the bf16
+   gradient all-reduce against fp32 (within a bf16 rounding), ``torchrun
+   --standalone --nproc_per_node 1 -m
+   fastvim_tpu_torch.cli.train_classification --config_name FastVimT
+   --epochs 1 --synthetic_samples 256`` to its end, and 2 ranks over NCCL
+   where the machine has two cards; the step and all-reduce times.
 
 After a line with the card's name and power limit, the line before the
 last is a JSON object with one entry per kernel (``ms`` a call's time by
@@ -3658,6 +3668,267 @@ def run_folder_eval(dev, card, root, n):
     return total
 
 
+DP_BATCH = 8  # the global batch of phase 13 (data parallel)
+# FastVim-T's launches a train step at 224 px in fp32: 24 fused layers,
+# forward (K3, K4, two K1 scans each) and the fused adjoint (K5, K6, two
+# K2 scans each)
+DP_STEP = {"selective_scan_fwd": 48, "pass_a_fwd": 24, "pass_b_fwd": 24,
+           "selective_scan_bwd": 48, "pass_b_bwd": 24, "pass_a_bwd": 24}
+
+
+def dp_inputs():
+    """Phase 13's global batch (CPU tensors, from a seed)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(13)
+    return {"image": torch.randn(DP_BATCH, 224, 224, 3, generator=gen),
+            "label": torch.randint(1000, (DP_BATCH,), generator=gen)}
+
+
+def dp_model(dev):
+    """FastVim-T at full width and depth, 224 px, fp32, DropPath 0.1
+    (its masks drawn over the global batch), from one seed."""
+    import torch
+
+    from fastvim_tpu_torch.models import create_model
+
+    model = create_model("fastvim_tiny", device=dev, drop_path_rate=0.1,
+                         generator=torch.Generator().manual_seed(0)).train()
+    model.dp_generator = torch.Generator(device=dev)
+    model.set_drop_path_generator(model.dp_generator)
+    return model
+
+
+def dp_grads(model, batch, dev):
+    """This rank's loss (smoothed cross entropy over its rows) and
+    gradients, the DropPath generator seeded alike on every rank."""
+    import torch
+
+    from fastvim_tpu_torch.parallel import shard_batch
+    from fastvim_tpu_torch.train import (
+        one_hot_smooth,
+        soft_target_cross_entropy,
+    )
+
+    rows = {k: v.to(dev) for k, v in shard_batch(batch).items()}
+    model.dp_generator.manual_seed(7)
+    loss = soft_target_cross_entropy(model(rows["image"]),
+                                     one_hot_smooth(rows["label"], 1000, 0.1))
+    params = dict(model.named_parameters())
+    return loss.detach(), dict(zip(params, torch.autograd.grad(
+        loss, list(params.values()))))
+
+
+def dp_step(model, batch, dev, compress=None):
+    """(global loss, all-reduced gradients, step ms, all-reduce ms): one
+    data-parallel forward and backward pass and the gradient all-reduce,
+    by the host clock around work that ends in a synchronize."""
+    import torch
+
+    from fastvim_tpu_torch.parallel import allreduce_grads, mean_over_ranks
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = dp_grads(model, batch, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = allreduce_grads(grads, compress)
+    loss = mean_over_ranks({"loss": loss})["loss"]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return loss, grads, (t2 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def dp_rank(rank, world, backend, store, out):
+    """A rank of phase 13: ``backend`` "gloo" (every rank on cuda:0) or
+    "nccl" (rank r on cuda:r). One data-parallel step, its launches
+    checked, then three timed; saves rank 0's loss and gradients and every
+    rank's launches and times. Rank 0 of the gloo pair then joins a
+    one-rank NCCL group and all-reduces its gradients in bf16 and in
+    fp32."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from fastvim_tpu_torch.ops import kernels
+    from fastvim_tpu_torch.parallel import (
+        allreduce_grads,
+        make_mesh,
+        replicate,
+        reset_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    batch = dp_inputs()
+    dist.init_process_group(backend, init_method=f"file://{store}.{backend}",
+                            world_size=world, rank=rank)
+    make_mesh(data=world)
+    model = replicate(dp_model(dev))
+    kernels.reset_launch_counts()
+    loss, grads, _, _ = dp_step(model, batch, dev)
+    seen = kernels.launch_counts()
+    expect_launches(f"phase 13 {backend} rank {rank} step", seen,
+                    DP_STEP)
+    times = [dp_step(model, batch, dev)[2:] for _ in range(3)]
+    counts = kernels.launch_counts()
+    result = {"counts": counts,
+              "step_ms": statistics.median(t[0] for t in times),
+              "allreduce_ms": statistics.median(t[1] for t in times)}
+    if rank == 0:
+        result.update(loss=loss.cpu(),
+                      grads={k: v.cpu() for k, v in grads.items()})
+    dist.destroy_process_group()
+    reset_mesh()
+    if backend == "gloo" and rank == 0:
+        dist.init_process_group("nccl", init_method=f"file://{store}.one",
+                                world_size=1, rank=0)
+        make_mesh(data=1)
+        kernels.reset_launch_counts()
+        _, raw = dp_grads(model, batch, dev)
+        for name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+            allreduce_grads(raw, dtype)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reduced = allreduce_grads(raw, dtype)
+            torch.cuda.synchronize()
+            result[f"nccl1_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            result[f"nccl1_{name}"] = {k: v.cpu() for k, v in reduced.items()}
+        # one rank's fp32 mean is its own gradient, bit for bit
+        result["nccl1_fp32_exact"] = all(
+            torch.equal(result["nccl1_fp32"][k], v.cpu())
+            for k, v in raw.items())
+        for k, v in kernels.launch_counts().items():
+            counts[k] += v
+        dist.destroy_process_group()
+        reset_mesh()
+    torch.save(result, f"{out}.{backend}.{rank}")
+
+
+def spawn_dp(world, backend, folder):
+    """Run ``dp_rank`` in ``world`` spawned processes; returns their
+    results in rank order."""
+    import torch
+    import torch.multiprocessing as mp
+
+    store, out = f"{folder}/store", f"{folder}/rank"
+    mp.spawn(dp_rank, args=(world, backend, store, out), nprocs=world,
+             join=True)
+    return [torch.load(f"{out}.{backend}.{r}", weights_only=True)
+            for r in range(world)]
+
+
+def run_data_parallel(dev, card):
+    """Phase 13: ``fastvim_tpu_torch.parallel`` on the card. FastVim-T
+    (full width and depth, 224 px, fp32, DropPath 0.1; the fused layer
+    K3-K6 and the scans K1/K2) on a global batch of 8: 2 ranks on cuda:0
+    over gloo (2 rows each) against the 1-rank step here (the loss to
+    1e-5 relative, every gradient to ``GRAD_TOL`` of its largest entry);
+    1 rank over NCCL, its gradients all-reduced in bf16 against fp32
+    (within a bf16 rounding, 2⁻⁸ of each entry); ``torchrun
+    --standalone --nproc_per_node 1`` of ``train_classification
+    --config_name FastVimT --epochs 1 --synthetic_samples 256`` to its
+    end; and, where the machine has two cards, 2 ranks over NCCL against
+    the same 1-rank step. Returns the ranks' launches."""
+    import csv
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fastvim_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    batch = dp_inputs()
+    model = dp_model(dev)
+    loss_ref, grads_ref, ref_ms, _ = dp_step(model, batch, dev)
+    ref_ms = min(dp_step(model, batch, dev)[2] for _ in range(3))
+    n_grads = sum(v.numel() for v in grads_ref.values()) / 1e6
+    del model
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    runs = [("gloo", 2)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", 2))
+    log(f"[dp] runs: 2 ranks on cuda:0 over gloo; 1 rank over NCCL (bf16 "
+        f"and fp32 all-reduce); torchrun --nproc_per_node 1 CLI"
+        + ("; 2 ranks over NCCL on cuda:0 and cuda:1" if len(runs) == 2
+           else f"; not 2 ranks over NCCL ({torch.cuda.device_count()} "
+                "card)"))
+    with tempfile.TemporaryDirectory() as folder:
+        for backend, world in runs:
+            results = spawn_dp(world, backend, folder)
+            r0 = results[0]
+            rel = abs(r0["loss"].item() - loss_ref.item()) / abs(
+                loss_ref.item())
+            log(f"[check] phase 13 {backend} {world} ranks loss "
+                f"{r0['loss'].item():.6f} vs 1 rank {loss_ref.item():.6f}: "
+                f"rel {rel:.3e} tol=1e-05 {'ok' if rel <= 1e-5 else 'FAIL'}")
+            if rel > 1e-5:
+                raise AssertionError(f"phase 13 {backend}: loss off by {rel}")
+            compare_grads(f"phase 13 {backend} {world} ranks gradients",
+                          r0["grads"], {k: v.cpu()
+                                        for k, v in grads_ref.items()})
+            for r in results:
+                for k, v in r["counts"].items():
+                    total[k] += v
+            log(f"[time] phase 13 FastVim-T 224px fp32 global B="
+                f"{DP_BATCH}, {world} ranks over {backend}"
+                f"{' on cuda:0' if backend == 'gloo' else ''}: step "
+                f"{r0['step_ms']:.3f} ms (forward, backward and all-reduce, "
+                f"median of 3, rank 0), all-reduce {r0['allreduce_ms']:.3f} "
+                f"ms ({n_grads:.2f}M fp32 gradients); 1 rank without a "
+                f"process group "
+                f"{ref_ms:.3f} ms ({card})")
+            if backend == "gloo":
+                bf16, fp32 = r0["nccl1_bf16"], r0["nccl1_fp32"]
+                worst = max(((bf16[k] - fp32[k]).abs()
+                             / fp32[k].abs().clamp_min(1e-30)).max().item()
+                            for k in fp32)
+                ok = 0.0 < worst <= 2 ** -8 and r0["nccl1_fp32_exact"]
+                log(f"[check] phase 13 nccl 1 rank bf16 all-reduce vs fp32: "
+                    f"worst {worst:.3e} of an entry tol={2 ** -8:g}, fp32 "
+                    f"equal to the rank's own gradients: "
+                    f"{r0['nccl1_fp32_exact']} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"phase 13 bf16 all-reduce: {worst}")
+                log(f"[time] phase 13 1 rank over NCCL, all-reduce of "
+                    f"{n_grads:.2f}M gradients: bf16 "
+                    f"{r0['nccl1_bf16_ms']:.3f} ms, fp32 "
+                    f"{r0['nccl1_fp32_ms']:.3f} ms ({card})")
+        out = os.path.join(folder, "cli")
+        runner = shutil.which("torchrun")
+        cmd = ([runner] if runner else
+               [sys.executable, "-m", "torch.distributed.run"]) + [
+            "--standalone", "--nproc_per_node", "1", "-m",
+            "fastvim_tpu_torch.cli.train_classification", "--config_name",
+            "FastVimT", "--epochs", "1", "--synthetic_samples", "256",
+            "--model_save_dir", out]
+        t1 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd)} failed ({proc.returncode})"
+                                 f":\n{proc.stderr[-4000:]}")
+        with open(os.path.join(out, "log.csv")) as f:
+            rows = list(csv.DictReader(f))
+        if len(rows) != 1 or not os.path.exists(
+                os.path.join(out, "ckpt", "step_2")):
+            raise AssertionError(f"torchrun CLI: log rows {rows}, "
+                                 f"{os.listdir(out)}")
+        sps = float(rows[0]["steps_per_sec"])
+        log(f"[dp] {' '.join(cmd[1:])} (1 rank, NCCL): "
+            f"{time.perf_counter() - t1:.1f} s, 2 steps of B=128 at "
+            f"{sps * 128:.2f} img/s, val_loss {float(rows[0]['val_loss']):.4f}"
+            f" ({card})")
+    log(f"[time] phase 13 (data parallel) {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3769,6 +4040,8 @@ def main() -> int:
                                            n_jpegs).items():
             launches[name] += count
     log(f"[time] phase 12 (native) {time.perf_counter() - t0:.1f} s")
+    for name, count in run_data_parallel(dev, card).items():
+        launches[name] += count
 
     # each kernel's files: the main path's (bf16) kernel, then the fp32
     # route, the C entry points and the headers they include (K1 and K2:

@@ -2,17 +2,30 @@
 
 Counterpart of ``fastvim_tpu/cli/common.py``, plus ``--device``: the
 entry points run on the first CUDA device unless asked for the CPU
-(``--device cpu``), and raise where there is no card.
+(``--device cpu``), and raise where there is no card. Under ``torchrun``
+(``torchrun --standalone --nproc_per_node N -m
+fastvim_tpu_torch.cli.<cli> ...``) each process takes
+``cuda:$LOCAL_RANK`` and :func:`setup_mesh` joins the process group, over
+NCCL on the cards and gloo with ``--device cpu``; the config's
+``batch_size`` is then the global batch, split over the ranks.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from fastvim_tpu_torch.config import load_config
+from fastvim_tpu_torch.parallel import (
+    Mesh,
+    get_mesh,
+    init_distributed,
+    local_rank,
+    make_mesh,
+    shard_batch,
+)
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -51,21 +64,30 @@ def load_cli_config(args, domain: str) -> Dict[str, Any]:
 
 def cli_device(name: str) -> torch.device:
     """``--device`` as a torch device; a CUDA device where there is none
-    raises (nothing falls back to the CPU)."""
+    raises (nothing falls back to the CPU). "cuda" is ``cuda:$LOCAL_RANK``
+    (``cuda:0`` outside ``torchrun``), made the current device."""
     dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device; pass --device cpu to run on "
                                "the CPU")
         if dev.index is None:
-            dev = torch.device("cuda", 0)
+            dev = torch.device("cuda", local_rank())
+        torch.cuda.set_device(dev)
     return dev
 
 
+def setup_mesh(device: torch.device) -> Tuple[Mesh, Callable]:
+    """(mesh, shard_fn): under ``torchrun`` the process group joined over
+    NCCL (a CUDA ``device``) or gloo (the CPU); alone a one-rank mesh.
+    ``shard_fn(batch)`` is this rank's part of a global batch
+    (``parallel.shard_batch``)."""
+    init_distributed(device.type)
+    mesh = make_mesh()
+    return mesh, lambda batch: shard_batch(batch, mesh)
+
+
 def world_size() -> int:
-    """Processes training together: ``torch.distributed``'s world size
-    once it is initialised, else 1."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+    """Processes training together: the mesh's world size (1 outside
+    ``torchrun``)."""
+    return get_mesh().world

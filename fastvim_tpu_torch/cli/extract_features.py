@@ -11,7 +11,9 @@ task's), and print the shapes of its NHWC feature maps, and with
       [--checkpoint ckpt/step_N] [--with_fpn] [--device cpu]
 
 Without ``--images`` one random image (a normal draw from seed 1) goes
-through. The backbone is built from seed 0, the FPN from seed 2.
+through. The backbone is built from seed 0, the FPN from seed 2. Under
+``torchrun`` rank r takes images r, r+N, ... (a rank without one prints
+and returns nothing).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import argparse
 import numpy as np
 import torch
 
-from fastvim_tpu_torch.cli.common import cli_device
+from fastvim_tpu_torch.cli.common import cli_device, setup_mesh
 from fastvim_tpu_torch.config import load_config
 
 
@@ -63,6 +65,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = load_config(args.config_name, overrides=args.overrides)
     device = cli_device(args.device)
+    mesh, _ = setup_mesh(device)
 
     model = build_backbone(cfg, device, args.checkpoint)
     size = cfg["img_size"]
@@ -79,6 +82,9 @@ def main(argv=None):
     else:
         x = torch.randn(1, size, size, 3,
                         generator=torch.Generator().manual_seed(1))
+    x = x[mesh.rank::mesh.world]
+    if not len(x):
+        return {"features": [], "pyramid": None}
     feats = model(x.to(device))
     print("feature maps:", [tuple(f.shape) for f in feats])
     pyramid = None

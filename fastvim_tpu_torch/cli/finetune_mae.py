@@ -22,6 +22,7 @@ from fastvim_tpu_torch.cli.common import (
     base_parser,
     cli_device,
     load_cli_config,
+    setup_mesh,
     world_size,
 )
 
@@ -30,9 +31,11 @@ def main(argv=None):
     args = base_parser(__doc__).parse_args(argv)
     cfg = load_cli_config(args, "mae")
     device = cli_device(args.device)
+    setup_mesh(device)
 
     from fastvim_tpu_torch.data import create_imagenet_loader
     from fastvim_tpu_torch.models import create_model
+    from fastvim_tpu_torch.parallel import replicate
     from fastvim_tpu_torch.train import (
         TrainState,
         cosine_with_warmup,
@@ -64,6 +67,7 @@ def main(argv=None):
             ckpt, model.state_dict(), prefer_ema=False,
             new_grid=(grid, grid), old_grid=(pre, pre),
             scanpath_type=cfg.get("scanpath_type", "rowwise")))
+    replicate(model)
 
     train_loader = create_imagenet_loader(
         cfg["data"].get("dir"), "train", cfg["batch_size"],

@@ -25,9 +25,11 @@ from fastvim_tpu_torch.cli.common import (
     base_parser,
     cli_device,
     load_cli_config,
+    setup_mesh,
     world_size,
 )
 from fastvim_tpu_torch.models.layers import trunc_normal_init_
+from fastvim_tpu_torch.parallel import batch_moments
 from fastvim_tpu_torch.train.state import TrainState
 
 
@@ -37,7 +39,8 @@ class ProbeBatchNorm(nn.Module):
     batch's mean and its biased variance E[x²] − E[x]² (clamped at 0),
     and running statistics r ← 0.9·r + 0.1·s; in eval, the running
     statistics. (``nn.BatchNorm1d`` would update its running variance with
-    the unbiased one.)"""
+    the unbiased one.) Over several ranks the moments are the global
+    batch's (``parallel.batch_moments``)."""
 
     def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-6):
         super().__init__()
@@ -48,9 +51,8 @@ class ProbeBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            x32 = x.float()
-            mean = x32.mean(0)
-            var = (x32.square().mean(0) - mean.square()).clamp_min(0.0)
+            mean, mean_sq = batch_moments(x.float(), (0,))
+            var = (mean_sq - mean.square()).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -105,9 +107,11 @@ def main(argv=None):
     args = base_parser(__doc__).parse_args(argv)
     cfg = load_cli_config(args, "mae")
     device = cli_device(args.device)
+    setup_mesh(device)
 
     from fastvim_tpu_torch.data import create_imagenet_loader
     from fastvim_tpu_torch.models import create_model
+    from fastvim_tpu_torch.parallel import replicate
     from fastvim_tpu_torch.train import (
         cosine_with_warmup,
         make_linear_probe_step,
@@ -131,6 +135,8 @@ def main(argv=None):
     head = ProbeHead(backbone.embed_dim, cfg["num_classes"])
     head.reset_parameters(torch.Generator().manual_seed(cfg["seed"] + 2))
     head.to(device)
+    replicate(backbone)
+    replicate(head)
 
     train_loader = create_imagenet_loader(
         cfg["data"].get("dir"), "train", cfg["batch_size"],

@@ -20,6 +20,7 @@ from fastvim_tpu_torch.cli.common import (
     base_parser,
     cli_device,
     load_cli_config,
+    setup_mesh,
     world_size,
 )
 
@@ -28,9 +29,11 @@ def main(argv=None):
     args = base_parser(__doc__).parse_args(argv)
     cfg = load_cli_config(args, "mae")
     device = cli_device(args.device)
+    setup_mesh(device)
 
     from fastvim_tpu_torch.data import create_imagenet_loader
     from fastvim_tpu_torch.models import create_model
+    from fastvim_tpu_torch.parallel import replicate
     from fastvim_tpu_torch.train import (
         TrainState,
         cosine_with_warmup,
@@ -50,6 +53,7 @@ def main(argv=None):
         collapse_method=cfg.get("collapse_method", "mean"),
         use_norm_after_ssm=cfg.get("use_norm_after_ssm", True),
         remat=cfg.get("remat", False))
+    replicate(model)
 
     loader = create_imagenet_loader(
         cfg["data"].get("dir"), "train", cfg["batch_size"],

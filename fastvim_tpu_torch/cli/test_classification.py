@@ -6,7 +6,8 @@ Counterpart of ``fastvim_tpu/cli/test_classification.py``:
 
 Prints and returns ``{"test_loss", "test_acc"}``: the means over the val
 loader's batches. The model takes the config's architecture fields, as
-the train CLI builds it.
+the train CLI builds it. Under ``torchrun`` each rank evaluates its
+share of the batches, and the means are taken over all of them.
 """
 
 from __future__ import annotations
@@ -14,8 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fastvim_tpu_torch.cli.common import base_parser, cli_device, \
-    load_cli_config
+from fastvim_tpu_torch.cli.common import (
+    base_parser,
+    cli_device,
+    load_cli_config,
+    setup_mesh,
+)
 
 
 def main(argv=None):
@@ -26,9 +31,11 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = load_cli_config(args, "classification")
     device = cli_device(args.device)
+    setup_mesh(device)
 
     from fastvim_tpu_torch.cli.train_classification import create_classifier
     from fastvim_tpu_torch.data import create_imagenet_loader
+    from fastvim_tpu_torch.parallel import gather_objects, is_writer
     from fastvim_tpu_torch.train import make_supervised_eval_step
     from fastvim_tpu_torch.train.checkpoint import restore_checkpoint
     from fastvim_tpu_torch.train.loop import to_device
@@ -44,14 +51,17 @@ def main(argv=None):
         cfg["data"].get("dir"), "val", cfg["batch_size"], cfg["img_size"],
         training=False, synthetic_samples=args.synthetic_samples)
     eval_step = make_supervised_eval_step(model)
-    losses, accs = [], []
+    per_batch = []
     for batch in loader:
         m = eval_step(to_device(batch, device))
-        losses.append(m["loss"])
-        accs.append(m["acc"])
-    result = {"test_loss": float(np.mean(torch.stack(losses).tolist())),
-              "test_acc": float(np.mean(torch.stack(accs).tolist()))}
-    print(result)
+        per_batch.append(torch.stack([m["loss"], m["acc"]]))
+    per_batch = gather_objects(torch.stack(per_batch).tolist()
+                               if per_batch else [])
+    losses, accs = zip(*per_batch)
+    result = {"test_loss": float(np.mean(losses)),
+              "test_acc": float(np.mean(accs))}
+    if is_writer():
+        print(result)
     return result
 
 

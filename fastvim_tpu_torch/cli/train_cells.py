@@ -13,7 +13,9 @@ keeps the channels of one ``hcs_sample`` draw, seeded from the stream
 model is built from ``seed + 1`` and the DropPath / dropout generator is
 seeded with ``seed``. On ``--resume`` the HCS stream is advanced by the
 steps already taken, so that a resumed run draws the channels an
-uninterrupted one would (the JAX CLI restarts it).
+uninterrupted one would (the JAX CLI restarts it). Under ``torchrun``
+``batch_size`` is the global batch, split over the ranks, with the same
+channels on every rank.
 
 Note: the model fields from the config override the registry's, as in
 the JAX package; so ``ChannelVimS.yaml``, which names the unpooled
@@ -32,6 +34,7 @@ from fastvim_tpu_torch.cli.common import (
     base_parser,
     cli_device,
     load_cli_config,
+    setup_mesh,
     world_size,
 )
 
@@ -40,7 +43,9 @@ class HCSLoader:
     """A loader whose batches, in training, keep one ``hcs_sample`` draw
     of the channels each, with their ids as "channel_ids". ``epoch``
     passes through to the wrapped loader; setting it on a fresh wrapper
-    first advances the channel draws past the epochs before it."""
+    first advances the channel draws past the epochs before it. Every
+    rank draws the same channels: the stream is seeded alike and takes
+    one draw a batch."""
 
     def __init__(self, loader, num_channels: int, seed: Optional[int]):
         self.loader = loader
@@ -98,6 +103,7 @@ def main(argv=None):
     args = base_parser(__doc__).parse_args(argv)
     cfg = load_cli_config(args, "cells")
     device = cli_device(args.device)
+    setup_mesh(device)
 
     from fastvim_tpu_torch.data.cells import (
         CellDataset,
@@ -112,10 +118,11 @@ def main(argv=None):
         make_supervised_train_step,
         scale_lr,
     )
+    from fastvim_tpu_torch.parallel import replicate
     from fastvim_tpu_torch.train.loop import run_training
 
     num_ch = cfg.get("channels", 8)
-    model = create_channel_model(cfg, device)
+    model = replicate(create_channel_model(cfg, device))
 
     manifest = cfg["data"].get("manifest")
     if manifest:

@@ -11,6 +11,13 @@ held on the device (``data/device.py``). The model is built from
 ``seed + 1``; the mixup / DropPath generator is seeded with ``seed`` and
 the train step re-seeds it from (``seed``, step) before every step, so
 that ``--resume`` continues a run exactly.
+
+Data parallel over N ranks: ``torchrun --standalone --nproc_per_node N
+-m fastvim_tpu_torch.cli.train_classification --config_name FastVimT
+...``; ``batch_size`` is the global batch, the LR is scaled by
+(``batch_size``, world size) as the JAX CLI scales it, and
+``grad_allreduce_dtype: bfloat16`` averages the gradients over ranks in
+bf16 (``train/trainer.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from fastvim_tpu_torch.cli.common import (
     base_parser,
     cli_device,
     load_cli_config,
+    setup_mesh,
     world_size,
 )
 
@@ -49,8 +57,10 @@ def main(argv=None):
     args = base_parser(__doc__).parse_args(argv)
     cfg = load_cli_config(args, "classification")
     device = cli_device(args.device)
+    setup_mesh(device)
 
     from fastvim_tpu_torch.data import create_imagenet_loader
+    from fastvim_tpu_torch.parallel import replicate
     from fastvim_tpu_torch.train import (
         TrainState,
         cosine_with_warmup,
@@ -61,7 +71,7 @@ def main(argv=None):
     )
     from fastvim_tpu_torch.train.loop import run_training
 
-    model = create_classifier(cfg, device, cfg["drop_path_rate"])
+    model = replicate(create_classifier(cfg, device, cfg["drop_path_rate"]))
 
     device_resident = bool(cfg["data"].get("device_resident", False))
     train_loader = val_loader = None
@@ -104,12 +114,15 @@ def main(argv=None):
                          cutmix_alpha=cfg.get("cutmix", 1.0),
                          prob=cfg.get("mixup_prob", 1.0),
                          switch_prob=cfg.get("mixup_switch_prob", 0.5))
+    # "bfloat16": the compressed gradient all-reduce of several ranks
+    gard = cfg.get("grad_allreduce_dtype")
     train_step = make_supervised_train_step(
         model, cfg["num_classes"], mixup_config=mixup_cfg,
         label_smoothing=cfg.get("label_smoothing", 0.1),
         ema_decay=cfg.get("ema_decay", 0.9999)
         if cfg.get("use_ema_weights", True) else None,
-        generator=torch.Generator(device=device).manual_seed(cfg["seed"]))
+        generator=torch.Generator(device=device).manual_seed(cfg["seed"]),
+        grad_allreduce_dtype=getattr(torch, gard) if gard else None)
 
     if device_resident:
         from fastvim_tpu_torch.data.device import (

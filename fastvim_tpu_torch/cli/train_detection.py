@@ -16,14 +16,16 @@ linear warmup over ``warmup_iters`` (250) and ×0.1 at each of
 ``milestones``; ``total_iters`` (184,375) sets the number of epochs
 unless ``--epochs`` does. ``pretrained_checkpoint_path`` loads a
 standalone backbone checkpoint under ``backbone.``. The model is built
-from ``seed`` (default 0); before every step the samplers' CPU generator
-is seeded from (``seed``, step) and the DropPath generator from
-(``seed``, step, 1), so a ``--resume``d run draws what an uninterrupted
-one would. ``--eval_only`` prints box and mask AP at IoU 0.5
+from ``seed`` (default 0); before every step each image's sampler, a
+CPU generator, is seeded from (``seed``, step, 2, the image's index in
+the global batch) and the DropPath generator from (``seed``, step, 1), so
+a ``--resume``d run draws what an uninterrupted one would, on any number
+of ranks. ``--eval_only`` prints box and mask AP at IoU 0.5
 (``box_ap50``, ``mask_ap50``) of the newest checkpoint (or of the init)
-on the val split. The config's ``grad_compression`` concerns the
-gradient all-reduce of several devices and is inert on one, as in the JAX
-CLI.
+on the val split, each rank predicting its share of it. Under
+``torchrun`` with more than one rank, the config's ``grad_compression:
+bf16`` averages the gradients over ranks in bf16 (as the JAX CLI does on
+a mesh of more than one device); on one rank it is inert.
 
 Each epoch's training runs under ``torch.profiler.record_function(
 "train_epoch")`` (``train/loop.py``).
@@ -39,6 +41,7 @@ from fastvim_tpu_torch.cli.common import (
     base_parser,
     cli_device,
     load_cli_config,
+    setup_mesh,
 )
 
 
@@ -73,28 +76,43 @@ def build_model(cfg, device: torch.device):
     return model.to(device).eval(), depth
 
 
-def make_det_train_step(model, seed: int):
+def make_det_train_step(model, seed: int, grad_compression=None):
     """``train_step(state, batch) -> (state, metrics)``: the detector in
     training mode on a loader batch ("image", "boxes", "labels", "masks",
-    "gt_valid" on the model's device), its 11 losses summed, one
+    "gt_valid" on the model's device: this rank's rows of the global
+    batch), its 11 losses summed, the gradients averaged over ranks (in
+    bf16 with ``grad_compression`` "bf16" and more than one rank), one
     optimizer update. metrics: ``train_{loss name}`` and ``train_loss``,
-    0-d tensors."""
+    0-d tensors, over the global batch."""
+    from fastvim_tpu_torch.parallel import (
+        allreduce_grads,
+        get_mesh,
+        mean_over_ranks,
+    )
     from fastvim_tpu_torch.train.trainer import fold_seed
 
     device = next(model.parameters()).device
     drop = torch.Generator(device=device)
     model.set_drop_path_generator(drop)
+    mesh = get_mesh()
+    compress = (torch.bfloat16 if grad_compression == "bf16"
+                and mesh.world > 1 else None)
 
     def train_step(state, batch):
         model.train()
-        sampler = torch.Generator().manual_seed(fold_seed(seed, state.step))
+        first = mesh.rows(batch["image"].shape[0] * mesh.world).start
+        samplers = [torch.Generator().manual_seed(
+            fold_seed(seed, state.step, 2, first + i))
+            for i in range(batch["image"].shape[0])]
         drop.manual_seed(fold_seed(seed, state.step, 1))
         losses = model(batch["image"], batch["boxes"], batch["labels"],
-                       batch["masks"], batch["gt_valid"], generator=sampler)
+                       batch["masks"], batch["gt_valid"], generator=samplers)
         params = state.params
         grads = torch.autograd.grad(losses["loss"], list(params.values()))
-        state.apply_gradients(dict(zip(params, grads)))
-        return state, {f"train_{k}": v.detach() for k, v in losses.items()}
+        state.apply_gradients(allreduce_grads(dict(zip(params, grads)),
+                                              compress))
+        return state, mean_over_ranks(
+            {f"train_{k}": v.detach() for k, v in losses.items()})
 
     return train_step
 
@@ -103,7 +121,10 @@ def make_det_train_step(model, seed: int):
 def evaluate_box_ap(model, val_loader, num_classes: int,
                     iou_thr: float = 0.5) -> dict:
     """Box and mask AP at ``iou_thr`` over a loader (the single-threshold
-    counterpart of mmdet's CocoMetric): {"box_ap50", "mask_ap50"}."""
+    counterpart of mmdet's CocoMetric): {"box_ap50", "mask_ap50"}. Over
+    several ranks each predicts its share of the batches, and the AP is
+    taken over every rank's predictions."""
+    from fastvim_tpu_torch.parallel import gather_objects
     from fastvim_tpu_torch.train.metrics import (
         box_average_precision,
         mask_average_precision,
@@ -122,6 +143,7 @@ def evaluate_box_ap(model, val_loader, num_classes: int,
                         "labels": batch["labels"][i],
                         "masks": batch["masks"][i],
                         "valid": batch["gt_valid"][i]})
+    preds, gts = gather_objects(preds), gather_objects(gts)
     return {
         "box_ap50": box_average_precision(preds, gts, iou_thr, num_classes),
         "mask_ap50": mask_average_precision(preds, gts, iou_thr,
@@ -136,8 +158,10 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = load_cli_config(args, "detection")
     device = cli_device(args.device)
+    setup_mesh(device)
 
     from fastvim_tpu_torch.data.detection import create_detection_loader
+    from fastvim_tpu_torch.parallel import is_writer, replicate
     from fastvim_tpu_torch.train import (
         TrainState,
         make_optimizer,
@@ -156,6 +180,7 @@ def main(argv=None):
         model.load_state_dict(load_pretrained_backbone(
             cfg["pretrained_checkpoint_path"], model.state_dict(),
             prefer_ema=cfg.get("load_ema", True), subtree="backbone"))
+    replicate(model)
 
     max_gt = cfg.get("max_gt", 32)
     data_dir = cfg.get("data", {}).get("dir")
@@ -174,7 +199,8 @@ def main(argv=None):
             synthetic_samples=min(args.synthetic_samples, 8),
             num_classes=num_classes)
         metrics = evaluate_box_ap(model, val_loader, num_classes)
-        print(metrics)
+        if is_writer():
+            print(metrics)
         return metrics
 
     train_loader = create_detection_loader(
@@ -195,8 +221,8 @@ def main(argv=None):
                         params=model, layer_scales=scales)
     state = TrainState.create(model, tx)
     return run_training(
-        state=state, train_step=make_det_train_step(model,
-                                                    cfg.get("seed", 0)),
+        state=state, train_step=make_det_train_step(
+            model, cfg.get("seed", 0), cfg.get("grad_compression")),
         train_loader=train_loader, epochs=epochs,
         save_dir=args.model_save_dir, resume=args.resume)
 

@@ -28,6 +28,12 @@ init).
 Each stretch of training iterations between two evals runs under
 ``torch.profiler.record_function("train_iters")``: a profiler trace reads
 the device's idle share over it.
+
+Under ``torchrun`` ``batch_size`` is the global batch, split over the
+ranks; the gradients and the logged loss are averaged over ranks, the
+``head_norm: bn`` statistics are the global batch's, each rank evaluates
+its share of the val batches and the confusion matrices are summed over
+ranks, and rank 0 alone writes ``log.csv`` and the checkpoints.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from fastvim_tpu_torch.cli.common import (
     base_parser,
     cli_device,
     load_cli_config,
+    setup_mesh,
 )
 
 
@@ -90,6 +97,7 @@ def evaluate_miou(seg, val_loader, num_classes: int, crop: int) -> float:
     go through ``slide_inference`` (stride 2/3 of the crop), the others
     through one forward; the confusion matrix sums over the batches."""
     from fastvim_tpu_torch.models.upernet import slide_inference
+    from fastvim_tpu_torch.parallel import sum_over_ranks
     from fastvim_tpu_torch.train.loop import to_device
     from fastvim_tpu_torch.train.metrics import (
         confusion_matrix,
@@ -112,15 +120,18 @@ def evaluate_miou(seg, val_loader, num_classes: int, crop: int) -> float:
             logits = seg(images)
         cm += confusion_matrix(logits.argmax(-1), batch["label"],
                                num_classes).double()
+    sum_over_ranks(cm)
     return float(miou_from_confusion(cm.float().cpu()))
 
 
 def make_seg_train_step(seg, generator: torch.Generator):
     """``train_step(state, batch) -> 0-d loss``: the segmentor in training
-    mode with its aux head, ``segmentation_loss``, one optimizer update.
+    mode with its aux head, ``segmentation_loss``, the gradients averaged
+    over ranks, one optimizer update; the loss is the global batch's.
     ``generator`` (on the model's device) feeds the dropouts; it is
     re-seeded from (its seed, state.step) before every step."""
     from fastvim_tpu_torch.models.upernet import segmentation_loss
+    from fastvim_tpu_torch.parallel import allreduce_grads, mean_over_ranks
     from fastvim_tpu_torch.train.trainer import fold_seed
 
     seed = generator.initial_seed()
@@ -133,8 +144,8 @@ def make_seg_train_step(seg, generator: torch.Generator):
         loss = segmentation_loss(logits, batch["label"], aux)
         params = state.params
         grads = torch.autograd.grad(loss, list(params.values()))
-        state.apply_gradients(dict(zip(params, grads)))
-        return loss.detach()
+        state.apply_gradients(allreduce_grads(dict(zip(params, grads))))
+        return mean_over_ranks({"loss": loss.detach()})["loss"]
 
     return train_step
 
@@ -150,8 +161,10 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = load_cli_config(args, "segmentation")
     device = cli_device(args.device)
+    setup_mesh(device)
 
     from fastvim_tpu_torch.data.segmentation import create_segmentation_loader
+    from fastvim_tpu_torch.parallel import barrier, is_writer, replicate
     from fastvim_tpu_torch.train import TrainState, make_optimizer
     from fastvim_tpu_torch.train.checkpoint import (
         latest_checkpoint,
@@ -167,6 +180,7 @@ def main(argv=None):
         seg.load_state_dict(load_pretrained_backbone(
             ckpt, seg.state_dict(), prefer_ema=cfg.get("load_ema", True),
             subtree="backbone"))
+    replicate(seg)
 
     size, num_classes = cfg["img_size"], cfg["num_classes"]
     data_dir = cfg.get("data", {}).get("dir")
@@ -183,7 +197,8 @@ def main(argv=None):
         if path:
             seg.load_state_dict(restore_checkpoint(path, device)["params"])
         miou = evaluate_miou(seg, val_loader, num_classes, size)
-        print({"mIoU": miou})
+        if is_writer():
+            print({"mIoU": miou})
         return miou
 
     train_loader = create_segmentation_loader(
@@ -205,8 +220,9 @@ def main(argv=None):
     tx = make_optimizer(lr, weight_decay=opt_cfg.get("weight_decay", 0.01),
                         params=seg)
     state = TrainState.create(seg, tx)
+    writer = is_writer()
     logger = (CSVLogger(os.path.join(args.model_save_dir, "log.csv"))
-              if args.model_save_dir else None)
+              if args.model_save_dir and writer else None)
     if args.resume and ckpt_dir:
         path = latest_checkpoint(ckpt_dir)
         if path:
@@ -227,17 +243,20 @@ def main(argv=None):
         with torch.profiler.record_function("train_iters"):
             for _ in range(n):
                 loss = train_step(state, to_device(next(batches), device))
-                if state.step % 50 == 0 and state.step != stop:
+                if state.step % 50 == 0 and state.step != stop and writer:
                     print({"iter": state.step, "train_loss": float(loss)})
             train_loss = float(loss)  # waits for the device
         row = {"iter": state.step, "train_loss": train_loss,
                "steps_per_sec": n / (time.perf_counter() - t0)}
         row["mIoU"] = evaluate_miou(seg, val_loader, num_classes, size)
-        print(row)
+        if writer:
+            print(row)
         if logger:
             logger.log(row)
         if ckpt_dir:
-            save_checkpoint(ckpt_dir, state)
+            if writer:
+                save_checkpoint(ckpt_dir, state)
+            barrier()
     batches.close()
     return state
 

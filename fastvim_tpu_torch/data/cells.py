@@ -29,6 +29,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from fastvim_tpu_torch import native
+from fastvim_tpu_torch.parallel import get_mesh
 
 
 def split_indices(n: int, split: str, seed: int = 42) -> np.ndarray:
@@ -151,7 +152,11 @@ class CellLoader:
     native batch augment draws from ``seed * 10007 + (epoch + 1) * 101 +
     i`` (i the batch's first position), the Python one each image's from
     ``hash((seed, epoch + 1, index))``; a caller may set ``epoch`` before
-    iterating (a resumed run)."""
+    iterating (a resumed run). Over several ranks a training batch is the
+    global batch and each rank reads and augments its contiguous rows of
+    it, with the draws they have in the one-process loader (where no read
+    fails: a failed read shifts the native draws of the rank's later
+    rows); an eval loader deals whole batches round-robin."""
 
     def __init__(self, dataset, batch_size: int, size: int,
                  training: bool = True, seed: int = 0,
@@ -175,9 +180,18 @@ class CellLoader:
         if self.training:
             np.random.default_rng(self.seed + self.epoch).shuffle(idxs)
         self.epoch += 1
-        for i in range(0, len(idxs) - self.batch_size + 1, self.batch_size):
+        mesh = get_mesh()
+        if self.training and self.batch_size % mesh.world:
+            raise ValueError(f"the global batch of {self.batch_size} does "
+                             f"not split over {mesh.world} ranks")
+        starts = range(0, len(idxs) - self.batch_size + 1, self.batch_size)
+        for n, i in enumerate(starts):
+            rows = (mesh.rows(self.batch_size) if self.training
+                    else slice(0, self.batch_size))
+            if not self.training and n % mesh.world != mesh.rank:
+                continue
             imgs, labels = [], []
-            for j in idxs[i:i + self.batch_size]:
+            for j in idxs[i:i + self.batch_size][rows]:
                 out = self.dataset.load(int(j))
                 if out is None:
                     continue
@@ -197,6 +211,8 @@ class CellLoader:
             if use_native and batch.shape[1] == self.size:
                 # the threaded C++ flip / shift / normalize
                 batch = native.cell_augment_batch(
-                    batch, seed=self.seed * 10007 + self.epoch * 101 + i,
+                    batch, seed=native.row_seed(
+                        self.seed * 10007 + self.epoch * 101 + i,
+                        rows.start),
                     training=self.training, mean=self.mean, std=self.std)
             yield {"image": batch, "label": np.asarray(labels, np.int64)}

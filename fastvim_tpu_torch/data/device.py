@@ -15,6 +15,12 @@ JAX package's resampling: bilinear, crop and resize in one
 random part is split from the pure part, as in ``train/mixup.py``:
 :func:`sample_augment_draws` draws from a ``torch.Generator`` and
 :func:`apply_device_augment` is a function of the draws.
+
+Over several ``torchrun`` ranks each holds the whole dataset, walks the
+same permutation and takes its contiguous rows of each global batch;
+the augment draws are made for the global batch and cut to those rows,
+so N ranks compute what one process computes. The eval deals the val
+batches round-robin and sums the results over ranks.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fastvim_tpu_torch.ops.resize import resize, scale_and_translate
+from fastvim_tpu_torch.parallel import get_mesh, sum_over_ranks
 from fastvim_tpu_torch.train.trainer import fold_seed
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -101,12 +108,17 @@ def make_device_augment(img_size: int,
                         jitter: float = 0.2,
                         hflip: bool = False) -> Callable:
     """``augment(imgs_u8, generator)``: (batch, H, W, 3) uint8 on the
-    device → (batch, S, S, 3) float32, the draws from ``generator``."""
+    device → (batch, S, S, 3) float32, the draws from ``generator``; over
+    several ranks ``imgs_u8`` is this rank's rows of the global batch,
+    and the draws are the global batch's rows."""
 
     def augment(imgs_u8: torch.Tensor,
                 generator: torch.Generator) -> torch.Tensor:
-        draws = sample_augment_draws(generator, imgs_u8.shape[0], scale,
-                                     ratio, jitter)
+        mesh = get_mesh()
+        n = imgs_u8.shape[0] * mesh.world
+        draws = sample_augment_draws(generator, n, scale, ratio, jitter)
+        if mesh.world > 1:
+            draws = AugmentDraws(*(d[mesh.rows(n)] for d in draws))
         return apply_device_augment(imgs_u8, draws, img_size, jitter, hflip)
 
     return augment
@@ -129,12 +141,19 @@ def make_device_epoch_fn(train_step: Callable, images_u8: torch.Tensor,
     the batch, ``train_step``, and the metric sums, which stay on the
     device. The permutation and the augment draws come from a generator
     seeded from (``seed``, epoch), so that a resumed run draws what an
-    uninterrupted one would; the last partial batch is dropped."""
+    uninterrupted one would; the last partial batch is dropped. Over
+    several ranks ``batch_size`` is the global batch, and each rank
+    steps on its rows of it."""
     n = int(images_u8.shape[0])
     steps = n // batch_size
     if steps == 0:
         raise ValueError(f"dataset ({n}) smaller than batch {batch_size}")
     generator = torch.Generator(device=images_u8.device)
+    mesh = get_mesh()
+    if batch_size % mesh.world:
+        raise ValueError(f"the global batch of {batch_size} does not split "
+                         f"over {mesh.world} ranks")
+    rows = mesh.rows(batch_size)
 
     def epoch_fn(state, epoch: int):
         generator.manual_seed(fold_seed(seed, 17, epoch))
@@ -142,7 +161,7 @@ def make_device_epoch_fn(train_step: Callable, images_u8: torch.Tensor,
                               device=images_u8.device)
         sums: Dict[str, torch.Tensor] = {}
         for i in range(steps):
-            idx = perm[i * batch_size:(i + 1) * batch_size]
+            idx = perm[i * batch_size:(i + 1) * batch_size][rows]
             batch = {"image": augment(images_u8[idx], generator),
                      "label": labels[idx]}
             state, metrics = train_step(state, batch)
@@ -159,23 +178,25 @@ def make_device_eval_fn(model: nn.Module, val_images: torch.Tensor,
     """``eval_fn(params=None) -> {"loss", "acc"}`` (0-d tensors) over the
     whole device-resident, already transformed val set, in batches of
     ``batch_size``: the model's own parameters, or ``params`` (name →
-    tensor, e.g. the EMA copy)."""
+    tensor, e.g. the EMA copy). Over several ranks each takes every
+    world-th batch, and the sums are added over ranks."""
     n = int(val_images.shape[0])
 
     @torch.no_grad()
     def eval_fn(params: Optional[Dict[str, torch.Tensor]] = None):
         model.eval()
-        loss_sum = torch.zeros((), device=val_images.device)
-        acc_sum = torch.zeros((), device=val_images.device)
-        for i in range(0, n, batch_size):
+        mesh = get_mesh()
+        sums = torch.zeros(2, device=val_images.device)  # loss, acc
+        for i in range(mesh.rank * batch_size, n, batch_size * mesh.world):
             x = val_images[i:i + batch_size]
             y = val_labels[i:i + batch_size]
             logits = (model(x) if params is None else
                       torch.func.functional_call(model, dict(params), (x,)))
             logp = F.log_softmax(logits.float(), -1)
-            loss_sum += -logp.gather(1, y[:, None]).sum()
-            acc_sum += (logits.argmax(-1) == y).float().sum()
-        return {"loss": loss_sum / n, "acc": acc_sum / n}
+            sums[0] += -logp.gather(1, y[:, None]).sum()
+            sums[1] += (logits.argmax(-1) == y).float().sum()
+        sum_over_ranks(sums)
+        return {"loss": sums[0] / n, "acc": sums[1] / n}
 
     return eval_fn
 

@@ -5,12 +5,17 @@ images of 10 classes, split per class into train and val with a seed,
 upsampled to the model's ``img_size`` by the transforms. Augmentation
 suits digits: a gentle random-resized crop and NO horizontal flip
 (mirroring changes a digit), plus mild brightness/contrast jitter; the
-ImageNet statistics normalize. scikit-learn and PIL are imported inside
-the functions that need them.
+ImageNet statistics normalize. The table is read from scikit-learn's
+package data (the file its ``load_digits`` reads), without importing
+scikit-learn, whose import takes seconds; PIL is imported inside the
+functions that need it.
 """
 
 from __future__ import annotations
 
+import gzip
+import importlib.util
+import os
 import random
 from typing import Tuple
 
@@ -28,12 +33,17 @@ _CACHE = {}
 def _load_arrays() -> Tuple[np.ndarray, np.ndarray]:
     """(images uint8 (N,8,8), labels int64 (N,)) — cached per process."""
     if "digits" not in _CACHE:
-        from sklearn.datasets import load_digits
-
-        d = load_digits()
-        imgs = np.asarray(d.images, np.float32)  # values 0..16
+        spec = importlib.util.find_spec("sklearn")
+        if spec is None:
+            raise ImportError("the digits set ships with scikit-learn, which "
+                              "is not installed")
+        path = os.path.join(spec.submodule_search_locations[0], "datasets",
+                            "data", "digits.csv.gz")
+        with gzip.open(path, "rt", encoding="utf-8") as f:
+            table = np.loadtxt(f, delimiter=",")  # 64 pixels, then the label
+        imgs = table[:, :-1].reshape(-1, 8, 8).astype(np.float32)  # 0..16
         imgs = np.clip(imgs * (255.0 / 16.0), 0, 255).astype(np.uint8)
-        _CACHE["digits"] = (imgs, np.asarray(d.target, np.int64))
+        _CACHE["digits"] = (imgs, table[:, -1].astype(np.int64))
     return _CACHE["digits"]
 
 

@@ -13,6 +13,14 @@ batches are bitwise the JAX package's on the same path: the same shuffle
 arithmetic. The training loop sets ``epoch`` before each epoch, so a
 resumed run draws what an uninterrupted one would. PIL is imported
 inside the functions that decode.
+
+Over several ``torchrun`` ranks every rank walks the same global batches
+(the shuffle is seeded alike). A shuffled (training) loader's batch is
+the global batch of a train step: each rank decodes only its contiguous
+rows of it (``parallel.Mesh.rows``; the batch must split evenly), each
+image with the draws it has in the one-process loader. An unshuffled
+(eval) loader's batches are units of work: rank r takes batches r, r+N,
+r+2N, ... whole.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Callable, Iterator, List, Optional, Tuple
 import numpy as np
 
 from fastvim_tpu_torch import native
+from fastvim_tpu_torch.parallel import get_mesh
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
@@ -114,6 +123,25 @@ class DataLoader:
                 return
             yield list(chunk)
 
+    def _local_batches(self) -> List[Tuple[np.ndarray, slice]]:
+        """This rank's (global batch, its rows) pairs: its rows of each
+        batch when shuffling (training), else every world-th batch
+        whole."""
+        mesh = get_mesh()
+        chunks = [np.asarray(c) for c in self._batches()]
+        if not self.shuffle:
+            return [(c, slice(0, len(c)))
+                    for c in chunks[mesh.rank::mesh.world]]
+        for c in chunks:
+            if len(c) % mesh.world:
+                raise ValueError(f"the global batch of {len(c)} does not "
+                                 f"split over {mesh.world} ranks")
+        return [(c, mesh.rows(len(c))) for c in chunks]
+
+    def _load_rows(self, chunk: np.ndarray, rows: slice, epoch: int) -> dict:
+        """This rank's ``rows`` of the global batch ``chunk``."""
+        return self._load_batch(list(chunk[rows]), epoch)
+
     def _load_batch(self, batch_idx: List[int], epoch: int) -> dict:
         """Decode + transform one batch → dict of stacked arrays.
         Subclasses (e.g. detection) override this collate."""
@@ -133,7 +161,7 @@ class DataLoader:
         at most prefetch+num_workers batches are in flight. PIL's decode
         and resampling and the native library's calls release the GIL, so
         the threads overlap there."""
-        batches = list(self._batches())
+        batches = self._local_batches()
         self.epoch += 1
         epoch = self.epoch
         if not batches:
@@ -160,7 +188,7 @@ class DataLoader:
                     if error[0] is not None:
                         return
                 try:
-                    batch = self._load_batch(batches[bi], epoch)
+                    batch = self._load_rows(*batches[bi], epoch)
                 except BaseException as e:  # propagate to the consumer
                     with cond:
                         error[0] = e
@@ -215,25 +243,28 @@ class NativeJpegDataLoader(DataLoader):
         self.training = training
         self.scale = scale
 
-    def _load_batch(self, batch_idx: List[int], epoch: int) -> dict:
+    def _load_rows(self, chunk: np.ndarray, rows: slice, epoch: int) -> dict:
         from fastvim_tpu_torch.data import transforms as T
 
+        batch_idx = list(chunk[rows])
         paths, labels, jpegs = [], [], []
         for j in batch_idx:
             path, label = self.dataset.samples[int(j)]
             paths.append(path)
             labels.append(label)
         if not all(p.lower().endswith((".jpg", ".jpeg")) for p in paths):
-            return super()._load_batch(batch_idx, epoch)
+            return super()._load_rows(chunk, rows, epoch)
         for p in paths:
             with open(p, "rb") as f:
                 jpegs.append(f.read())
-        # the batch's seed mixes (loader seed, epoch, first index): the
-        # per-image native draws are deterministic and vary by epoch
-        seed = hash((self.seed, epoch, int(batch_idx[0]))) & (2**63 - 1)
+        # the global batch's seed mixes (loader seed, epoch, its first
+        # index): the per-image native draws are deterministic and vary by
+        # epoch; each image draws by its row in the global batch, so this
+        # rank's call starts from its first row's seed
+        seed = hash((self.seed, epoch, int(chunk[0]))) & (2**63 - 1)
         imgs, fail = native.decode_augment_batch(
-            jpegs, self.img_size, seed, self.training,
-            T.IMAGENET_MEAN, T.IMAGENET_STD, scale=self.scale,
+            jpegs, self.img_size, native.row_seed(seed, rows.start),
+            self.training, T.IMAGENET_MEAN, T.IMAGENET_STD, scale=self.scale,
             num_threads=1)
         for i in np.nonzero(fail)[0]:  # a stream libjpeg refused: PIL
             img, _ = self.dataset.load(int(batch_idx[i]))

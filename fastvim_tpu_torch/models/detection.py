@@ -18,9 +18,17 @@ PyTorch idiom in place of flax's:
 * ``model.train()`` / ``model.eval()`` switch the backbone's DropPath;
   the path (losses or prediction) follows from whether ``gt_boxes`` is
   given, as in JAX;
-* the samplers draw from the ``generator`` the caller hands the forward,
-  in a fixed order: each image's RPN sample, then each stage's, image by
-  image. A CPU generator gives the same draws wherever the model runs.
+* the samplers draw from the ``generator`` the caller hands the forward:
+  one generator for the batch, each image's RPN sample, then each
+  stage's, image by image; or a sequence of generators, one per image,
+  each image's RPN and stage samples from its own. The train step hands
+  one per image, seeded from (seed, step, the image's index in the
+  global batch), so that an image's draws do not depend on the other
+  images, nor on the rank that holds it. A CPU generator gives the same
+  draws wherever the model runs;
+* over several ranks the stage and mask losses' denominators (the valid
+  samples, the positives) are counted over the global batch
+  (``parallel.denominator``), as the JAX program counts them.
 
 The forward is also split into methods that can be called alone
 (:meth:`features`, :meth:`rpn_losses`, :meth:`cascade_losses`,
@@ -51,6 +59,7 @@ from fastvim_tpu_torch.ops.boxes import (
     random_sample,
     top_k_indices,
 )
+from fastvim_tpu_torch.parallel import denominator
 
 # cascade recipe constants (cascade-mask-rcnn_r50_fpn.py)
 STAGE_IOUS = (0.5, 0.6, 0.7)
@@ -62,6 +71,13 @@ ROI_STRIDES = (4, 8, 16, 32)
 
 LOSS_NAMES = ("rpn_cls", "rpn_reg", "s0_cls", "s0_reg", "s1_cls", "s1_reg",
               "s2_cls", "s2_reg", "s0_mask", "s1_mask", "s2_mask")
+
+
+def _image_generator(generator, b: int) -> torch.Generator:
+    """Image ``b``'s sampler: ``generator`` itself, or its ``b``-th entry
+    where it is a sequence of generators, one per image."""
+    return (generator if isinstance(generator, torch.Generator)
+            else generator[b])
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
@@ -293,8 +309,9 @@ class CascadeMaskRCNN(nn.Module):
             assigned = max_iou_assign(anchors, gtb, gtv, pos_iou_thr=0.7,
                                       neg_iou_thr=0.3, min_pos_iou=0.3,
                                       match_low_quality=True)
-            idx, is_pos, valid = random_sample(generator, assigned,
-                                               self.rpn_sample, 0.5)
+            idx, is_pos, valid = random_sample(
+                _image_generator(generator, b), assigned, self.rpn_sample,
+                0.5)
             logit = rpn_logits[b, idx]
             bce = _bce_with_logits(logit, is_pos.to(logit.dtype))
             denom = valid.sum().clamp_min(1)
@@ -377,7 +394,8 @@ class CascadeMaskRCNN(nn.Module):
         for s, stage in enumerate(self.stages):
             per = [self._stage_sample(s, props[b], pvalid[b], gt_boxes[b],
                                       gt_valid[b], gt_labels[b], gt_masks[b],
-                                      [f[b] for f in feats4], generator)
+                                      [f[b] for f in feats4],
+                                      _image_generator(generator, b))
                    for b in range(B)]
             (rois_b, rfeat7, rfeat14, labels, regt, is_pos, valid, mt, mlab,
              mvalid) = (torch.stack(t) for t in zip(*per))
@@ -386,7 +404,7 @@ class CascadeMaskRCNN(nn.Module):
             labels, valid = labels.reshape(B * N), valid.reshape(B * N)
             is_pos, regt = is_pos.reshape(B * N), regt.reshape(B * N, 4)
             w = STAGE_WEIGHTS[s]
-            denom = valid.sum().clamp_min(1)
+            denom = denominator(valid.sum())
             ce = -torch.log_softmax(cls_logits.float(), -1).gather(
                 1, labels[:, None])[:, 0]
             losses[f"s{s}_cls"] = w * (ce * valid).sum() / denom
@@ -416,7 +434,7 @@ class CascadeMaskRCNN(nn.Module):
         per = _bce_with_logits(sel, mt).mean((1, 2)).reshape(3, B * M)
         for s in range(len(self.stages)):
             losses[f"s{s}_mask"] = STAGE_WEIGHTS[s] * (
-                per[s] * mpos[s]).sum() / mpos[s].sum().clamp_min(1)
+                per[s] * mpos[s]).sum() / denominator(mpos[s].sum())
         return losses
 
     # ------------------------------------------------------------------

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from fastvim_tpu_torch.ops.norms import add_norm
+from fastvim_tpu_torch.parallel import rand_rows
 
 # std of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -87,7 +88,9 @@ class DropPath(nn.Module):
     mode the mask is drawn from ``generator``, a ``torch.Generator`` on
     the input's device that the caller sets (see
     ``VisionMamba.set_drop_path_generator``); the global generator is
-    never used."""
+    never used. Over several ranks the mask is drawn for the global batch
+    and each rank keeps its rows (``parallel.rand_rows``), as the JAX
+    step draws it over the whole sharded batch."""
 
     def __init__(self, rate: float = 0.0,
                  generator: Optional[torch.Generator] = None):
@@ -102,8 +105,8 @@ class DropPath(nn.Module):
             raise RuntimeError("DropPath in training mode needs a generator "
                                "(set_drop_path_generator)")
         keep = 1.0 - self.rate
-        mask = torch.rand(self.mask_shape(x), device=x.device,
-                          generator=self.generator) < keep
+        mask = rand_rows(self.mask_shape(x), self.generator,
+                         x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
     def mask_shape(self, x: torch.Tensor):

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from fastvim_tpu_torch.models.blocks import Block
 from fastvim_tpu_torch.models.layers import Norm, trunc_normal_init_
 from fastvim_tpu_torch.models.patch_embed import PatchEmbed
+from fastvim_tpu_torch.parallel import rand_rows
 
 
 def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
@@ -244,7 +245,8 @@ class MaskedAutoencoderVim(nn.Module):
                noise: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None):
         """The mask comes from ``noise`` (batch, L) or, without it, from a
-        uniform draw of ``generator`` on the images' device."""
+        uniform draw of ``generator`` on the images' device, made over the
+        global batch on several ranks (``parallel.rand_rows``)."""
         tokens, (rows, cols) = self.patch_embed(imgs)
         B, L, _ = tokens.shape
         tokens = tokens + self.enc_pos.to(tokens.dtype)
@@ -252,7 +254,7 @@ class MaskedAutoencoderVim(nn.Module):
         if noise is None:
             if generator is None:
                 raise ValueError("encode needs noise or a generator")
-            noise = torch.rand(B, L, device=imgs.device, generator=generator)
+            noise = rand_rows((B, L), generator, imgs.device)
         ids_keep, mask, ids_restore = sorted_random_masking(
             noise.to(imgs.device), len_keep)
         hidden, residual = _take(tokens, ids_keep), None

@@ -37,6 +37,12 @@ Dispatch, in this order (``forward``):
    broadcast + D-skip + merge + LN + gate in one kernel (K10).
 4. the plain unfused math.
 
+Over several ranks each rank runs these on its own rows of the batch:
+the JAX package's ``fused_mixer_core_sharded`` (the fused layer under a
+``shard_map`` over the mesh's data axis, since a ``pallas_call`` has no
+GSPMD partitioning rule) has no counterpart, because a process already
+holds only its shard.
+
 With ``row_ids`` (the masked encoder of MAE, ``models/mae.py``) the
 layer holds only the visible tokens, in raster order, and none of the
 above applies: a masked layer never fuses. Each branch pools its conv

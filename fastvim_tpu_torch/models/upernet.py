@@ -36,6 +36,7 @@ from torch import nn
 from fastvim_tpu_torch.models.layers import Dropout, lecun_normal_init_
 from fastvim_tpu_torch.models.vision_mamba import VisionMamba
 from fastvim_tpu_torch.ops.norms import layer_norm
+from fastvim_tpu_torch.parallel import batch_moments, denominator
 
 
 def resize(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -75,7 +76,10 @@ class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last
     axis of NHWC maps. In training it normalizes with the batch's mean and
     biased variance (E[x²]−E[x]², fp32) and moves the running statistics
-    by 0.1 of the way to them; in eval it takes the running ones."""
+    by 0.1 of the way to them; in eval it takes the running ones. Over
+    several ranks the batch is the global one: the sums of x and x² are
+    summed over ranks (``parallel.batch_moments``), as flax reduces over
+    the whole sharded batch under ``jit``."""
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -95,9 +99,8 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = x32.mean(dims)
-            var = (x32.square().mean(dims) - mean.square()).clamp_min(0.0)
+            mean, mean_sq = batch_moments(x32, tuple(range(x.dim() - 1)))
+            var = (mean_sq - mean.square()).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
@@ -291,9 +294,11 @@ def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor,
                       ignore_index: int = 255) -> torch.Tensor:
     """Per-pixel cross entropy in fp32 over the pixels whose label is not
     ``ignore_index``, divided by max(their count, 1), so an all-ignore
-    batch gives 0; plus ``aux_weight`` times the aux head's."""
+    batch gives 0; plus ``aux_weight`` times the aux head's. Over several
+    ranks the count is the global batch's (``parallel.denominator``), so
+    that the ranks' losses averaged are the global loss."""
     valid = labels != ignore_index
-    count = valid.sum().clamp_min(1)
+    count = denominator(valid.sum())
 
     def ce(lg: torch.Tensor) -> torch.Tensor:
         logp = torch.log_softmax(lg.float(), dim=-1)

@@ -120,6 +120,15 @@ def _per_channel(name: str, arr, channels: int) -> np.ndarray:
     return arr
 
 
+def row_seed(seed: int, offset: int) -> int:
+    """The seed of a batch call that starts at row ``offset`` of a batch
+    seeded ``seed`` and draws, for its rows, what that batch's call draws
+    for them: a call seeds image i with ``seed * 1000003 + i`` (mod
+    2**64), and 1000003, odd, is invertible modulo 2**64. A rank that
+    augments its rows of a global batch calls with this seed."""
+    return (seed + offset * pow(1000003, -1, 2 ** 64)) % 2 ** 64
+
+
 def augment_batch(images: np.ndarray, size: int, seed: int,
                   training: bool, mean: np.ndarray, std: np.ndarray,
                   scale=(0.08, 1.0), num_threads: Optional[int] = None

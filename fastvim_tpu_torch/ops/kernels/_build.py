@@ -4,12 +4,15 @@ Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``), one nvcc
 process per file and all at once, and linked into one shared library with
 a plain C interface, named by a hash of the sources and flags, under
 ``fastvim_tpu_torch/build/``. A missing ``nvcc`` or a failed build raises;
-nothing falls back.
+nothing falls back. The build runs under a file lock: processes that
+start together (``torchrun`` ranks) build once, and the others wait for
+the library and load it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -123,6 +126,14 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{out.stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not out.exists():  # not built while this process waited
+            _compile(nvcc, out)
+    return out
+
+
+def _compile(nvcc: str, out: Path) -> None:
     tag = f"{out.stem}.{os.getpid()}"
     objs = {src: BUILD_DIR / f"{tag}.{src.stem}.o"
             for src in sorted(CSRC.glob("*.cu"))}
@@ -149,7 +160,6 @@ def build() -> Path:
     finally:
         for f in (tmp, *objs.values()):
             f.unlink(missing_ok=True)
-    return out
 
 
 def library() -> ctypes.CDLL:

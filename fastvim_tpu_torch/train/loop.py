@@ -13,6 +13,12 @@ batches an uninterrupted one would.
 Each epoch's training runs under ``torch.profiler.record_function(
 "train_epoch")``: a profiler trace reads the device's idle share over
 that span.
+
+Over several ``torchrun`` ranks the train metrics come from the steps
+already averaged over ranks; each rank evaluates its share of the val
+batches and the weighted sums are added over ranks; rank 0 alone writes
+``log.csv``, ``tb/`` and the checkpoints, and every rank waits for the
+checkpoint (a barrier), so that each resumes from the same file.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 
 import torch
 
+from fastvim_tpu_torch.parallel import barrier, gather_objects, is_writer
 from fastvim_tpu_torch.train.checkpoint import (
     latest_checkpoint,
     restore_checkpoint,
@@ -115,10 +122,11 @@ def run_training(
     built by data/device.py); checkpoints, EMA columns, logs and resume
     behave the same on both."""
     device = next(state.model.parameters()).device
+    writer = is_writer()
     logger = (CSVLogger(os.path.join(save_dir, "log.csv"))
-              if save_dir else None)
+              if save_dir and writer else None)
     tb = None
-    if save_dir:
+    if save_dir and writer:
         from fastvim_tpu_torch.utils.tboard import SummaryWriter
 
         tb = SummaryWriter(os.path.join(save_dir, "tb"))
@@ -179,21 +187,29 @@ def run_training(
                 if state.ema_params is not None:
                     for k, v in eval_step(batch, state.ema_params).items():
                         aggs.setdefault(f"val_{k}_ema", []).append(v)
-            wtot = float(sum(weights)) or 1.0
             n = len(weights)
             flat = _host_floats([x for v in aggs.values() for x in v])
-            for i, k in enumerate(aggs):
-                row[k] = float(sum(x * w for x, w in zip(
-                    flat[i * n:(i + 1) * n], weights)) / wtot)
+            nums = {k: sum(x * w for x, w in zip(flat[i * n:(i + 1) * n],
+                                                 weights))
+                    for i, k in enumerate(aggs)}
+            # every rank's sums (a rank may have had no batch), in rank
+            # order
+            parts = gather_objects([(nums, float(sum(weights)))])
+            wtot = sum(p[1] for p in parts) or 1.0
+            for k in next((p[0] for p in parts if p[0]), {}):
+                row[k] = float(sum(p[0].get(k, 0.0) for p in parts) / wtot)
 
-        print({k: (round(v, 5) if isinstance(v, float) else v)
-               for k, v in row.items()})
+        if writer:
+            print({k: (round(v, 5) if isinstance(v, float) else v)
+                   for k, v in row.items()})
         if logger:
             logger.log(row)
         if tb is not None:
             tb.add_scalars(int(state.step), row)
         if save_dir and (epoch + 1) % ckpt_every == 0:
-            save_checkpoint(os.path.join(save_dir, "ckpt"), state)
+            if writer:
+                save_checkpoint(os.path.join(save_dir, "ckpt"), state)
+            barrier()
     if tb is not None:
         tb.close()
     return state

@@ -6,6 +6,12 @@ soft targets). ``mixup_cutmix`` is split in two: :func:`sample_mixup_draws`
 draws ``(apply, use_cutmix, lam_m, lam_c, cy, cx)`` from a
 ``torch.Generator``, and :func:`apply_mixup_cutmix` is a pure function of
 those draws, so that two implementations can be fed the same ones.
+
+Over several ranks the batch's partner is the reverse of the global
+batch (the JAX package's ``images[::-1]`` over the sharded batch): rank
+r mixes its rows with rank (N-1-r)'s, reversed (``parallel.mirror_rows``),
+and every rank draws the same λ, switch and box from its generator,
+which all ranks seed alike.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from fastvim_tpu_torch.parallel import mirror_rows
 
 
 def one_hot_smooth(labels: torch.Tensor, num_classes: int,
@@ -97,12 +105,13 @@ def apply_mixup_cutmix(images: torch.Tensor, labels: torch.Tensor,
                        smoothing: float = 0.1
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """images (batch, H, W, C), labels (batch,) int → (mixed images, soft
-    targets (batch, num_classes)), given the draws."""
+    targets (batch, num_classes)), given the draws. The partner of row i
+    is row B-1-i of the global batch."""
     _, H, W, _ = images.shape
     y1 = one_hot_smooth(labels, num_classes, smoothing)
     if not draws.apply:
         return images, y1
-    perm = images.flip(0)
+    perm = mirror_rows(images)
     if draws.use_cutmix:
         by1, by2, bx1, bx2 = _cutmix_box(H, W, draws.lam_c, draws.cy,
                                          draws.cx)
@@ -112,7 +121,7 @@ def apply_mixup_cutmix(images: torch.Tensor, labels: torch.Tensor,
     else:
         lam = draws.lam_m
         mixed = images * lam + perm * (1 - lam)
-    return mixed.to(images.dtype), y1 * lam + y1.flip(0) * (1 - lam)
+    return mixed.to(images.dtype), y1 * lam + mirror_rows(y1) * (1 - lam)
 
 
 def mixup_cutmix(generator: torch.Generator, images: torch.Tensor,

@@ -7,6 +7,18 @@ without mixup) → AdamW update → EMA; the MAE step draws the mask, takes
 the reconstruction loss and updates; the linear-probe step trains a head
 on a frozen backbone's features. The steps run eagerly on the device the
 model and the batch lie on.
+
+Over several ``torchrun`` ranks (``fastvim_tpu_torch.parallel``) each
+rank takes its rows of the global batch, and after the backward pass the
+gradients are averaged over ranks by an explicit bucketed all-reduce
+(``parallel.allreduce_grads``), optionally in bf16 (the counterpart of
+the JAX package's ``make_compressed_grads_fn``): the steps compute their
+gradients with ``torch.autograd.grad``, which fires none of
+``DistributedDataParallel``'s reducer hooks, and an all-reduce after the
+backward pass is the same whatever the backward ran (the fused layer's
+``FusedMixerCoreFn``, remat's recomputation). The metrics are averaged
+over ranks, and every rank applies the same update, so the parameters
+and the EMA copy stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -16,6 +28,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import torch
 from torch import nn
 
+from fastvim_tpu_torch.parallel import allreduce_grads, mean_over_ranks
 from fastvim_tpu_torch.train.mixup import (
     accuracy,
     cross_entropy,
@@ -38,7 +51,8 @@ def make_supervised_train_step(
         mixup_config: Optional[Dict[str, Any]] = None,
         label_smoothing: float = 0.1, ema_decay: Optional[float] = 0.9999,
         generator: Optional[torch.Generator] = None,
-        channel_model: bool = False) -> Callable:
+        channel_model: bool = False,
+        grad_allreduce_dtype: Optional[torch.dtype] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     batch: {"image": (B, H, W, C), "label": (B,) int64} on the model's
@@ -49,8 +63,11 @@ def make_supervised_train_step(
     Each step first re-seeds it from (its seed when the step was made,
     state.step), as the JAX step folds the step count into one key: a run
     resumed from a checkpoint then draws what an uninterrupted one would.
-    metrics: "train_loss" and "grad_norm" (before clipping), 0-d tensors.
-    The state is updated in place."""
+    metrics: "train_loss" and "grad_norm" (before clipping), 0-d tensors,
+    over the global batch. ``grad_allreduce_dtype`` (torch.bfloat16):
+    the gradient all-reduce of several ranks in that dtype, cast back
+    before the fp32 update (without a process group there is no
+    all-reduce, and nothing is cast). The state is updated in place."""
     if mixup_config and generator is None:
         raise ValueError("mixup needs a generator")
     seed = generator.initial_seed() if generator is not None else None
@@ -72,9 +89,9 @@ def make_supervised_train_step(
         params = state.params
         loss = soft_target_cross_entropy(
             model(images, **_channel_kwargs(batch, channel_model)), soft)
-        grads = dict(zip(params, torch.autograd.grad(loss,
-                                                     list(params.values()))))
-        metrics = {"train_loss": loss.detach(),
+        grads = allreduce_grads(dict(zip(params, torch.autograd.grad(
+            loss, list(params.values())))), grad_allreduce_dtype)
+        metrics = {**mean_over_ranks({"train_loss": loss.detach()}),
                    "grad_norm": global_norm(grads.values())}
         state.apply_gradients(grads, ema_decay=ema_decay)
         return state, metrics
@@ -127,10 +144,10 @@ def make_mae_train_step(model: nn.Module, mask_ratio: float = 0.75,
         generator.manual_seed(fold_seed(seed, state.step))
         params = state.params
         loss, _, _ = model(batch["image"], mask_ratio, generator=generator)
-        grads = dict(zip(params, torch.autograd.grad(loss,
-                                                     list(params.values()))))
+        grads = allreduce_grads(dict(zip(params, torch.autograd.grad(
+            loss, list(params.values())))))
         state.apply_gradients(grads, ema_decay=ema_decay)
-        return state, {"train_loss": loss.detach()}
+        return state, mean_over_ranks({"train_loss": loss.detach()})
 
     return train_step
 
@@ -149,10 +166,11 @@ def make_linear_probe_step(backbone: nn.Module) -> Callable:
         logits = head(feats)
         loss = cross_entropy(logits, batch["label"])
         params = state.params
-        grads = dict(zip(params, torch.autograd.grad(loss,
-                                                     list(params.values()))))
+        grads = allreduce_grads(dict(zip(params, torch.autograd.grad(
+            loss, list(params.values())))))
         state.apply_gradients(grads)
-        return state, {"train_loss": loss.detach(),
-                       "train_acc": accuracy(logits.detach(), batch["label"])}
+        return state, mean_over_ranks({
+            "train_loss": loss.detach(),
+            "train_acc": accuracy(logits.detach(), batch["label"])})
 
     return train_step

@@ -300,25 +300,38 @@ def test_checkpoint_round_trip_and_pruning(tmp_path, tiny_port_models):
         assert torch.equal(other.model.state_dict()[k], v), k
 
 
-def test_cli_trains_digits_device_resident(tmp_path, tiny_port_models):
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread: the steps of a tiny model are a few ms, and more
+    threads only contend, most of all when several test processes share
+    the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_cli_trains_digits_device_resident(tmp_path, tiny_port_models,
+                                           one_torch_thread):
     """digits64.yaml's path end to end on the CPU: the digits set held as
     a tensor, the permutation, gather and augment on its device, one epoch
-    of 1497 // 128 steps, the EMA columns in the log; a second run with
-    --resume goes on from the checkpoint with the same permutation and
-    draws as an uninterrupted run (the warmup spans both epochs, so that
-    --epochs leaves the LR schedule as it is)."""
+    of 1497 // 768 = 1 step (a batch of more than half the set: the
+    fewest images an epoch can take), the EMA columns in the log; a
+    second run with --resume goes on from the checkpoint with the same
+    permutation and draws as an uninterrupted run (the warmup spans both
+    epochs, so that --epochs leaves the LR schedule as it is)."""
     run = lambda out, *more: train_classification.main(
         ["--config_name", "digits64", "--model_save_dir", str(tmp_path / out),
-         "--device", "cpu", *more, "img_size=16", "batch_size=128",
+         "--device", "cpu", *more, "img_size=16", "batch_size=768",
          "warmup_epochs=2"])
     state = run("a", "--epochs", "1")
-    assert state.step == 1497 // 128
+    assert state.step == 1497 // 768
     [row] = _read_csv(tmp_path / "a" / "log.csv")
     assert {"val_loss", "val_acc", "val_loss_ema", "val_acc_ema"} <= set(row)
     assert 0.0 <= float(row["val_acc"]) <= 1.0 and float(row["train_loss"]) > 0
     resumed = run("a", "--epochs", "2", "--resume")
     straight = run("b", "--epochs", "2")
-    assert resumed.step == straight.step == 2 * (1497 // 128)
+    assert resumed.step == straight.step == 2 * (1497 // 768)
     for k, v in straight.model.state_dict().items():
         assert torch.equal(resumed.model.state_dict()[k], v), k
 

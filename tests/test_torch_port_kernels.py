@@ -10,9 +10,11 @@ both sides do the same fp32 operations in different orders.
 """
 
 import importlib
+import os
 import pkgutil
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -250,6 +252,38 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     assert not (tmp_path / "build").exists()
 
 
+def test_ranks_starting_together_build_once(tmp_path):
+    """Four processes (torchrun ranks) asking for the kernel library at
+    once: nvcc (a stand-in that writes its output and logs its call) runs
+    once a source and links once, and every process gets the same
+    library."""
+    log = tmp_path / "calls.log"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo "$*" >> {log}\n'
+        'prev=""; for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; '
+        'prev="$a"; done\n'
+        'sleep 0.3; echo built > "$out"\n')
+    nvcc.chmod(0o755)
+    code = ("import sys; from pathlib import Path\n"
+            "from fastvim_tpu_torch.ops.kernels import _build\n"
+            "_build.BUILD_DIR = Path(sys.argv[1])\n"
+            "print(_build.build())\n")
+    env = dict(os.environ, CUDA_HOME=str(tmp_path / "cuda"))
+    procs = [subprocess.Popen([sys.executable, "-c", code,
+                               str(tmp_path / "build")], env=env,
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    paths = {p.communicate(timeout=120)[0].strip() for p in procs}
+    assert all(p.returncode == 0 for p in procs)
+    assert len(paths) == 1 and Path(paths.pop()).read_text() == "built\n"
+    calls = log.read_text().splitlines()
+    assert sum("-shared" in c for c in calls) == 1
+    assert len(calls) == len(list(_build.CSRC.glob("*.cu"))) + 1
+
+
 def test_ctypes_signatures_match_sources():
     """The argument types declared for each C entry point match its
     definition in csrc/ (a mismatch would pass pointers as ints)."""
@@ -284,7 +318,8 @@ def test_port_imports_no_jax():
               "data.segmentation", "cli.train_segmentation",
               "cli.extract_features", "ops.boxes", "models.detection",
               "data.detection", "cli.train_detection", "native",
-              "native._build", "native.plain"):
+              "native._build", "native.plain", "parallel", "parallel.mesh",
+              "parallel.collectives", "parallel.dryrun"):
         assert f"fastvim_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
