@@ -3081,9 +3081,9 @@ def det_step(model, batch, branch, props=None):
     through the detector's methods: the backbone's map, the FPN maps, the
     RPN's outputs, the 11 losses (from ``props``, the proposals and their
     validity, when given, else the RPN's own) and every gradient; the
-    samplers draw from a CPU generator seeded 0. Returns (outputs, losses,
-    grads, the gradient at the backbone's map, proposals, forward
-    launches, backward launches)."""
+    samplers draw from one CPU generator seeded 0, image after image.
+    Returns (outputs, losses, grads, the gradient at the backbone's map,
+    proposals, forward launches, backward launches)."""
     import torch
 
     from fastvim_tpu_torch.models.detection import LOSS_NAMES
@@ -3094,7 +3094,7 @@ def det_step(model, batch, branch, props=None):
     gt = dict(gt_boxes=b["boxes"], gt_labels=b["labels"],
               gt_masks=b["masks"], gt_valid=b["gt_valid"])
     model.train()
-    gen = torch.Generator().manual_seed(0)
+    gens = [torch.Generator().manual_seed(0)] * b["image"].shape[0]
     seen = {}
 
     def keep(module, inputs, out):
@@ -3107,11 +3107,11 @@ def det_step(model, batch, branch, props=None):
         feats = model.features(b["image"])
         logits, deltas = model.rpn(feats)
         losses, own, pvalid = model.rpn_losses(
-            feats, logits, deltas, gt["gt_boxes"], gt["gt_valid"], gen)
+            feats, logits, deltas, gt["gt_boxes"], gt["gt_valid"], gens)
         if props is None:
             props = (own.cpu(), pvalid.cpu())
         losses.update(model.cascade_losses(
-            feats, props[0].to(d), props[1].to(d), **gt, generator=gen))
+            feats, props[0].to(d), props[1].to(d), **gt, generator=gens))
         fwd = kernels.launch_counts()
         total = losses[LOSS_NAMES[0]]
         for k in LOSS_NAMES[1:]:
@@ -3836,6 +3836,7 @@ def run_data_parallel(dev, card):
     import csv
     import os
     import shutil
+    import statistics
     import tempfile
 
     import torch
@@ -3846,7 +3847,8 @@ def run_data_parallel(dev, card):
     batch = dp_inputs()
     model = dp_model(dev)
     loss_ref, grads_ref, ref_ms, _ = dp_step(model, batch, dev)
-    ref_ms = min(dp_step(model, batch, dev)[2] for _ in range(3))
+    ref_ms = statistics.median(dp_step(model, batch, dev)[2]
+                               for _ in range(3))
     n_grads = sum(v.numel() for v in grads_ref.values()) / 1e6
     del model
     torch.cuda.empty_cache()
@@ -3882,8 +3884,7 @@ def run_data_parallel(dev, card):
                 f"{r0['step_ms']:.3f} ms (forward, backward and all-reduce, "
                 f"median of 3, rank 0), all-reduce {r0['allreduce_ms']:.3f} "
                 f"ms ({n_grads:.2f}M fp32 gradients); 1 rank without a "
-                f"process group "
-                f"{ref_ms:.3f} ms ({card})")
+                f"process group {ref_ms:.3f} ms (median of 3) ({card})")
             if backend == "gloo":
                 bf16, fp32 = r0["nccl1_bf16"], r0["nccl1_fp32"]
                 worst = max(((bf16[k] - fp32[k]).abs()

@@ -96,7 +96,7 @@ def make_det_train_step(model, seed: int, grad_compression=None):
     model.set_drop_path_generator(drop)
     mesh = get_mesh()
     compress = (torch.bfloat16 if grad_compression == "bf16"
-                and mesh.world > 1 else None)
+                and mesh.sharded else None)
 
     def train_step(state, batch):
         model.train()

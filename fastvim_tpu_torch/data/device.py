@@ -117,7 +117,7 @@ def make_device_augment(img_size: int,
         mesh = get_mesh()
         n = imgs_u8.shape[0] * mesh.world
         draws = sample_augment_draws(generator, n, scale, ratio, jitter)
-        if mesh.world > 1:
+        if mesh.sharded:
             draws = AugmentDraws(*(d[mesh.rows(n)] for d in draws))
         return apply_device_augment(imgs_u8, draws, img_size, jitter, hflip)
 

@@ -18,14 +18,14 @@ PyTorch idiom in place of flax's:
 * ``model.train()`` / ``model.eval()`` switch the backbone's DropPath;
   the path (losses or prediction) follows from whether ``gt_boxes`` is
   given, as in JAX;
-* the samplers draw from the ``generator`` the caller hands the forward:
-  one generator for the batch, each image's RPN sample, then each
-  stage's, image by image; or a sequence of generators, one per image,
-  each image's RPN and stage samples from its own. The train step hands
-  one per image, seeded from (seed, step, the image's index in the
-  global batch), so that an image's draws do not depend on the other
-  images, nor on the rank that holds it. A CPU generator gives the same
-  draws wherever the model runs;
+* the samplers draw from the ``generator`` the caller hands the forward,
+  a sequence of generators, one per image: each image's RPN sample,
+  then its stage samples, from its own. The train step seeds each from
+  (seed, step, the image's index in the global batch), so that an
+  image's draws do not depend on the other images, nor on the rank that
+  holds it; ``[gen] * B`` draws every image's samples from one
+  generator, image after image. A CPU generator gives the same draws
+  wherever the model runs;
 * over several ranks the stage and mask losses' denominators (the valid
   samples, the positives) are counted over the global batch
   (``parallel.denominator``), as the JAX program counts them.
@@ -71,13 +71,6 @@ ROI_STRIDES = (4, 8, 16, 32)
 
 LOSS_NAMES = ("rpn_cls", "rpn_reg", "s0_cls", "s0_reg", "s1_cls", "s1_reg",
               "s2_cls", "s2_reg", "s0_mask", "s1_mask", "s2_mask")
-
-
-def _image_generator(generator, b: int) -> torch.Generator:
-    """Image ``b``'s sampler: ``generator`` itself, or its ``b``-th entry
-    where it is a sequence of generators, one per image."""
-    return (generator if isinstance(generator, torch.Generator)
-            else generator[b])
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
@@ -294,7 +287,7 @@ class CascadeMaskRCNN(nn.Module):
 
     # ------------------------------------------------------------------
     def rpn_losses(self, feats, rpn_logits, rpn_deltas, gt_boxes, gt_valid,
-                   generator: torch.Generator):
+                   generator: Sequence[torch.Generator]):
         """The RPN's losses (each image: max-IoU assignment at 0.7 / 0.3
         with low-quality matches, ``rpn_sample`` anchors at half
         positives; BCE and SmoothL1 over the sample, averaged over the
@@ -309,9 +302,8 @@ class CascadeMaskRCNN(nn.Module):
             assigned = max_iou_assign(anchors, gtb, gtv, pos_iou_thr=0.7,
                                       neg_iou_thr=0.3, min_pos_iou=0.3,
                                       match_low_quality=True)
-            idx, is_pos, valid = random_sample(
-                _image_generator(generator, b), assigned, self.rpn_sample,
-                0.5)
+            idx, is_pos, valid = random_sample(generator[b], assigned,
+                                               self.rpn_sample, 0.5)
             logit = rpn_logits[b, idx]
             bce = _bce_with_logits(logit, is_pos.to(logit.dtype))
             denom = valid.sum().clamp_min(1)
@@ -376,7 +368,8 @@ class CascadeMaskRCNN(nn.Module):
         return (crop > 0.5).float()
 
     def cascade_losses(self, feats, props, pvalid, gt_boxes, gt_labels,
-                       gt_masks, gt_valid, generator: torch.Generator
+                       gt_masks, gt_valid,
+                       generator: Sequence[torch.Generator]
                        ) -> Dict[str, torch.Tensor]:
         """The three stages' cls / reg losses and their mask losses, from
         proposals (B, P, 4) and their validity (no gradient), padded to
@@ -395,7 +388,7 @@ class CascadeMaskRCNN(nn.Module):
             per = [self._stage_sample(s, props[b], pvalid[b], gt_boxes[b],
                                       gt_valid[b], gt_labels[b], gt_masks[b],
                                       [f[b] for f in feats4],
-                                      _image_generator(generator, b))
+                                      generator[b])
                    for b in range(B)]
             (rois_b, rfeat7, rfeat14, labels, regt, is_pos, valid, mt, mlab,
              mvalid) = (torch.stack(t) for t in zip(*per))
@@ -443,14 +436,14 @@ class CascadeMaskRCNN(nn.Module):
                 gt_labels: Optional[torch.Tensor] = None,
                 gt_masks: Optional[torch.Tensor] = None,
                 gt_valid: Optional[torch.Tensor] = None, *,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[Sequence[torch.Generator]] = None):
         feats = self.features(images)
         rpn_logits, rpn_deltas = self.rpn(feats)
         if gt_boxes is None:
             return self.predict(feats, rpn_logits, rpn_deltas)
         if generator is None:
             raise ValueError("the training forward samples: pass generator="
-                             "a torch.Generator")
+                             "a torch.Generator per image")
         losses, props, pvalid = self.rpn_losses(
             feats, rpn_logits, rpn_deltas, gt_boxes, gt_valid, generator)
         losses.update(self.cascade_losses(feats, props, pvalid, gt_boxes,

@@ -27,24 +27,13 @@ import torch.distributed as dist
 
 from fastvim_tpu_torch.parallel.mesh import get_mesh
 
-# DDP's default bucket: gradients are all-reduced in flat buffers of up
-# to this many bytes
-BUCKET_BYTES = 25 * 2 ** 20
-
-
-def _sharded() -> bool:
-    """More than one rank shares the batch."""
-    mesh = get_mesh()
-    return mesh.distributed and mesh.world > 1
-
-
 def rand_rows(shape: Sequence[int], generator: torch.Generator,
               device: torch.device) -> torch.Tensor:
     """``torch.rand(shape)`` for a batch whose leading dimension is this
     rank's share: drawn for the global batch (``shape[0] * world`` rows)
     and cut to this rank's rows, so that N ranks draw what one process
     draws for the whole batch."""
-    if not _sharded():
+    if not get_mesh().sharded:
         return torch.rand(tuple(shape), device=device, generator=generator)
     mesh = get_mesh()
     full = (shape[0] * mesh.world, *shape[1:])
@@ -57,7 +46,7 @@ def mirror_rows(t: torch.Tensor) -> torch.Tensor:
     rank's: rank r's part of the reversed batch is rank (N-1-r)'s part,
     reversed. Exchanged point to point (staged through the host under
     gloo, whose send takes CPU tensors)."""
-    if not _sharded():
+    if not get_mesh().sharded:
         return t.flip(0)
     mesh = get_mesh()
     peer = mesh.world - 1 - mesh.rank
@@ -95,7 +84,7 @@ def batch_moments(x32: torch.Tensor, dims: Tuple[int, ...]
     """(mean, mean of squares) of ``x32`` over ``dims`` and over every
     rank's rows: the global batch's moments, as BatchNorm under ``jit``
     over a sharded batch takes them."""
-    if not _sharded():
+    if not get_mesh().sharded:
         return x32.mean(dims), x32.square().mean(dims)
     n = 1
     for d in dims:
@@ -110,7 +99,7 @@ def denominator(count: torch.Tensor) -> torch.Tensor:
     global batch: the count summed over ranks, clamped, and divided by
     the world size. A rank's ``sum / denominator(count)``, averaged over
     ranks as the gradients are, is the global sum over the global count."""
-    if not _sharded():
+    if not get_mesh().sharded:
         return count.clamp_min(1)
     total = count.detach().clone()
     dist.all_reduce(total)
@@ -121,7 +110,7 @@ def mean_over_ranks(values: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
     """Each 0-d metric averaged over ranks, in one all-reduce: the global
     batch's value of a per-rank mean over equal shares."""
-    if not _sharded() or not values:
+    if not get_mesh().sharded or not values:
         return values
     flat = torch.stack([v.detach().float() for v in values.values()])
     dist.all_reduce(flat)
@@ -132,7 +121,7 @@ def mean_over_ranks(values: Dict[str, torch.Tensor]
 def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over ranks in place, without autograd (eval sums,
     confusion matrices); returns ``t``."""
-    if _sharded():
+    if get_mesh().sharded:
         dist.all_reduce(t)
     return t
 
@@ -140,42 +129,30 @@ def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
 def allreduce_grads(grads: Dict[str, torch.Tensor],
                     compress_dtype: Optional[torch.dtype] = None
                     ) -> Dict[str, torch.Tensor]:
-    """The gradients averaged over ranks, in flat buckets of up to
-    ``BUCKET_BYTES``: each bucket cast to ``compress_dtype`` (bf16: the
-    arithmetic of the JAX package's ``make_compressed_grads_fn`` and of
-    DDP's ``bf16_compress_hook``), summed over ranks, divided by the world
-    size in that dtype and cast back to each gradient's dtype. Without a
-    process group the gradients come back as they are."""
+    """The gradients averaged over ranks, in one flat buffer per dtype and
+    device: cast to ``compress_dtype`` (bf16: the arithmetic of the JAX
+    package's ``make_compressed_grads_fn`` and of DDP's
+    ``bf16_compress_hook``), summed over ranks, divided by the world size
+    in that dtype and cast back to each gradient's dtype. The all-reduce
+    runs after the whole backward pass, so buckets would overlap nothing;
+    the flat buffer costs one gradient's size more for the call. Without
+    a process group the gradients come back as they are."""
     mesh = get_mesh()
     if not mesh.distributed:
         return grads
+    groups: Dict[tuple, List[str]] = {}
+    for k, g in grads.items():
+        groups.setdefault((g.dtype, g.device), []).append(k)
     out: Dict[str, torch.Tensor] = {}
-    for bucket in _buckets(grads):
-        dtype = compress_dtype or grads[bucket[0]].dtype
-        flat = torch.cat([grads[k].reshape(-1).to(dtype) for k in bucket])
+    for (dtype, _), names in groups.items():
+        flat = torch.cat([grads[k].reshape(-1).to(compress_dtype or dtype)
+                          for k in names])
         dist.all_reduce(flat)
         flat /= mesh.world
-        for k, piece in zip(bucket, flat.split([grads[k].numel()
-                                                for k in bucket])):
-            out[k] = piece.view_as(grads[k]).to(grads[k].dtype)
+        for k, piece in zip(names, flat.split([grads[k].numel()
+                                               for k in names])):
+            out[k] = piece.view_as(grads[k]).to(dtype)
     return {k: out[k] for k in grads}
-
-
-def _buckets(grads: Dict[str, torch.Tensor]) -> List[List[str]]:
-    """Names grouped by dtype and device, in order, into buckets of up to
-    ``BUCKET_BYTES``."""
-    buckets: List[List[str]] = []
-    open_: Dict[tuple, Tuple[List[str], int]] = {}
-    for k, g in grads.items():
-        key = (g.dtype, g.device)
-        names, size = open_.get(key, ([], 0))
-        if names and size + g.numel() * g.element_size() > BUCKET_BYTES:
-            buckets.append(names)
-            names, size = [], 0
-        names.append(k)
-        open_[key] = (names, size + g.numel() * g.element_size())
-    buckets.extend(names for names, _ in open_.values() if names)
-    return buckets
 
 
 def barrier() -> None:
@@ -193,7 +170,7 @@ def is_writer() -> bool:
 def gather_objects(items: Iterable) -> list:
     """Every rank's ``items`` (picklable), concatenated in rank order."""
     items = list(items)
-    if not _sharded():
+    if not get_mesh().sharded:
         return items
     parts: list = [None] * get_mesh().world
     dist.all_gather_object(parts, items)

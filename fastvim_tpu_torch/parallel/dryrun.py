@@ -3,10 +3,10 @@
 Counterpart of ``dryrun_multichip`` in the JAX repository's entry point,
 without its ``seq`` axis (not ported, ROADMAP.md):
 
-    python -m fastvim_tpu_torch.parallel.dryrun 2 [--cuda]
+    python -m fastvim_tpu_torch.parallel.dryrun 2 [--device cpu]
 
-spawns n processes that join one process group, gloo on the CPU, or with
-``--cuda`` NCCL, each on its own card (it needs n cards). Each rank
+spawns n processes that join one process group: NCCL, each on its own
+card (it needs n cards), or with ``--device cpu`` gloo on the CPU. Each rank
 takes its rows of a global batch of 2n and runs two supervised steps:
 
 1. a small ``VisionMamba`` (img 32, patch 8, depth 4, embed 64, d_state
@@ -69,13 +69,15 @@ def _step(model, mixup, batch, device, name: str, mesh) -> float:
     return loss
 
 
-def _rank(rank: int, world: int, store: str, cuda: bool) -> None:
+def _rank(rank: int, world: int, store: str, device_type: str) -> None:
     from fastvim_tpu_torch.models import VisionMamba
 
     torch.set_num_threads(1)
-    device = torch.device("cuda", rank) if cuda else torch.device("cpu")
-    if cuda:
+    if device_type == "cuda":
+        device = torch.device("cuda", rank)
         torch.cuda.set_device(device)
+    else:
+        device = torch.device(device_type)
     init_distributed(device.type, init_method=f"file://{store}",
                      world_size=world, rank=rank)
     try:
@@ -104,24 +106,28 @@ def _rank(rank: int, world: int, store: str, cuda: bool) -> None:
         reset_mesh()
 
 
-def dryrun_multichip(n: int, cuda: bool = False) -> None:
-    """Spawn ``n`` ranks (gloo on the CPU; NCCL on n cards with ``cuda``)
-    and run the two steps; raises if a rank fails."""
-    if cuda and torch.cuda.device_count() < n:
-        raise RuntimeError(f"dryrun_multichip({n}, cuda=True) needs {n} "
-                           f"cards, {torch.cuda.device_count()} visible")
+def dryrun_multichip(n: int, device: str = "cuda") -> None:
+    """Spawn ``n`` ranks (NCCL, one card each; gloo with ``device="cpu"``)
+    and run the two steps; raises if fewer than n cards are visible or a
+    rank fails."""
+    device_type = torch.device(device).type
+    if device_type == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(f"dryrun_multichip({n}) needs {n} cards, "
+                           f"{torch.cuda.device_count()} visible; pass "
+                           "--device cpu for gloo ranks on the CPU")
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank, args=(n, os.path.join(tmp, "store"), cuda),
+        mp.spawn(_rank, args=(n, os.path.join(tmp, "store"), device_type),
                  nprocs=n, join=True)
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("n", type=int, nargs="?", default=2)
-    p.add_argument("--cuda", action="store_true",
-                   help="NCCL ranks on the cards (one card each)")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default): NCCL ranks, one card each; "
+                        "'cpu': gloo ranks on the CPU")
     args = p.parse_args(argv)
-    dryrun_multichip(args.n, cuda=args.cuda)
+    dryrun_multichip(args.n, device=args.device)
     return 0
 
 

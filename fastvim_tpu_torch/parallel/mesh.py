@@ -55,6 +55,11 @@ class Mesh:
         the gradients go through the all-reduce."""
         return self.backend is not None
 
+    @property
+    def sharded(self) -> bool:
+        """More than one rank shares the batch."""
+        return self.world > 1
+
     def rows(self, n: int) -> slice:
         """This rank's contiguous rows of a global batch of ``n``, in rank
         order (``shard_batch``'s split); the parts differ by at most one
@@ -158,7 +163,7 @@ def replicate(module: torch.nn.Module,
     """Broadcast rank 0's parameters and buffers to every rank, in place;
     returns ``module``."""
     mesh = mesh or get_mesh()
-    if mesh.distributed and mesh.world > 1:
+    if mesh.sharded:
         for t in [*module.parameters(), *module.buffers()]:
             dist.broadcast(t.data, 0)
     return module

@@ -10,7 +10,7 @@ model and the batch lie on.
 
 Over several ``torchrun`` ranks (``fastvim_tpu_torch.parallel``) each
 rank takes its rows of the global batch, and after the backward pass the
-gradients are averaged over ranks by an explicit bucketed all-reduce
+gradients are averaged over ranks by an explicit all-reduce
 (``parallel.allreduce_grads``), optionally in bf16 (the counterpart of
 the JAX package's ``make_compressed_grads_fn``): the steps compute their
 gradients with ``torch.autograd.grad``, which fires none of

@@ -535,7 +535,8 @@ def det_step(config: str, batch: int) -> Tuple[Callable[[], object], str]:
         print(f"  {name}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
         return out
 
-    b, gen = batches[0], torch.Generator().manual_seed(0)
+    b = batches[0]
+    gens = [torch.Generator().manual_seed(0)] * b["image"].shape[0]
     model.train()
     print(f"{config} B={batch} fp32 {cfg['img_size']}px, one step's phases:")
     feats = timed("features (backbone, FPN)", lambda: model.features(
@@ -543,10 +544,10 @@ def det_step(config: str, batch: int) -> Tuple[Callable[[], object], str]:
     logits, deltas = timed("RPN head", lambda: model.rpn(feats))
     rpn, props, pvalid = timed("RPN losses and proposals", lambda: (
         model.rpn_losses(feats, logits, deltas, b["boxes"], b["gt_valid"],
-                         gen)))
+                         gens)))
     casc = timed("three cascade stages and the mask head", lambda: (
         model.cascade_losses(feats, props, pvalid, b["boxes"], b["labels"],
-                             b["masks"], b["gt_valid"], gen)))
+                             b["masks"], b["gt_valid"], gens)))
     total = sum(rpn.values()) + sum(casc.values())
     timed("backward", lambda: torch.autograd.grad(
         total, list(model.parameters())))

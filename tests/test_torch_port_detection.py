@@ -273,7 +273,8 @@ def test_train_losses_and_gradients_match_jax(det):
     branch = JaxReluBranch(det["pre"])
     with branch.patched():
         losses = port(images, **_gt(batch, "torch"),
-                      generator=torch.Generator().manual_seed(0))
+                      generator=[torch.Generator().manual_seed(0)]
+                      * images.shape[0])
     assert branch.calls == 3 and branch.worst <= 1e-4, (branch.flips,
                                                         branch.worst)
     assert list(losses) == [*detection.LOSS_NAMES, "loss"]
@@ -292,9 +293,10 @@ def test_train_losses_and_gradients_match_jax(det):
         gt = _gt(batch, "torch")
         rpn, props, pvalid = port.rpn_losses(
             feats, *port.rpn(feats), gt["gt_boxes"], gt["gt_valid"],
-            torch.Generator())
-        casc = port.cascade_losses(feats, props, pvalid, **gt,
-                                   generator=torch.Generator())
+            [torch.Generator()] * images.shape[0])
+        casc = port.cascade_losses(
+            feats, props, pvalid, **gt,
+            generator=[torch.Generator()] * images.shape[0])
     assert props.shape == (2, 16, 4) and pvalid.dtype == torch.bool
     for k, v in {**rpn, **casc}.items():
         np.testing.assert_allclose(float(v), losses[k].item(), rtol=1e-6,

@@ -22,7 +22,7 @@ two gloo ranks, spawned with file stores, against the JAX package on a
 * ``train_classification digits64`` on 2 ranks joined from a
   torchrun-like env: one ``log.csv``, the checkpoint equal to one
   process's;
-* ``dryrun_multichip(2)``.
+* ``dryrun_multichip(2, device="cpu")``.
 
 The ranks run every scenario in one spawn (tests/torch_parallel_ranks.py,
 which imports no JAX), once a module.
@@ -32,7 +32,6 @@ import csv
 import math
 import os
 import re
-import socket
 
 import jax
 import jax.numpy as jnp
@@ -96,12 +95,6 @@ def _inputs():
         "det": det}
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """One torch thread, as each rank has: the steps here are small, and
@@ -120,7 +113,13 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("parallel")
     two_dir, one_dir = str(tmp / "two"), str(tmp / "one")
     inputs["argv"] = DIGITS + ["--model_save_dir", two_dir]
-    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    # the ranks join the CLI's group as torchrun's workers do: through a
+    # store that the launcher hosts, here on a port the OS picks as it
+    # binds, so that no other process can take it first
+    store = torch.distributed.TCPStore("localhost", 0, is_master=True,
+                                       wait_for_workers=False)
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(store.port),
+           "TORCHELASTIC_USE_AGENT_STORE": "True"}
 
     def one_process():
         """The same work here, while the ranks run."""
@@ -369,7 +368,7 @@ def test_cli_digits_on_two_ranks_equals_one(runs):
 def test_dryrun_multichip_two_ranks(capfd):
     from fastvim_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    dryrun_multichip(2)
+    dryrun_multichip(2, device="cpu")
     out = capfd.readouterr().out
     losses = re.findall(r"dryrun_multichip\(2\) (?:step|fused layer): "
                         r"mesh=\{'data': 2, 'seq': 1\} loss=(\S+) step=1",

@@ -361,7 +361,7 @@ def spawn(world: int, names: List[str], inputs: dict, tmp: str,
           env: Optional[dict] = None,
           meanwhile: Optional[Callable[[], object]] = None):
     """Run the scenarios ``names`` in ``world`` spawned gloo ranks, then,
-    with ``env`` (MASTER_ADDR, MASTER_PORT), the CLI run that
+    with ``env`` (as torchrun sets it), the CLI run that
     ``inputs["argv"]`` describes, and ``meanwhile()`` here while they
     run. Returns (each rank's results in rank order, what ``meanwhile``
     returned)."""
