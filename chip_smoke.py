@@ -228,6 +228,19 @@ Phases, each of which raises on failure (exit code non-zero):
    fastvim_tpu_torch.cli.train_classification --config_name FastVimT
    --epochs 1 --synthetic_samples 256`` to its end, and 2 ranks over NCCL
    where the machine has two cards; the step and all-reduce times.
+14. the language model (``fastvim_tpu_torch.models.lm``) at mamba-130m's
+   published widths (d_model 768, 24 layers, vocab 50277 padded to 50280,
+   d_state 16, d_inner 1536, dt_rank 48), seeded random weights: K1 with
+   the gate z and the final state against its plain version at the
+   prefill's shapes (B = 4, d 1536; L = 128 sequential, 2048 chunked;
+   fp32 and bf16, both directions); the prefill's logits and caches
+   against a token-by-token replay through the cached step (B = 2, L =
+   64, fp32; 24 K1 launches, none in the 64 steps); greedy generation of
+   32 tokens from a 16-token prompt, card against CPU, logits
+   teacher-forced on the CPU's tokens and the tokens wherever the CPU's
+   top-2 gap is clear; prefill tokens/s at B = 1 and 8, L = 2048, and
+   decode tokens/s over 128 steps at B = 1 and 16, fp32 and bf16, with
+   peak memory.
 
 After a line with the card's name and power limit, the line before the
 last is a JSON object with one entry per kernel (``ms`` a call's time by
@@ -239,7 +252,10 @@ inputs of the timed call), K3 and K4 also once for each wide width
 phase 2 shapes; launches from phase 4's FastVim-B forward and phase 3's
 -L and -H forwards), and so K5 and K6 (``"pass_b_bwd d_model=768"``;
 launches from phase 5's FastVim-B train step and phase 3's -L and -H
-backwards); the last line is ``{"ok": true, "device": {...}}``.
+backwards), and K1 once more with the gate and the final state at the LM
+prefill's shapes (``"selective_scan_fwd lm"``: B = 4, L = 2048, fp32;
+launches from phase 14's prefill); the last line is ``{"ok": true,
+"device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result. Before the ``kernels``
 line, a ``{"native": [...]}`` line holds phase 12's entries (these are
@@ -456,6 +472,13 @@ def count_launches() -> int:
         out[f"selective_scan_fwd_lanes L={L}"] = kernels_a_call(
             lambda: ss.selective_scan_fwd_lanes(*args, delta_bias=bias,
                                                 delta_softplus=True))
+        # K1 with the gate (a column slice) and the final state, as the
+        # LM's prefill calls it
+        z = rnd(2, L, 2 * d).bfloat16()[..., d:]
+        out[f"selective_scan_fwd lm L={L}"] = kernels_a_call(
+            lambda: ss.selective_scan_fwd(*args, delta_bias=bias,
+                                          delta_softplus=True, z=z,
+                                          return_last_state=True))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -498,7 +521,8 @@ def launches_per_call() -> dict:
                 ("selective_scan_fwd", "chunked", 3),
                 ("selective_scan_bwd", "sequential", 4),
                 ("selective_scan_bwd", "chunked", 6),
-                ("selective_scan_fwd_lanes", None, 2)):
+                ("selective_scan_fwd_lanes", None, 2),
+                ("selective_scan_fwd lm", None, 1 if L < 512 else 3)):
             got = counts[f"{kernel} L={L}" + (f" {form}" if form else "")]
             if got != want:
                 raise AssertionError(f"{kernel} {form} L={L}: {got} device "
@@ -3930,6 +3954,248 @@ def run_data_parallel(dev, card):
     return total
 
 
+# phase 14: mamba-130m's published widths (state-spaces/mamba-130m's
+# config, the JAX package's MambaLMHeadModel defaults), depth 24, random
+# weights from a seed
+LM_FIELDS = dict(vocab_size=50277, d_model=768, n_layer=24, d_state=16)
+LM_SEED = 14
+
+
+def lm_logits_along(model, prompt, tokens):
+    """Logits (batch, T, vocab) of the prefill's last position and then of
+    each cached step fed ``tokens`` (batch, T) but its last: the logits
+    that predicted each of ``tokens``, teacher-forced."""
+    import torch
+
+    logits, caches = model(prompt, prefill=True)
+    out = [logits[:, -1]]
+    for t in range(tokens.shape[1] - 1):
+        logits, caches = model(tokens[:, t:t + 1], caches=caches)
+        out.append(logits[:, -1])
+    return torch.stack(out, 1)
+
+
+def check_lm_scans(dev, card):
+    """Phase 14, K1 at the LM's prefill shapes (B = 4, d_inner 1536, n 16;
+    L = 128, the sequential form, and 2048, the chunked one), fp32 and
+    bf16, both directions, with the gate z (the z half of an
+    in-projection output, a column slice) and the final state, against
+    the plain version on the card: y within the dtype's tolerance, the
+    fp32 state within fp32's (both sides scan the same rounded inputs in
+    fp32). Times the forward scan at L = 2048 in both dtypes beside the
+    plain version and the bound. Returns (max error, the fp32 L = 2048
+    times for the kernels line)."""
+    import torch
+
+    from fastvim_tpu_torch.ops.kernels import selective_scan as ss
+
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    rnd = lambda *s, scale=1.0: torch.randn(*s, generator=g,
+                                            device=dev) * scale
+    batch, d, n = 4, 1536, 16
+    A = -torch.exp(rnd(d, n, scale=0.5))
+    kw = dict(D=rnd(d), delta_bias=rnd(d, scale=0.5) - 2.0,
+              delta_softplus=True)
+    worst, entry = 0.0, None
+    for L in (128, 2048):
+        base = dict(u=rnd(batch, L, d), delta=rnd(batch, L, d, scale=0.5),
+                    B=rnd(batch, L, n), C=rnd(batch, L, n),
+                    xz=rnd(batch, L, 2 * d))
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            t = {k: v.to(dtype) for k, v in base.items()}
+            z = t["xz"][..., d:]
+            args = (t["u"], t["delta"], A, t["B"], t["C"])
+            for reverse in (False, True):
+                tag = (f"L={L} ({ss.fwd_route(L)}) B={batch} d={d} {dtype} "
+                       f"reverse={reverse}")
+                y, last = ss.selective_scan_fwd(
+                    *args, **kw, reverse=reverse, z=z,
+                    return_last_state=True)
+                wy, wlast = ss.selective_scan_plain(
+                    *args, **kw, reverse=reverse, z=z.contiguous(),
+                    return_last_state=True)
+                worst = max(worst,
+                            compare(f"phase 14 K1 y with z {tag}", y, wy,
+                                    tol),
+                            compare(f"phase 14 K1 last state {tag}", last,
+                                    wlast, FP32_TOL))
+                del y, last, wy, wlast
+            if L == 2048:
+                kern = lambda: ss.selective_scan_fwd(
+                    *args, **kw, z=z, return_last_state=True)
+                plain = lambda: ss.selective_scan_plain(
+                    *args, **kw, z=z, return_last_state=True)
+                out = kern()
+                k_ms, p_ms = cuda_ms(kern, 20), cuda_ms(plain, 1)
+                # per (b, t, d, n): exp, the recurrence (4), h·C and its sum
+                b_ms, by = bound(nbytes(*args, z, kw["D"], kw["delta_bias"],
+                                        *out), 9.0 * batch * L * d * n,
+                                 "fp32")
+                log(f"[time] phase 14 K1 with z and the final state, "
+                    f"{dtype} B={batch} L={L} d={d} (chunked, 3 device "
+                    f"kernels): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                    f"bound {b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} of the "
+                    f"bound ({card})")
+                if dtype == torch.float32:
+                    entry = (k_ms, p_ms, b_ms, by)
+                del out
+            del t, z, args
+        del base
+        torch.cuda.empty_cache()
+    return worst, entry
+
+
+def run_lm_path(dev, card):
+    """Phase 14, the language model: ``create_lm`` at mamba-130m's widths
+    (``LM_FIELDS``: d_model 768, 24 layers, vocab 50277 padded to 50280,
+    d_state 16, d_inner 1536, dt_rank 48) with seeded random weights, on
+    the card.
+
+    1. K1 at the prefill's shapes with z and the final state
+       (:func:`check_lm_scans`).
+    2. Prefill against replay, B = 2, L = 64, fp32: the prefill's logits
+       at every position and its 24 caches against the same tokens fed
+       one by one through the cached step from zero caches, within
+       ``MODEL_TOL``; the prefill 24 K1 launches, the 64 steps none.
+    3. Card against CPU: greedy generation of 32 tokens from a 16-token
+       prompt on both; the card's logits with the CPU's tokens fed back
+       (teacher-forced) within ``MODEL_TOL`` of the CPU's; the card's
+       argmax equal to the CPU's token wherever the CPU's top-2 gap
+       exceeds the tolerance, and the card's own tokens equal to the
+       CPU's up to the first step where they may differ.
+    4. Rates: prefill tokens/s at B = 1 and 8, L = 2048, and decode
+       tokens/s (128 cached steps after a 16-token prefill and 8 steps'
+       warm-up) at B = 1 and 16, fp32 and bf16, each with its peak
+       memory.
+
+    Returns (launch counts of the prefill-against-replay run, K1's max
+    error, its times for the kernels line)."""
+    import copy
+
+    import torch
+
+    from fastvim_tpu_torch.models.lm import create_lm, generate
+    from fastvim_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        k1_err, k1_times = check_lm_scans(dev, card)
+    seed = lambda: torch.Generator().manual_seed(LM_SEED)
+    model = create_lm(dev, seed(), **LM_FIELDS)
+    cfg = model.backbone.layers[0].mixer
+    log(f"[lm] mamba-130m widths: d_model {model.d_model}, {model.n_layer} "
+        f"layers, vocab {model.vocab_size} padded to {model.padded_vocab}, "
+        f"d_state {cfg.d_state}, d_inner {cfg.d_inner}, dt_rank "
+        f"{cfg.dt_rank}; {sum(p.numel() for p in model.parameters()) / 1e6:.2f}"
+        f"M parameters, seed {LM_SEED}")
+    tok = lambda *s: torch.randint(0, LM_FIELDS["vocab_size"], s,
+                                   generator=seed())
+    with torch.inference_mode():
+        # 2. prefill against replay
+        toks = tok(2, 64).to(dev)
+        kernels.reset_launch_counts()
+        pre, pre_caches = model(toks, prefill=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        expect_launches("phase 14 prefill B=2 L=64", counts,
+                        {"selective_scan_fwd": LM_FIELDS["n_layer"]})
+        kernels.reset_launch_counts()
+        caches = model.init_cache(2)
+        steps = []
+        for t in range(toks.shape[1]):
+            logits, caches = model(toks[:, t:t + 1], caches=caches)
+            steps.append(logits[:, 0])
+        torch.cuda.synchronize()
+        expect_launches("phase 14 replay, 64 cached steps",
+                        kernels.launch_counts(), {})
+        compare("phase 14 prefill logits vs replay (B=2 L=64 fp32)",
+                pre, torch.stack(steps, 1), MODEL_TOL)
+        compare("phase 14 prefill conv windows vs replay",
+                torch.stack([c[0] for c in pre_caches]),
+                torch.stack([c[0] for c in caches]), MODEL_TOL)
+        compare("phase 14 prefill ssm states vs replay",
+                torch.stack([c[1] for c in pre_caches]),
+                torch.stack([c[1] for c in caches]), MODEL_TOL)
+        del pre, pre_caches, caches, steps
+
+        # 3. card against CPU, greedy, 32 tokens from a 16-token prompt
+        cpu = copy.deepcopy(model).to("cpu")
+        prompt = tok(1, 16)
+        t1 = time.perf_counter()
+        want = generate(cpu, prompt, 32, temperature=0.0)[:, 16:]
+        want_logits = lm_logits_along(cpu, prompt, want)
+        cpu_s = time.perf_counter() - t1
+        got = generate(model, prompt.to(dev), 32, temperature=0.0)[:, 16:]
+        got_logits = lm_logits_along(model, prompt.to(dev), want.to(dev))
+        compare("phase 14 card vs CPU logits, the CPU's 32 greedy tokens "
+                "fed back", got_logits.cpu(), want_logits, MODEL_TOL)
+        top2 = want_logits[0].topk(2, -1).values
+        gap = top2[:, 0] - top2[:, 1]
+        clear = gap > MODEL_TOL
+        argmax = got_logits[0].argmax(-1).cpu()
+        bad = (clear & (argmax != want[0])).nonzero().flatten().tolist()
+        differ = (got.cpu()[0] != want[0]).nonzero().flatten().tolist()
+        ok = not bad and (not differ or not clear[differ[0]])
+        log(f"[check] phase 14 greedy tokens card vs CPU: teacher-forced "
+            f"argmax differs at clear steps {bad}; free-running tokens "
+            f"differ from step {differ[0] if differ else None} (the CPU's "
+            f"top-2 gap there "
+            f"{gap[differ[0]].item() if differ else float('nan'):.3e}); "
+            f"{int(clear.sum())} of 32 steps have a gap over {MODEL_TOL:g} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 14: the card's greedy tokens differ "
+                                 "from the CPU's where the CPU's choice is "
+                                 "clear")
+        log(f"[time] phase 14 the CPU's greedy generation and teacher-forced "
+            f"logits: {cpu_s:.1f} s")
+        del cpu, got_logits, want_logits
+
+        # 4. rates, fp32 then bf16 (the same weights)
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16:
+                model = create_lm(dev, seed(), dtype=dtype, **LM_FIELDS)
+            for batch in (1, 8):
+                x = tok(batch, 2048).to(dev)
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                ms = cuda_ms(lambda: model(x, prefill=True), 3)
+                n_calls = kernels.launch_counts()["selective_scan_fwd"]
+                log(f"[time] phase 14 LM prefill {dtype} B={batch} L=2048: "
+                    f"{ms:.3f} ms, {batch * 2048 / ms * 1e3:.1f} tokens/s, "
+                    f"{n_calls // 4} K1 launches a prefill, peak "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                    f"({card})")
+            for batch in (1, 16):
+                prompt = tok(batch, 16).to(dev)
+                torch.cuda.reset_peak_memory_stats()
+                logits, caches = model(prompt, prefill=True)
+                nxt = logits[:, -1:].argmax(-1)
+                for steps in (8, 128):  # a warm-up, then the timed steps
+                    torch.cuda.synchronize()
+                    kernels.reset_launch_counts()
+                    t1 = time.perf_counter()
+                    for _ in range(steps):
+                        logits, caches = model(nxt, caches=caches)
+                        nxt = logits[:, -1:].argmax(-1)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t1
+                expect_launches(f"phase 14 decode {dtype} B={batch}",
+                                kernels.launch_counts(), {})
+                log(f"[time] phase 14 LM decode {dtype} B={batch}, 128 "
+                    f"cached steps after a 16-token prefill and 8 steps: "
+                    f"{dt / 128 * 1e3:.3f} ms a step, "
+                    f"{batch * 128 / dt:.1f} tokens/s; peak "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                    f"({card})")
+            del x, logits, caches
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 14 (LM) {time.perf_counter() - t0:.1f} s")
+    return counts, k1_err, k1_times
+
+
 def main() -> int:
     import torch
 
@@ -4043,6 +4309,11 @@ def main() -> int:
     log(f"[time] phase 12 (native) {time.perf_counter() - t0:.1f} s")
     for name, count in run_data_parallel(dev, card).items():
         launches[name] += count
+    lm_counts, errs["selective_scan_fwd lm"], times["selective_scan_fwd lm"] \
+        = run_lm_path(dev, card)
+    for name, count in lm_counts.items():
+        launches[name] += count
+    launches["selective_scan_fwd lm"] = lm_counts["selective_scan_fwd"]
 
     # each kernel's files: the main path's (bf16) kernel, then the fp32
     # route, the C entry points and the headers they include (K1 and K2:
@@ -4086,6 +4357,12 @@ def main() -> int:
     table += [(f"{name} d_model={dm}", main_file, more, tpu)
               for rows in (table[2:4], table[4:6]) for dm in WIDE_DM
               for name, main_file, more, tpu in rows]
+    # K1 with the gate and the final state at the LM prefill's shapes
+    # (phase 14: launches of one B = 2 prefill, times at B = 4, L = 2048,
+    # fp32, the chunked form)
+    table.append(("selective_scan_fwd lm", "selective_scan_fwd_chunked.cu",
+                  ("selective_scan_fwd.cu", "scan_chunked.cuh"),
+                  "fastvim_tpu/ops/pallas/selective_scan.py:79"))
     launches.update(wide)
     for name, *_ in table:
         if launches[name] < 1:

@@ -11,6 +11,7 @@ from fastvim_tpu_torch.models.detection import (
     Shared2FCBBoxHead,
 )
 from fastvim_tpu_torch.models.heads import ChannelLayerNorm, SimpleFPN
+from fastvim_tpu_torch.models.lm import MambaLM, MambaLMHeadModel, create_lm
 from fastvim_tpu_torch.models.mae import MaskedAutoencoderVim
 from fastvim_tpu_torch.models.mixer import MambaMixer
 from fastvim_tpu_torch.models.patch_embed import PatchEmbed
@@ -30,6 +31,8 @@ __all__ = [
     "ChannelVisionMamba",
     "FCNHead",
     "FCNMaskHead",
+    "MambaLM",
+    "MambaLMHeadModel",
     "MambaMixer",
     "MaskedAutoencoderVim",
     "PSPModule",
@@ -41,6 +44,7 @@ __all__ = [
     "UPerHead",
     "UperNetSegmentor",
     "VisionMamba",
+    "create_lm",
     "create_model",
     "hcs_sample",
     "list_models",

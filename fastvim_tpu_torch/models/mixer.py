@@ -97,7 +97,11 @@ from fastvim_tpu_torch.models.layers import (
     dt_proj_weight_init_,
     torch_linear_init_,
 )
-from fastvim_tpu_torch.ops.conv import dual_conv1d, grid_dual_conv1d
+from fastvim_tpu_torch.ops.conv import (
+    causal_conv1d_update,
+    dual_conv1d,
+    grid_dual_conv1d,
+)
 from fastvim_tpu_torch.ops.kernels import fused_block, merge_gate
 from fastvim_tpu_torch.ops.kernels.layer_fused import (
     FusedParams,
@@ -108,6 +112,7 @@ from fastvim_tpu_torch.ops.kernels.layer_fused import (
 )
 from fastvim_tpu_torch.ops.norms import layer_norm
 from fastvim_tpu_torch.ops.scan import broadcast_grid, pool_grid
+from fastvim_tpu_torch.ops.state_update import selective_state_update
 
 
 def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
@@ -286,15 +291,44 @@ class MambaMixer(nn.Module):
             None if ln is None else ln.weight, None if ln is None else ln.bias,
             rows, cols, self.norm_eps, ln is not None)
 
-    def forward(self, x: torch.Tensor, grid_shape: Sequence[int],
+    def init_cache(self, batch: int,
+                   device: Optional[torch.device] = None) -> dict:
+        """A zero cache for :meth:`forward`'s decode step: the rolling conv
+        window ``conv`` (batch, d_conv, d_inner) in the module's dtype,
+        oldest token first, and the SSM state ``ssm`` (batch, d_inner,
+        d_state) fp32, of the causal (forward) branch. The JAX package's
+        layout; on the module's device unless ``device`` is given."""
+        device = device if device is not None else self.A_log.device
+        return {"conv": torch.zeros(batch, self.d_conv, self.d_inner,
+                                    dtype=self.dtype, device=device),
+                "ssm": torch.zeros(batch, self.d_inner, self.d_state,
+                                   device=device)}
+
+    def forward(self, x: torch.Tensor,
+                grid_shape: Optional[Sequence[int]] = None,
                 pool_axes: Optional[Sequence[int]] = None,
                 transposed: bool = False,
-                row_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                row_ids: Optional[torch.Tensor] = None,
+                cache: Optional[dict] = None):
         """x: (batch, L, d_model); grid_shape: the token grid in this
         mixer's orientation; pool_axes: grid axes pooled before the scan
         (default: the last). ``row_ids`` (batch, L) int64: x holds only
         visible tokens, and these are their grid rows (the masked path;
-        ``grid_shape`` is then the full (rows, cols) grid)."""
+        ``grid_shape`` is then the full (rows, cols) grid).
+
+        With ``cache`` (from :meth:`init_cache`) x is one token (batch, 1,
+        d_model) and the call returns ``(out, new_cache)``: one step of
+        the causal branch (conv window, projections, state update, D skip,
+        the LayerNorm with ``use_norm_after_ssm``, the silu(z) gate), as
+        the JAX mixer's decode step computes it; the anticausal branch has
+        no decode step. The cache passed in is not modified."""
+        if cache is not None:
+            out, new_cache = self._decode_step(x.to(self.dtype), cache)
+            if self.gamma is not None:
+                out = out * self.gamma.to(self.dtype)
+            return out, new_cache
+        if grid_shape is None:
+            raise ValueError("grid_shape is required without a cache")
         grid_shape = tuple(grid_shape)
         pool_axes = (tuple(pool_axes) if pool_axes is not None
                      else (len(grid_shape) - 1,))
@@ -317,6 +351,27 @@ class MambaMixer(nn.Module):
         if self.gamma is not None:
             out = out * self.gamma.to(dtype)
         return out
+
+    def _decode_step(self, x, cache):
+        """One causal decode step of (batch, 1, d_model) x; see
+        :meth:`forward`."""
+        dtype = self.dtype
+        di, r, n = self.d_inner, self.dt_rank, self.d_state
+        xz = F.linear(x[:, 0], self.in_proj.weight.to(dtype),
+                      _cast(self.in_proj.bias, dtype))
+        xc, conv = causal_conv1d_update(
+            xz[:, :di], cache["conv"], self._conv_w("").to(dtype),
+            _cast(self.conv1d.bias, dtype))
+        dbl = F.linear(xc.to(dtype), self.x_proj.weight.to(dtype))
+        dt = F.linear(dbl[:, :r], self.dt_proj.weight.to(dtype))
+        y, ssm = selective_state_update(
+            cache["ssm"], xc, dt, -torch.exp(self.A_log.float()),
+            dbl[:, r:r + n], dbl[:, r + n:], D=self.D,
+            dt_bias=self.dt_proj.bias, dt_softplus=True)
+        y = self._ln_gate(y, xz[:, di:]).to(dtype)
+        out = F.linear(y[:, None], self.out_proj.weight.to(dtype),
+                       _cast(self.out_proj.bias, dtype))
+        return out, {"conv": conv, "ssm": ssm}
 
     def _unfused(self, x, grid_shape, pool_axes, transposed, row_ids):
         dtype = self.dtype

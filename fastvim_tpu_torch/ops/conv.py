@@ -77,3 +77,19 @@ def grid_dual_conv1d(x: torch.Tensor, weight_c: torch.Tensor,
     yc, ya = dual_conv1d(xt, weight_c, bias_c, weight_a, bias_a, activation)
     back = lambda y: y.reshape(B, W, H, d).transpose(1, 2).reshape(B, L, d)
     return back(yc), back(ya)
+
+
+def causal_conv1d_update(x: torch.Tensor, conv_state: torch.Tensor,
+                         weight: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         activation: Optional[str] = "silu"):
+    """One token of the causal conv, for incremental decoding. x: (batch,
+    d) the new token; conv_state: (batch, width, d), the rolling window
+    of the last ``width`` inputs, oldest first. Returns (y (batch, d),
+    new_conv_state): the window shifted by one with x appended. The
+    arithmetic runs in the promoted type of the window and x, as in the
+    JAX package (an fp32 window keeps a bf16 model's step in fp32)."""
+    new_state = torch.cat([conv_state[:, 1:],
+                           x[:, None, :].to(conv_state.dtype)], 1)
+    y = (new_state * weight).sum(1)
+    return _finish(y, bias, activation), new_state

@@ -30,11 +30,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name → argument types. Each returns a cudaError_t.
 SIGNATURES = {
-    # u, delta, A, B, C, bias, D, out, states, batch, L, d, n, dtype,
-    # softplus, reverse, stream
-    "fv_selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
-    # the same with dsum (the chunks' sums of delta, scratch) after states
-    "fv_selective_scan_fwd_chunked": [_P] * 10 + [_I] * 7 + [_P],
+    # u, delta, A, B, C, bias, D, z, out, states, last, batch, L, d, n, ldz,
+    # dtype, softplus, reverse, stream
+    "fv_selective_scan_fwd": [_P] * 11 + [_I] * 8 + [_P],
+    # the same with dsum (the chunks' sums of delta, scratch) after last
+    "fv_selective_scan_fwd_chunked": [_P] * 12 + [_I] * 8 + [_P],
     # u, delta, A, B, C, bias, D, g, states, du, ddelta, dbc_part, vec_part,
     # dB, dC, vec, batch, L, d, n, dtype, softplus, reverse, stream
     "fv_selective_scan_bwd": [_P] * 16 + [_I] * 7 + [_P],

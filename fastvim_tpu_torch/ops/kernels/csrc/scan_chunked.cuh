@@ -31,11 +31,13 @@ __device__ __forceinline__ float ex2(float x) {
 // on entry and its carry-in on return: h = exp(A·S[c])·h + summary[c],
 // with h before the update stored in place. The next group's loads start
 // before this group's chain and stores (other chunks, so the order is
-// free), and the exponentials wait for nothing but them.
+// free), and the exponentials wait for nothing but them. `last`, where not
+// null ((batch, d, n): K1's final state; K2 passes null), receives h
+// carried past the last chunk.
 __global__ void __launch_bounds__(kPassThreads)
 state_pass_kernel(const float* __restrict__ A, float* __restrict__ states,
-                  const float* __restrict__ dsum, int nchunks, int d, int n,
-                  bool reverse) {
+                  const float* __restrict__ dsum, float* __restrict__ last,
+                  int nchunks, int d, int n, bool reverse) {
   const int i = blockIdx.x * kPassThreads + threadIdx.x;  // c · n + s
   if (i >= d * n) return;
   const size_t b = blockIdx.y;
@@ -75,16 +77,20 @@ state_pass_kernel(const float* __restrict__ A, float* __restrict__ states,
       }
     }
   }
+  if (last) last[b * dn + i] = h;
 }
 
-// Launch the pass on `stream` for (batch, nchunks, d, n) states.
+// Launch the pass on `stream` for (batch, nchunks, d, n) states; `last`
+// (batch, d, n) or null.
 inline cudaError_t state_pass(const void* A, void* states, const void* dsum,
                               int batch, int nchunks, int d, int n,
-                              bool reverse, cudaStream_t stream) {
+                              bool reverse, cudaStream_t stream,
+                              void* last = nullptr) {
   const dim3 grid((d * n + kPassThreads - 1) / kPassThreads, batch);
   state_pass_kernel<<<grid, kPassThreads, 0, stream>>>(
       static_cast<const float*>(A), static_cast<float*>(states),
-      static_cast<const float*>(dsum), nchunks, d, n, reverse);
+      static_cast<const float*>(dsum), static_cast<float*>(last), nchunks,
+      d, n, reverse);
   return cudaGetLastError();
 }
 

@@ -7,7 +7,12 @@
 // run left to right, or right to left for reverse=1 (the suffix scan of
 // the pooled backward direction; the output stays in original order).
 // With a `states` buffer it also writes h on entry to each chunk, as
-// `_pallas_fwd(save_states=True)` does, for the backward (K2).
+// `_pallas_fwd(save_states=True)` does, for the backward (K2). For the
+// language model's prefill (fastvim_tpu/ops/scan.py `selective_scan` with
+// `z` and `return_last_state`, which the JAX package runs through XLA)
+// it also gates y by silu(z) in fp32 before the one rounding, as
+// `_finalize` does, and writes the state after the last step in scan
+// order into `last`: the register h when the loop ends.
 //
 // What bounds it on the H100: the recurrence is sequential in t, so one
 // (batch, channel) costs L dependent steps whatever the bandwidth. At the
@@ -45,13 +50,16 @@ constexpr int kChannels = 4;                  // channels per block
 constexpr int kThreads = kLanes * kChannels;  // 64
 constexpr int kChunk = 64;                    // steps staged per chunk
 
-template <typename T>
+// kGate: z is given (a template argument, so that the vision callers'
+// kernel, without it, carries no test of it)
+template <typename T, bool kGate>
 __global__ void __launch_bounds__(kThreads)
 scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                 const float* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const float* __restrict__ bias,
-                const float* __restrict__ Dp, T* __restrict__ out,
-                float* __restrict__ states, int L, int d, int n,
+                const float* __restrict__ Dp, const T* __restrict__ z,
+                T* __restrict__ out, float* __restrict__ states,
+                float* __restrict__ last, int L, int d, int n, int ldz,
                 bool softplus, bool reverse) {
   constexpr int kVe = fv::kVec<T>;  // elements per 16-byte vector
   // 16-byte vectors of B (and of C) per thread per chunk, at n = 16
@@ -159,24 +167,30 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
 #pragma unroll
       for (int j = 0; j < kLanes; ++j) y += s_p[t][c][j];
       if (Dp) y += Dp[d0 + c] * s_u[t][c];
+      if constexpr (kGate)
+        y *= fv::silu(fv::to_f32(z[(tok0 + t0 + t) * ldz + d0 + c]));
       out[(tok0 + t0 + t) * d + d0 + c] = fv::from_f32<T>(y);
     }
   }
+  if (last && s < n)  // the state after the last step in scan order
+    last[(static_cast<size_t>(blockIdx.y) * d + d0 + ch) * n + s] = h;
 }
 
 template <typename T>
 cudaError_t launch(const void* u, const void* delta, const void* A,
                    const void* B, const void* C, const void* bias,
-                   const void* D, void* out, void* states, int batch, int L,
-                   int d, int n, bool softplus, bool reverse,
-                   cudaStream_t stream) {
+                   const void* D, const void* z, void* out, void* states,
+                   void* last, int batch, int L, int d, int n, int ldz,
+                   bool softplus, bool reverse, cudaStream_t stream) {
   dim3 grid(d / kChannels, batch);
-  scan_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
+  auto kernel = z ? scan_fwd_kernel<T, true> : scan_fwd_kernel<T, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(delta),
       static_cast<const float*>(A), static_cast<const T*>(B),
       static_cast<const T*>(C), static_cast<const float*>(bias),
-      static_cast<const float*>(D), static_cast<T*>(out),
-      static_cast<float*>(states), L, d, n, softplus, reverse);
+      static_cast<const float*>(D), static_cast<const T*>(z),
+      static_cast<T*>(out), static_cast<float*>(states),
+      static_cast<float*>(last), L, d, n, ldz, softplus, reverse);
   return cudaGetLastError();
 }
 
@@ -184,29 +198,34 @@ cudaError_t launch(const void* u, const void* delta, const void* A,
 
 // u, delta: (batch, L, d) and B, C: (batch, L, n), all of `dtype`
 // (0 fp32, 1 bf16), contiguous and 16-byte aligned; d % 4 == 0, n 8 or
-// 16; A: (d, n) fp32; bias, D: (d,) fp32 or null; out: (batch, L, d) of
-// `dtype`; states: null, or (batch, ceil(L / 64), d, n) fp32, which
-// receives the state h on entry to each 64-step chunk (what the backward
-// kernel rebuilds h from). Returns a cudaError_t.
+// 16; A: (d, n) fp32; bias, D: (d,) fp32 or null; z: null, or (batch,
+// L, d) of `dtype` with tokens `ldz` elements apart (>= d; a column slice
+// of a wider array), the gate y · silu(z); out: (batch, L, d) of `dtype`;
+// states: null, or (batch, ceil(L / 64), d, n) fp32, which receives the
+// state h on entry to each 64-step chunk (what the backward kernel
+// rebuilds h from); last: null, or (batch, d, n) fp32, which receives the
+// state after the last step in scan order. Returns a cudaError_t.
 extern "C" int fv_selective_scan_fwd(const void* u, const void* delta,
                                      const void* A, const void* B,
                                      const void* C, const void* bias,
-                                     const void* D, void* out, void* states,
-                                     int batch, int L, int d, int n,
-                                     int dtype, int softplus, int reverse,
+                                     const void* D, const void* z, void* out,
+                                     void* states, void* last, int batch,
+                                     int L, int d, int n, int ldz, int dtype,
+                                     int softplus, int reverse,
                                      void* stream) {
   if (batch < 1 || batch > 65535 || L < 0 || d % kChannels != 0 || d < 1 ||
-      (n != 8 && n != kLanes))
+      (n != 8 && n != kLanes) || (z && ldz < d))
     return cudaErrorInvalidValue;
   if (L == 0) return cudaSuccess;
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case fv::kF32:
-      return launch<float>(u, delta, A, B, C, bias, D, out, states, batch, L,
-                           d, n, softplus, reverse, st);
+      return launch<float>(u, delta, A, B, C, bias, D, z, out, states, last,
+                           batch, L, d, n, ldz, softplus, reverse, st);
     case fv::kBF16:
-      return launch<__nv_bfloat16>(u, delta, A, B, C, bias, D, out, states,
-                                   batch, L, d, n, softplus, reverse, st);
+      return launch<__nv_bfloat16>(u, delta, A, B, C, bias, D, z, out,
+                                   states, last, batch, L, d, n, ldz,
+                                   softplus, reverse, st);
     default:
       return cudaErrorInvalidValue;
   }

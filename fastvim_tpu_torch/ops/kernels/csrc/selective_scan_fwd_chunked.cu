@@ -11,7 +11,10 @@
 // selective_scan_bwd_chunked.cu) reads: (batch, ceil(L / 64), d, n) fp32,
 // indexed by the chunk's position in the original order, holding h on
 // entry in scan order. With reverse the last chunk, which may be partial,
-// is scanned first from h = 0.
+// is scanned first from h = 0. For the language model's prefill it takes
+// the gate z (y · silu(z) in fp32 before the one rounding, in phase 3) and
+// writes the final state into `last` (phase 2 carried one chunk further),
+// as selective_scan_fwd.cu does.
 //
 // What bounds the sequential form on the H100 is the latency of its L-step
 // chain: one thread per (batch, channel, state) walks all of L, 192 blocks
@@ -65,16 +68,19 @@ namespace {
 constexpr int kThreads = 64;       // channels per block, phases 1 and 3
 constexpr int kGroup = 8;          // steps whose u, delta loads go together
 
-// Phases 1 (kOut = false) and 3 (kOut = true). Grid (d / 64 rounded up,
-// nchunks, batch); thread = one channel of one chunk, n states.
-template <typename T, int N, bool kOut>
+// Phases 1 (kOut = false) and 3 (kOut = true; kGate: z is given, a
+// template argument so that the kernel without it tests nothing). Grid
+// (d / 64 rounded up, nchunks, batch); thread = one channel of one chunk,
+// n states.
+template <typename T, int N, bool kOut, bool kGate>
 __global__ void __launch_bounds__(kThreads)
 scan_chunk_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                   const float* __restrict__ A, const T* __restrict__ Bm,
                   const T* __restrict__ Cm, const float* __restrict__ bias,
-                  const float* __restrict__ Dp, T* __restrict__ out,
-                  float* __restrict__ states, float* __restrict__ dsum,
-                  int L, int d, bool softplus, bool reverse) {
+                  const float* __restrict__ Dp, const T* __restrict__ z,
+                  T* __restrict__ out, float* __restrict__ states,
+                  float* __restrict__ dsum, int L, int d, int ldz,
+                  bool softplus, bool reverse) {
   constexpr int kVe = fv::kVec<T>;  // elements per 16-byte vector
   __shared__ __align__(16) float s_B[kChunk * N];
   __shared__ __align__(16) float s_C[kOut ? kChunk * N : 4];
@@ -123,11 +129,12 @@ scan_chunk_kernel(const T* __restrict__ u, const T* __restrict__ delta,
   const T* up = u + row0 * d + c;
   const T* dp = delta + row0 * d + c;
   T* yp = out + row0 * d + c;
+  const T* zp = kGate ? z + row0 * ldz + c : nullptr;
   float dsum_c = 0.f;
 
   // a group of steps' u and delta as loaded, fetched a group ahead at
   // clamped steps, widened only where used so no load is waited for early
-  T r_u[kGroup], r_dt[kGroup];
+  T r_u[kGroup], r_dt[kGroup], r_z[kGroup];
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
@@ -135,14 +142,16 @@ scan_chunk_kernel(const T* __restrict__ u, const T* __restrict__ delta,
       const size_t t = reverse ? len - 1 - k : k;
       r_u[j] = up[t * d];
       r_dt[j] = dp[t * d];
+      if constexpr (kGate) r_z[j] = zp[t * ldz];
     }
   };
   fetch(0);
   for (int k0 = 0; k0 < len; k0 += kGroup) {
-    float uu[kGroup], dt[kGroup], x[kGroup];
+    float uu[kGroup], dt[kGroup], x[kGroup], gate[kGroup];
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {  // the group's softplus side by side
       uu[j] = fv::to_f32(r_u[j]);
+      if constexpr (kGate) gate[j] = fv::silu(fv::to_f32(r_z[j]));
       float v = fv::to_f32(r_dt[j]) + bi;
       if (softplus) v = fv::softplus(v);
       dt[j] = k0 + j < len ? v : 0.f;  // past the end: a = 1, b = 0
@@ -162,9 +171,11 @@ scan_chunk_kernel(const T* __restrict__ u, const T* __restrict__ delta,
           h[s] = fmaf(ex2(dt[j] * a2[s]), h[s], x[j] * Bt[s]);
           y[s % 4] = fmaf(h[s], Ct[s], y[s % 4]);
         }
-        if (k0 + j < len)
-          yp[static_cast<size_t>(t) * d] =
-              fv::from_f32<T>((y[0] + y[1]) + (y[2] + y[3]) + Dv * uu[j]);
+        if (k0 + j < len) {
+          float yv = (y[0] + y[1]) + (y[2] + y[3]) + Dv * uu[j];
+          if constexpr (kGate) yv *= gate[j];
+          yp[static_cast<size_t>(t) * d] = fv::from_f32<T>(yv);
+        }
       } else {
         dsum_c += dt[j];
 #pragma unroll
@@ -181,51 +192,56 @@ scan_chunk_kernel(const T* __restrict__ u, const T* __restrict__ delta,
   }
 }
 
-template <typename T, int N, bool kOut>
+template <typename T, int N, bool kOut, bool kGate = false>
 cudaError_t launch_chunks(dim3 grid, const void* u, const void* delta,
                           const void* A, const void* B, const void* C,
-                          const void* bias, const void* D, void* out,
-                          void* states, void* dsum, int L, int d,
-                          bool softplus, bool reverse, cudaStream_t stream) {
-  scan_chunk_kernel<T, N, kOut><<<grid, kThreads, 0, stream>>>(
+                          const void* bias, const void* D, const void* z,
+                          void* out, void* states, void* dsum, int L, int d,
+                          int ldz, bool softplus, bool reverse,
+                          cudaStream_t stream) {
+  scan_chunk_kernel<T, N, kOut, kGate><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(delta),
       static_cast<const float*>(A), static_cast<const T*>(B),
       static_cast<const T*>(C), static_cast<const float*>(bias),
-      static_cast<const float*>(D), static_cast<T*>(out),
-      static_cast<float*>(states), static_cast<float*>(dsum), L, d, softplus,
-      reverse);
+      static_cast<const float*>(D), static_cast<const T*>(z),
+      static_cast<T*>(out), static_cast<float*>(states),
+      static_cast<float*>(dsum), L, d, ldz, softplus, reverse);
   return cudaGetLastError();
 }
 
 template <typename T, int N>
 cudaError_t launch(const void* u, const void* delta, const void* A,
                    const void* B, const void* C, const void* bias,
-                   const void* D, void* out, void* states, void* dsum,
-                   int batch, int L, int d, bool softplus, bool reverse,
-                   cudaStream_t stream) {
+                   const void* D, const void* z, void* out, void* states,
+                   void* last, void* dsum, int batch, int L, int d, int ldz,
+                   bool softplus, bool reverse, cudaStream_t stream) {
   const int nchunks = (L + kChunk - 1) / kChunk;
   const dim3 grid((d + kThreads - 1) / kThreads, nchunks, batch);
   cudaError_t err = launch_chunks<T, N, false>(
-      grid, u, delta, A, B, C, bias, D, out, states, dsum, L, d, softplus,
-      reverse, stream);
+      grid, u, delta, A, B, C, bias, D, z, out, states, dsum, L, d, ldz,
+      softplus, reverse, stream);
   if (err != cudaSuccess) return err;
-  err = state_pass(A, states, dsum, batch, nchunks, d, N, reverse, stream);
+  err = state_pass(A, states, dsum, batch, nchunks, d, N, reverse, stream,
+                   last);
   if (err != cudaSuccess) return err;
-  return launch_chunks<T, N, true>(grid, u, delta, A, B, C, bias, D, out,
-                                   states, dsum, L, d, softplus, reverse,
-                                   stream);
+  return (z ? launch_chunks<T, N, true, true>
+            : launch_chunks<T, N, true, false>)(
+      grid, u, delta, A, B, C, bias, D, z, out, states, dsum, L, d, ldz,
+      softplus, reverse, stream);
 }
 
 template <typename T>
 cudaError_t launch_n(int n, const void* u, const void* delta, const void* A,
                      const void* B, const void* C, const void* bias,
-                     const void* D, void* out, void* states, void* dsum,
-                     int batch, int L, int d, bool softplus, bool reverse,
-                     cudaStream_t stream) {
-  return n == 8 ? launch<T, 8>(u, delta, A, B, C, bias, D, out, states, dsum,
-                               batch, L, d, softplus, reverse, stream)
-                : launch<T, 16>(u, delta, A, B, C, bias, D, out, states,
-                                dsum, batch, L, d, softplus, reverse, stream);
+                     const void* D, const void* z, void* out, void* states,
+                     void* last, void* dsum, int batch, int L, int d, int ldz,
+                     bool softplus, bool reverse, cudaStream_t stream) {
+  return n == 8 ? launch<T, 8>(u, delta, A, B, C, bias, D, z, out, states,
+                               last, dsum, batch, L, d, ldz, softplus,
+                               reverse, stream)
+                : launch<T, 16>(u, delta, A, B, C, bias, D, z, out, states,
+                                last, dsum, batch, L, d, ldz, softplus,
+                                reverse, stream);
 }
 
 }  // namespace
@@ -236,23 +252,24 @@ cudaError_t launch_n(int n, const void* u, const void* delta, const void* A,
 // cudaError_t.
 extern "C" int fv_selective_scan_fwd_chunked(
     const void* u, const void* delta, const void* A, const void* B,
-    const void* C, const void* bias, const void* D, void* out, void* states,
-    void* dsum, int batch, int L, int d, int n, int dtype, int softplus,
-    int reverse, void* stream) {
+    const void* C, const void* bias, const void* D, const void* z, void* out,
+    void* states, void* last, void* dsum, int batch, int L, int d, int n,
+    int ldz, int dtype, int softplus, int reverse, void* stream) {
   if (batch < 1 || batch > 65535 || L < 0 || d % 4 != 0 || d < 1 ||
       (n != 8 && n != 16) || (L + kChunk - 1) / kChunk > 65535 || !states ||
-      !dsum)
+      !dsum || (z && ldz < d))
     return cudaErrorInvalidValue;
   if (L == 0) return cudaSuccess;
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case fv::kF32:
-      return launch_n<float>(n, u, delta, A, B, C, bias, D, out, states, dsum,
-                             batch, L, d, softplus, reverse, st);
+      return launch_n<float>(n, u, delta, A, B, C, bias, D, z, out, states,
+                             last, dsum, batch, L, d, ldz, softplus, reverse,
+                             st);
     case fv::kBF16:
-      return launch_n<__nv_bfloat16>(n, u, delta, A, B, C, bias, D, out,
-                                     states, dsum, batch, L, d, softplus,
-                                     reverse, st);
+      return launch_n<__nv_bfloat16>(n, u, delta, A, B, C, bias, D, z, out,
+                                     states, last, dsum, batch, L, d, ldz,
+                                     softplus, reverse, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -86,50 +86,77 @@ def _check_scan_args(name, u, delta, A, B, C, D, delta_bias):
     return batch, L, d, n, code
 
 
+def _outputs(y, states, last, save_states: bool, return_last_state: bool):
+    """y, then states with ``save_states``, then the last state with
+    ``return_last_state``: a tuple when there is more than y."""
+    out = (y,) + ((states,) if save_states else ()) + (
+        (last,) if return_last_state else ())
+    return out if len(out) > 1 else y
+
+
 def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                        B: torch.Tensor, C: torch.Tensor,
                        D: Optional[torch.Tensor] = None,
                        delta_bias: Optional[torch.Tensor] = None,
                        delta_softplus: bool = False,
-                       reverse: bool = False, save_states: bool = False):
+                       reverse: bool = False, save_states: bool = False,
+                       z: Optional[torch.Tensor] = None,
+                       return_last_state: bool = False):
     """u, delta: (batch, L, d); B, C: (batch, L, n), all of one dtype
     (float32 or bfloat16); A: (d, n) float32; D, delta_bias: (d,) float32
-    or None. Returns y (batch, L, d) in u's dtype. On CUDA, d must be a
-    multiple of 4 and n 8 or 16.
+    or None; z: (batch, L, d) of u's dtype or None, which gates the
+    output, y · silu(z), in fp32 before its one rounding (on CUDA z may be
+    a column slice of a wider (batch, L, ·) tensor, the z half of an
+    in-projection). Returns y (batch, L, d) in u's dtype. On CUDA, d must
+    be a multiple of 4 and n 8 or 16.
 
-    With ``save_states`` returns ``(y, states)``: states (batch,
-    ceil(L / 64), d, n) float32 holds the state h on entry to each
-    64-step chunk, in scan order, which K2 rebuilds h from. On the CPU
-    states is None (the plain backward needs none).
+    With ``save_states`` also states (batch, ceil(L / 64), d, n) float32:
+    the state h on entry to each 64-step chunk, in scan order, which K2
+    rebuilds h from (None on the CPU: the plain backward needs none).
+    With ``return_last_state`` also the state after the last step in scan
+    order, (batch, d, n) float32 (after t = 0 for ``reverse``). The
+    outputs come in that order, as a tuple when there is more than y.
 
     On CUDA one call is one K1 launch (``LAUNCHES``) of the form
     :func:`fwd_route` picks for L; the chunked form is three device
     kernels on the current stream."""
     if u.device.type == "cpu":
-        y = selective_scan_plain(u, delta, A, B, C, D=D,
-                                 delta_bias=delta_bias,
-                                 delta_softplus=delta_softplus,
-                                 reverse=reverse)
-        return (y, None) if save_states else y
+        out = selective_scan_plain(u, delta, A, B, C, D=D,
+                                   delta_bias=delta_bias,
+                                   delta_softplus=delta_softplus,
+                                   reverse=reverse, z=z,
+                                   return_last_state=return_last_state)
+        y, last = out if return_last_state else (out, None)
+        return _outputs(y, None, last, save_states, return_last_state)
     return _launch_fwd(fwd_route(u.shape[1]), u, delta, A, B, C, D,
-                       delta_bias, delta_softplus, reverse, save_states)
+                       delta_bias, delta_softplus, reverse, save_states, z,
+                       return_last_state)
 
 
 def _launch_fwd(form: str, u, delta, A, B, C, D=None, delta_bias=None,
                 delta_softplus: bool = False, reverse: bool = False,
-                save_states: bool = False):
+                save_states: bool = False, z=None,
+                return_last_state: bool = False):
     """K1 on CUDA tensors in the given form, "chunked" or "sequential",
     whatever L is: :func:`selective_scan_fwd`'s launch, which the tests
     and timings call to hold one form against the other."""
     name = "selective_scan_fwd"
     chunked = {"chunked": True, "sequential": False}[form]
-    kernels.check_cuda_args(name, u.device, u=u, delta=delta, A=A, B=B, C=C,
-                            D=D, delta_bias=delta_bias)
+    kernels.check_cuda_args(name, u.device, token_strided=("z",), u=u,
+                            delta=delta, A=A, B=B, C=C, D=D,
+                            delta_bias=delta_bias, z=z)
     batch, L, d, n, code = _check_scan_args(name, u, delta, A, B, C, D,
                                             delta_bias)
     if d % 4 or n not in (8, 16):
         raise ValueError(f"{name}: needs d % 4 == 0 and n in (8, 16), got "
                          f"d={d}, n={n}")
+    ldz = 0
+    if z is not None:
+        if z.dtype != u.dtype or z.shape != u.shape:
+            raise ValueError(f"{name}: z must be {u.dtype} "
+                             f"{tuple(u.shape)}, got {z.dtype} "
+                             f"{tuple(z.shape)}")
+        ldz = kernels.token_stride(name, "z", z)
     kernels.check_aligned(name, u=u, delta=delta, B=B, C=C,
                           delta_bias=delta_bias)
     nchunks = -(-L // CHUNK)
@@ -137,9 +164,12 @@ def _launch_fwd(form: str, u, delta, A, B, C, D=None, delta_bias=None,
     f32 = dict(dtype=torch.float32, device=u.device)
     states = (torch.empty(batch, nchunks, d, n, **f32)
               if save_states or chunked else None)
-    ins = tuple(map(kernels.ptr, (u, delta, A, B, C, delta_bias, D, out,
-                                  states)))
-    flags = (batch, L, d, n, code, int(delta_softplus), int(reverse),
+    # an empty scan leaves the state at 0, and the kernels return at once
+    last = ((torch.zeros if L == 0 else torch.empty)(batch, d, n, **f32)
+            if return_last_state else None)
+    ins = tuple(map(kernels.ptr, (u, delta, A, B, C, delta_bias, D, z, out,
+                                  states, last)))
+    flags = (batch, L, d, n, ldz, code, int(delta_softplus), int(reverse),
              kernels.stream_ptr(u.device))
     if chunked:  # the chunks' sums of delta: phase 1 → phase 2
         dsum = torch.empty(batch, nchunks, d, **f32)
@@ -149,24 +179,27 @@ def _launch_fwd(form: str, u, delta, A, B, C, D=None, delta_bias=None,
         err = _build.library().fv_selective_scan_fwd(*ins, *flags)
     _build.check(err, name)
     kernels.LAUNCHES[name] += 1
-    return (out, states) if save_states else out
+    return _outputs(out, states, last, save_states, return_last_state)
 
 
 def selective_scan_fwd_chunked_plain(u, delta, A, B, C, D=None,
                                      delta_bias=None,
                                      delta_softplus: bool = False,
-                                     reverse: bool = False):
+                                     reverse: bool = False, z=None,
+                                     return_last_state: bool = False):
     """K1's chunk-parallel form in tensor ops, fp32: L padded to whole
     64-step chunks with identity steps (delta = 0, so a = 1 and b = 0),
     the chunks turned into scan order, then the kernel's three phases:
     each chunk scanned from h = 0 (h_loc) with S = Σ delta over it, the
     state passed from chunk to chunk as h_in = exp(A·S)·h_in + h_loc, and
-    each chunk scanned again from its h_in for y. Returns ``(y, states)``
-    with y in u's dtype and states (batch, ceil(L / 64), d, n) float32,
-    the chunk-entry states in K2's layout (position order, scan-order
-    state). Same contract as :func:`selective_scan_fwd` with
-    ``save_states``; what checks the combine rule and the state layout,
-    not the reference again."""
+    each chunk scanned again from its h_in for y, gated by silu(z) where
+    z is given. Returns ``(y, states)`` with y in u's dtype and states
+    (batch, ceil(L / 64), d, n) float32, the chunk-entry states in K2's
+    layout (position order, scan-order state), and with
+    ``return_last_state`` ``(y, states, last)``: the state pass carried
+    one chunk further, (batch, d, n) float32. Same contract as
+    :func:`selective_scan_fwd` with ``save_states``; what checks the
+    combine rule and the state layout, not the reference again."""
     batch, L, d = u.shape
     nc = -(-L // CHUNK)
     pad = nc * CHUNK - L
@@ -193,6 +226,7 @@ def selective_scan_fwd_chunked_plain(u, delta, A, B, C, D=None,
     for c in range(nc):
         entry[:, c] = h
         h = decay[:, c] * h + h_loc[:, c]
+    last = h  # the pass carried past the last chunk: the final state
     hs, h = torch.empty_like(a), entry  # phase 3
     for k in range(CHUNK):
         h = a[:, :, k] * h + x[:, :, k]
@@ -200,9 +234,13 @@ def selective_scan_fwd_chunked_plain(u, delta, A, B, C, D=None,
     y = (hs * C_s[:, :, :, None, :]).sum(-1)  # (b, nc, CHUNK, d)
     if D is not None:
         y = y + D.float() * u_s
+    if z is not None:
+        y = y * F.silu(to_scan(z))
     y = order(y).reshape(batch, nc * CHUNK, d)[:, :L]
-    states = entry.flip(1) if reverse else entry
-    return y.to(u.dtype), states.contiguous()
+    states = (entry.flip(1) if reverse else entry).contiguous()
+    if return_last_state:
+        return y.to(u.dtype), states, last
+    return y.to(u.dtype), states
 
 
 # ----------------------------------------------------------------------
@@ -484,36 +522,56 @@ def _launch_bwd(form: str, u, delta, A, B, C, D, delta_bias, g, states,
 
 
 class SelectiveScanFn(torch.autograd.Function):
-    """y = scan(u, delta, A, B, C, D, delta_bias): K1 with saved
-    chunk-entry states forward, K2 backward (their plain versions on the
-    CPU). Gradients are computed in fp32 and cast to each input's dtype."""
+    """y = scan(u, delta, A, B, C, D, delta_bias) (· silu(z)): K1 with
+    saved chunk-entry states forward, K2 backward (their plain versions on
+    the CPU). Gradients are computed in fp32 and cast to each input's
+    dtype. With ``z`` the gate is K1's, rounded once; the backward runs K1
+    again without it for the ungated y (dz = g·y·silu'(z)) and hands K2
+    g·silu(z). With ``return_last_state`` it returns ``(y, last_state)``;
+    the last state is not differentiated (no caller of the JAX package
+    differentiates it)."""
 
     @staticmethod
-    def forward(ctx, u, delta, A, B, C, D, delta_bias, delta_softplus,
-                reverse):
+    def forward(ctx, u, delta, A, B, C, D, delta_bias, z, delta_softplus,
+                reverse, return_last_state=False):
         u, delta, B, C = (t.contiguous() for t in (u, delta, B, C))
         if u.is_cuda and u.shape[-1] % BWD_CHANNELS:
             # say so before the forward runs, not in the middle of backward
             raise ValueError(f"selective_scan: the backward kernel needs d % "
                              f"{BWD_CHANNELS} == 0, got d={u.shape[-1]}")
-        y, states = selective_scan_fwd(u, delta, A, B, C, D=D,
-                                       delta_bias=delta_bias,
-                                       delta_softplus=delta_softplus,
-                                       reverse=reverse, save_states=True)
-        ctx.save_for_backward(u, delta, A, B, C, D, delta_bias, states)
+        y, states, *last = selective_scan_fwd(
+            u, delta, A, B, C, D=D, delta_bias=delta_bias,
+            delta_softplus=delta_softplus, reverse=reverse, save_states=True,
+            z=z, return_last_state=return_last_state)
+        ctx.save_for_backward(u, delta, A, B, C, D, delta_bias, z, states)
         ctx.flags = (delta_softplus, reverse)
+        if return_last_state:
+            ctx.mark_non_differentiable(last[0])
+            return y, last[0]
         return y
 
     @staticmethod
-    def backward(ctx, g):
-        u, delta, A, B, C, D, delta_bias, states = ctx.saved_tensors
+    def backward(ctx, g, *_):
+        u, delta, A, B, C, D, delta_bias, z, states = ctx.saved_tensors
+        dz = None
+        if z is not None:
+            zf = z.float()
+            sig = torch.sigmoid(zf)
+            if ctx.needs_input_grad[7]:
+                y = selective_scan_fwd(u, delta, A, B, C, D=D,
+                                       delta_bias=delta_bias,
+                                       delta_softplus=ctx.flags[0],
+                                       reverse=ctx.flags[1])
+                dz = (g.float() * y.float() * sig * (1 + zf * (1 - sig))
+                      ).to(z.dtype)
+            g = (g.float() * zf * sig).to(u.dtype)
         grads = selective_scan_bwd(u, delta, A, B, C, D, delta_bias,
                                    g.contiguous(), states, *ctx.flags)
         ins = (u, delta, A, B, C, D, delta_bias)
         return tuple(
             gr.to(t.dtype) if t is not None and need else None
             for gr, t, need in zip(grads, ins, ctx.needs_input_grad)
-        ) + (None, None)
+        ) + (dz, None, None, None)
 
 
 class SelectiveScanLanesFn(torch.autograd.Function):

@@ -64,6 +64,28 @@ mask_head/upsample/kernel       mask_head.upsample.weight (in, out,
 
 ``fc1`` needs no permutation: the port's RoI features are NHWC, so its
 input is flax's flatten of (7, 7, C).
+
+``lm_from_jax_params`` carries a flax ``MambaLMHeadModel`` across (the
+inverse of the JAX package's ``utils/hf.convert_lm``), and
+``cache_from_jax`` its decode caches and the vision mixer's, whose
+layouts the port keeps: the LM's (conv window (batch, d_conv, d_inner),
+ssm (batch, d_inner, d_state) fp32) per layer, the mixer's ``{"conv":
+(batch, d_conv, d_inner), "ssm": (batch, d_inner, d_state) fp32}``:
+
+==============================  =======================================
+flax (``fastvim_tpu.models.lm``)  port / reference torch name
+==============================  =======================================
+embedding/embedding             backbone.embedding.weight
+norm_{i}_weight, norm_f_weight  backbone.layers.{i}.norm.weight,
+                                  backbone.norm_f.weight
+layers_{i}/in_proj/kernel       backbone.layers.{i}.mixer.in_proj.weight
+  (and out_proj)                  (.T)
+layers_{i}/conv1d_weight (w,d)  ...mixer.conv1d.weight (d, 1, w)
+layers_{i}/x_proj_weight,       ...mixer.x_proj.weight, dt_proj.weight
+  dt_proj_weight                  (.T)
+conv1d_bias, dt_proj_bias,      ...mixer.conv1d.bias, dt_proj.bias,
+  A_log, D                        A_log, D
+==============================  =======================================
 """
 
 from __future__ import annotations
@@ -110,6 +132,8 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     load with ``{k: torch.from_numpy(v.copy()) for k, v in ...}``."""
     p = params.get("params", params)
     stats = params.get("batch_stats", {}) if "params" in params else {}
+    if "embedding" in p and "norm_f_weight" in p:
+        return lm_from_jax_params(p)
     if any(k in p for k in _DETECTOR):
         sd = _detector_from_jax(p)
         dropped = (set(_leaf_paths(p))
@@ -459,6 +483,49 @@ def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
         else:  # norm.weight → norm_weight, A_log, D, gamma, mask_token, ...
             _set(tree, pre + "_".join(rest), v)
     return {"params": tree}
+
+
+def lm_from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """flax ``MambaLMHeadModel`` variables (or params) → the port's
+    state_dict (numpy arrays, the reference's names; no ``lm_head``: it
+    is tied to the embedding). Raises on a leaf it does not know."""
+    p = params.get("params", params)
+    leaves = {path: _get(p, path) for path in _leaf_paths(p)}
+    take = lambda path: _np(leaves.pop(path))
+    sd = {"backbone.embedding.weight": take("embedding/embedding"),
+          "backbone.norm_f.weight": take("norm_f_weight")}
+    for i in range(_count(p, "layers_")):
+        pre, m = f"backbone.layers.{i}", f"layers_{i}/"
+        sd[f"{pre}.norm.weight"] = take(f"norm_{i}_weight")
+        for name in ("in_proj", "out_proj"):
+            sd[f"{pre}.mixer.{name}.weight"] = take(f"{m}{name}/kernel").T
+        sd[f"{pre}.mixer.conv1d.weight"] = take(
+            f"{m}conv1d_weight").T[:, None, :]
+        for name in ("x_proj", "dt_proj"):
+            sd[f"{pre}.mixer.{name}.weight"] = take(f"{m}{name}_weight").T
+        for name in ("conv1d_bias", "dt_proj_bias"):
+            sd[f"{pre}.mixer.{name.replace('_bias', '.bias')}"] = take(
+                m + name)
+        for name in ("A_log", "D"):
+            sd[f"{pre}.mixer.{name}"] = take(m + name)
+    if leaves:
+        raise ValueError(f"lm_from_jax_params: no port name for "
+                         f"{sorted(leaves)}")
+    return sd
+
+
+def cache_from_jax(cache, device="cpu"):
+    """A JAX decode cache (the LM's list of (conv window, ssm) tuples, or
+    the vision mixer's ``{"conv", "ssm"}`` dict, of array-likes) → the
+    same structure of torch tensors on ``device``: the layouts are the
+    same in both packages."""
+    if isinstance(cache, Mapping):
+        return {k: cache_from_jax(v, device) for k, v in cache.items()}
+    if isinstance(cache, (list, tuple)):
+        return type(cache)(cache_from_jax(v, device) for v in cache)
+    import torch
+
+    return torch.from_numpy(np.array(cache)).to(device)
 
 
 def grads_to_numpy(source) -> Dict[str, np.ndarray]:

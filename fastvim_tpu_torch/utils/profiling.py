@@ -30,6 +30,10 @@ only), and names the form each launcher picks at each length: what sets
 a train step of that detection config's detector as ``train_detection``
 builds it (fp32, the config's batch unless ``--batch``), on synthetic
 loader batches already on the card, after the time of each of its phases.
+``--lm prefill`` / ``--lm decode`` profiles the language model at
+mamba-130m's widths (d_model 768, 24 layers, vocab 50277, d_state 16;
+seeded random weights): one prefill of ``--batch`` × ``--seq-len``
+tokens, or one cached decode step after a 16-token prefill.
 A profile also prints the peak device memory, e.g. of a train step with
 ``--model fastvim_huge --img 224 --batch 128 --dtype float32 --train
 --layer-fused-bwd remat``.
@@ -557,6 +561,43 @@ def det_step(config: str, batch: int) -> Tuple[Callable[[], object], str]:
             f"{config} B={batch} fp32 train step")
 
 
+def lm_step(kind: str, batch: int, seq_len: int, dtype: torch.dtype
+            ) -> Tuple[Callable[[], object], str]:
+    """A callable that runs one LM prefill of ``batch`` × ``seq_len``
+    tokens (``kind="prefill"``) or one cached decode step of ``batch``
+    tokens, each call advancing the caches of a 16-token prefill
+    (``kind="decode"``), at mamba-130m's widths, seeded random weights;
+    and what it profiles."""
+    from fastvim_tpu_torch.models.lm import create_lm
+
+    dev = torch.device("cuda", 0)
+    model = create_lm(dev, torch.Generator().manual_seed(0), dtype=dtype,
+                      vocab_size=50277, d_model=768, n_layer=24, d_state=16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = lambda L: torch.randint(50277, (batch, L), device=dev,
+                                   generator=gen)
+    what = f"mamba-130m widths {dtype} B={batch} "
+    if kind == "prefill":
+        x = toks(seq_len)
+
+        def fn():
+            with torch.inference_mode():
+                return model(x, prefill=True)
+
+        return fn, what + f"prefill of {seq_len} tokens"
+    with torch.inference_mode():
+        logits, caches = model(toks(16), prefill=True)
+    state = {"caches": caches, "next": logits[:, -1:].argmax(-1)}
+
+    def step():
+        with torch.inference_mode():
+            logits, state["caches"] = model(state["next"],
+                                            caches=state["caches"])
+            state["next"] = logits[:, -1:].argmax(-1)
+
+    return step, what + "decode step (after a 16-token prefill)"
+
+
 def captured_forward(model, image: torch.Tensor) -> Callable[[], object]:
     """The model's forward on a static input, captured as a CUDA graph
     after three eager warm-up calls on a side stream; returns the replay,
@@ -621,6 +662,11 @@ def main() -> None:
                     help="the scan lengths of --scan-times, comma-separated")
     ap.add_argument("--det", default=None, metavar="CONFIG",
                     help="profile a train step of this detection config")
+    ap.add_argument("--lm", default=None, choices=("prefill", "decode"),
+                    help="profile the LM at mamba-130m's widths: a prefill "
+                         "or a cached decode step")
+    ap.add_argument("--seq-len", type=int, default=2048,
+                    help="the prefill's tokens with --lm prefill")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")
@@ -632,6 +678,10 @@ def main() -> None:
         return print_profile(fn, what, args.top)
     if args.batch is None:
         args.batch = 3
+    if args.lm:
+        fn, what = lm_step(args.lm, args.batch, args.seq_len,
+                           getattr(torch, args.dtype))
+        return print_profile(fn, what, args.top)
     if args.scan_times:
         return scan_times(tuple(int(L) for L in args.lengths.split(",")))
     if args.mg_times:

@@ -274,6 +274,135 @@ def test_scan_function_grads_match_cpu(dev):
         _close(a.cpu(), b, 1e-4, summed=i in (2, 5, 6))
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("form", ["sequential", "chunked"])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 511, 512, 2048])
+def test_scan_gate_and_last_state_match_plain(dev, L, form, dtype, reverse):
+    """K1's gate (y · silu(z) before the one rounding, z a column slice of
+    a wider tensor, as the LM's in-projection gives it) and its final
+    state, in both forms, against the plain version: y within the dtype's
+    tolerance, the fp32 state within fp32's (both sides scan the same
+    rounded inputs in fp32). The chunk-entry states are those of a call
+    without the gate and the final state."""
+    g = torch.Generator(device=dev).manual_seed(3 * L + reverse)
+    batch, d, n = 2, 64, 16
+    ins, kw = _scan_args(g, dtype, batch, L, d, n)
+    z = _rand(g, batch, L, 2 * d).to(dtype)[..., d:]
+    kw.update(delta_softplus=True, reverse=reverse)
+    with torch.no_grad():
+        y, states, last = ss._launch_fwd(form, *ins, **kw, save_states=True,
+                                         z=z, return_last_state=True)
+        want_y, want_last = ss.selective_scan_plain(
+            *ins, **kw, z=z.contiguous(), return_last_state=True)
+        _, bare_states = ss._launch_fwd(form, *ins, **kw, save_states=True)
+    assert last.shape == (batch, d, n) and last.dtype == torch.float32
+    _close(y, want_y, TOL[dtype])
+    _close(last, want_last, TOL[torch.float32])
+    assert torch.equal(states, bare_states)
+
+
+def test_scan_gate_and_last_state_through_the_dispatch(dev):
+    """``selective_scan`` with z and ``return_last_state`` on CUDA tensors
+    is one K1 launch, and so is the LM's prefill scan on the card: its
+    result equals the launcher's."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    ins, kw = _scan_args(g, torch.bfloat16, 2, 700, 64, 16)
+    z = _rand(g, 2, 700, 64).to(torch.bfloat16)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        y, last = selective_scan(*ins, **kw, delta_softplus=True, z=z,
+                                 return_last_state=True)
+        assert kernels.launch_counts()["selective_scan_fwd"] == 1
+        wy, wlast = ss._launch_fwd("chunked", *ins, **kw, delta_softplus=True,
+                                   z=z, return_last_state=True)
+    assert torch.equal(y, wy) and torch.equal(last, wlast)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_bwd_chunked_unchanged_by_the_final_state(dev, reverse):
+    """K2's chunked form shares the state pass with K1, and passes it no
+    final-state pointer: from the states of a K1 call that wrote its
+    final state and of one that did not, K2 gives the same bits, and the
+    plain adjoint."""
+    L = 1024 + 37
+    g = torch.Generator(device=dev).manual_seed(L + reverse)
+    ins, kw = _scan_args(g, torch.float32, 2, L, 64, 16)
+    ins = ins + (kw["D"], kw["delta_bias"])
+    gy = _rand(g, 2, L, 64)
+    fwd = dict(D=ins[5], delta_bias=ins[6], delta_softplus=True,
+               reverse=reverse, save_states=True)
+    with torch.no_grad():
+        _, states, _ = ss._launch_fwd("chunked", *ins[:5], **fwd,
+                                      return_last_state=True)
+        _, bare = ss._launch_fwd("chunked", *ins[:5], **fwd)
+        got = ss._launch_bwd("chunked", *ins, gy, states, True, reverse)
+        again = ss._launch_bwd("chunked", *ins, gy, bare, True, reverse)
+        want = ss.selective_scan_bwd_plain(*ins, gy, True, reverse)
+    assert torch.equal(states, bare)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close_all([got[i] for i in _BWD_ORDER], [want[i] for i in _BWD_ORDER],
+               TOL[torch.float32], 4)
+
+
+def test_scan_function_gate_grads_match_cpu(dev):
+    """The gate's gradient through ``SelectiveScanFn`` on the card (K1 with
+    z forward, K1 again without it and K2 backward) against the CPU's."""
+    g = torch.Generator().manual_seed(10)
+    batch, L, d, n = 2, 600, 64, 16
+    base = [torch.randn(batch, L, d, generator=g),
+            torch.randn(batch, L, d, generator=g) * 0.5,
+            -torch.exp(torch.randn(d, n, generator=g) * 0.5),
+            torch.randn(batch, L, n, generator=g),
+            torch.randn(batch, L, n, generator=g), torch.randn(d, generator=g),
+            torch.randn(d, generator=g) * 0.3,
+            torch.randn(batch, L, d, generator=g)]
+    w = torch.randn(batch, L, d, generator=g)
+
+    def grads(device):
+        ins = [t.to(device).requires_grad_() for t in base]
+        y, _ = selective_scan(*ins[:5], D=ins[5], delta_bias=ins[6],
+                              z=ins[7], delta_softplus=True,
+                              return_last_state=True)
+        return torch.autograd.grad((y * w.to(device)).sum(), ins)
+
+    kernels.reset_launch_counts()
+    got, want = grads(dev), grads("cpu")
+    counts = kernels.launch_counts()
+    assert counts["selective_scan_fwd"] == 2
+    assert counts["selective_scan_bwd"] == 1
+    for i, (a, b) in enumerate(zip(got, want)):
+        _close(a.cpu(), b, 1e-4, summed=i in (2, 5, 6))
+
+
+def test_lm_prefill_decode_on_the_card(dev):
+    """A small LM (d_model 64, 2 layers, d_state 16) on the card against
+    the same weights on the CPU: prefill logits and caches (2 K1 launches)
+    and two decode steps (no kernel launch), within 1e-4."""
+    from fastvim_tpu_torch.models.lm import create_lm
+
+    cpu = create_lm("cpu", vocab_size=100, d_model=64, n_layer=2)
+    card = create_lm(dev, vocab_size=100, d_model=64, n_layer=2)
+    toks = torch.randint(0, 100, (2, 70), generator=torch.Generator()
+                         .manual_seed(1))
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got, caches = card(toks.to(dev), prefill=True)
+        assert kernels.launch_counts()["selective_scan_fwd"] == 2
+        want, wcaches = cpu(toks, prefill=True)
+        _close(got.cpu(), want, 1e-4)
+        for step in range(2):
+            for (a, b), (c, e) in zip(caches, wcaches):
+                _close(a.cpu(), c, 1e-4)
+                _close(b.cpu(), e, 1e-4)
+            nxt = toks[:, step:step + 1]
+            kernels.reset_launch_counts()
+            got, caches = card(nxt.to(dev), caches=caches)
+            assert sum(kernels.launch_counts().values()) == 0
+            want, wcaches = cpu(nxt, caches=wcaches)
+            _close(got.cpu(), want, 1e-4)
+
+
 def _pass_a_args(g, dtype, batch, H, W, dm, di, bias, transposed):
     cb = (lambda: _rand(g, di, scale=0.3)) if bias else (lambda: None)
     return (_rand(g, batch, H, W, dm).to(dtype),

@@ -319,7 +319,8 @@ def test_port_imports_no_jax():
               "cli.extract_features", "ops.boxes", "models.detection",
               "data.detection", "cli.train_detection", "native",
               "native._build", "native.plain", "parallel", "parallel.mesh",
-              "parallel.collectives", "parallel.dryrun"):
+              "parallel.collectives", "parallel.dryrun", "models.lm",
+              "ops.state_update", "utils.hf", "evals", "evals.lm_harness"):
         assert f"fastvim_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
