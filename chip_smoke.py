@@ -31,7 +31,9 @@ Phases, each of which raises on failure (exit code non-zero):
    each length; K2 likewise, in its
    sequential (L = 128) and chunked (L = 16,384 and 16,385) forms, all
    seven gradients; K7 at FastVim-T's and FastVim-S's widths, both
-   orientations, beside its pass A, K3's pools-only form; K8, K9 and K10
+   orientations, beside its pass A, K3's pools-only form, and its wide
+   forms at K3-K6's wide shapes (FastVim-B, -L, -H) in both dtypes, each
+   timed beside its bound; K8, K9 and K10
    at FastVim-T's and FastVim-S's widths (K10 in both orientations), each
    with its share of the bound; the lanes scan at L = 128 and 16,384,
    beside K1; and K1 and K2 in fp32 at the MAE slice's shapes (batch,
@@ -57,7 +59,9 @@ Phases, each of which raises on failure (exit code non-zero):
    (fp32's "auto" takes the remat backward at these widths on lines of
    up to 16 tokens, B's and L's here), their loss and every gradient
    through the fused adjoint (2 K5 and 2 K6 a backward, their wide
-   forms);
+   forms); and the same three in the recompute mode
+   (``layer_fused="recompute"``, K7's wide forms in fp32): their logits,
+   2 K3 (pools only) + 2 K7 + 4 K1 a forward;
 4. run FastVim-T, Vim-T and FastVim-B (full depth) forward at 2048 px,
    batch 2, bf16. Logits must be finite, and the kernels' launch
    counters must show 24 pass A + 24 pass B + 48 scans for FastVim-T and
@@ -87,9 +91,10 @@ Phases, each of which raises on failure (exit code non-zero):
    and img/s beside the default's, the recompute, ``fused_kernels=
    "always"`` and ``fused_merge`` forms also as CUDA-graph replays beside
    the default's;
-   ``fastvim_small`` at full depth with
-   ``layer_fused="recompute"`` (24 K3 pools-only, 24 K7, 48 K1; logits
-   within 2e-2 of the largest of its default's), both replayed; one train
+   ``fastvim_small`` and ``fastvim_base`` (K7's wide form) at full depth
+   with ``layer_fused="recompute"`` (24 K3 pools-only, 24 K7, 48 K1;
+   logits within 2e-2 of the largest of its default's), both replayed,
+   FastVim-B's also eager, beside its default's; one train
    step of ``fused_kernels="always"``; and the lanes scan through
    ``selective_scan(variant="lanes")`` at L = 16,384 beside K1;
 7. the classification CLIs, in-process, into a temporary directory:
@@ -201,7 +206,17 @@ Phases, each of which raises on failure (exit code non-zero):
    images for one epoch, ``--resume`` to two under the profiler and
    ``--eval_only`` on 8 images (48 K1 + 48 K2 a step, 48 K1 an eval
    image): img/s, step time, the idle share, the peak memory, the loader
-   alone and the top kernels.
+   alone and the top kernels. Then in bf16 (``dtype=bf16``, the backbone
+   and every head computing in bf16 over fp32 parameters): the B = 1 step
+   card against CPU on the card's replayed branch (maps and losses within
+   ``DET_BF16_TOL`` of the largest entry, gradients within
+   ``DET_BF16_GRAD_TOL`` of each tensor's norm), at the CLI's B = 8 the
+   fp32 step, the bf16 step and the bf16 step through the fused adjoint
+   (``layer_fused="on"``: 24 K3, K4, K5, K6) on one branch, the fused
+   one no farther from the fp32 step than twice the unfused one, each
+   timed with its peak memory; and ``train_detection dtype=bf16`` for one
+   epoch of 2 steps under the profiler (48 K1 + 48 K2 a step): img/s,
+   step time, idle share, peak memory.
 12. the native host pipeline (``fastvim_tpu_torch/native``): nproc and
    whether libjpeg-turbo's header is there; each entry point against its
    plain numpy version (``native/plain.py``; the resize within
@@ -252,7 +267,9 @@ inputs of the timed call), K3 and K4 also once for each wide width
 phase 2 shapes; launches from phase 4's FastVim-B forward and phase 3's
 -L and -H forwards), and so K5 and K6 (``"pass_b_bwd d_model=768"``;
 launches from phase 5's FastVim-B train step and phase 3's -L and -H
-backwards), and K1 once more with the gate and the final state at the LM
+backwards) and K7 (``"pass_b_recompute_fwd d_model=768"``; launches
+from phase 6's FastVim-B recompute forward and phase 3's -L and -H
+recompute forwards), and K1 once more with the gate and the final state at the LM
 prefill's shapes (``"selective_scan_fwd lm"``: B = 4, L = 2048, fp32;
 launches from phase 14's prefill); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -359,8 +376,8 @@ def cuda_ms(fn, iters: int, windows: int = 1) -> float:
 def count_launches() -> int:
     """``chip_smoke.py --count-launches``: print, as JSON, how many device
     kernels (copies included) one call of K3-K10 launches in bf16 and in
-    fp32, from a CUDA graph captured from a small call (K3 and K4 also at
-    FastVim-B's widths), and
+    fp32, from a CUDA graph captured from a small call (K3, K4 and K7 also
+    at FastVim-B's widths), and
     one call of K1 and of K2 in each of their forms and one of the lanes
     scan at L = 128 and 16,384 in bf16. It runs as a process of its own (see
     :func:`launches_per_call`), so that its captures and their memory
@@ -447,6 +464,12 @@ def count_launches() -> int:
             wtok(wdm), rnd(batch, H, W, wdm), wtok(wdi), wtok(wdi), wpool(),
             wpool(), rnd(wdi, wdm).to(dtype), None, rnd(wdi, 4), rnd(wdi),
             rnd(wdi, 4), rnd(wdi), 1.0, False): lf.pass_a_bwd(*a)
+        # K7's wide form there too
+        wide["pass_b_recompute_fwd"] = lambda a=(
+            wx, wpool(), wpool(), rnd(wdi, wdm).to(dtype), None, *wc,
+            rnd(wdi, wdm).to(dtype), None, rnd(wdi), rnd(wdi), rnd(wdi),
+            rnd(wdi), rnd(wdm, wdi).to(dtype), None, 1e-5, True, False): \
+            lf.pass_b_recompute(*a)
         for name, fn in wide.items():
             out.setdefault(f"{name} d_model={wdm}", {})[str(dtype)] = \
                 kernels_a_call(fn)
@@ -491,8 +514,8 @@ def launches_per_call() -> dict:
     be its three phases and the sequential form one kernel; K2's chunked
     form its three phases and three fixed-order sums, the sequential form
     one kernel and the same sums; the lanes scan a memset (its flags) and
-    one kernel; K3 and K4 (also at FastVim-B's widths, ``"pass_a_fwd
-    d_model=768"``), K7, K8, K9 and K10 one kernel in either dtype; K5 and
+    one kernel; K3, K4 and K7 (also at FastVim-B's widths, ``"pass_a_fwd
+    d_model=768"``), K8, K9 and K10 one kernel in either dtype; K5 and
     K6 at FastVim-T's widths 3 kernels in bf16 (the main kernel, the
     weight-gradient product, the fixed-order sums), in fp32 K5 the same
     and K6 one more (dx̂), and at FastVim-B's (``"pass_b_bwd
@@ -506,7 +529,8 @@ def launches_per_call() -> dict:
     counts = json.loads(run.stdout.strip().splitlines()[-1])
     for name in ("pass_a_fwd", "pass_b_fwd", "pass_a_fwd d_model=768",
                  "pass_b_fwd d_model=768", "pass_b_recompute_fwd",
-                 "conv_pool_fwd", "merge_gate_fwd", "merge_ln_gate_fwd"):
+                 "pass_b_recompute_fwd d_model=768", "conv_pool_fwd",
+                 "merge_gate_fwd", "merge_ln_gate_fwd"):
         if set(counts[name].values()) != {1}:
             raise AssertionError(f"{name}: {counts[name]} device kernels a "
                                  "call, not 1")
@@ -928,7 +952,8 @@ def check_config_kernels(dev, card, per_call):
     """Phase 2, the kernels of the other configurations: K7, K8, K9, K10
     and lanes against their plain versions on the card, at FastVim-T's
     2048 px shapes (grid 128 × 128, batch 2, d_model 192, d_inner 384), K7,
-    K8 and K9 also at FastVim-S's widths (d_model 384, d_inner 768)."""
+    K8 and K9 also at FastVim-S's widths (d_model 384, d_inner 768), K7
+    also at FastVim-B's, -L's and -H's (``WIDE_SHAPES``)."""
     import torch
 
     from fastvim_tpu_torch.ops.kernels import fused_block as fb
@@ -1098,6 +1123,63 @@ def check_config_kernels(dev, card, per_call):
         del base_x, x4, got
         torch.cuda.empty_cache()
 
+    # K7's wide forms at FastVim-B's, -L's and -H's widths (the shapes of
+    # K3-K6's wide rows), both orientations and dtypes, each timed beside
+    # its bound (fp32 in fewer calls) with its pass A, K3's pools-only
+    # form; the kernels line takes each width's first shape in bf16 under
+    # "pass_b_recompute_fwd d_model=<dm>"
+    for dm_, di_, shapes in WIDE_SHAPES:
+        key = f"pass_b_recompute_fwd d_model={dm_}"
+        w_in = uni(2 * di_, dm_, bound=dm_ ** -0.5)
+        w_out = uni(dm_, di_, bound=di_ ** -0.5 / 24 ** 0.5)
+        conv_ = [uni(di_, 4, bound=0.5) for _ in range(2)]
+        cbias_ = [uni(di_, bound=0.5) for _ in range(2)]
+        vec = [uni(di_, bound=1.0), uni(di_, bound=1.0),
+               1 + uni(di_, bound=0.1), uni(di_, bound=0.1)]
+        for (H_, W_), batch_ in shapes:
+            base_x = rnd(batch_, H_, W_, dm_)
+            for transposed in (False, True):
+                P = W_ if transposed else H_
+                ys = rnd(batch_, P, di_), rnd(batch_, P, di_)
+                for dtype, tol in cases:
+                    x4 = base_x.to(dtype)
+                    wx, wz = w_in[:di_].to(dtype), w_in[di_:].to(dtype)
+                    args = (x4, ys[0].to(dtype), ys[1].to(dtype), wx, None,
+                            conv_[0], cbias_[0], conv_[1], cbias_[1], wz,
+                            None, *vec, w_out.to(dtype), None, 1e-5, True,
+                            transposed)
+                    tag = (f"d_model={dm_} d_inner={di_} grid={H_}x{W_} "
+                           f"B={batch_} {dtype} transposed={transposed}")
+                    got = lf.pass_b_recompute(*args)
+                    errs[key] = max(errs.get(key, 0.0), compare(
+                        f"pass_b_recompute_fwd {tag}", got,
+                        lf.pass_b_recompute_plain(*args), tol))
+                    bf = dtype == torch.bfloat16
+                    n = per_call["pass_b_recompute_fwd d_model=768"][
+                        str(dtype)]
+                    k_ms, p_ms, b_ms, by, _ = timed(
+                        "pass_b_recompute_fwd", f"{tag} in {n:g} launches",
+                        lambda: lf.pass_b_recompute(*args),
+                        lambda: lf.pass_b_recompute_plain(*args),
+                        nbytes(*tensors(args), got),
+                        3 * 2.0 * batch_ * H_ * W_ * dm_ * di_,
+                        "bf16" if bf else "fp32", card,
+                        iters=10 if bf else 3, plain_iters=10 if bf else 3)
+                    log(f"[time] pass_b_recompute_fwd {tag}: "
+                        f"{b_ms / k_ms:.1%} of the bound ({card})")
+                    if not bf:
+                        continue
+                    times.setdefault(key, (k_ms, p_ms, b_ms, by))
+                    a_args = (x4, wx, None, conv_[0], cbias_[0], conv_[1],
+                              cbias_[1], 1.0, transposed)
+                    a_ms = cuda_ms(lambda: lf.pass_a(*a_args,
+                                                     write_xc=False), 10)
+                    log(f"[time] pass_a_fwd pools-only {tag}: kernel "
+                        f"{a_ms:.4f} ms ({card})")
+                del x4, got, args
+            del base_x
+            torch.cuda.empty_cache()
+
     # lanes: the pooled scan's length and Vim-T's, beside K1 on the same
     # inputs
     d, n = 384, 16
@@ -1204,26 +1286,40 @@ def check_models_224(dev):
                 raise AssertionError(f"{name} {kw}: K3, K7 launches {k3_k7}, "
                                      f"expected (2, 2)")
     # FastVim-B, -L and -H at depth 2 fuse with their default fields: K3's
-    # streamed form and K4's wide one, 2 K3 + 2 K4 + 4 K1 a forward
+    # streamed form and K4's wide one, 2 K3 + 2 K4 + 4 K1 a forward; and
+    # in the recompute mode, K3's pools-only form and K7's wide forms, 2 K3
+    # + 2 K7 + 4 K1 (the widths where a launcher that refuses a registry
+    # width shows)
     wide = {}
     for name, img, dm, x_ in wide_inputs():
-        cpu_model = create_model(name, img_size=img, depth=2, device="cpu",
-                                 generator=torch.Generator().manual_seed(0))
-        gpu_model = copy.deepcopy(cpu_model).to(dev)
-        want = cpu_model(x_)
-        kernels.reset_launch_counts()
-        got = gpu_model(x_.to(dev)).cpu()
-        seen = kernels.launch_counts()
-        compare(f"{name} depth 2 {img}px fp32 logits (fused: K3 streamed, K4 "
-                f"wide), card vs CPU", got, want, MODEL_TOL)
-        expect_launches(f"{name} depth 2 {img}px forward", seen, WIDE_FWD)
-        for k in ("pass_a_fwd", "pass_b_fwd"):
-            wide[f"{k} d_model={dm}"] = seen[k]
+        for kw, expected, what in (
+                ({}, WIDE_FWD, "fused: K3 streamed, K4 wide"),
+                (dict(layer_fused="recompute"), WIDE_RC_FWD,
+                 "recompute: K3 pools-only, K7 wide")):
+            cpu_model = create_model(
+                name, img_size=img, depth=2, device="cpu",
+                generator=torch.Generator().manual_seed(0), **kw)
+            gpu_model = copy.deepcopy(cpu_model).to(dev)
+            want = cpu_model(x_)
+            kernels.reset_launch_counts()
+            got = gpu_model(x_.to(dev)).cpu()
+            seen = kernels.launch_counts()
+            compare(f"{name} depth 2 {img}px fp32 logits ({what}), card vs "
+                    f"CPU", got, want, MODEL_TOL)
+            expect_launches(f"{name} {kw} depth 2 {img}px forward", seen,
+                            expected)
+            for k in expected:
+                if k != "selective_scan_fwd":
+                    wide[f"{k} d_model={dm}"] = seen[k]
+            del cpu_model, gpu_model
     return wide
 
 
-# a forward of a depth-2 FastVim-B/L/H: both layers fused
+# a forward of a depth-2 FastVim-B/L/H: both layers fused, by default and
+# in the recompute mode
 WIDE_FWD = {"pass_a_fwd": 2, "pass_b_fwd": 2, "selective_scan_fwd": 4}
+WIDE_RC_FWD = {"pass_a_fwd": 2, "pass_b_recompute_fwd": 2,
+               "selective_scan_fwd": 4}
 
 
 def wide_inputs(batch: int = 2):
@@ -1493,9 +1589,11 @@ def run_train_path(dev, card):
 
 def run_config_path(dev, card):
     """Phase 6: the four configurations of FastVim-T at 2048 px, batch 2,
-    bf16, full depth and width, built by ``create_model``; one train step
-    of ``fused_kernels="always"``; the lanes scan at Vim-T's length.
-    Returns the launch counts of the forwards, the step and the scan."""
+    bf16, full depth and width, built by ``create_model``; FastVim-S and
+    FastVim-B in the recompute form; one train step of
+    ``fused_kernels="always"``; the lanes scan at Vim-T's length. Returns
+    the launch counts of the forwards, the step and the scan, and those of
+    FastVim-B's recompute forward."""
     import torch
 
     from fastvim_tpu_torch.models import create_model
@@ -1527,12 +1625,12 @@ def run_config_path(dev, card):
             total[k] += v
         return out
 
-    def replays(what, models):
+    def replays(what, models, iters=10):
         """Each model's forward as a CUDA-graph replay, in turns: the
         device's time, without the host's launches."""
         graphs = {k: captured_forward(m, x) for k, m in models.items()}
         for k, replay in [*graphs.items(), *reversed(graphs.items())]:
-            ms = cuda_ms(replay, 10, windows=3)
+            ms = cuda_ms(replay, iters, windows=3)
             log(f"[time] {what} {k} forward, CUDA-graph replay: {ms:.3f} ms, "
                 f"{batch / ms * 1e3:.2f} img/s ({card})")
         graphs.clear()
@@ -1575,30 +1673,47 @@ def run_config_path(dev, card):
             del model
         del default
 
-        # FastVim-S in the recompute form: the widths K7 walks twice
+        # FastVim-S in the recompute form (the widths K7's narrow form
+        # walks twice) and FastVim-B (its wide form), full depth, against
+        # their defaults; FastVim-B's launches are the kernels line's
         kw, expected = CONFIGS["layer_fused=recompute"]
-        build_s = lambda **kw: create_model(
-            "fastvim_small", img_size=img, dtype=torch.bfloat16,
-            generator=torch.Generator().manual_seed(0), **kw)
-        default = build_s()
-        want = default(x).float()
-        scale = want.abs().max().item()
-        model = build_s(**kw)
-        logits = counted(lambda: model(x), expected,
-                         "fastvim_small layer_fused=recompute").float()
-        off = (logits - want).abs().max().item()
-        log(f"[config] fastvim_small layer_fused=recompute {img}px B={batch} "
-            f"bf16: {off:.3e} from the default configuration's (largest "
-            f"logit {scale:.3e}), launches {expected}")
-        if (logits.shape != (batch, 1000) or not torch.isfinite(logits).all()
-                or off > BF16_TOL * scale):
-            raise AssertionError(f"fastvim_small layer_fused=recompute: "
-                                 f"logits {off:.3e} from the default's, over "
-                                 f"{BF16_TOL} of {scale}, or not finite")
-        replays(f"fastvim_small {img}px B={batch} bf16",
-                {"default": default, "layer_fused=recompute": model})
-        del default, model
-        torch.cuda.empty_cache()
+        for name in ("fastvim_small", "fastvim_base"):
+            build_w = lambda **kw: create_model(
+                name, img_size=img, dtype=torch.bfloat16,
+                generator=torch.Generator().manual_seed(0), **kw)
+            default = build_w()
+            want = default(x).float()
+            scale = want.abs().max().item()
+            model = build_w(**kw)
+            before = dict(total)
+            logits = counted(lambda: model(x), expected,
+                             f"{name} layer_fused=recompute").float()
+            if name == "fastvim_base":
+                base_rc = {k: total[k] - before[k] for k in total}
+            off = (logits - want).abs().max().item()
+            log(f"[config] {name} layer_fused=recompute {img}px B={batch} "
+                f"bf16: {off:.3e} from the default configuration's (largest "
+                f"logit {scale:.3e}), launches {expected}")
+            if (logits.shape != (batch, 1000)
+                    or not torch.isfinite(logits).all()
+                    or off > BF16_TOL * scale):
+                raise AssertionError(f"{name} layer_fused=recompute: logits "
+                                     f"{off:.3e} from the default's, over "
+                                     f"{BF16_TOL} of {scale}, or not finite")
+            if name == "fastvim_base":
+                for what, m in (("default", default),
+                                ("layer_fused=recompute", model),
+                                ("layer_fused=recompute", model),
+                                ("default", default)):
+                    ms = cuda_ms(lambda: m(x), 3, windows=2)
+                    log(f"[time] {name} {what} {img}px B={batch} bf16 "
+                        f"forward: {ms:.3f} ms, {batch / ms * 1e3:.2f} img/s "
+                        f"({card})")
+            replays(f"{name} {img}px B={batch} bf16",
+                    {"default": default, "layer_fused=recompute": model},
+                    iters=3 if name == "fastvim_base" else 10)
+            del default, model
+            torch.cuda.empty_cache()
 
     # one train step through K8 and K9 (their backward is autograd through
     # the plain versions; the scans' is K2)
@@ -1646,32 +1761,39 @@ def run_config_path(dev, card):
             cuda_ms(lambda: scan("sublane"), 10)
         log(f"[time] selective_scan bf16 B={batch} L={Ls} d={d}: lanes "
             f"{l_ms:.4f} ms, K1 {k_ms:.4f} ms ({card})")
-    return total
+    return total, base_rc
 
 
 def device_idle_share(prof, span: str = "train_epoch"):
     """(idle share, busy ms, wall ms) of the card over the first host span
     named ``span`` of a torch.profiler run: the share of the span's wall
     time in which no kernel, copy or memset ran (their intervals' union),
-    or None for the share when the profiler saw no device event."""
+    or None for the share when the profiler saw no device event. Read
+    from the run's raw events (``trace_events``)."""
     from torch.autograd import DeviceType
 
-    events = prof.events()
-    host = [e for e in events
-            if e.name == span and e.device_type == DeviceType.CPU]
-    t0, t1 = host[0].time_range.start, host[0].time_range.end
-    ivs = sorted((e.time_range.start, e.time_range.end) for e in events
-                 if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False)
-                 and t0 <= e.time_range.start < t1)
-    busy, end = 0.0, t0
+    events = trace_events(prof)
+    t0, t1 = min((e.start_ns(), e.end_ns()) for e in events
+                 if e.name() == span and e.device_type() == DeviceType.CPU)
+    ivs = sorted((e.start_ns(), e.end_ns()) for e in events
+                 if e.device_type() == DeviceType.CUDA
+                 and not e.is_user_annotation()
+                 and t0 <= e.start_ns() < t1)
+    busy, end = 0, t0
     for a, b in ivs:
         a = max(a, end)
         if b > a:
             busy += b - a
             end = b
     wall = t1 - t0
-    return (1.0 - busy / wall if ivs else None), busy / 1e3, wall / 1e3
+    return (1.0 - busy / wall if ivs else None), busy / 1e6, wall / 1e6
+
+
+def trace_events(prof):
+    """A finished torch.profiler run's raw events, as the profiler keeps
+    them: ``prof.events()`` would first build the tree of every host op,
+    tens of seconds for a CLI's epoch."""
+    return prof.profiler.kineto_results.events()
 
 
 @contextlib.contextmanager
@@ -1693,16 +1815,17 @@ def native_path(on: bool):
 def top_kernels(prof, n: int = 8) -> dict:
     """The device ms of a torch.profiler run's ``n`` costliest kernel
     groups (``utils/profiling.group_rows``: the port's kernels by id, the
-    rest by name)."""
+    rest by name), from its raw events (``trace_events``)."""
+    from torch.autograd import DeviceType
+
     from fastvim_tpu_torch.utils.profiling import group_rows
 
-    rows = []
-    for ev in prof.key_averages():
-        us = (getattr(ev, "self_device_time_total", None)
-              or getattr(ev, "self_cuda_time_total", 0))
-        if (us > 0 and str(ev.device_type).endswith("CUDA")
-                and not getattr(ev, "is_user_annotation", False)):
-            rows.append((ev.key, us / 1e3, ev.count))
+    by_name = {}
+    for e in trace_events(prof):
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            ms, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+    rows = [(k, ms, count) for k, (ms, count) in by_name.items() if ms > 0]
     return {k[:60]: (round(ms, 2), count) for k, (ms, count) in
             list(group_rows(rows).items())[:n]}
 
@@ -3175,17 +3298,12 @@ def check_det_1024(dev, card):
 
     from fastvim_tpu_torch.cli.train_detection import build_model
     from fastvim_tpu_torch.config import load_config
-    from fastvim_tpu_torch.data import create_detection_loader
     from fastvim_tpu_torch.ops import boxes
 
     cfg = load_config(DET_CONFIG, "detection")
     cpu_model, depth = build_model(cfg, torch.device("cpu"))
     gpu_model = copy.deepcopy(cpu_model).to(dev)
-    loader = create_detection_loader(
-        None, "train", 1, cfg["img_size"], training=True,
-        max_gt=cfg.get("max_gt", 32), num_workers=1, synthetic_samples=1,
-        num_classes=cfg.get("num_classes", 80))
-    batch = {k: torch.as_tensor(v) for k, v in next(iter(loader)).items()}
+    batch = det_batch(cfg, 1)
     branch = DetBranch()
     got, got_l, got_g, got_m, props, fwd, bwd = det_step(gpu_model, batch,
                                                          branch)
@@ -3262,6 +3380,276 @@ def check_det_1024(dev, card):
         f"(fixpoint, a host sync a round) {exact_ms:.3f} ms, fast "
         f"{fast_ms:.3f} ms a call; exact equals nms_scan ({card})")
     return total
+
+
+# phase 11 in bf16. A bf16 rounding is 2⁻⁸ (0.4 %) of a value, and two
+# bf16 runs that sum in other orders (the card's kernels and the CPU's
+# plain versions) or round at other places (the fused layer rounds its
+# gated value and its adjoint's operands where the unfused ops do not)
+# part by a few roundings of a map's or a loss's largest entry
+# (DET_BF16_TOL, of the largest entry), and by more in the gradients,
+# which carry those differences back through 24 layers and sum them over
+# thousands of tokens and RoIs with cancellation: the plain versions of
+# the unfused and the fused bf16 step (fastvim_tiny, 64 px, B = 2, on the
+# CPU, the fp32 step's branch replayed) put their worst gradient tensor
+# (an x_proj weight) 10.5 % and 10.3 % of its norm from the fp32 step's.
+# So gradients are held by the norm of their difference
+# (DET_BF16_GRAD_TOL, of the tensor's norm), and the fused adjoint's bf16
+# step against the unfused bf16 step by how far each lies from the fp32
+# step: the fused one at most twice as far as the unfused one, or within
+# the tolerances above. Up to DET_BF16_FLIPS of the heads' ReLU elements
+# may change sign between two runs (replayed: all take one branch; 0.4 %
+# in that CPU run).
+DET_BF16_TOL = 5e-2
+DET_BF16_GRAD_TOL = 2e-1
+DET_BF16_FLIPS = 5e-2
+
+
+def norm_errors(got, want):
+    """{name: ‖got − want‖ / ‖want‖} over the tensors of ``want``."""
+    import torch
+
+    out = {}
+    for k, w in want.items():
+        g = got[k].float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{k}: non-finite values")
+        out[k] = ((g - w.float()).norm() / (w.float().norm() + 1e-12)).item()
+    return out
+
+
+def max_errors(got, want):
+    """{name: max |got − want| / max |want|} over the tensors of
+    ``want``."""
+    return {k: (got[k].float() - w.float()).abs().max().item()
+            / (w.float().abs().max().item() + 1e-12) for k, w in want.items()}
+
+
+def worst(errors):
+    """(the largest error, its tensor's name)."""
+    k = max(errors, key=errors.get)
+    return errors[k], k
+
+
+def det_batch(cfg, n):
+    """The first synthetic LSJ batch of n images of the config's loader."""
+    import torch
+
+    from fastvim_tpu_torch.data import create_detection_loader
+
+    loader = create_detection_loader(
+        None, "train", n, cfg["img_size"], training=True,
+        max_gt=cfg.get("max_gt", 32), num_workers=1, synthetic_samples=n,
+        num_classes=cfg.get("num_classes", 80))
+    return {k: torch.as_tensor(v) for k, v in next(iter(loader)).items()}
+
+
+def check_det_bf16(dev, card):
+    """Phase 11 in bf16: ``vitdet_FastVimT_coco``'s detector built with
+    ``dtype=bf16`` as the CLI builds it (the backbone and every head
+    computing in bf16 over fp32 parameters, the losses in fp32 where the
+    JAX model casts them), 1024 px, B = 1, card against CPU with the
+    card's proposals, samples, head ReLU masks and FPN max-pool argmax
+    replayed (``DetBranch``): the maps, the 11 losses and every gradient
+    within ``DET_BF16_TOL`` / ``DET_BF16_GRAD_TOL`` of each tensor's
+    largest entry (the gradients by the norm of their difference); 48 K1
+    and 48 K2. Then at the CLI's B = 8 the fp32 step, the bf16 step and
+    the bf16 step with the backbone built ``layer_fused="on"`` (24 K3, 24
+    K4, 48 K1; 24 K5, 24 K6, 48 K2: ROADMAP fault 2's fused adjoint), on
+    the fp32 step's replayed branch: the fused bf16 step no farther from
+    the fp32 step than twice the unfused bf16 step (or within the
+    tolerances), each step timed by the host clock (the forward and
+    backward, the gradients copied to the host). Returns the card's
+    launches."""
+    import torch
+
+    from fastvim_tpu_torch.cli.train_detection import build_model
+    from fastvim_tpu_torch.config import load_config
+
+    t_phase = time.perf_counter()
+    cfg = dict(load_config(DET_CONFIG, "detection"), dtype="bf16")
+    cpu_model, _ = build_model(cfg, torch.device("cpu"))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    batch = det_batch(cfg, 1)
+    branch = DetBranch()
+    got, got_l, got_g, got_m, props, fwd, bwd = det_step(gpu_model, batch,
+                                                         branch)
+    expect_launches("bf16 detector 1024px train forward", fwd, DET_FWD)
+    expect_launches("bf16 detector 1024px train backward", bwd, DET_BWD)
+    total = {k: fwd[k] + bwd[k] for k in fwd}
+    t0 = time.perf_counter()
+    branch.replay = True
+    want, want_l, want_g, want_m, *_ = det_step(cpu_model, batch, branch,
+                                                props)
+    cpu_s = time.perf_counter() - t0
+    log(f"[check] bf16 detector 1024px B=1: the CPU's own ReLU keeps "
+        f"another element than the card's in {branch.flips} of "
+        f"{branch.elements}, its own FPN max pool another token in "
+        f"{branch.pool_flips} of {branch.windows} windows, its own samples "
+        f"differ in {branch.sample_diffs} of {len(branch.samples)} draws "
+        f"(CPU step {cpu_s:.1f} s)")
+    if branch.flips > DET_BF16_FLIPS * branch.elements:
+        raise AssertionError(f"bf16 detector: the CPU's ReLU masks differ "
+                             f"from the card's in {branch.flips} of "
+                             f"{branch.elements} elements")
+    dtypes = {k: str(v.dtype) for k, v in got.items()}
+    log(f"[check] bf16 detector 1024px B=1 dtypes: {dtypes}; losses "
+        f"{ {k: str(v.dtype) for k, v in got_l.items()} }")
+    if any(v != "torch.bfloat16" for k, v in dtypes.items()
+           if k != "backbone_map"):
+        raise AssertionError(f"bf16 detector: heads' outputs {dtypes}")
+    compare_grads("bf16 detector 1024px B=1 backbone map, FPN maps, RPN "
+                  "outputs, card vs CPU", got, want, DET_BF16_TOL)
+    compare_grads("bf16 detector 1024px B=1 11 losses and their sum, card "
+                  "vs CPU", got_l, want_l, DET_BF16_TOL)
+    e, k = worst(norm_errors({"map": got_m, **got_g},
+                             {"map": want_m, **want_g}))
+    log(f"[check] bf16 detector 1024px B=1 gradient at the backbone's map "
+        f"and {len(want_g)} parameters' gradients, card vs CPU: worst "
+        f"{e:.3e} of the tensor's norm ({k}) tol={DET_BF16_GRAD_TOL:g} "
+        f"{'ok' if e <= DET_BF16_GRAD_TOL else 'FAIL'}")
+    if e > DET_BF16_GRAD_TOL:
+        raise AssertionError(f"bf16 detector: gradient of {k} off by {e:.3e}"
+                             " of its norm")
+    del cpu_model, want, want_g, got, got_g
+
+    # fault 2's card half: the fused adjoint in the bf16 step at the CLI's
+    # B = 8, against the unfused bf16 step, each against the fp32 step on
+    # its branch
+    n = cfg["batch_size"]
+    batch = det_batch(cfg, n)
+    branch = DetBranch()
+    steps = {}
+
+    def step(what, model, props=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = det_step(model, batch, branch, props)
+        torch.cuda.synchronize()
+        steps[what] = ((time.perf_counter() - t0) * 1e3,
+                       torch.cuda.max_memory_allocated() / 2 ** 30)
+        return out
+
+    def built(**kw):
+        model, _ = build_model(dict(cfg, **kw), torch.device("cpu"))
+        model.load_state_dict(gpu_model.state_dict())
+        return model.to(dev)
+
+    ref = built(dtype="fp32")
+    _, r_l, r_g, _, props, rfwd, rbwd = step("fp32 unfused", ref)
+    del ref
+    branch.replay = True
+    _, u_l, u_g, _, _, ufwd, ubwd = step("bf16 unfused", gpu_model, props)
+    fused = built(layer_fused="on")
+    del gpu_model
+    flips = branch.flips
+    _, f_l, f_g, _, _, ffwd, fbwd = step("bf16 layer_fused=on", fused, props)
+    del fused
+    torch.cuda.empty_cache()
+    for what, (fw, bw, wf, wb) in {
+            "fp32": (rfwd, rbwd, DET_FWD, DET_BWD),
+            "bf16": (ufwd, ubwd, DET_FWD, DET_BWD),
+            "bf16 layer_fused=on": (ffwd, fbwd, DET_FUSED_FWD,
+                                    DET_FUSED_BWD)}.items():
+        expect_launches(f"detector B={n} {what} forward", fw, wf)
+        expect_launches(f"detector B={n} {what} backward", bw, wb)
+        total = {k: total[k] + fw[k] + bw[k] for k in total}
+    log(f"[check] detector B={n}: against the fp32 step's branch, the bf16 "
+        f"step's own ReLU keeps another element in {flips}, the fused bf16 "
+        f"step's in {branch.flips} of {branch.elements}")
+    if max(flips, branch.flips) > DET_BF16_FLIPS * branch.elements:
+        raise AssertionError(f"detector B={n}: the bf16 steps' ReLU masks "
+                             "differ from the fp32 step's")
+    loss_u, loss_f = max_errors(u_l, r_l), max_errors(f_l, r_l)
+    grad_u, grad_f = norm_errors(u_g, r_g), norm_errors(f_g, r_g)
+    for what, (eu, ef), tol in (("losses", (loss_u, loss_f), DET_BF16_TOL),
+                                ("gradients", (grad_u, grad_f),
+                                 DET_BF16_GRAD_TOL)):
+        (wu, ku), (wf, kf) = worst(eu), worst(ef)
+        ok = wf <= max(2 * wu, tol)
+        log(f"[check] bf16 detector 1024px B={n} {what} against the fp32 "
+            f"step (card): unfused worst {wu:.3e} ({ku}), layer_fused=on "
+            f"(24 K5, 24 K6) worst {wf:.3e} ({kf}); the fused one within "
+            f"max(2 x unfused, {tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"bf16 detector layer_fused=on {what}: "
+                                 f"{wf:.3e} from the fp32 step, the unfused "
+                                 f"bf16 step {wu:.3e}")
+    wl, kl = worst(max_errors(f_l, u_l))
+    wg, kg = worst(norm_errors(f_g, u_g))
+    log(f"[check] bf16 detector 1024px B={n} layer_fused=on against the "
+        f"unfused bf16 step: losses worst {wl:.3e} ({kl}), gradients worst "
+        f"{wg:.3e} of the norm ({kg})")
+    log(f"[time] detector 1024px B={n} step (forward, backward, the "
+        f"gradients copied to the host; the first call of each), ms and "
+        f"peak GiB: { {k: (round(t, 1), round(m, 2)) for k, (t, m) in steps.items()} } ({card})")
+    log(f"[time] phase 11 bf16 checks {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def run_det_bf16_cli(dev, card):
+    """Phase 11, the detection CLI in bf16 on the card, in-process:
+    ``train_detection --config_name vitdet_FastVimT_coco dtype=bf16`` (B =
+    8, 1024 px; 16 synthetic images, 2 steps) for one epoch under the
+    profiler: 48 K1 + 48 K2 a step, finite log, img/s, step time, the idle
+    share over the epoch's training, peak memory. Returns the launches."""
+    import csv
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvim_tpu_torch.cli import train_detection
+    from fastvim_tpu_torch.config import load_config
+    from fastvim_tpu_torch.ops import kernels
+
+    batch, n_train = load_config(DET_CONFIG, "detection")["batch_size"], 16
+    steps = n_train // batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state = train_detection.main([
+                "--config_name", DET_CONFIG, "--model_save_dir", out,
+                "--synthetic_samples", str(n_train), "--device", str(dev),
+                "--epochs", "1", "dtype=bf16"])
+            torch.cuda.synchronize()
+        seen = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if state.step != steps:
+            raise AssertionError(f"train_detection dtype=bf16: step "
+                                 f"{state.step}")
+        del state
+        with open(os.path.join(out, "log.csv")) as f:
+            rows = list(csv.DictReader(f))
+    expect_launches("train_detection dtype=bf16 epoch 1", seen,
+                    scaled({**DET_FWD, **DET_BWD}, steps))
+    if len(rows) != 1 or not all(math.isfinite(float(v))
+                                 for k, v in rows[0].items() if k != "epoch"):
+        raise AssertionError(f"train_detection dtype=bf16 log rows {rows}")
+    t1 = time.perf_counter()
+    idle, busy_ms, wall_ms = device_idle_share(prof)
+    log(f"[cli] train_detection dtype=bf16 device ms by kernel over its "
+        f"epoch ({steps} steps): {top_kernels(prof, 12)}; the CLI under the "
+        f"profiler {t1 - t0:.1f} s, reading the trace "
+        f"{time.perf_counter() - t1:.1f} s")
+    del prof
+    torch.cuda.empty_cache()
+    sps = float(rows[0]["steps_per_sec"])
+    share = ("not measured (no device event)" if idle is None
+             else f"{idle:.4f}")
+    log(f"[time] CLI train_detection {DET_CONFIG}.yaml dtype=bf16 B={batch} "
+        f"1024px, 80 classes, one epoch under the profiler: "
+        f"{sps * batch:.2f} img/s ({1e3 / sps:.1f} ms a step); device idle "
+        f"share over its training {share} (busy {busy_ms:.1f} of "
+        f"{wall_ms:.1f} ms); peak memory {peak:.2f} GiB; log {rows[0]} "
+        f"({card})")
+    return seen
 
 
 def run_det_cli_path(dev, card):
@@ -4232,22 +4620,33 @@ def main() -> int:
     log(f"[build] native libraries {built} in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        log(f"[time] {what} done, {time.perf_counter() - t_start:.1f} s "
+            f"after the build")
+
     per_call = launches_per_call()
     log(f"[launches] device kernels per call, weight transposes included: "
         f"{per_call}")
+    stamp("the launch counts")
     with torch.inference_mode():
         errs, times = check_kernels(dev, card, per_call)
+    stamp("K1, K3, K4")
     with torch.no_grad():
         errs_bwd, times_bwd = check_bwd_kernels(dev, card, per_call)
     errs.update(errs_bwd)
     times.update(times_bwd)
+    stamp("K2, K5, K6")
     with torch.inference_mode():
         errs_cfg, times_cfg = check_config_kernels(dev, card, per_call)
     errs.update(errs_cfg)
     times.update(times_cfg)
+    stamp("K7-K10, lanes")
     with torch.no_grad():
         for name, e in check_mae_scans(dev, card).items():
             errs[name] = max(errs[name], e)
+    stamp("phase 2")
     t0 = time.perf_counter()
     with torch.inference_mode():
         wide = check_models_224(dev)
@@ -4255,6 +4654,7 @@ def main() -> int:
     log(f"[time] phase 3 {time.perf_counter() - t0:.1f} s")
     with torch.inference_mode():
         launches, base_2048 = run_main_path(dev, card)
+    stamp("phase 4")
     # the wide widths' launches: FastVim-B's 2048 px forward and train
     # step, FastVim-L's and -H's depth-2 forwards and backwards
     wide.update({f"{k} d_model=768": base_2048[k]
@@ -4267,14 +4667,21 @@ def main() -> int:
                  for dm, counts in (*bwd_wide.items(), (768, base_step))
                  for k, n in counts.items()
                  if k in ("pass_b_bwd", "pass_a_bwd")})
-    for counts in (grads_wide, train, run_config_path(dev, card),
-                   run_cli_path(dev, card), run_serving_path(dev, card)):
+    config_counts, base_rc = run_config_path(dev, card)
+    wide["pass_b_recompute_fwd d_model=768"] = base_rc["pass_b_recompute_fwd"]
+    stamp("phase 6")
+    cli_counts = run_cli_path(dev, card)
+    stamp("phase 7, train_classification")
+    for counts in (grads_wide, train, config_counts, cli_counts,
+                   run_serving_path(dev, card)):
         for name, count in counts.items():
             launches[name] += count
+    stamp("phase 7")
     for name, count in check_mae_224(dev).items():
         launches[name] += count
     for name, count in run_mae_cli_path(dev, card).items():
         launches[name] += count
+    stamp("phase 8")
     with torch.no_grad():
         for name, e in check_mae_scans(dev, card, CHANNEL_SCANS, 21).items():
             errs[name] = max(errs[name], e)
@@ -4282,6 +4689,7 @@ def main() -> int:
                    run_channel_steps(dev, card)):
         for name, count in counts.items():
             launches[name] += count
+    stamp("phase 9")
     t0 = time.perf_counter()
     for counts in (check_seg_512(dev), run_seg_cli_path(dev, card),
                    run_seg_base_cli(dev, card),
@@ -4290,9 +4698,13 @@ def main() -> int:
             launches[name] += count
     log(f"[time] phase 10 (segmentation) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    for counts in (check_det_1024(dev, card), run_det_cli_path(dev, card)):
-        for name, count in counts.items():
+    for what, fn in (("fp32 card against CPU", check_det_1024),
+                     ("fp32 CLI", run_det_cli_path),
+                     ("bf16 checks", check_det_bf16),
+                     ("bf16 CLI", run_det_bf16_cli)):
+        for name, count in fn(dev, card).items():
             launches[name] += count
+        stamp(f"phase 11 {what}")
     log(f"[time] phase 11 (detection) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     import tempfile
@@ -4353,10 +4765,10 @@ def main() -> int:
          "fastvim_tpu/ops/pallas/selective_scan.py:115"),
     ]
     # K3's streamed form and K4's wide one, then K5's and K6's wide forms,
-    # at each wide width
+    # then K7's, at each wide width
     table += [(f"{name} d_model={dm}", main_file, more, tpu)
-              for rows in (table[2:4], table[4:6]) for dm in WIDE_DM
-              for name, main_file, more, tpu in rows]
+              for rows in (table[2:4], table[4:6], table[6:7])
+              for dm in WIDE_DM for name, main_file, more, tpu in rows]
     # K1 with the gate and the final state at the LM prefill's shapes
     # (phase 14: launches of one B = 2 prefill, times at B = 4, L = 2048,
     # fp32, the chunked form)

@@ -49,19 +49,19 @@ def build_model(cfg, device: torch.device):
     """(the config's ``CascadeMaskRCNN``, the backbone's depth): the
     registry's backbone in feature mode (``out_indices``) and the heads,
     initialized from ``torch.Generator().manual_seed(seed)``, in eval
-    mode on ``device``."""
+    mode on ``device``. ``dtype: bf16`` builds the backbone and every head
+    to compute in bf16 over fp32 parameters, as the JAX CLI does."""
     from fastvim_tpu_torch.models import create_model
     from fastvim_tpu_torch.models.detection import CascadeMaskRCNN
 
-    if cfg.get("dtype") == "bf16":
-        raise NotImplementedError("the port's detector runs in fp32")
+    dtype = torch.bfloat16 if cfg.get("dtype") == "bf16" else torch.float32
     gen = torch.Generator().manual_seed(cfg.get("seed", 0))
     out_indices = cfg.get("out_indices")
     backbone = create_model(
         cfg["model"], device=device, generator=gen, img_size=cfg["img_size"],
         patch_size=cfg.get("patch_size", 16), num_classes=0,
         drop_path_rate=cfg.get("drop_path_rate", 0.0),
-        layer_fused=cfg.get("layer_fused", "auto"),
+        layer_fused=cfg.get("layer_fused", "auto"), dtype=dtype,
         out_indices=tuple(out_indices) if out_indices else None)
     depth = cfg.get("depth") or len(backbone.layers)
     det_cfg = cfg.get("det", {})
@@ -71,7 +71,7 @@ def build_model(cfg, device: torch.device):
         rpn_sample=det_cfg.get("rpn_sample", 256),
         nms_pre=det_cfg.get("nms_pre", 1000),
         num_proposals=det_cfg.get("num_proposals", 512),
-        rcnn_sample=det_cfg.get("rcnn_sample", 512))
+        rcnn_sample=det_cfg.get("rcnn_sample", 512), dtype=dtype)
     model.reset_parameters(gen)
     return model.to(device).eval(), depth
 
@@ -135,7 +135,8 @@ def evaluate_box_ap(model, val_loader, num_classes: int,
     preds, gts = [], []
     for batch in val_loader:
         images = torch.as_tensor(batch["image"]).to(device)
-        out = {k: v.cpu().numpy() for k, v in model(images).items()}
+        out = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+               for k, v in model(images).items()}
         for i in range(images.shape[0]):
             preds.append({k: out[k][i] for k in ("boxes", "scores", "labels",
                                                  "valid", "masks")})

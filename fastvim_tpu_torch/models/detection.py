@@ -10,6 +10,15 @@ keep the JAX package's fixed sizes and validity masks. NHWC at the module
 boundaries; the RoI features are NHWC too, so ``fc1`` reads the same
 flatten of (7, 7, C) as the flax ``Dense``.
 
+``dtype`` (bf16 in the JAX CLI's ``dtype: bf16``) is the heads'
+computation dtype, as flax's ``dtype=``: fp32 parameters, the inputs and
+weights of every conv and dense layer cast to it, its outputs in it.
+RoIAlign keeps a map's dtype (fp32 coordinates and hat weights); anchors,
+box deltas, IoUs, the assigner and the sampler stay fp32, and the losses
+take fp32 where the JAX model casts them (the stage CE and SmoothL1, the
+mask BCE; the RPN's SmoothL1 by promotion against its fp32 targets, its
+BCE in the logits' dtype).
+
 PyTorch idiom in place of flax's:
 
 * the ``nn.scan`` over the stages is a loop over ``stages`` (an
@@ -104,11 +113,14 @@ def _reset_flax(module: nn.Module, generator: torch.Generator) -> None:
 
 class RPNHead(nn.Module):
     """A shared 3 × 3 conv, then 1 × 1 objectness and delta convs, over
-    every pyramid level (mmdet RPNHead; 3 anchors a position)."""
+    every pyramid level (mmdet RPNHead; 3 anchors a position), in
+    ``dtype``."""
 
     def __init__(self, in_channels: int = 256, num_anchors: int = 3,
-                 feat_channels: int = 256):
+                 feat_channels: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
         self.rpn_cls = nn.Conv2d(feat_channels, num_anchors, 1)
         self.rpn_reg = nn.Conv2d(feat_channels, num_anchors * 4, 1)
@@ -123,20 +135,23 @@ class RPNHead(nn.Module):
         (B, Σ H·W·A, 4), in the anchors' order."""
         logits, deltas = [], []
         for f in feats:
-            h = torch.relu(conv_nhwc(self.rpn_conv, f))
+            h = torch.relu(conv_nhwc(self.rpn_conv, f, self.dtype))
             B = h.shape[0]
-            logits.append(conv_nhwc(self.rpn_cls, h).reshape(B, -1))
-            deltas.append(conv_nhwc(self.rpn_reg, h).reshape(B, -1, 4))
+            logits.append(conv_nhwc(self.rpn_cls, h, self.dtype).reshape(
+                B, -1))
+            deltas.append(conv_nhwc(self.rpn_reg, h, self.dtype).reshape(
+                B, -1, 4))
         return torch.cat(logits, 1), torch.cat(deltas, 1)
 
 
 class Shared2FCBBoxHead(nn.Module):
     """flatten(7·7·C, NHWC) → fc 1024 → fc 1024 → {cls (K+1), reg 4}
-    (mmdet Shared2FCBBoxHead, class-agnostic regression)."""
+    (mmdet Shared2FCBBoxHead, class-agnostic regression), in ``dtype``."""
 
     def __init__(self, in_features: int, num_classes: int,
-                 fc_out: int = 1024):
+                 fc_out: int = 1024, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(in_features, fc_out)
         self.fc2 = nn.Linear(fc_out, fc_out)
         self.cls = nn.Linear(fc_out, num_classes + 1)
@@ -146,24 +161,31 @@ class Shared2FCBBoxHead(nn.Module):
         for m in (self.fc1, self.fc2, self.cls, self.reg):
             _reset_flax(m, generator)
 
+    def dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """``layer`` on x, both cast to ``dtype``."""
+        return F.linear(x.to(self.dtype), layer.weight.to(self.dtype),
+                        layer.bias.to(self.dtype))
+
     def forward(self, roi_feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = roi_feats.reshape(roi_feats.shape[0], -1)
-        x = torch.relu(self.fc1(x))
-        x = torch.relu(self.fc2(x))
-        return self.cls(x), self.reg(x)
+        x = torch.relu(self.dense(self.fc1, x))
+        x = torch.relu(self.dense(self.fc2, x))
+        return self.dense(self.cls, x), self.dense(self.reg, x)
 
 
 class FCNMaskHead(nn.Module):
     """4 × (3 × 3 conv, ReLU) → 2 × 2 deconv stride 2, ReLU → 1 × 1
     per-class mask logits (mmdet FCNMaskHead: 14² RoIs → 28² masks),
-    NHWC. The deconv's weight holds the flax kernel flipped on both
-    spatial axes (``utils/convert.py``)."""
+    NHWC, in ``dtype``. The deconv's weight holds the flax kernel flipped
+    on both spatial axes (``utils/convert.py``)."""
 
     def __init__(self, in_channels: int, num_classes: int,
-                 channels: int = 256, num_convs: int = 4):
+                 channels: int = 256, num_convs: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_convs = num_convs
+        self.dtype = dtype
         for i in range(num_convs):
             self.add_module(f"conv{i}", nn.Conv2d(
                 in_channels if i == 0 else channels, channels, 3, padding=1))
@@ -179,17 +201,19 @@ class FCNMaskHead(nn.Module):
     def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
         x = roi_feats
         for i in range(self.num_convs):
-            x = torch.relu(conv_nhwc(getattr(self, f"conv{i}"), x))
-        x = torch.relu(conv_nhwc(self.upsample, x))
-        return conv_nhwc(self.logits, x)
+            x = torch.relu(conv_nhwc(getattr(self, f"conv{i}"), x,
+                                     self.dtype))
+        x = torch.relu(conv_nhwc(self.upsample, x, self.dtype))
+        return conv_nhwc(self.logits, x, self.dtype)
 
 
 class CascadeStage(nn.Module):
     """One cascade stage's bbox head (``stages.{s}.head``)."""
 
-    def __init__(self, in_features: int, num_classes: int):
+    def __init__(self, in_features: int, num_classes: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.head = Shared2FCBBoxHead(in_features, num_classes)
+        self.head = Shared2FCBBoxHead(in_features, num_classes, dtype=dtype)
 
 
 class CascadeMaskRCNN(nn.Module):
@@ -201,14 +225,17 @@ class CascadeMaskRCNN(nn.Module):
     generator=...)`` returns the 11 losses and their sum ``"loss"``;
     ``forward(images)`` the prediction dict. Ground truth comes padded:
     boxes (B, G, 4) xyxy, labels (B, G), masks (B, G, H, W) {0, 1},
-    gt_valid (B, G) bool."""
+    gt_valid (B, G) bool. ``dtype``: the heads' computation dtype (the
+    backbone keeps its own)."""
 
     def __init__(self, backbone: nn.Module, num_classes: int = 80,
                  backbone_channel: int = 768, fpn_channels: int = 256,
                  img_size: int = 1024, rpn_sample: int = 256,
                  nms_pre: int = 1000, num_proposals: int = 512,
-                 rcnn_sample: int = 512, mask_size: int = 28):
+                 rcnn_sample: int = 512, mask_size: int = 28,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.backbone = backbone
         self.num_classes = num_classes
         self.img_size = img_size
@@ -217,12 +244,12 @@ class CascadeMaskRCNN(nn.Module):
         self.num_proposals = num_proposals
         self.rcnn_sample = rcnn_sample
         self.mask_size = mask_size
-        self.neck = SimpleFPN(backbone_channel, fpn_channels)
-        self.rpn = RPNHead(fpn_channels)
+        self.neck = SimpleFPN(backbone_channel, fpn_channels, dtype=dtype)
+        self.rpn = RPNHead(fpn_channels, dtype=dtype)
         self.stages = nn.ModuleList(
-            CascadeStage(7 * 7 * fpn_channels, num_classes)
+            CascadeStage(7 * 7 * fpn_channels, num_classes, dtype=dtype)
             for _ in STAGE_IOUS)
-        self.mask_head = FCNMaskHead(fpn_channels, num_classes)
+        self.mask_head = FCNMaskHead(fpn_channels, num_classes, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The heads' flax initializers, from ``generator`` (the backbone

@@ -5,7 +5,10 @@ stride-16 map becomes a pyramid of ``num_outs`` maps (strides 4, 8, 16,
 32, then 64 ...) by transposed-conv upsampling and max-pool downsampling,
 then a 1 × 1 lateral and a 3 × 3 output conv, each with a channel
 LayerNorm. NHWC at the boundaries; the parameter names are the JAX
-module's (``fpn1_deconv1``, ``lateral_norm_0``, ...). The GELU is the tanh
+module's (``fpn1_deconv1``, ``lateral_norm_0``, ...). ``dtype`` is the
+computation's, as flax's ``dtype=``: the parameters stay fp32, the
+convolutions take their input and weights cast to it, and the maps come
+out in it (the norms keep fp32 statistics). The GELU is the tanh
 approximation, ``jax.nn.gelu``'s default. A flax ``ConvTranspose`` does
 not flip its kernel, so a ``ConvTranspose2d`` weight holds the flax
 kernel flipped on both spatial axes (``utils/convert.py``).
@@ -49,13 +52,14 @@ class ChannelLayerNorm(nn.Module):
 class SimpleFPN(nn.Module):
     """(batch, H, W, backbone_channel) → a tuple of ``num_outs`` NHWC maps
     of ``out_channels``, at 4×, 2×, 1×, ½× the input's resolution and then
-    halving."""
+    halving, in ``dtype``."""
 
     def __init__(self, backbone_channel: int, out_channels: int = 256,
-                 num_outs: int = 5):
+                 num_outs: int = 5, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = backbone_channel
         self.num_outs = num_outs
+        self.dtype = dtype
         deconv = lambda cin, cout: nn.ConvTranspose2d(cin, cout, 2, stride=2)
         self.fpn1_deconv1 = deconv(c, c // 2)
         self.fpn1_norm = ChannelLayerNorm(c // 2)
@@ -88,17 +92,18 @@ class SimpleFPN(nn.Module):
                 nn.init.zeros_(m.bias)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        p4 = conv_nhwc(self.fpn1_deconv1, x)
+        conv = lambda name, t: conv_nhwc(getattr(self, name), t, self.dtype)
+        p4 = conv("fpn1_deconv1", x)
         p4 = F.gelu(self.fpn1_norm(p4), approximate="tanh")
-        p4 = conv_nhwc(self.fpn1_deconv2, p4)
-        p8 = conv_nhwc(self.fpn2_deconv, x)
+        p4 = conv("fpn1_deconv2", p4)
+        p8 = conv("fpn2_deconv", x)
         p32 = F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
         outs = []
         for i, feat in enumerate((p4, p8, x, p32)):
-            lat = getattr(self, f"lateral_norm_{i}")(
-                conv_nhwc(getattr(self, f"lateral_{i}"), feat))
+            lat = getattr(self, f"lateral_norm_{i}")(conv(f"lateral_{i}",
+                                                          feat))
             outs.append(getattr(self, f"fpn_norm_{i}")(
-                conv_nhwc(getattr(self, f"fpn_conv_{i}"), lat)))
+                conv(f"fpn_conv_{i}", lat)))
         while len(outs) < self.num_outs:
             outs.append(outs[-1][:, ::2, ::2])  # max pool, window 1, stride 2
         return tuple(outs)

@@ -21,11 +21,11 @@ Dispatch, in this order (``forward``):
    whole layer runs as pass A (K3) → pooled scans (K1) → pass B (K4).
    ``layer_fused="recompute"`` (the JAX package's
    ``FASTVIM_LF_RECOMPUTE=1``) is the same layer with pass A writing the
-   pools only and pass B computing the conv stage again (K7). K3 and K4
-   take every registry width (d_model up to 1280, d_inner up to 2560:
-   FastVim-T/S/B/L/H); K7 takes d_model <= 384 and d_inner <= 768, so
-   ``layer_fused="recompute"`` at FastVim-B/L/H widths runs the unfused
-   path below, which computes the same function.
+   pools only and pass B computing the conv stage again (K7). K3, K4
+   and K7 take every registry width (d_model up to 1280, d_inner up to
+   2560: FastVim-T/S/B/L/H), so both modes fuse at every registry width;
+   a layer outside the predicate runs the unfused path below, which
+   computes the same function.
 2. ``fused_kernels`` "auto" or "always" (the same here), for mean or max
    pooling over the last axis of a 2-D grid: conv + pool (K8) → pooled
    scans → conv again + merge + LN + gate (K9); "merge" runs the conv and

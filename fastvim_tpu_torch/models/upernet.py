@@ -49,9 +49,25 @@ def resize(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
                          align_corners=False).permute(0, 2, 3, 1)
 
 
-def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` applied to (batch, H, W, C) maps."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+def conv_nhwc(conv: nn.Module, x: torch.Tensor,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``conv`` (a ``Conv2d`` or ``ConvTranspose2d``) applied to (batch,
+    H, W, C) maps. With ``dtype`` it computes as flax's ``dtype=`` does:
+    the input, the weight and the bias cast to it, the output in it (the
+    parameters stay as they are)."""
+    x = x.permute(0, 3, 1, 2)
+    if dtype is None:
+        return conv(x).permute(0, 2, 3, 1)
+    w = conv.weight.to(dtype)
+    b = None if conv.bias is None else conv.bias.to(dtype)
+    x = x.to(dtype)
+    if isinstance(conv, nn.ConvTranspose2d):
+        y = F.conv_transpose2d(x, w, b, conv.stride, conv.padding,
+                               conv.output_padding, conv.groups,
+                               conv.dilation)
+    else:
+        y = conv._conv_forward(x, w, b)
+    return y.permute(0, 2, 3, 1)
 
 
 class LayerNorm(nn.Module):

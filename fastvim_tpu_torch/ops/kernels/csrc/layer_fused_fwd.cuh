@@ -33,7 +33,7 @@ cudaError_t pass_b_fwd_bf16(const void* x, const void* xc_f,
                             int W, int dm, int di, bool transposed,
                             bool use_ln, float eps, cudaStream_t stream);
 
-// K7: dm, di % 32 == 0, dm <= 384, di <= 768, H, W >= 4. One launch.
+// K7: dm, di % 32 == 0, dm <= 1280, di <= 2560, H, W >= 4. One launch.
 cudaError_t pass_b_recompute_fwd_bf16(
     const void* x, const void* yf, const void* yb, const void* w_x,
     const void* b_x, const void* w_cf, const void* b_cf, const void* w_ab,

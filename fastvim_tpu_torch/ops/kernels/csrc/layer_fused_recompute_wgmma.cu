@@ -49,6 +49,19 @@
 //   second runs each gate slab's conv slabs again over the own rows only,
 //   a fourth GEMM a token (design "twice": FastVim-S; without LayerNorm too,
 //   for the halo rows).
+// - Past d_model 384 or d_inner 768 (FastVim-B/L/H, up to kRcMaxDm and
+//   kRcMaxDi) the wide form. The x̂ tile alone would take 184 KB at
+//   d_model 1280 and out's accumulators 320 registers a thread, so, as
+//   K4's wide form (layer_fused_fwd_wgmma.cu) does: a block owns 64 tokens
+//   and a group of at most 384 d_model columns of out (a grid of column
+//   groups × token tiles, the groups of a tile side by side so that they
+//   share its x̂ in L2), and x̂ streams through the ring, each stage
+//   carrying the 72 rows of its K block beside its W_x or W_z block, one
+//   K block a stage, as K3's streamed form does. Each group runs the
+//   "twice" design over all of d_inner: the conv and z products run once
+//   for each group (2× at FastVim-B, 3× at -L, 4× at -H), out's once in
+//   all. Its halo rows' xin stays on chip (61 KB at d_inner 2560); the
+//   out rows leave through the ring's memory.
 // - d_model that is not a multiple of 64 is zero-padded in shared memory,
 //   d_inner that is not a multiple of 64 or 128 likewise: copies of the
 //   missing rows and columns are zero-filled, and m of a missing channel
@@ -87,11 +100,23 @@ constexpr int kXLd = kCS + 4;                // fp32 row of the xin tile
 constexpr int kMLd = kGS + 4;                // fp32 row of a gate slab's m
 constexpr int kWholeNU = 3;                  // "whole": d_model <= 192 ...
 constexpr int kWholeDi = 384;                // ... and d_inner <= 384
-constexpr int kMaxDi = 768;
+constexpr int kNarrowNU = 6;                 // x̂ whole on chip: d_model <= 384
+constexpr int kNarrowDi = 768;               // ... and d_inner <= 768
+constexpr int kRcMaxDm = 1280;               // the widest the wide form takes:
+constexpr int kRcMaxDi = 2560;               // FastVim-H's
+constexpr int kWideOU = 6;                   // out columns of a wide block / 64
 constexpr int kHalo = 2 * kPad;              // halo rows a "twice" tile keeps
+// a stage of the wide form: a weight stage and the x̂ block of its K step
+constexpr int kWideStageBytes = kStageBytes + kXBlk;
 
-// stages of the weight ring: as many as the shared memory left takes
-template <bool kWhole> constexpr int kStages = kWhole ? 5 : 6;
+// stages of the weight ring (kNU 0: the wide form), as many as the shared
+// memory left takes, and their bytes
+__host__ __device__ constexpr int rc_stages(int nu, bool whole) {
+  return nu == 0 ? 4 : (whole ? 5 : 6);
+}
+__host__ __device__ constexpr int rc_stage_bytes(int nu) {
+  return nu == 0 ? kWideStageBytes : kStageBytes;
+}
 
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 // d_inner rounded up to whole conv slabs, whose missing channels hold 0
@@ -109,23 +134,26 @@ struct ConvIn {  // a thread's operands of the merge, see conv_load
 };
 
 struct RcSmem {  // byte offsets from the 1024-aligned base
-  size_t x, ring, xin, m, halo, stats, total;
+  size_t x, ring, out, xin, m, halo, stats, total;
 };
 // "whole": m of the whole tile stays; else ("twice") a gate slab's m and
-// the halo rows' xin of all of d_inner
-template <bool kWhole>
-__host__ __device__ inline RcSmem rc_smem(int nu, int di) {
+// the halo rows' xin of all of d_inner. nu 0: the wide form ("twice"),
+// whose x̂ blocks come through the ring
+__host__ __device__ inline RcSmem rc_smem(int nu, bool whole, int di) {
   RcSmem L;
-  L.x = 0;  // x̂, then the out rows: nu blocks of 72 rows
+  L.x = 0;  // x̂: nu blocks of 72 rows
   L.ring = static_cast<size_t>(nu) * kXBlk;
+  // the out rows at the end, in 72-row blocks: x̂'s, or the ring's memory
+  L.out = nu ? L.x : L.ring;
   // the xin tile, and in its place once the conv has read it the gated
   // slab (2 swizzled blocks, 16 KB)
-  L.xin = L.ring + kStages<kWhole> * kStageBytes;
+  L.xin = L.ring + static_cast<size_t>(rc_stages(nu, whole)) *
+                       rc_stage_bytes(nu);
   L.m = L.xin + static_cast<size_t>(kExt) * kXLd * sizeof(float);
   L.halo = L.m + static_cast<size_t>(kTM) *
-                     (kWhole ? round_cs(di) + 4 : kMLd) * sizeof(float);
-  L.stats = L.halo + (kWhole ? 0 : static_cast<size_t>(kHalo) *
-                                       round_cs(di) * sizeof(float));
+                     (whole ? round_cs(di) + 4 : kMLd) * sizeof(float);
+  L.stats = L.halo + (whole ? 0 : static_cast<size_t>(kHalo) *
+                                      round_cs(di) * sizeof(float));
   // mu, rstd [64] fp32; pooled row of each own token [64] and token of
   // each x̂ row [72] int
   L.total = L.stats + (3 * kTM + kRows) * sizeof(float) + 1024;
@@ -141,7 +169,9 @@ __device__ __forceinline__ void ldg_f4(const float* p, float* f) {
   f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
 }
 
-template <int kNU, bool kWhole>  // kNU = ceil(d_model / 64)
+// kNU = ceil(d_model / 64) <= kNarrowNU, x̂ whole on chip; kNU = 0, the
+// wide form, over the column group blockIdx.x % ngroups
+template <int kNU, bool kWhole>
 __global__ void __launch_bounds__(kThreads, 1)
 pass_b_rc_wgmma_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ yf,
@@ -154,9 +184,14 @@ pass_b_rc_wgmma_kernel(
     const float* __restrict__ ln_b, const bf16* __restrict__ w_out,
     const float* __restrict__ b_out, bf16* __restrict__ out, int H, int W,
     int dm, int di, bool transposed, bool use_ln, float eps) {
+  constexpr bool kWide = kNU == 0;
+  static_assert(!(kWide && kWhole), "the wide form walks d_inner twice");
+  constexpr int kOU = kWide ? kWideOU : kNU;  // 64-column units of out
+  constexpr int kStages = rc_stages(kNU, kWhole);
+  constexpr int kKB = kWide ? 1 : 2;  // K blocks of W_x a stage
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
-  const RcSmem L = rc_smem<kWhole>(kNU, di);
+  const RcSmem L = rc_smem(kNU, kWhole, di);
   const int ldm = kWhole ? round_cs(di) + 4 : kMLd;
   const int ldh = round_cs(di);  // row of the halo rows' xin
   const uint32_t sx = smem_u32(sm + L.x), sg = smem_u32(sm + L.xin);
@@ -170,16 +205,22 @@ pass_b_rc_wgmma_kernel(
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wg = warp / 4, w4 = warp % 4, q = lane % 4, rq = lane / 4;
+  const int nu = kWide ? (dm + 63) / 64 : kNU;  // K blocks of d_model
+  const int ngroups = kWide ? (nu + kOU - 1) / kOU : 1;
+  const int c0 = kWide ? static_cast<int>(blockIdx.x) % ngroups * 64 * kOU
+                       : 0;
+  const int dmo = kWide ? imin(64 * kOU, dm - c0) : dm;  // its out columns
   const long seq = static_cast<long>(H) * W;
-  const long q0 = static_cast<long>(blockIdx.x) * kTM;  // first own token
+  const long q0 =  // first own token
+      static_cast<long>(blockIdx.x) / ngroups * kTM;
   const int b = blockIdx.y;
   const size_t img = static_cast<size_t>(b) * seq;
   const int ln = transposed ? H : W, P = transposed ? W : H;
   const int ncs = (di + kCS - 1) / kCS, ngs = (di + kGS - 1) / kGS;
-  constexpr int kXS = (kNU + 1) / 2;  // stages of W_x a conv slab
-  const int s1 = ncs * kXS;           // stages of the first walk
-  constexpr int kPerGs = kWhole ? 2 * kNU : 2 * kXS + 2 * kNU;
-  const int total = s1 + (kWhole ? 2 * ngs * kNU : (ncs * kXS + 2 * ngs * kNU));
+  const int xs = kWide ? nu : (kNU + 1) / 2;  // stages of W_x a conv slab
+  const int s1 = ncs * xs;                    // stages of the first walk
+  const int per_gs = (kWhole ? 0 : 2 * xs) + nu + kOU;
+  const int total = s1 + (kWhole ? 0 : ncs * xs) + ngs * (nu + kOU);
 
   // memory index of the token at conv position p of the image, or -1
   // outside the sequence
@@ -193,35 +234,50 @@ pass_b_rc_wgmma_kernel(
     return q0 + (r < kTM ? r : (r < kTM + kPad ? r - kTM - kPad : r - kPad));
   };
 
-  // stage s. First walk: per conv slab kXS stages of W_x's 64 rows, two
-  // K blocks each (32 rows a warpgroup). Second walk, per gate slab:
-  // ("twice") the kXS stages of each of its conv slabs, then kNU K blocks
-  // of W_z's 128 rows (64 a warpgroup), then kNU stages of W_out
-  // (fv::cp_out_stage). Rows and columns past the widths zero-filled.
+  // the token of each x̂ row in the image (-1 outside the sequence and
+  // for rows 70-71) and the pooled row (b·P + line) of each own token
+  if (tid < kRows) {
+    s_tok[tid] = tid < kExt ? static_cast<int>(token(row_pos(tid))) : -1;
+  } else if (tid >= 128 && tid < 128 + kTM) {
+    const long p = q0 + tid - 128 < seq ? q0 + tid - 128 : seq - 1;
+    s_prow[tid - 128] = static_cast<int>(b * P + p / ln);
+  }
+  __syncthreads();
+
+  // stage s. First walk: per conv slab xs stages of W_x's 64 rows, kKB K
+  // blocks each (32 rows a warpgroup). Second walk, per gate slab:
+  // ("twice") the xs stages of each of its conv slabs, then nu K blocks
+  // of W_z's 128 rows (64 a warpgroup), then kOU stages of W_out's columns
+  // c0.. (fv::cp_out_stage). The wide form's W_x and W_z stages also carry
+  // the x̂ rows of their K block, as the x̂ tile below holds them. Rows and
+  // columns past the widths zero-filled.
   auto fetch = [&](int s, uint32_t dst) {
     if (s >= total) return;
-    int n0, kb, kind;  // kind 0: W_x, K blocks 2kb, 2kb + 1; 1: W_z; 2: W_out
+    int n0, kb, kind;  // kind 0: W_x, K blocks kKB·kb..; 1: W_z; 2: W_out
     if (s < s1) {
-      n0 = s / kXS * kCS;
-      kb = s % kXS;
+      n0 = s / xs * kCS;
+      kb = s % xs;
       kind = 0;
     } else {
-      const int r = s - s1, g = r / kPerGs, k = r % kPerGs;
+      const int r = s - s1, g = r / per_gs, k = r % per_gs;
       const int nc = kWhole ? 0 : imin(2, ncs - 2 * g);  // its conv slabs
       n0 = g * kGS;
-      if (k < nc * kXS) {
-        n0 += k / kXS * kCS;
-        kb = k % kXS;
+      if (k < nc * xs) {
+        n0 += k / xs * kCS;
+        kb = k % xs;
         kind = 0;
+      } else if (k < nc * xs + nu) {
+        kb = k - nc * xs;
+        kind = 1;
       } else {
-        kb = (k - nc * kXS) % kNU;
-        kind = 1 + (k - nc * kXS) / kNU;
+        kb = k - nc * xs - nu;
+        kind = 2;
       }
     }
     if (kind == 0) {
-      for (int i = tid; i < kTM * 16; i += kThreads) {
-        const int r = i >> 4, h = (i >> 3) & 1, ch = i & 7;
-        const int col = 64 * (2 * kb + h) + 8 * ch;
+      for (int i = tid; i < kTM * 8 * kKB; i += kThreads) {
+        const int r = i / (8 * kKB), h = (i >> 3) % kKB, ch = i & 7;
+        const int col = 64 * (kKB * kb + h) + 8 * ch;
         const bool ok = n0 + r < di && col < dm;
         cp_async16(dst + h * kBlkBytes + swz(r, 8 * ch),
                    w_x + (ok ? static_cast<size_t>(n0 + r) * dm + col : 0),
@@ -236,33 +292,37 @@ pass_b_rc_wgmma_kernel(
                    ok);
       }
     } else {
-      fv::cp_out_stage(dst, w_out, n0, kb, kNU, dm, di, tid);
+      fv::cp_out_stage(dst, w_out + static_cast<size_t>(c0) * di, n0, kb,
+                       kOU, dmo, di, tid);
+    }
+    if (kWide && kind != 2) {  // x̂ rows of K block kb: all 72 for W_x
+      const int rows = kind == 0 ? kRows : kTM;
+      for (int i = tid; i < rows * 8; i += kThreads) {
+        const int r = i >> 3, ch = i & 7, col = 64 * kb + 8 * ch;
+        const int t = s_tok[r];
+        const bool ok = t >= 0 && col < dm;
+        cp_async16(dst + kStageBytes + swz(r, 8 * ch),
+                   x + (ok ? (img + t) * dm + col : 0), ok);
+      }
     }
   };
-  fv::Ring<kStages<kWhole>, kStageBytes, decltype(fetch)> ring(
+  fv::Ring<kStages, rc_stage_bytes(kNU), decltype(fetch)> ring(
       smem_u32(sm + L.ring), fetch);
   ring.start();
 
-  // the token of each x̂ row in the image (-1 outside the sequence and
-  // for rows 70-71) and the pooled row (b·P + line) of each own token
-  if (tid < kRows) {
-    s_tok[tid] = tid < kExt ? static_cast<int>(token(row_pos(tid))) : -1;
-  } else if (tid >= 128 && tid < 128 + kTM) {
-    const long p = q0 + tid - 128 < seq ? q0 + tid - 128 : seq - 1;
-    s_prow[tid - 128] = static_cast<int>(b * P + p / ln);
-  }
-  __syncthreads();
   // x̂ of the 72 rows; rows without a token and columns past d_model
   // zero-filled
-  for (int i = tid; i < kRows * 8 * kNU; i += kThreads) {
-    const int r = i / (8 * kNU), c = i % (8 * kNU);
-    const int t = s_tok[r];
-    const bool ok = t >= 0 && 8 * c < dm;
-    cp_async16(sx + (c / 8) * kXBlk + swz(r, (c % 8) * 8),
-               x + (ok ? (img + t) * dm + 8 * c : 0), ok);
+  if constexpr (!kWide) {
+    for (int i = tid; i < kRows * 8 * kNU; i += kThreads) {
+      const int r = i / (8 * kNU), c = i % (8 * kNU);
+      const int t = s_tok[r];
+      const bool ok = t >= 0 && 8 * c < dm;
+      cp_async16(sx + (c / 8) * kXBlk + swz(r, (c % 8) * 8),
+                 x + (ok ? (img + t) * dm + 8 * c : 0), ok);
+    }
+    fv::cp_async_commit();
+    fv::cp_async_wait<0>();  // the first acquire's barrier publishes it
   }
-  fv::cp_async_commit();
-  fv::cp_async_wait<0>();  // the first acquire's barrier publishes it
 
   const int r0 = 16 * w4 + rq;  // this thread's rows of an M tile
   const int cg = tid % 16, i0 = 4 * (tid / 16);  // conv: 4 channels, rows
@@ -283,16 +343,18 @@ pass_b_rc_wgmma_kernel(
     }
     float acc[kT][16];
 #pragma unroll
-    for (int k2 = 0; k2 < kXS; ++k2) {
-      const uint32_t st = ring.acquire() + wg * 32 * kRowBytes;
+    for (int k2 = 0; k2 < xs; ++k2) {
+      const uint32_t sw = ring.acquire();
+      const uint32_t st = sw + wg * 32 * kRowBytes;
       fv::wgmma_fence();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int kb = 2 * k2 + h;
-        if (kb < kNU) {  // known at compile time
+      for (int h = 0; h < kKB; ++h) {
+        const int kb = kKB * k2 + h;
+        if (kWide || kb < kNU) {  // known at compile time
 #pragma unroll
           for (int t = 0; t < kT; ++t) {
-            const uint32_t a0 = sx + kb * kXBlk + t * 8 * kRowBytes;
+            const uint32_t a0 = (kWide ? sw + kStageBytes : sx + kb * kXBlk) +
+                                t * 8 * kRowBytes;
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk)
               fv::wgmma_n32<0, 0>(acc[t], gmma_desc(a0 + 32 * kk),
@@ -436,9 +498,9 @@ pass_b_rc_wgmma_kernel(
     }
   }
 
-  float oacc[16 * kNU];
+  float oacc[16 * kOU];
 #pragma unroll
-  for (int i = 0; i < 16 * kNU; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < 16 * kOU; ++i) oacc[i] = 0.f;
   unsigned char* s_g = sm + L.xin + wg * kBlkBytes;
   for (int n0 = 0; n0 < di; n0 += kGS) {
     if (!kWhole) {  // m of the gate slab, its conv slabs again
@@ -461,12 +523,13 @@ pass_b_rc_wgmma_kernel(
     // z = x̂·W_z[slab]ᵀ, 64 channels a warpgroup (the acquires' barriers
     // also publish s_m)
     float z[32];
-    for (int kb = 0; kb < kNU; ++kb) {
-      const uint32_t st = ring.acquire() + wg * kBlkBytes;
+    for (int kb = 0; kb < nu; ++kb) {
+      const uint32_t sw = ring.acquire(), st = sw + wg * kBlkBytes;
+      const uint32_t sa = kWide ? sw + kStageBytes : sx + kb * kXBlk;
       fv::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        fv::wgmma_n64<0, 0>(z, gmma_desc(sx + kb * kXBlk + 32 * kk),
+        fv::wgmma_n64<0, 0>(z, gmma_desc(sa + 32 * kk),
                             gmma_desc(st + 32 * kk), (kb | kk) != 0);
       fv::wgmma_commit();
       ring.refill();
@@ -507,35 +570,37 @@ pass_b_rc_wgmma_kernel(
             __floats2bfloat162_rn(gv[0], gv[1]);
       }
     }
-    // out += g·W_out[:, slab]ᵀ (the first acquire publishes the slab; the
-    // next xin tile overwrites it only after the last one's barrier)
-    fv::out_gemm<kNU>(oacc, sg, ring, wg);
+    // out += g·W_out[c0.., slab]ᵀ (the first acquire publishes the slab;
+    // the next xin tile overwrites it only after the last one's barrier)
+    fv::out_gemm<kOU>(oacc, sg, ring, wg);
   }
 
   // out + b_out in bf16, staged in x̂'s blocks (every product that read
-  // them was waited for before the last slab's barriers), then whole rows
-  // in 16-byte vectors, each to its token's place in memory
+  // them was waited for before the last slab's barriers) or, in the wide
+  // form, in the ring's (once both warpgroups' last products are done),
+  // then whole rows in 16-byte vectors, each to its token's place
+  if constexpr (kWide) __syncthreads();
 #pragma unroll
-  for (int u = 0; u < kNU; ++u)
+  for (int u = 0; u < kOU; ++u)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int col = wg * 32 * kNU + 32 * u + 8 * j + 2 * q;
-      const float2 bo = b_out && col < dm ? ld_f2(b_out + col)
-                                          : make_float2(0.f, 0.f);
+      const int col = wg * 32 * kOU + 32 * u + 8 * j + 2 * q;
+      const float2 bo = b_out && col < dmo ? ld_f2(b_out + c0 + col)
+                                           : make_float2(0.f, 0.f);
 #pragma unroll
       for (int e = 0; e < 2; ++e)
-        *reinterpret_cast<bf162*>(sm + L.x + (col / 64) * kXBlk +
+        *reinterpret_cast<bf162*>(sm + L.out + (col / 64) * kXBlk +
                                   swz(r0 + 8 * e, col % 64)) =
             __floats2bfloat162_rn(oacc[16 * u + 4 * j + 2 * e] + bo.x,
                                   oacc[16 * u + 4 * j + 2 * e + 1] + bo.y);
     }
   __syncthreads();
   const int nval = static_cast<int>(seq - q0 < kTM ? seq - q0 : kTM);
-  const int cpr = dm / 8;  // 16-byte chunks per row
+  const int cpr = dmo / 8;  // 16-byte chunks per row
   for (int i = tid; i < nval * cpr; i += kThreads) {
     const int r = i / cpr, ch = i % cpr;
-    *reinterpret_cast<uint4*>(out + (img + s_tok[r]) * dm + 8 * ch) =
-        *reinterpret_cast<const uint4*>(sm + L.x + (ch / 8) * kXBlk +
+    *reinterpret_cast<uint4*>(out + (img + s_tok[r]) * dm + c0 + 8 * ch) =
+        *reinterpret_cast<const uint4*>(sm + L.out + (ch / 8) * kXBlk +
                                         swz(r, (ch % 8) * 8));
   }
 }
@@ -549,7 +614,7 @@ cudaError_t launch(dim3 grid, cudaStream_t stream, const void* x,
                    const void* ln_w, const void* ln_b, const void* w_out,
                    const void* b_out, void* out, int H, int W, int dm, int di,
                    bool transposed, bool use_ln, float eps) {
-  const size_t smem = rc_smem<kWhole>(kNU, di).total;
+  const size_t smem = rc_smem(kNU, kWhole, di).total;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = fv::allow_max_smem<pass_b_rc_wgmma_kernel<kNU, kWhole>>();
   if (err != cudaSuccess) return err;
@@ -566,8 +631,8 @@ cudaError_t launch(dim3 grid, cudaStream_t stream, const void* x,
 // "whole" where the tile's m fits beside the rest, else "twice"
 template <int kNU, typename... Args>
 cudaError_t launch_either(int di, Args... args) {
-  if constexpr (kNU <= kWholeNU) {
-    if (di <= kWholeDi && rc_smem<true>(kNU, di).total <= kMaxSmem)
+  if constexpr (kNU >= 1 && kNU <= kWholeNU) {
+    if (di <= kWholeDi && rc_smem(kNU, true, di).total <= kMaxSmem)
       return launch<kNU, true>(args...);
   }
   return launch<kNU, false>(args...);
@@ -584,15 +649,23 @@ cudaError_t pass_b_recompute_fwd_bf16(
     const void* d_b, const void* ln_w, const void* ln_b, const void* w_out,
     const void* b_out, void* out, int batch, int H, int W, int dm, int di,
     bool transposed, bool use_ln, float eps, cudaStream_t stream) {
-  const int nu = (dm + 63) / 64;
+  // the narrow form up to d_model 384 and d_inner 768, else the wide one
+  // (nu 0), in groups of kWideOU column units
+  const int nu = (dm + 63) / 64 <= kNarrowNU && di <= kNarrowDi
+                     ? (dm + 63) / 64 : 0;
+  const long groups = nu ? 1 : ((dm + 63) / 64 + kWideOU - 1) / kWideOU;
   const long seq = static_cast<long>(H) * W;
-  if (di > kMaxDi || seq > 0x7fffffffL - kTM) return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>((seq + kTM - 1) / kTM), batch);
+  const long blocks = (seq + kTM - 1) / kTM * groups;
+  if (dm > kRcMaxDm || di > kRcMaxDi || seq > 0x7fffffffL - kTM ||
+      blocks > 0x7fffffffL)
+    return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(blocks), batch);
 #define FV_RC(n)                                                             \
   launch_either<n>(di, grid, stream, x, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, \
                    b_ab, w_z, b_z, d_f, d_b, ln_w, ln_b, w_out, b_out, out,  \
                    H, W, dm, di, transposed, use_ln, eps)
   switch (nu) {
+    case 0: return FV_RC(0);
     case 1: return FV_RC(1);
     case 2: return FV_RC(2);
     case 3: return FV_RC(3);

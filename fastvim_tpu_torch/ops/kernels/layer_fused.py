@@ -18,7 +18,8 @@ Counterpart of ``fastvim_tpu/ops/pallas/layer_fused.py``:
            autograd, scans by K2) ─► pass A backward (K6)
   recompute: pass A writes pf, pb only; pass B (K7) computes the conv
            stage again from x̂ before its tail, so xc_f and xc_b never
-           reach device memory; its backward is the rematerializing one
+           reach device memory; its backward is the rematerializing one.
+           K3-K7 take every registry width, FastVim-T to -H
 
 Weights are in the torch reference layout (``in_proj.weight`` is
 ``(2·d_inner, d_model)``, conv weights ``(d_inner, 4)``, ``out_proj.weight``
@@ -51,8 +52,8 @@ BWD_NARROW_DM = 384     # past these K5 / K6 take their wide forms
 BWD_NARROW_DI = 768     # (fvb::kNarrowDm, kNarrowDi; fp32 K5 past 384)
 BWD_SHORT_LINE = 16     # fp32 K5's wide form takes 16-token tiles up to it
 A_BWD_WINDOW = 58       # tokens a K6 block of the bf16 path owns (kAWin)
-RECOMPUTE_MAX_DI = 768  # ... and K7, which walks d_inner (kRcMaxDi)
-RECOMPUTE_MAX_DM = 384  # K7 keeps a tile's x̂ and out on chip (kRcMaxDm)
+RECOMPUTE_MAX_DM = 1280  # widest d_model K7 takes (kRcMaxDm in both of
+RECOMPUTE_MAX_DI = 2560  # its files), and d_inner (kRcMaxDi): FastVim-H's
 RC_CONV_SLAB = 64       # d_inner channels of a K7 conv slab in bf16 (kCS)
 
 
@@ -66,9 +67,8 @@ def pass_a_widths_ok(d_model: int, d_inner: int) -> bool:
 
 def pass_b_widths_ok(d_model: int, d_inner: int,
                      recompute: bool = False) -> bool:
-    """The widths K4's launcher takes: whole 32-column tiles, d_model <=
-    1280 and d_inner <= 2560; with ``recompute`` K7's, d_model <= 384 and
-    d_inner <= 768."""
+    """The widths K4's launcher takes (with ``recompute`` K7's): whole
+    32-column tiles, d_model <= 1280 and d_inner <= 2560."""
     if d_model <= 0 or d_model % 32 or d_inner <= 0 or d_inner % 32:
         return False
     if recompute:
@@ -369,8 +369,9 @@ def pass_b_recompute(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z, b_z,
                      use_ln: bool, transposed: bool):
     """Pass B in its recompute form (K7); same contract as
     :func:`pass_b_recompute_plain`. On CUDA the widths must pass
-    :func:`pass_b_widths_ok` with ``recompute`` (d_model <= 384, d_inner
-    <= 768, multiples of 32) and H, W >= 4; a call is one launch."""
+    :func:`pass_b_widths_ok` with ``recompute`` (d_model <= 1280, d_inner
+    <= 2560, multiples of 32) and H, W >= 4; a call is one launch (past
+    d_model 384 or d_inner 768 the kernels' wide forms)."""
     if x4.device.type == "cpu":
         return pass_b_recompute_plain(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab,
                                       b_ab, w_z, b_z, d_f, d_b, ln_w, ln_b,

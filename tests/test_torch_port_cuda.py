@@ -1165,6 +1165,14 @@ def _recompute_args(g, dtype, batch, H, W, dm, di, bias, use_ln,
     ((6, 10), False, 2, 96, 192, True, True),   # d_model zero-padded to 128
     ((10, 6), True, 2, 160, 320, False, True),  # ... to 192; d_inner 5 x 64
     ((6, 10), True, 2, 128, 160, True, True),   # d_inner 160: a half slab
+    # the wide forms: FastVim-B, -L and -H widths, column groups of 384
+    ((14, 14), False, 2, 768, 1536, True, True),
+    ((14, 14), True, 2, 768, 1536, False, True),
+    ((14, 14), False, 1, 1024, 2048, False, True),
+    ((8, 8), True, 1, 1280, 2560, True, True),
+    ((10, 13), True, 2, 384, 1536, False, False),  # one group, no LayerNorm
+    ((6, 10), False, 2, 800, 1600, True, True),  # 13 column units: 6, 6, 1
+    ((8, 8), True, 1, 768, 1568, False, True),   # a half slab of d_inner
 ])
 def test_pass_b_recompute_matches_plain(dev, dtype, grid, transposed, batch,
                                         dm, di, bias, use_ln):
@@ -1184,11 +1192,12 @@ def test_pass_b_recompute_matches_plain(dev, dtype, grid, transposed, batch,
         assert torch.equal(pf, want[2]) and torch.equal(pb, want[3])
 
 
-@pytest.mark.parametrize("dm,di", [(192, 384), (384, 768)])
+@pytest.mark.parametrize("dm,di", [(192, 384), (384, 768), (768, 1536)])
 def test_pass_b_recompute_repeats_bitwise(dev, dm, di):
-    """K7 in bf16, in each of its two designs (the tile's m kept at
-    FastVim-T's widths, d_inner walked twice at FastVim-S's), gives the
-    same bits from call to call: one launch, no atomics."""
+    """K7 in bf16, in each of its three designs (the tile's m kept at
+    FastVim-T's widths, d_inner walked twice at FastVim-S's, the wide form
+    at FastVim-B's), gives the same bits from call to call: one launch, no
+    atomics."""
     g = torch.Generator(device=dev).manual_seed(dm)
     args = _recompute_args(g, torch.bfloat16, 2, 16, 20, dm, di, True, True,
                            True)
@@ -1383,13 +1392,13 @@ def test_new_wrappers_refuse(dev):
     with pytest.raises(ValueError, match="pooled over one axis"):
         mg.merge_ln_gate(xc, xc, xc, a[2], a[3], a[8], a[9], None, None,
                          (4, 6), (0, 1), 1e-5, False)
-    x4, y = _rand(g, 1, 8, 8, 64), _rand(g, 1, 8, 1536)
-    v = _rand(g, 1536)
-    with pytest.raises(ValueError, match="d_inner <= 768"):
-        lf.pass_b_recompute(x4, y, y, _rand(g, 1536, 64), None,
-                            _rand(g, 1536, 4), None, _rand(g, 1536, 4), None,
-                            _rand(g, 1536, 64), None, v, v, v, v,
-                            _rand(g, 64, 1536), None, 1e-5, True, False)
+    x4, y = _rand(g, 1, 8, 8, 64), _rand(g, 1, 8, 2592)
+    v = _rand(g, 2592)
+    with pytest.raises(ValueError, match="d_inner <= 2560"):
+        lf.pass_b_recompute(x4, y, y, _rand(g, 2592, 64), None,
+                            _rand(g, 2592, 4), None, _rand(g, 2592, 4), None,
+                            _rand(g, 2592, 64), None, v, v, v, v,
+                            _rand(g, 64, 2592), None, 1e-5, True, False)
     u = _rand(g, 1, 8, 64)
     with pytest.raises(NotImplementedError, match="forward-only"):
         selective_scan(u, u, -torch.ones(64, 16, device=dev),

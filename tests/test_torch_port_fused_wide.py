@@ -154,13 +154,12 @@ def test_width_limits_are_the_kernels():
 @pytest.mark.parametrize("dm", [768, 1024, 1280])  # FastVim-B, -L, -H
 def test_registry_widths_fuse(dm, grid):
     """FastVim-B/L/H fuse on 224 px, 448 px (patch 14) and 2048 px grids
-    in both orientations, train through the fused adjoint (K5, K6), and
-    stay unfused in the recompute mode, which K7 does not take at these
-    widths."""
+    in both orientations, by default and in the recompute mode (K7's wide
+    forms), and train through the fused adjoint (K5, K6)."""
     di = 2 * dm
     for transposed in (False, True):
         pool = (0,) if transposed else (1,)
         assert lf.fusable(grid, pool, transposed, dm, di, 4, "mean")
-        assert not lf.fusable(grid, pool, transposed, dm, di, 4, "mean",
-                              recompute=True)
+        assert lf.fusable(grid, pool, transposed, dm, di, 4, "mean",
+                          recompute=True)
     assert lf.fused_bwd_route(dm, di, "fused") == "fused"
