@@ -256,6 +256,20 @@ Phases, each of which raises on failure (exit code non-zero):
    top-2 gap is clear; prefill tokens/s at B = 1 and 8, L = 2048, and
    decode tokens/s over 128 steps at B = 1 and 16, fp32 and bf16, with
    peak memory.
+15. the token (seq) axis (``parallel.token_shard``,
+   ``parallel/tokens.py``): FastVim-T at full width and depth, B = 2,
+   built with its default fields, over ``make_mesh(data=1, seq=2)``: 2
+   spawned ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+   device), each holding half the token grid's rows, against the
+   unsharded unfused run of one rank here (``layer_fused="off"``): fp32
+   at 512 px with DropPath 0.1 (logits ``FP32_TOL``, loss 1e-5 relative,
+   gradients ``GRAD_TOL`` of the largest entry: phase 13's bounds), and
+   bf16 at 2048 px (logits, loss and gradients ``BF16_TOL`` of the
+   largest entry) with two timed train steps through the trainer and the
+   peak memory on each rank and on the one; each rank's forward 48 K1,
+   its gradient pass and each train step 48 K1 + 48 K2, no K3-K10 (a
+   sharded layer runs unfused); where the machine has two cards, 2 NCCL
+   ranks, one a card, repeat the 2048 px check.
 
 After a line with the card's name and power limit, the line before the
 last is a JSON object with one entry per kernel (``ms`` a call's time by
@@ -4583,6 +4597,286 @@ def run_lm_path(dev, card):
     log(f"[time] phase 14 (LM) {time.perf_counter() - t0:.1f} s")
     return counts, k1_err, k1_times
 
+# phase 15: the seq axis. FastVim-T (fastvim_tiny) at full width and
+# depth over (data 1, seq 2), B = 2: (name, px, dtype, DropPath rate, tol,
+# timed train steps); the full-width check is the one with train steps
+SEQ_CHECKS = (("fp32 512px", 512, "float32", 0.1, GRAD_TOL, 0),
+              ("bf16 2048px", 2048, "bfloat16", 0.0, BF16_TOL, 2))
+SEQ_BATCH = 2
+SEQ_SEED = 15
+# a rank's launches: the two pooled scans of each of the 24 layers, run
+# whole on every rank (K1), and in a gradient pass their adjoints (K2);
+# no K3-K10, since a sharded layer runs unfused
+SEQ_FWD = {"selective_scan_fwd": 48}
+SEQ_STEP = {"selective_scan_fwd": 48, "selective_scan_bwd": 48}
+
+
+def seq_inputs(img):
+    """Phase 15's global batch at ``img`` px (CPU tensors, from a seed)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEQ_SEED)
+    return {"image": torch.randn(SEQ_BATCH, img, img, 3, generator=gen),
+            "label": torch.randint(1000, (SEQ_BATCH,), generator=gen)}
+
+
+def seq_model(dev, img, dtype, drop, **fields):
+    """FastVim-T at full width and depth from one seed, in training mode,
+    its DropPath generator on ``model.seq_generator``."""
+    import torch
+
+    from fastvim_tpu_torch.models import create_model
+
+    model = create_model("fastvim_tiny", device=dev, img_size=img,
+                         dtype=getattr(torch, dtype), drop_path_rate=drop,
+                         generator=torch.Generator().manual_seed(0),
+                         **fields).train()
+    model.seq_generator = torch.Generator(device=dev)
+    model.set_drop_path_generator(model.seq_generator)
+    return model
+
+
+def seq_pass(model, batch, dev):
+    """(eval-mode logits, loss, gradients, the forward's launches, the
+    gradient pass's launches, the gradient pass's ms): the loss and
+    gradients of the smoothed cross entropy in training mode, averaged
+    over ranks (``allreduce_grads``; as they are without a process
+    group), the DropPath generator seeded alike on every rank."""
+    import torch
+
+    from fastvim_tpu_torch.ops import kernels
+    from fastvim_tpu_torch.parallel import (
+        allreduce_grads,
+        mean_over_ranks,
+        shard_batch,
+    )
+    from fastvim_tpu_torch.train import (
+        one_hot_smooth,
+        soft_target_cross_entropy,
+    )
+
+    rows = {k: v.to(dev) for k, v in shard_batch(batch).items()}
+    model.eval()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        logits = model(rows["image"]).float()
+    torch.cuda.synchronize()
+    fwd = kernels.launch_counts()
+    model.train()
+    model.seq_generator.manual_seed(7)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = soft_target_cross_entropy(model(rows["image"]),
+                                     one_hot_smooth(rows["label"], 1000, 0.1))
+    params = dict(model.named_parameters())
+    grads = allreduce_grads(dict(zip(params, torch.autograd.grad(
+        loss, list(params.values())))))
+    loss = mean_over_ranks({"loss": loss.detach()})["loss"]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return logits, loss, grads, fwd, kernels.launch_counts(), ms
+
+
+def seq_train_steps(model, batch, dev, n=2):
+    """([ms of each step], peak GiB, launches of each step): ``n``
+    supervised steps through the entry points a user calls
+    (``make_optimizer`` AdamW, ``TrainState``,
+    ``make_supervised_train_step``), by the host clock around work that
+    ends in a synchronize."""
+    import torch
+
+    from fastvim_tpu_torch.ops import kernels
+    from fastvim_tpu_torch.parallel import shard_batch
+    from fastvim_tpu_torch.train import (
+        TrainState,
+        cosine_with_warmup,
+        make_optimizer,
+        make_supervised_train_step,
+    )
+
+    rows = {k: v.to(dev) for k, v in shard_batch(batch).items()}
+    tx = make_optimizer(cosine_with_warmup(1e-3, 1e-5, 100, 10),
+                        weight_decay=0.05, params=model)
+    state = TrainState.create(model, tx, ema=False)
+    step = make_supervised_train_step(model, 1000, label_smoothing=0.1,
+                                      ema_decay=None,
+                                      generator=model.seq_generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, counts = [], []
+    for _ in range(n):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, rows)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(kernels.launch_counts())
+        if not torch.isfinite(metrics["train_loss"]):
+            raise AssertionError(f"train step: loss {metrics['train_loss']}")
+    return times, torch.cuda.max_memory_allocated(dev) / 2 ** 30, counts
+
+
+def seq_rank(rank, world, backend, store, out):
+    """A rank of phase 15: ``backend`` "gloo" (every rank on cuda:0) or
+    "nccl" (rank r on cuda:r), over a ``(data 1, seq world)`` mesh. For
+    each of ``SEQ_CHECKS`` (NCCL: the 2048 px one) FastVim-T built with
+    its default fields (its layers would fuse; sharded, they run
+    unfused): the eval forward and the gradient pass, their launches
+    checked, and at 2048 px two timed train steps; saves rank 0's logits,
+    loss and gradients and every rank's launches, times and peak
+    memory."""
+    import torch
+    import torch.distributed as dist
+
+    from fastvim_tpu_torch.parallel import make_mesh, reset_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}.{backend}",
+                            world_size=world, rank=rank)
+    make_mesh(data=1, seq=world)
+    result = {}
+    for name, img, dtype, drop, _, steps in SEQ_CHECKS:
+        if backend == "nccl" and not steps:
+            continue
+        batch = seq_inputs(img)
+        model = seq_model(dev, img, dtype, drop)
+        shard = model.token_shard(batch["image"])
+        if shard is None or shard.size != world:
+            raise AssertionError(f"phase 15 {name}: tokens not sharded")
+        torch.cuda.reset_peak_memory_stats(dev)
+        logits, loss, grads, fwd, step, ms = seq_pass(model, batch, dev)
+        what = f"phase 15 {backend} rank {rank} {name}"
+        expect_launches(f"{what} forward", fwd, SEQ_FWD)
+        expect_launches(f"{what} gradient pass", step, SEQ_STEP)
+        entry = {"counts": {k: fwd[k] + step[k] for k in fwd},
+                 "grad_ms": ms, "rows": str(shard.rows()),
+                 "grad_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        if rank == 0:
+            entry.update(logits=logits.cpu(), loss=loss.cpu(),
+                         grads={k: v.cpu() for k, v in grads.items()})
+        del grads
+        if steps:
+            times, gib, counts = seq_train_steps(model, batch, dev, steps)
+            for i, c in enumerate(counts):
+                expect_launches(f"{what} train step {i}", c, SEQ_STEP)
+                for k, v in c.items():
+                    entry["counts"][k] += v
+            entry.update(step_ms=times, step_gib=gib)
+        result[name] = entry
+        del model
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    reset_mesh()
+    torch.save(result, f"{out}.{backend}.{rank}")
+
+
+def run_seq_path(dev, card):
+    """Phase 15: the seq axis (``parallel.token_shard``,
+    ``parallel/tokens.py``) on the card. FastVim-T at full width and
+    depth, B = 2, over ``(data 1, seq 2)``: 2 ranks on cuda:0 over gloo
+    (NCCL refuses two ranks on one device), each holding half the grid's
+    rows, against the 1-rank unsharded unfused (``layer_fused="off"``)
+    run here of the same function:
+
+    1. fp32 at 512 px (a 32 × 32 grid), DropPath 0.1: the eval-mode
+       logits within ``FP32_TOL``, the loss to 1e-5 relative and every
+       gradient within ``GRAD_TOL`` of its largest entry (phase 13's
+       bounds);
+    2. bf16 at 2048 px (a 128 × 128 grid, L = 16,384): the logits, the
+       loss and every gradient within ``BF16_TOL`` of the largest entry;
+       then two train steps through the trainer, timed, with the peak
+       memory, on each rank and on the 1 rank. Gloo stages the traffic
+       through the host and the two ranks share the card: a record of
+       the path, not a speed.
+
+    Each rank's forward launches 48 K1 and its gradient pass and each
+    train step 48 K1 + 48 K2 (the pooled scans, whole on every rank), and
+    no K3-K10. Where the machine has two cards, 2 NCCL ranks, one a card,
+    repeat the 2048 px check. Returns the ranks' launches."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from fastvim_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    refs = {}
+    for name, img, dtype, drop, _, steps in SEQ_CHECKS:
+        batch = seq_inputs(img)
+        model = seq_model(dev, img, dtype, drop, layer_fused="off")
+        torch.cuda.reset_peak_memory_stats(dev)
+        logits, loss, grads, fwd, step, ms = seq_pass(model, batch, dev)
+        expect_launches(f"phase 15 1 rank {name} forward", fwd, SEQ_FWD)
+        expect_launches(f"phase 15 1 rank {name} gradient pass", step,
+                        SEQ_STEP)
+        gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        timed = ""
+        if steps:
+            times, gib, counts = seq_train_steps(model, batch, dev, steps)
+            for i, c in enumerate(counts):
+                expect_launches(f"phase 15 1 rank {name} train step {i}", c,
+                                SEQ_STEP)
+            timed = (f"train steps {', '.join(f'{t:.1f}' for t in times)} "
+                     "ms, ")
+        refs[name] = (logits.cpu(), loss.cpu(),
+                      {k: v.cpu() for k, v in grads.items()},
+                      f"gradient pass (a first call) {ms:.1f} ms, {timed}"
+                      f"peak {gib:.2f} GiB")
+        del model, grads
+        torch.cuda.empty_cache()
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    runs = [("gloo", 2)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", 2))
+    log("[seq] runs: 2 ranks on cuda:0 over gloo (seq 2)"
+        + ("; 2 ranks over NCCL on cuda:0 and cuda:1 (seq 2, 2048 px)"
+           if len(runs) == 2 else "; 2 ranks over NCCL skipped "
+           f"({torch.cuda.device_count()} card)"))
+    with tempfile.TemporaryDirectory() as folder:
+        store, out = os.path.join(folder, "store"), os.path.join(folder,
+                                                                  "rank")
+        for backend, world in runs:
+            mp.spawn(seq_rank, args=(world, backend, store, out),
+                     nprocs=world, join=True)
+            results = [torch.load(f"{out}.{backend}.{r}", weights_only=True)
+                       for r in range(world)]
+            for name, _, dtype, _, tol, _ in SEQ_CHECKS:
+                if name not in results[0]:
+                    continue
+                got, (logits, loss, grads, one) = results[0][name], refs[name]
+                what = f"phase 15 {backend} {world} ranks {name}"
+                if dtype == "float32":
+                    compare(f"{what} logits", got["logits"], logits, FP32_TOL)
+                else:
+                    compare_grads(f"{what} logits", {"logits": got["logits"]},
+                                  {"logits": logits}, tol)
+                rel = abs(got["loss"].item() - loss.item()) / abs(loss.item())
+                loss_tol = 1e-5 if dtype == "float32" else tol
+                log(f"[check] {what} loss {got['loss'].item():.6f} vs 1 rank "
+                    f"{loss.item():.6f}: rel {rel:.3e} tol={loss_tol:g} "
+                    f"{'ok' if rel <= loss_tol else 'FAIL'}")
+                if rel > loss_tol:
+                    raise AssertionError(f"{what}: loss off by {rel}")
+                compare_grads(f"{what} gradients", got["grads"], grads, tol)
+                for r, res in enumerate(results):
+                    e = res[name]
+                    steps = ", ".join(f"{t:.1f}" for t in e.get("step_ms", []))
+                    log(f"[time] {what} rank {r} (grid rows {e['rows']}): "
+                        f"gradient pass (a first call) {e['grad_ms']:.1f} "
+                        "ms, " + (f"train steps {steps} ms, peak "
+                                  f"{e['step_gib']:.2f} GiB" if steps else
+                                  f"peak {e['grad_gib']:.2f} GiB")
+                        + f"; 1 rank unsharded unfused: {one} ({card})")
+                    for k, v in e["counts"].items():
+                        total[k] += v
+    log(f"[time] phase 15 (seq axis) {time.perf_counter() - t0:.1f} s")
+    return total
+
 
 def main() -> int:
     import torch
@@ -4726,6 +5020,8 @@ def main() -> int:
     for name, count in lm_counts.items():
         launches[name] += count
     launches["selective_scan_fwd lm"] = lm_counts["selective_scan_fwd"]
+    for name, count in run_seq_path(dev, card).items():
+        launches[name] += count
 
     # each kernel's files: the main path's (bf16) kernel, then the fp32
     # route, the C entry points and the headers they include (K1 and K2:

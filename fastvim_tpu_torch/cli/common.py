@@ -88,6 +88,6 @@ def setup_mesh(device: torch.device) -> Tuple[Mesh, Callable]:
 
 
 def world_size() -> int:
-    """Processes training together: the mesh's world size (1 outside
-    ``torchrun``)."""
-    return get_mesh().world
+    """Processes that split the batch: the mesh's data size (its world
+    size without a seq axis; 1 outside ``torchrun``)."""
+    return get_mesh().data

@@ -82,7 +82,7 @@ def main(argv=None):
     else:
         x = torch.randn(1, size, size, 3,
                         generator=torch.Generator().manual_seed(1))
-    x = x[mesh.rank::mesh.world]
+    x = x[mesh.data_index::mesh.data]
     if not len(x):
         return {"features": [], "pyramid": None}
     feats = model(x.to(device))

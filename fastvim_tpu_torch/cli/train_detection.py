@@ -100,7 +100,7 @@ def make_det_train_step(model, seed: int, grad_compression=None):
 
     def train_step(state, batch):
         model.train()
-        first = mesh.rows(batch["image"].shape[0] * mesh.world).start
+        first = mesh.rows(batch["image"].shape[0] * mesh.data).start
         samplers = [torch.Generator().manual_seed(
             fold_seed(seed, state.step, 2, first + i))
             for i in range(batch["image"].shape[0])]

@@ -181,14 +181,14 @@ class CellLoader:
             np.random.default_rng(self.seed + self.epoch).shuffle(idxs)
         self.epoch += 1
         mesh = get_mesh()
-        if self.training and self.batch_size % mesh.world:
+        if self.training and self.batch_size % mesh.data:
             raise ValueError(f"the global batch of {self.batch_size} does "
-                             f"not split over {mesh.world} ranks")
+                             f"not split over {mesh.data} ranks")
         starts = range(0, len(idxs) - self.batch_size + 1, self.batch_size)
         for n, i in enumerate(starts):
             rows = (mesh.rows(self.batch_size) if self.training
                     else slice(0, self.batch_size))
-            if not self.training and n % mesh.world != mesh.rank:
+            if not self.training and n % mesh.data != mesh.data_index:
                 continue
             imgs, labels = [], []
             for j in idxs[i:i + self.batch_size][rows]:

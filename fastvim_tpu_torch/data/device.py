@@ -115,7 +115,7 @@ def make_device_augment(img_size: int,
     def augment(imgs_u8: torch.Tensor,
                 generator: torch.Generator) -> torch.Tensor:
         mesh = get_mesh()
-        n = imgs_u8.shape[0] * mesh.world
+        n = imgs_u8.shape[0] * mesh.data
         draws = sample_augment_draws(generator, n, scale, ratio, jitter)
         if mesh.sharded:
             draws = AugmentDraws(*(d[mesh.rows(n)] for d in draws))
@@ -150,9 +150,9 @@ def make_device_epoch_fn(train_step: Callable, images_u8: torch.Tensor,
         raise ValueError(f"dataset ({n}) smaller than batch {batch_size}")
     generator = torch.Generator(device=images_u8.device)
     mesh = get_mesh()
-    if batch_size % mesh.world:
+    if batch_size % mesh.data:
         raise ValueError(f"the global batch of {batch_size} does not split "
-                         f"over {mesh.world} ranks")
+                         f"over {mesh.data} ranks")
     rows = mesh.rows(batch_size)
 
     def epoch_fn(state, epoch: int):
@@ -178,8 +178,8 @@ def make_device_eval_fn(model: nn.Module, val_images: torch.Tensor,
     """``eval_fn(params=None) -> {"loss", "acc"}`` (0-d tensors) over the
     whole device-resident, already transformed val set, in batches of
     ``batch_size``: the model's own parameters, or ``params`` (name →
-    tensor, e.g. the EMA copy). Over several ranks each takes every
-    world-th batch, and the sums are added over ranks."""
+    tensor, e.g. the EMA copy). Over several ranks each data index takes
+    every data-th batch, and the sums are added over the data group."""
     n = int(val_images.shape[0])
 
     @torch.no_grad()
@@ -187,7 +187,8 @@ def make_device_eval_fn(model: nn.Module, val_images: torch.Tensor,
         model.eval()
         mesh = get_mesh()
         sums = torch.zeros(2, device=val_images.device)  # loss, acc
-        for i in range(mesh.rank * batch_size, n, batch_size * mesh.world):
+        for i in range(mesh.data_index * batch_size, n,
+                       batch_size * mesh.data):
             x = val_images[i:i + batch_size]
             y = val_labels[i:i + batch_size]
             logits = (model(x) if params is None else

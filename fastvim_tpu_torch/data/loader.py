@@ -125,17 +125,17 @@ class DataLoader:
 
     def _local_batches(self) -> List[Tuple[np.ndarray, slice]]:
         """This rank's (global batch, its rows) pairs: its rows of each
-        batch when shuffling (training), else every world-th batch
-        whole."""
+        batch when shuffling (training), else every data-th batch whole
+        (by data index: the ranks of a seq group take the same)."""
         mesh = get_mesh()
         chunks = [np.asarray(c) for c in self._batches()]
         if not self.shuffle:
             return [(c, slice(0, len(c)))
-                    for c in chunks[mesh.rank::mesh.world]]
+                    for c in chunks[mesh.data_index::mesh.data]]
         for c in chunks:
-            if len(c) % mesh.world:
+            if len(c) % mesh.data:
                 raise ValueError(f"the global batch of {len(c)} does not "
-                                 f"split over {mesh.world} ranks")
+                                 f"split over {mesh.data} ranks")
         return [(c, mesh.rows(len(c))) for c in chunks]
 
     def _load_rows(self, chunk: np.ndarray, rows: slice, epoch: int) -> dict:

@@ -15,7 +15,10 @@ other rotated layer materializes the rotated sequence and rotates back:
 the full-scan Vim, every ChannelVim layer, and a model whose
 ``fused_kernels`` is not "never", because the fused block kernels (K8,
 K9) pool over the last grid axis only. ``fused_merge`` (K10) keeps the
-in-place orientation.
+in-place orientation. On a grid sharded over a seq group (``shard``, a
+``parallel.TokenShard``) every rotated layer takes the in-place
+orientation, whatever ``fused_kernels`` says: a rank holds whole rows,
+and a materialized rotation would need the whole grid.
 """
 
 from __future__ import annotations
@@ -75,15 +78,20 @@ class Block(nn.Module):
         self.mixer.reset_parameters(generator)
 
     def forward(self, hidden: torch.Tensor,
-                residual: Optional[torch.Tensor], grid: Sequence[int]):
+                residual: Optional[torch.Tensor], grid: Sequence[int],
+                shard=None):
         """``grid``: the token grid of this input, in the base
-        orientation."""
+        orientation; with ``shard`` the whole grid, of which ``hidden``
+        holds this rank's rows."""
         if residual is not None:
             hidden = self.drop_path(hidden)
         hidden, residual = self.norm(
             hidden, residual, prenorm=True,
             residual_in_fp32=self.residual_in_fp32, out_dtype=self.dtype)
         grid = tuple(grid)
+        if shard is not None:
+            return self.mixer(hidden, grid, transposed=self.rotated,
+                              shard=shard), residual
         transposed = (self.rotated and len(grid) == 2
                       and self.transpose_axes == (0, 1)
                       and self.pool_axes is None

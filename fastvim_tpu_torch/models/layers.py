@@ -98,7 +98,10 @@ class DropPath(nn.Module):
         self.rate = rate
         self.generator = generator
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tokens=None) -> torch.Tensor:
+        """``tokens`` (a ``parallel.TokenShard``; ``Dropout`` only): x's
+        dimension 1 holds this rank's tokens of a sharded grid, and the
+        mask is drawn for the whole grid."""
         if not self.training or self.rate == 0.0:
             return x
         if self.generator is None:
@@ -106,7 +109,7 @@ class DropPath(nn.Module):
                                "(set_drop_path_generator)")
         keep = 1.0 - self.rate
         mask = rand_rows(self.mask_shape(x), self.generator,
-                         x.device) < keep
+                         x.device, tokens) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
     def mask_shape(self, x: torch.Tensor):

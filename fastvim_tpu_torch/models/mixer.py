@@ -43,6 +43,15 @@ the JAX package's ``fused_mixer_core_sharded`` (the fused layer under a
 GSPMD partitioning rule) has no counterpart, because a process already
 holds only its shard.
 
+With ``shard`` (a ``parallel.TokenShard``: the token grid sharded over
+the mesh's seq axis, this rank holding whole grid rows) none of 1-3
+applies either: K3-K10 take whole grids, as the JAX package sets the
+fused layer aside on a seq mesh (``_cached_data_mesh``). The layer runs
+the unfused math with the seq group's collectives
+(``parallel/tokens.py``): the dual conv with its halo, the pooled
+sequence made whole on every rank, the pooled scans (K1, K2) run whole
+on every rank, and each rank's rows broadcast back.
+
 With ``row_ids`` (the masked encoder of MAE, ``models/mae.py``) the
 layer holds only the visible tokens, in raster order, and none of the
 above applies: a masked layer never fuses. Each branch pools its conv
@@ -113,6 +122,7 @@ from fastvim_tpu_torch.ops.kernels.layer_fused import (
 from fastvim_tpu_torch.ops.norms import layer_norm
 from fastvim_tpu_torch.ops.scan import broadcast_grid, pool_grid
 from fastvim_tpu_torch.ops.state_update import selective_state_update
+from fastvim_tpu_torch.parallel import tokens
 
 
 def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
@@ -309,7 +319,7 @@ class MambaMixer(nn.Module):
                 pool_axes: Optional[Sequence[int]] = None,
                 transposed: bool = False,
                 row_ids: Optional[torch.Tensor] = None,
-                cache: Optional[dict] = None):
+                cache: Optional[dict] = None, shard=None):
         """x: (batch, L, d_model); grid_shape: the token grid in this
         mixer's orientation; pool_axes: grid axes pooled before the scan
         (default: the last). ``row_ids`` (batch, L) int64: x holds only
@@ -321,7 +331,11 @@ class MambaMixer(nn.Module):
         the causal branch (conv window, projections, state update, D skip,
         the LayerNorm with ``use_norm_after_ssm``, the silu(z) gate), as
         the JAX mixer's decode step computes it; the anticausal branch has
-        no decode step. The cache passed in is not modified."""
+        no decode step. The cache passed in is not modified.
+
+        With ``shard`` (``parallel.TokenShard``) x holds this rank's rows
+        of ``grid_shape``, the whole 2-D grid, pooled over its columns or,
+        ``transposed``, its rows."""
         if cache is not None:
             out, new_cache = self._decode_step(x.to(self.dtype), cache)
             if self.gamma is not None:
@@ -335,7 +349,8 @@ class MambaMixer(nn.Module):
         dtype = self.dtype
         x = x.to(dtype)
         recompute = self.layer_fused == "recompute"
-        if row_ids is None and self.layer_fused != "off" and fusable(
+        if shard is None and row_ids is None and self.layer_fused != "off" \
+                and fusable(
                 grid_shape, pool_axes, transposed, self.d_model, self.d_inner,
                 self.d_conv, self.collapse_method, recompute=recompute):
             bwd = self.layer_fused_bwd
@@ -347,7 +362,8 @@ class MambaMixer(nn.Module):
                 self.scaling_factor, self.norm_eps, self.use_norm_after_ssm,
                 dtype, self.scan_impl, bwd_mode=bwd, recompute=recompute)
         else:
-            out = self._unfused(x, grid_shape, pool_axes, transposed, row_ids)
+            out = self._unfused(x, grid_shape, pool_axes, transposed, row_ids,
+                                shard)
         if self.gamma is not None:
             out = out * self.gamma.to(dtype)
         return out
@@ -373,7 +389,8 @@ class MambaMixer(nn.Module):
                        _cast(self.out_proj.bias, dtype))
         return out, {"conv": conv, "ssm": ssm}
 
-    def _unfused(self, x, grid_shape, pool_axes, transposed, row_ids):
+    def _unfused(self, x, grid_shape, pool_axes, transposed, row_ids,
+                 shard=None):
         dtype = self.dtype
         di = self.d_inner
         xz = F.linear(x, self.in_proj.weight.to(dtype),
@@ -381,6 +398,8 @@ class MambaMixer(nn.Module):
         xin, z = xz[..., :di], xz[..., di:]
         if row_ids is not None:
             merged = self._masked_merge(xin, z, grid_shape, row_ids)
+        elif shard is not None:
+            merged = self._shard_merge(xin, z, shard, transposed)
         elif self._use_fused(grid_shape, pool_axes):
             merged = self._fused_forward(xin, z, grid_shape)
         else:
@@ -420,6 +439,23 @@ class MambaMixer(nn.Module):
             xp = torch.bmm(onehot.transpose(1, 2), xc) / cols
             y = torch.bmm(onehot, self._proj_scan(xp, sfx, False).to(dtype))
             ys.append(y + getattr(self, f"D{sfx}").to(dtype) * xc)
+        return self._ln_gate((ys[0] + ys[1]) * 0.5, z)
+
+    def _shard_merge(self, xin, z, shard, transposed):
+        """This rank's rows of a sharded grid (see the module docstring):
+        the halo dual conv, each branch's pooled sequence made whole and
+        scanned on every rank, this rank's rows broadcast back, merge, LN
+        and gate."""
+        dtype = self.dtype
+        ys = []
+        for xc, sfx, reverse in zip(
+                tokens.halo_dual_conv(*self._conv_args(xin), shard,
+                                      transposed), ("", "_b"), (False, True)):
+            xp = tokens.pool_whole(xc, shard, transposed,
+                                   self.collapse_method, self.scaling_factor)
+            y = tokens.local_rows(self._proj_scan(xp, sfx, reverse), shard,
+                                  transposed)
+            ys.append(y.to(dtype) + getattr(self, f"D{sfx}").to(dtype) * xc)
         return self._ln_gate((ys[0] + ys[1]) * 0.5, z)
 
     def _conv_merge(self, xin, z, grid_shape, pool_axes, transposed):

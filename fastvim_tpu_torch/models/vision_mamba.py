@@ -27,6 +27,16 @@ are model fields; ``fused_kernels`` and ``fused_merge`` reach the mixers
 through ``ssm_cfg``, as in the JAX ``VisionMamba`` (see
 ``models/mixer.py`` for the dispatch). All of them share one parameter
 tree.
+
+Over a mesh with a seq axis (``parallel.make_mesh(data, seq)``) the
+tokens are sharded where ``parallel.token_shard`` says so (a 2-D pooled
+grid without a cls token, whose rows and tokens the S ranks of a seq
+group divide): each rank embeds its rows of patches and its slice of the
+position embedding (the table resized whole first), the blocks run on
+its tokens (``parallel/tokens.py``: halo exchanges for the convs, the
+pooled scans run whole on every rank), and the final pool and the
+feature maps are made whole over the group, so that every rank of a seq
+group returns the whole output, the same function as one process.
 """
 
 from __future__ import annotations
@@ -49,6 +59,8 @@ from fastvim_tpu_torch.models.layers import (
     trunc_normal_init_,
 )
 from fastvim_tpu_torch.models.patch_embed import PatchEmbed, resize_pos_embed
+from fastvim_tpu_torch.parallel import tokens as seq
+from fastvim_tpu_torch.parallel.mesh import TokenShard, token_shard
 
 
 class VisionMamba(nn.Module):
@@ -90,6 +102,7 @@ class VisionMamba(nn.Module):
         self.out_indices = (None if out_indices is None
                             else tuple(int(i) for i in out_indices))
         self.scanpath_type = scanpath_type
+        self.collapse_method = collapse_method
         self.remat = remat
         self.dtype = dtype
 
@@ -159,6 +172,18 @@ class VisionMamba(nn.Module):
             trunc_normal_init_(self.head.weight, 0.02, generator)
             nn.init.zeros_(self.head.bias)
 
+    def token_shard(self, x: torch.Tensor) -> Optional[TokenShard]:
+        """This rank's part of the token grid of images ``x`` over the
+        mesh's seq axis, or None where the tokens stay whole
+        (``parallel.token_shard``)."""
+        p = self.patch_size
+        if x.shape[1] % p or x.shape[2] % p:
+            return None  # the patch embed refuses it
+        gh, gw = x.shape[1] // p, x.shape[2] // p
+        grid = (gw, gh) if self.scanpath_type == "colwise" else (gh, gw)
+        return token_shard(grid, cls_token=self.cls_token is not None,
+                           pooled=self.collapse_method != "none")
+
     def out_norms(self) -> List[Norm]:
         """The feature maps' norms, in ``out_indices`` order (none without
         ``out_indices``)."""
@@ -181,7 +206,15 @@ class VisionMamba(nn.Module):
         "all" pools); with ``out_indices``, the list of (batch, rows, cols,
         embed_dim) fp32 feature maps."""
         B = x.shape[0]
+        shard = self.token_shard(x)
+        if shard is not None:
+            # this rank's patch rows: image rows, or columns for colwise
+            px = slice(shard.rows().start * self.patch_size,
+                       shard.rows().stop * self.patch_size)
+            x = x[:, :, px] if self.scanpath_type == "colwise" else x[:, px]
         tokens, grid = self.patch_embed(x)
+        if shard is not None:
+            grid = shard.grid
         if grid != self.grid_size and self.cls_token is not None:
             raise ValueError(f"input grid {grid} differs from the "
                              f"model's {self.grid_size}: a cls-token "
@@ -198,19 +231,24 @@ class VisionMamba(nn.Module):
             if grid != self.grid_size:
                 pos = resize_pos_embed(pos, grid, self.grid_size,
                                        self.scanpath_type)
-            tokens = self.pos_drop(tokens + pos.to(tokens.dtype))
+            if shard is not None:
+                pos = pos[:, shard.tokens()]
+            tokens = self.pos_drop(tokens + pos.to(tokens.dtype), shard)
 
         remat = self.remat and self.training and torch.is_grad_enabled()
         if self.out_indices is not None:
             maps = {}
-            for i, (hidden, _) in enumerate(iter_blocks(self.layers, tokens,
-                                                        grid, remat)):
+            for i, (hidden, _) in enumerate(iter_blocks(
+                    self.layers, tokens, grid, remat, shard)):
                 if i in self.out_indices:
                     maps[i] = hidden
-            return [norm(maps[i].float()).reshape(B, *grid, self.embed_dim)
-                    for i, norm in zip(self.out_indices, self.out_norms())]
+            local = grid if shard is None else shard.local_grid
+            out = [norm(maps[i].float()).reshape(B, *local, self.embed_dim)
+                   for i, norm in zip(self.out_indices, self.out_norms())]
+            return out if shard is None else [seq.gather_rows(m, shard)
+                                              for m in out]
 
-        hidden, residual = run_blocks(self.layers, tokens, grid, remat)
+        hidden, residual = run_blocks(self.layers, tokens, grid, remat, shard)
         hidden = self.norm_f(self.drop_path(hidden), residual=residual,
                              residual_in_fp32=self.residual_in_fp32,
                              out_dtype=self.dtype)
@@ -218,11 +256,14 @@ class VisionMamba(nn.Module):
         if cls_position is not None:
             feat = hidden[:, cls_position]
         elif self.final_pool_type == "mean":
-            feat = hidden.mean(dim=1)
+            feat = (hidden.mean(dim=1) if shard is None
+                    else seq.mean_tokens(hidden, shard))
         elif self.final_pool_type == "none":
-            feat = hidden[:, -1]
+            feat = (hidden[:, -1] if shard is None
+                    else seq.last_token(hidden, shard))
         else:  # "max" and "all": the head on every token
-            feat = hidden
+            feat = hidden if shard is None else seq.gather_tokens(hidden,
+                                                                  shard)
         if return_features or self.head is None:
             return feat
         logits = F.linear(feat, self.head.weight.to(self.dtype),
@@ -232,28 +273,33 @@ class VisionMamba(nn.Module):
         return logits
 
 
-def iter_blocks(layers, hidden: torch.Tensor, grid, remat: bool
+def iter_blocks(layers, hidden: torch.Tensor, grid, remat: bool,
+                shard: Optional[TokenShard] = None
                 ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
     """The residual stack, one block at a time: each block on (hidden,
     residual) and the token ``grid``, yielding its (hidden, residual);
     with ``remat`` each block's activations are recomputed in the
-    backward pass, its DropPath draws replayed."""
+    backward pass, its DropPath draws replayed, and its collectives over
+    a ``shard``'s group called again (in the same order on every rank:
+    the backward passes run the same graph). With ``shard`` hidden holds
+    this rank's rows of ``grid``."""
     residual = None
     for blk in layers:
         if remat:
             hidden, residual = checkpoint(
-                blk, hidden, residual, grid, use_reentrant=False,
+                blk, hidden, residual, grid, shard, use_reentrant=False,
                 context_fn=lambda: _replay_drop_path(blk.drop_path))
         else:
-            hidden, residual = blk(hidden, residual, grid)
+            hidden, residual = blk(hidden, residual, grid, shard)
         yield hidden, residual
 
 
-def run_blocks(layers, hidden: torch.Tensor, grid, remat: bool):
+def run_blocks(layers, hidden: torch.Tensor, grid, remat: bool,
+               shard: Optional[TokenShard] = None):
     """The whole residual stack (``iter_blocks``). Returns the last
     block's (hidden, residual)."""
     residual = None
-    for hidden, residual in iter_blocks(layers, hidden, grid, remat):
+    for hidden, residual in iter_blocks(layers, hidden, grid, remat, shard):
         pass
     return hidden, residual
 

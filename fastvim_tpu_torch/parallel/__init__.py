@@ -1,5 +1,5 @@
-"""Data parallelism over ``torchrun`` ranks (counterpart of
-``fastvim_tpu/parallel``)."""
+"""Data and token (seq) parallelism over ``torchrun`` ranks (counterpart
+of ``fastvim_tpu/parallel``)."""
 
 from fastvim_tpu_torch.parallel.collectives import (
     allreduce_grads,
@@ -15,6 +15,7 @@ from fastvim_tpu_torch.parallel.collectives import (
 )
 from fastvim_tpu_torch.parallel.mesh import (
     Mesh,
+    TokenShard,
     get_mesh,
     init_distributed,
     launched,
@@ -23,10 +24,12 @@ from fastvim_tpu_torch.parallel.mesh import (
     replicate,
     reset_mesh,
     shard_batch,
+    token_shard,
 )
 
 __all__ = [
     "Mesh",
+    "TokenShard",
     "allreduce_grads",
     "barrier",
     "batch_moments",
@@ -45,4 +48,5 @@ __all__ = [
     "reset_mesh",
     "shard_batch",
     "sum_over_ranks",
+    "token_shard",
 ]

@@ -9,10 +9,16 @@ only, and these helpers give it what the JAX program would have:
 * a draw over the batch (DropPath's per-sample mask, dropout's, MAE's
   noise, the device augment's) is made for the whole global batch from
   the generator every rank seeds alike, and each rank keeps its rows;
-* mixup's partner, the reversed global batch, comes from rank
-  ``world - 1 - rank``;
+* mixup's partner, the reversed global batch, comes from the rank at
+  the mirrored data index;
 * BatchNorm's moments and a loss's denominator (a count of pixels or of
   sampled boxes) are summed over ranks.
+
+Over a ``(data, seq)`` mesh the S ranks of a seq group hold the same
+rows: a draw is the same on each of them, a sum of per-sample values
+(eval sums, gathered predictions) runs over the data group, and a mean
+over every rank of values the seq group holds alike equals the mean over
+the data group.
 
 With one rank (no process group, or ``torchrun`` with one process) each
 helper returns what the single-process code computed, bit for bit.
@@ -25,31 +31,39 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from fastvim_tpu_torch.parallel.mesh import get_mesh
+from fastvim_tpu_torch.parallel.mesh import TokenShard, get_mesh
+
 
 def rand_rows(shape: Sequence[int], generator: torch.Generator,
-              device: torch.device) -> torch.Tensor:
+              device: torch.device,
+              tokens: Optional[TokenShard] = None) -> torch.Tensor:
     """``torch.rand(shape)`` for a batch whose leading dimension is this
-    rank's share: drawn for the global batch (``shape[0] * world`` rows)
+    rank's share: drawn for the global batch (``shape[0] * data`` rows)
     and cut to this rank's rows, so that N ranks draw what one process
-    draws for the whole batch."""
-    if not get_mesh().sharded:
-        return torch.rand(tuple(shape), device=device, generator=generator)
+    draws for the whole batch; the ranks of a seq group draw alike. With
+    ``tokens``, dimension 1 is this rank's tokens of a sharded grid: the
+    draw covers the whole grid and keeps them."""
     mesh = get_mesh()
-    full = (shape[0] * mesh.world, *shape[1:])
-    return torch.rand(full, device=device,
-                      generator=generator)[mesh.rows(full[0])]
+    if not mesh.sharded and tokens is None:
+        return torch.rand(tuple(shape), device=device, generator=generator)
+    full = [shape[0] * mesh.data, *shape[1:]]
+    if tokens is not None:
+        full[1] = tokens.grid[0] * tokens.grid[1]
+    u = torch.rand(tuple(full), device=device,
+                   generator=generator)[mesh.rows(full[0])]
+    return u if tokens is None else u[:, tokens.tokens()]
 
 
 def mirror_rows(t: torch.Tensor) -> torch.Tensor:
     """The rows that ``global_batch.flip(0)`` holds where ``t`` holds this
-    rank's: rank r's part of the reversed batch is rank (N-1-r)'s part,
-    reversed. Exchanged point to point (staged through the host under
+    rank's: data index d's part of the reversed batch is data index
+    (D-1-d)'s part, reversed, taken from the rank there with this rank's
+    seq index. Exchanged point to point (staged through the host under
     gloo, whose send takes CPU tensors)."""
-    if not get_mesh().sharded:
-        return t.flip(0)
     mesh = get_mesh()
-    peer = mesh.world - 1 - mesh.rank
+    if not mesh.sharded:
+        return t.flip(0)
+    peer = (mesh.data - 1 - mesh.data_index) * mesh.seq + mesh.seq_index
     if peer == mesh.rank:
         return t.flip(0)
     host = mesh.backend == "gloo" and t.device.type != "cpu"
@@ -83,7 +97,8 @@ def batch_moments(x32: torch.Tensor, dims: Tuple[int, ...]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean, mean of squares) of ``x32`` over ``dims`` and over every
     rank's rows: the global batch's moments, as BatchNorm under ``jit``
-    over a sharded batch takes them."""
+    over a sharded batch takes them. Summed over the whole world: a seq
+    group's S equal terms and the divisor's S cancel."""
     if not get_mesh().sharded:
         return x32.mean(dims), x32.square().mean(dims)
     n = 1
@@ -98,7 +113,9 @@ def denominator(count: torch.Tensor) -> torch.Tensor:
     """A loss's denominator, ``max(count, 1)``, for a count over the
     global batch: the count summed over ranks, clamped, and divided by
     the world size. A rank's ``sum / denominator(count)``, averaged over
-    ranks as the gradients are, is the global sum over the global count."""
+    ranks as the gradients are, is the global sum over the global count.
+    Over the whole world, like the gradients: a seq group's S equal
+    counts and the divisor's S cancel."""
     if not get_mesh().sharded:
         return count.clamp_min(1)
     total = count.detach().clone()
@@ -109,7 +126,8 @@ def denominator(count: torch.Tensor) -> torch.Tensor:
 def mean_over_ranks(values: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
     """Each 0-d metric averaged over ranks, in one all-reduce: the global
-    batch's value of a per-rank mean over equal shares."""
+    batch's value of a per-rank mean over equal shares (a seq group's
+    ranks hold equal values, so the world's mean is the data group's)."""
     if not get_mesh().sharded or not values:
         return values
     flat = torch.stack([v.detach().float() for v in values.values()])
@@ -119,10 +137,12 @@ def mean_over_ranks(values: Dict[str, torch.Tensor]
 
 
 def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over ranks in place, without autograd (eval sums,
-    confusion matrices); returns ``t``."""
-    if get_mesh().sharded:
-        dist.all_reduce(t)
+    """``t`` summed over the data group in place, without autograd (eval
+    sums, confusion matrices: each seq group counts its samples once);
+    returns ``t``."""
+    mesh = get_mesh()
+    if mesh.sharded:
+        dist.all_reduce(t, group=mesh.data_group)
     return t
 
 
@@ -168,10 +188,12 @@ def is_writer() -> bool:
 
 
 def gather_objects(items: Iterable) -> list:
-    """Every rank's ``items`` (picklable), concatenated in rank order."""
+    """Every data index's ``items`` (picklable), concatenated in data
+    order: gathered over the data group, each seq group's once."""
     items = list(items)
-    if not get_mesh().sharded:
+    mesh = get_mesh()
+    if not mesh.sharded:
         return items
-    parts: list = [None] * get_mesh().world
-    dist.all_gather_object(parts, items)
+    parts: list = [None] * mesh.data
+    dist.all_gather_object(parts, items, group=mesh.data_group)
     return [x for part in parts for x in part]

@@ -1,18 +1,22 @@
-"""One data-parallel training step over n ranks, at toy sizes.
+"""One training step over n ranks, at toy sizes.
 
-Counterpart of ``dryrun_multichip`` in the JAX repository's entry point,
-without its ``seq`` axis (not ported, ROADMAP.md):
+Counterpart of ``dryrun_multichip`` in the JAX repository's entry point:
 
-    python -m fastvim_tpu_torch.parallel.dryrun 2 [--device cpu]
+    python -m fastvim_tpu_torch.parallel.dryrun 4 [--device cpu]
 
 spawns n processes that join one process group: NCCL, each on its own
-card (it needs n cards), or with ``--device cpu`` gloo on the CPU. Each rank
-takes its rows of a global batch of 2n and runs two supervised steps:
+card (it needs n cards), or with ``--device cpu`` gloo on the CPU. As in
+the JAX entry point, the mesh is ``(data, seq) = (n / 2, 2)`` where n is
+even and at least 4, else ``(n, 1)``. Each rank takes its data index's
+rows of a global batch of 2n and runs two supervised steps:
 
 1. a small ``VisionMamba`` (img 32, patch 8, depth 4, embed 64, d_state
-   8) with mixup, cutmix and DropPath 0.1;
+   8) with mixup, cutmix and DropPath 0.1; over seq 2 its 4 × 4 token
+   grid is sharded, 2 rows a rank;
 2. the fused layer, ``layer_fused="on"`` (img 64, patch 8, depth 2,
-   embed 64, d_state 16), without mixup.
+   embed 64, d_state 16), without mixup; over seq 2 its 8 × 8 grid is
+   sharded and its layers run unfused, as the JAX package sets the fused
+   layer aside on a seq mesh.
 
 Rank 0 prints each step's loss, the global batch's; every loss must be
 finite and every rank's parameters equal rank 0's.
@@ -81,7 +85,8 @@ def _rank(rank: int, world: int, store: str, device_type: str) -> None:
     init_distributed(device.type, init_method=f"file://{store}",
                      world_size=world, rank=rank)
     try:
-        mesh = make_mesh(data=world)
+        seq = 2 if world % 2 == 0 and world >= 4 else 1
+        mesh = make_mesh(data=world // seq, seq=seq)
         batch_size = 2 * world
         gen = torch.Generator().manual_seed(0)
         x = torch.randn(batch_size, 32, 32, 3, generator=gen)

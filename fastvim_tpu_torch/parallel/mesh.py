@@ -1,34 +1,42 @@
-"""The data-parallel mesh: one process per device, launched by
-``torchrun``, the batch split over the processes in rank order.
+"""The mesh: one process per device, launched by ``torchrun``, laid out
+as a ``(data, seq)`` grid of ranks.
 
 Counterpart of ``fastvim_tpu/parallel/mesh.py``. The JAX package jits
 one program over a ``("data", "seq")`` mesh of devices and lets XLA
-insert the gradient all-reduce; PyTorch's idiom is one process per GPU
+insert the collectives; PyTorch's idiom is one process per GPU
 (``torchrun --standalone --nproc_per_node N -m ...``), each holding a
-replica of the parameters and a contiguous slice of the global batch,
-and an explicit all-reduce of the gradients (``train/trainer.py``). On
-the card the processes talk over NCCL, each on ``cuda:$LOCAL_RANK``; on
-the CPU over gloo.
+replica of the parameters, and explicit collectives: the all-reduce of
+the gradients (``train/trainer.py``) and, over ``seq``, the token
+traffic (``parallel/tokens.py``). On the card the processes talk over
+NCCL, each on ``cuda:$LOCAL_RANK``; on the CPU over gloo.
 
 :class:`Mesh` is that process group seen as the JAX mesh: ``shape``
-``{"data": world, "seq": 1}``. :func:`make_mesh` caches it for the
-process, as the JAX package caches its mesh, because what reads it (the
-models' random draws, the BatchNorm statistics, the loaders) sits far
-below the entry point; ``torch.distributed`` keeps its process group the
-same way. Without a process group the mesh has one rank and nothing
-changes: no collective is called and every draw is the single-process
-one.
+``{"data": D, "seq": S}``, rank r at ``(r // S, r % S)`` (JAX's
+``reshape(data, seq)`` of the devices). The batch is split over the data
+index: the S ranks of a seq group hold the same rows. :func:`make_mesh`
+caches it for the process, as the JAX package caches its mesh, because
+what reads it (the models' random draws, the BatchNorm statistics, the
+loaders) sits far below the entry point; ``torch.distributed`` keeps its
+process group the same way. Without a process group the mesh has one
+rank and nothing changes: no collective is called and every draw is the
+single-process one.
 
-The ``seq`` axis (token sharding at high resolution, ``maybe_shard_tokens``
-in the JAX package) is not ported: GSPMD shards the tokens there, and a
-port needs a halo exchange for the causal conv (ROADMAP.md).
+The seq axis shards the tokens of a ``VisionMamba`` over the S ranks of
+a seq group (:func:`token_shard`, the counterpart of
+``maybe_shard_tokens``): each rank holds contiguous whole rows of the
+token grid, split as :meth:`Mesh.rows` splits a batch, so that a layer
+pooling over columns pools locally. The layout is the port's own (GSPMD
+picks JAX's), so the cases JAX leaves unsharded stay unsharded here: a
+cls-token model, a grid that is not 2-D, and L not divisible by S; and
+so do a grid with fewer rows than S and the full-length (unpooled) scan.
+There every rank runs the whole grid, which computes the same function.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Any, Mapping, Optional
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,17 +45,42 @@ import torch.distributed as dist
 _MESH: Optional["Mesh"] = None
 
 
+def _part(i: int, parts: int, n: int) -> slice:
+    """Part ``i`` of ``parts`` contiguous parts of ``range(n)``; the parts
+    differ by at most one where ``parts`` does not divide ``n``."""
+    return slice(i * n // parts, (i + 1) * n // parts)
+
+
 @dataclass(frozen=True)
 class Mesh:
     """``world`` processes, this one ``rank``; ``backend`` "nccl" or
-    "gloo" once a process group is up, None for a lone process."""
+    "gloo" once a process group is up, None for a lone process. ``seq``
+    ranks make a seq group (the ranks that share a data index);
+    ``seq_group`` and ``data_group`` are this rank's two process
+    subgroups, made where ``seq`` > 1 (None otherwise, where the seq
+    group is this rank alone and the data group the whole world)."""
     world: int = 1
     rank: int = 0
     backend: Optional[str] = None
+    seq: int = 1
+    seq_group: Any = field(default=None, compare=False, repr=False)
+    data_group: Any = field(default=None, compare=False, repr=False)
+
+    @property
+    def data(self) -> int:
+        return self.world // self.seq
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.seq
+
+    @property
+    def seq_index(self) -> int:
+        return self.rank % self.seq
 
     @property
     def shape(self) -> dict:
-        return {"data": self.world, "seq": 1}
+        return {"data": self.data, "seq": self.seq}
 
     @property
     def distributed(self) -> bool:
@@ -57,15 +90,68 @@ class Mesh:
 
     @property
     def sharded(self) -> bool:
-        """More than one rank shares the batch."""
-        return self.world > 1
+        """More than one data index shares the batch."""
+        return self.data > 1
 
     def rows(self, n: int) -> slice:
-        """This rank's contiguous rows of a global batch of ``n``, in rank
-        order (``shard_batch``'s split); the parts differ by at most one
-        row where ``world`` does not divide ``n`` (a ragged eval batch)."""
-        return slice(self.rank * n // self.world,
-                     (self.rank + 1) * n // self.world)
+        """This rank's contiguous rows of a global batch of ``n``, in
+        data-index order (``shard_batch``'s split); the parts differ by
+        at most one row where ``data`` does not divide ``n`` (a ragged
+        eval batch). The ranks of a seq group hold the same rows."""
+        return _part(self.data_index, self.data, n)
+
+
+@dataclass(frozen=True)
+class TokenShard:
+    """This rank's part of a token grid sharded over its seq group:
+    ``grid`` the whole (rows, cols) grid in scan orientation, ``index``
+    this rank's place among the group's ``size`` ranks, each holding the
+    contiguous grid rows :meth:`rows` gives; ``group`` the process
+    group and ``backend`` its backend (gloo stages CUDA tensors through
+    the host)."""
+    grid: Tuple[int, int]
+    index: int
+    size: int
+    group: Any = field(compare=False, repr=False)
+    backend: Optional[str] = None
+
+    def rows(self, i: Optional[int] = None) -> slice:
+        """Rank ``i``'s grid rows (this rank's by default)."""
+        return _part(self.index if i is None else i, self.size,
+                     self.grid[0])
+
+    @property
+    def local_grid(self) -> Tuple[int, int]:
+        r = self.rows()
+        return (r.stop - r.start, self.grid[1])
+
+    def tokens(self, i: Optional[int] = None) -> slice:
+        """Rank ``i``'s tokens of the raster-order sequence."""
+        r, cols = self.rows(i), self.grid[1]
+        return slice(r.start * cols, r.stop * cols)
+
+    @property
+    def last(self) -> bool:
+        return self.index == self.size - 1
+
+
+def token_shard(grid: Sequence[int], cls_token: bool = False,
+                pooled: bool = True,
+                mesh: Optional["Mesh"] = None) -> Optional[TokenShard]:
+    """This rank's part of a model's token ``grid`` over the mesh's seq
+    axis, or None where the tokens stay whole (the counterpart of
+    ``maybe_shard_tokens``): without a seq axis, for a cls-token model,
+    a grid that is not 2-D, L not divisible by S, fewer grid rows than
+    S, and a full-length (not ``pooled``) scan."""
+    mesh = mesh or get_mesh()
+    S = mesh.seq
+    if S <= 1 or cls_token or not pooled or len(grid) != 2:
+        return None
+    rows, cols = grid
+    if (rows * cols) % S or rows < S:
+        return None
+    return TokenShard((int(rows), int(cols)), mesh.seq_index, S,
+                      mesh.seq_group, mesh.backend)
 
 
 def launched() -> bool:
@@ -100,25 +186,39 @@ def init_distributed(device_type: str = "cuda",
     return True
 
 
+def _groups(world: int, rank: int, seq: int):
+    """(seq group, data group) of ``rank``: every group made on every
+    rank, in one order, as ``dist.new_group`` needs."""
+    data = world // seq
+    seq_groups = [dist.new_group([d * seq + s for s in range(seq)])
+                  for d in range(data)]
+    data_groups = [dist.new_group([d * seq + s for d in range(data)])
+                   for s in range(seq)]
+    return seq_groups[rank // seq], data_groups[rank % seq]
+
+
 def make_mesh(data: Optional[int] = None, seq: int = 1) -> Mesh:
-    """Create (and cache) the mesh of the current process group: ``data``
-    is its world size (the default), or raises where it is not."""
+    """Create (and cache) the ``(data, seq)`` mesh of the current process
+    group: its world is ``data`` × ``seq`` (``data`` defaults to world //
+    seq), or it raises."""
     global _MESH
-    if seq != 1:
-        raise NotImplementedError(
-            f"make_mesh(seq={seq}): the token axis is not ported (it needs a "
-            "halo exchange for the causal conv); see ROADMAP.md")
     if dist.is_initialized():
-        mesh = Mesh(dist.get_world_size(), dist.get_rank(),
-                    dist.get_backend())
+        world, rank, backend = (dist.get_world_size(), dist.get_rank(),
+                                dist.get_backend())
     else:
-        mesh = Mesh()
-    if data is not None and data != mesh.world:
-        raise ValueError(f"make_mesh(data={data}) needs {data} processes, "
-                         f"the process group has {mesh.world}; launch with "
-                         f"torchrun --nproc_per_node {data}")
-    _MESH = mesh
-    return mesh
+        world, rank, backend = 1, 0, None
+    if seq < 1:
+        raise ValueError(f"make_mesh(seq={seq}): seq must be at least 1")
+    if data is None:
+        data = max(world // seq, 1)
+    if data * seq != world:
+        raise ValueError(f"make_mesh(data={data}, seq={seq}) needs "
+                         f"{data * seq} processes, the process group has "
+                         f"{world}; launch with torchrun --nproc_per_node "
+                         f"{data * seq}")
+    groups = _groups(world, rank, seq) if seq > 1 else (None, None)
+    _MESH = Mesh(world, rank, backend, seq, *groups)
+    return _MESH
 
 
 def get_mesh() -> Mesh:
@@ -141,16 +241,16 @@ WHOLE = ("channel_ids",)
 
 def shard_batch(batch: Mapping[str, Any],
                 mesh: Optional[Mesh] = None) -> dict:
-    """This rank's part of a global batch: the contiguous rows of each
-    leaf whose leading dimension the world size divides; a leaf it does
-    not divide, or one named in ``WHOLE``, is kept whole, as the JAX
-    package replicates it."""
+    """This rank's part of a global batch: the contiguous rows, by data
+    index, of each leaf whose leading dimension the mesh's data size
+    divides; a leaf it does not divide, or one named in ``WHOLE``, is
+    kept whole, as the JAX package replicates it."""
     mesh = mesh or get_mesh()
     out = {}
     for k, v in batch.items():
         shape = getattr(v, "shape", None) or np.shape(v)
-        if k not in WHOLE and len(shape) >= 1 and shape[0] >= mesh.world \
-                and shape[0] % mesh.world == 0:
+        if k not in WHOLE and len(shape) >= 1 and shape[0] >= mesh.data \
+                and shape[0] % mesh.data == 0:
             out[k] = v[mesh.rows(shape[0])]
         else:
             out[k] = v
@@ -163,7 +263,7 @@ def replicate(module: torch.nn.Module,
     """Broadcast rank 0's parameters and buffers to every rank, in place;
     returns ``module``."""
     mesh = mesh or get_mesh()
-    if mesh.sharded:
+    if mesh.world > 1:
         for t in [*module.parameters(), *module.buffers()]:
             dist.broadcast(t.data, 0)
     return module

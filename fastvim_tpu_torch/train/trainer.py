@@ -18,7 +18,11 @@ gradients with ``torch.autograd.grad``, which fires none of
 backward pass is the same whatever the backward ran (the fused layer's
 ``FusedMixerCoreFn``, remat's recomputation). The metrics are averaged
 over ranks, and every rank applies the same update, so the parameters
-and the EMA copy stay equal on every rank.
+and the EMA copy stay equal on every rank. Over a ``(data, seq)`` mesh
+the ranks of a seq group hold the same rows and shard the model's tokens
+(``parallel/tokens.py``); the all-reduce over the whole world then gives
+the data-parallel mean, the S factor of each seq group cancelling (see
+that module).
 """
 
 from __future__ import annotations
@@ -28,7 +32,11 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from fastvim_tpu_torch.parallel import allreduce_grads, mean_over_ranks
+from fastvim_tpu_torch.parallel import (
+    allreduce_grads,
+    get_mesh,
+    mean_over_ranks,
+)
 from fastvim_tpu_torch.train.mixup import (
     accuracy,
     cross_entropy,
@@ -67,9 +75,15 @@ def make_supervised_train_step(
     over the global batch. ``grad_allreduce_dtype`` (torch.bfloat16):
     the gradient all-reduce of several ranks in that dtype, cast back
     before the fp32 update (without a process group there is no
-    all-reduce, and nothing is cast). The state is updated in place."""
+    all-reduce, and nothing is cast); it raises on a mesh with a seq axis,
+    as the JAX package's compressed all-reduce does (a DP-only comm hook).
+    The state is updated in place."""
     if mixup_config and generator is None:
         raise ValueError("mixup needs a generator")
+    seq = get_mesh().seq
+    if grad_allreduce_dtype is not None and seq > 1:
+        raise ValueError(f"the compressed gradient all-reduce is data "
+                         f"parallel only; use seq=1 (got seq={seq})")
     seed = generator.initial_seed() if generator is not None else None
     if hasattr(model, "set_drop_path_generator"):
         model.set_drop_path_generator(generator)

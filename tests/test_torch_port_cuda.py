@@ -1404,3 +1404,30 @@ def test_new_wrappers_refuse(dev):
         selective_scan(u, u, -torch.ones(64, 16, device=dev),
                        _rand(g, 1, 8, 16), _rand(g, 1, 8, 16), reverse=True,
                        variant="lanes")
+
+
+@pytest.fixture(params=["gloo", "nccl"])
+def one_rank(dev, tmp_path, request):
+    """A process group of one rank on the card (gloo stages its CUDA
+    tensors through the host, NCCL takes them); yields the backend."""
+    torch.distributed.init_process_group(
+        request.param, init_method=f"file://{tmp_path / 'store'}",
+        world_size=1, rank=0)
+    yield request.param
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("method", ["mean", "max"])
+def test_seq_functions_on_one_rank_match_plain(one_rank, dev, dtype,
+                                               transposed, method):
+    """The seq axis's halo conv, pools, gathers and final pools
+    (``parallel/tokens.py``) over a one-rank group on the card against
+    the whole-grid ops they stand for, outputs and gradients."""
+    import torch_seq_ranks
+
+    for name, got, want in torch_seq_ranks.one_rank_functions(
+            dev, dtype, transposed, method, one_rank):
+        assert got.device.type == "cuda", name
+        _close(got, want, TOL[dtype], summed=True)

@@ -188,7 +188,8 @@ def test_shard_batch_rows_match_jax():
     # four channel ids split over two devices in JAX, whole here
     four = shard_batch({"channel_ids": np.arange(4)}, Mesh(2, 1))
     np.testing.assert_array_equal(four["channel_ids"], np.arange(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # without a 2-rank group, a seq axis of 2 names the ranks it needs
+    with pytest.raises(ValueError, match="needs 2 processes"):
         pmesh.make_mesh(seq=2)
 
 
