@@ -33,7 +33,12 @@ Phases, each of which raises on failure (exit code non-zero):
    seven gradients; K7 at FastVim-T's and FastVim-S's widths, both
    orientations, beside its pass A, K3's pools-only form, and its wide
    forms at K3-K6's wide shapes (FastVim-B, -L, -H) in both dtypes, each
-   timed beside its bound; K8, K9 and K10
+   timed beside its bound; K3 and K4 in fp32 (products as three TF32
+   products on the tensor cores) at each of those shapes and at
+   ``FP32_FWD_SHAPES`` (224 px and B = 128 at FastVim-T's and -B's
+   widths, timed in both orientations beside their plain versions, the
+   fp32 SGEMM of the same products and their bound; lines of 4, 7 and
+   16 tokens), K3 also pools-only; K8, K9 and K10
    at FastVim-T's and FastVim-S's widths (K10 in both orientations), each
    with its share of the bound; the lanes scan at L = 128 and 16,384,
    beside K1; and K1 and K2 in fp32 at the MAE slice's shapes (batch,
@@ -54,11 +59,13 @@ Phases, each of which raises on failure (exit code non-zero):
    ``fastvim_tiny`` at d_inner 4096 (depth 2) with ``fused_merge``, the
    widest K10 takes (2 K10); then ``fastvim_base`` and ``fastvim_large``
    at 224 px and ``fastvim_huge`` at 448 px (patch 14, a 32 × 32 grid),
-   depth 2, which must fuse with their default fields (2 K3, 2 K4, 4 K1
-   a forward): their logits, and, built with ``layer_fused_bwd="fused"``
-   (fp32's "auto" takes the remat backward at these widths on lines of
-   up to 16 tokens, B's and L's here), their loss and every gradient
-   through the fused adjoint (2 K5 and 2 K6 a backward, their wide
+   depth 2, with their default fields: B and H must fuse (2 K3, 2 K4, 4
+   K1 a forward), L's forward, which takes no gradient, the unfused
+   route (``default_fwd_mode``: no K3 or K4, 4 K1); their logits, and,
+   built with ``layer_fused_bwd="fused"`` (fp32's "auto" takes the remat
+   backward at these widths on lines of up to 16 tokens, B's and L's
+   here), their loss and every gradient through the fused forward and
+   adjoint (2 K3, 2 K4 a forward, 2 K5 and 2 K6 a backward, their wide
    forms); and the same three in the recompute mode
    (``layer_fused="recompute"``, K7's wide forms in fp32): their logits,
    2 K3 (pools only) + 2 K7 + 4 K1 a forward;
@@ -278,12 +285,16 @@ time a call from CUDA-graph replays; ``bound_ms`` is the larger of bytes
 / 3.35 TB/s and operations / the H100's peak for their type, for the
 inputs of the timed call), K3 and K4 also once for each wide width
 (``"pass_a_fwd d_model=768"``: FastVim-B at 2048 px, -L and -H at their
-phase 2 shapes; launches from phase 4's FastVim-B forward and phase 3's
--L and -H forwards), and so K5 and K6 (``"pass_b_bwd d_model=768"``;
+phase 2 shapes; launches from phase 4's FastVim-B forward, phase 3's -H
+forward and -L's forward with a gradient), and so K5 and K6 (``"pass_b_bwd d_model=768"``;
 launches from phase 5's FastVim-B train step and phase 3's -L and -H
 backwards) and K7 (``"pass_b_recompute_fwd d_model=768"``; launches
 from phase 6's FastVim-B recompute forward and phase 3's -L and -H
-recompute forwards), and K1 once more with the gate and the final state at the LM
+recompute forwards), K3 and K4 in fp32 (``"pass_a_fwd fp32"`` at
+FastVim-T's widths, ``"pass_a_fwd fp32 d_model=768"`` at -B's, 224 px,
+B = 128; launches from phase 7's fp32 ``train_classification
+FastVimT`` and ``test_classification FastVimB``), and K1 once more with
+the gate and the final state at the LM
 prefill's shapes (``"selective_scan_fwd lm"``: B = 4, L = 2048, fp32;
 launches from phase 14's prefill); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -309,9 +320,11 @@ BF16_TOL = 2e-2  # ≈ 5 bf16 ulps: the outputs are rounded to bf16 on both side
 MODEL_TOL = 1e-3  # fp32 logits after 24 layers, card vs CPU
 GRAD_TOL = 1e-4   # fp32 gradients after 24 layers, relative to the largest
 
-# NVIDIA H100 SXM peaks (data sheet, dense): the yardstick of bound_ms
+# NVIDIA H100 SXM peaks (data sheet, dense): the yardstick of bound_ms.
+# "tf32x3": fp32 products as three TF32 products on the tensor cores (the
+# fp32 K3 and K4), 495 TFLOP/s / 3; "fp32" the FMA units
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "tf32x3": 495e12 / 3}
 
 
 def log(msg: str) -> None:
@@ -586,9 +599,21 @@ WIDE_SHAPES = ((768, 1536, (((128, 128), 2), ((14, 14), 8))),
                (1280, 2560, (((32, 32), 8),)))
 WIDE_DM = tuple(dm for dm, _, _ in WIDE_SHAPES)
 
+# K3 and K4 in fp32 alone in phase 2 (their tensor-core forms: runs of
+# whole lines, up to 122 tokens a block), by d_model: 224 px at B = 128,
+# timed (runs of 8 + 6 lines, each meeting its image's first or last
+# line); at FastVim-T's widths lines of 4, 7 and 16 tokens (one run an
+# image; runs of 17 + 17 + 6 lines; 7 + 7 + 2 over 3 images)
+FP32_FWD_SHAPES = {192: (((14, 14), 128), ((24, 4), 3), ((40, 7), 2),
+                         ((16, 16), 3)),
+                   768: (((14, 14), 128),)}
+
 
 def check_kernels(dev, card, per_call):
-    """Phase 2: K1, K3 and K4 against their plain versions on the card."""
+    """Phase 2: K1, K3 and K4 against their plain versions on the card.
+    Returns (errors, times) by the kernels line's names; K3's and K4's
+    fp32 forms (csrc/layer_fused_fwd_tf32.cu) under ``"pass_a_fwd
+    fp32"``, their bf16 ones under ``"pass_a_fwd"``."""
     import torch
 
     from fastvim_tpu_torch.ops.kernels import layer_fused as lf
@@ -680,8 +705,14 @@ def check_kernels(dev, card, per_call):
     # 224 px), FastVim-S's (2048 px, batch 2), and FastVim-B's, -L's and
     # -H's (K3's streamed form, K4's wide one): B at 2048 px (batch 2) and
     # 224 px (batch 8), L at 224 px, H at 448 px with patch 14 (a 32 × 32
-    # grid). The kernels line takes FastVim-T's times under the kernel's
-    # name and each wide width's first shape under "<name> d_model=<dm>"
+    # grid); then fp32 alone at FP32_FWD_SHAPES, and K3 pools-only in
+    # fp32. The kernels line takes FastVim-T's times under the kernel's
+    # name and each wide width's first shape under "<name> d_model=<dm>";
+    # the fp32 forms' at B = 128 (their even orientation) under
+    # "<name> fp32" and "<name> fp32 d_model=768", timed beside the fp32
+    # SGEMM of the same products (TF32 off: a yardstick the port never
+    # calls), their bound max(bytes / 3.35 TB/s, 3 × FLOP / 495 TFLOP/s)
+    # and the FMA units' bound (FLOP / 67 TFLOP/s)
     for dm, di, shapes in ((192, 384, (((128, 128), 2), ((14, 14), 8))),
                            (384, 768, (((128, 128), 2),)),
                            *WIDE_SHAPES):
@@ -692,15 +723,17 @@ def check_kernels(dev, card, per_call):
         w_out = uni(dm, di, bound=di ** -0.5 / 24 ** 0.5)
         d_f, d_b = uni(di, bound=1.0), uni(di, bound=1.0)
         ln_w, ln_b = 1 + uni(di, bound=0.1), uni(di, bound=0.1)
-        for (H, W), batch in shapes:
+        f32_only = FP32_FWD_SHAPES.get(dm, ())
+        for i, ((H, W), batch) in enumerate(shapes + f32_only):
             base_x = rnd(batch, H, W, dm)
+            dtypes = ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL))
             for transposed in (False, True):
                 P = W if transposed else H
                 base_b = dict(xc_f=rnd(batch, H, W, di),
                               xc_b=rnd(batch, H, W, di),
                               yf=rnd(batch, P, di), yb=rnd(batch, P, di))
-                for dtype, tol in ((torch.float32, FP32_TOL),
-                                   (torch.bfloat16, BF16_TOL)):
+                for dtype, tol in dtypes[:1 if i >= len(shapes) else 2]:
+                    fp32 = dtype == torch.float32
                     x4 = base_x.to(dtype)
                     wx, wz = w_in[:di].to(dtype), w_in[di:].to(dtype)
                     a_args = (x4, wx, None, conv[0], cbias[0], conv[1],
@@ -709,13 +742,22 @@ def check_kernels(dev, card, per_call):
                            f"B={batch} {dtype} transposed={transposed}")
                     got = lf.pass_a(*a_args)
                     want = lf.pass_a_plain(*a_args)
-                    key = lambda name: f"{name} d_model={dm}" if wide \
-                        else name
+                    key = lambda name: (name + (" fp32" if fp32 else "")
+                                        + (f" d_model={dm}" if wide else ""))
                     for part, gt, wt in zip(("xc_f", "xc_b", "pf", "pb"), got,
                                             want):
                         e = compare(f"pass_a_fwd {part} {tag}", gt, wt, tol)
                         errs[key("pass_a_fwd")] = max(
                             errs.get(key("pass_a_fwd"), 0.0), e)
+                    if fp32:
+                        for part, gt, wt in zip(
+                                ("pf", "pb"),
+                                lf.pass_a(*a_args, write_xc=False)[2:],
+                                want[2:]):
+                            e = compare(f"pass_a_fwd pools-only {part} {tag}",
+                                        gt, wt, tol)
+                            errs[key("pass_a_fwd")] = max(
+                                errs[key("pass_a_fwd")], e)
                     bb = {k: v.to(dtype) for k, v in base_b.items()}
                     b_args = (x4, bb["xc_f"], bb["xc_b"], bb["yf"], bb["yb"],
                               wz, None, d_f, d_b, ln_w, ln_b, w_out.to(dtype),
@@ -724,31 +766,41 @@ def check_kernels(dev, card, per_call):
                                 lf.pass_b_plain(*b_args), tol)
                     errs[key("pass_b_fwd")] = max(
                         errs.get(key("pass_b_fwd"), 0.0), e)
-                    if not (dtype == torch.bfloat16
-                            and (wide or (H, W) == (128, 128))):
+                    if not (batch == 128 if fp32
+                            else wide or (H, W) == (128, 128)):
                         continue
                     gemm = 2.0 * batch * H * W * dm * di  # one GEMM's FLOP
                     # the child counted the wide forms at FastVim-B's widths
                     per = "" if not wide else f" d_model={WIDE_DM[0]}"
-                    for name, kern, plain, args, outs, flops in (
+                    xm = x4.reshape(-1, dm)
+                    gm = bb["xc_f"].reshape(-1, di)
+                    for name, kern, plain, args, outs, flops, sgemm in (
                             ("pass_a_fwd", lf.pass_a, lf.pass_a_plain, a_args,
-                             got, gemm),
+                             got, gemm, lambda: xm @ wx.t()),
                             ("pass_b_fwd", lf.pass_b, lf.pass_b_plain, b_args,
-                             (x4,), 2 * gemm)):
+                             (x4,), 2 * gemm,
+                             lambda: (xm @ wz.t(), gm @ b_args[11].t()))):
                         k_ms = cuda_ms(lambda: kern(*args), 20)
-                        p_ms = cuda_ms(lambda: plain(*args), 20)
+                        p_ms = cuda_ms(lambda: plain(*args), 3 if fp32 else 20)
                         b_ms, by = bound(
                             nbytes(*(a for a in args
                                      if isinstance(a, torch.Tensor)), *outs),
-                            flops, "bf16")
-                        n = per_call[name + per]["torch.bfloat16"]
-                        log(f"[time] {name} bf16 {tag}: kernel {k_ms:.4f} "
-                            f"ms in {n:g} launches, plain {p_ms:.4f} ms, "
-                            f"bound {b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} "
-                            f"of the bound ({card})")
+                            flops, "tf32x3" if fp32 else "bf16")
+                        n = per_call[name + per][str(dtype)]
+                        more = (f", SGEMM {cuda_ms(sgemm, 20):.4f} ms"
+                                if fp32 else "")
+                        fma = (f"; FMA bound "
+                               f"{flops / PEAK_FLOPS['fp32'] * 1e3:.4f} ms"
+                               if fp32 else "")
+                        log(f"[time] {name} {'fp32' if fp32 else 'bf16'} "
+                            f"{tag}: kernel {k_ms:.4f} ms in {n:g} launches, "
+                            f"plain {p_ms:.4f} ms{more}, bound {b_ms:.4f} ms "
+                            f"({by}{'; 3xTF32' if fp32 else ''}), "
+                            f"{b_ms / k_ms:.1%} of the bound{fma} ({card})")
                         # the kernels line takes the main path's widths,
                         # and each wide width's first shape
                         times.setdefault(key(name), (k_ms, p_ms, b_ms, by))
+                    del xm, gm
                 del got, want
             del base_x, base_b
             torch.cuda.empty_cache()
@@ -1299,15 +1351,20 @@ def check_models_224(dev):
             if k3_k7 != (2, 2):
                 raise AssertionError(f"{name} {kw}: K3, K7 launches {k3_k7}, "
                                      f"expected (2, 2)")
-    # FastVim-B, -L and -H at depth 2 fuse with their default fields: K3's
-    # streamed form and K4's wide one, 2 K3 + 2 K4 + 4 K1 a forward; and
-    # in the recompute mode, K3's pools-only form and K7's wide forms, 2 K3
-    # + 2 K7 + 4 K1 (the widths where a launcher that refuses a registry
-    # width shows)
+    # FastVim-B, -L and -H at depth 2 with their default fields: B and H
+    # fuse, K3's streamed form and K4's wide one, 2 K3 + 2 K4 + 4 K1 a
+    # forward, and L's forward at 224 px, which takes no gradient, runs
+    # unfused (default_fwd_mode: fp32 past d_model 768 on 14-token lines);
+    # and in the recompute mode, K3's pools-only form and K7's wide forms,
+    # 2 K3 + 2 K7 + 4 K1 (the widths where a launcher that refuses a
+    # registry width shows)
     wide = {}
     for name, img, dm, x_ in wide_inputs():
+        default = (WIDE_ROUTE, "unfused route: no K3, K4") \
+            if name == "fastvim_large" else \
+            (WIDE_FWD, "fused: K3 streamed, K4 wide")
         for kw, expected, what in (
-                ({}, WIDE_FWD, "fused: K3 streamed, K4 wide"),
+                ({}, *default),
                 (dict(layer_fused="recompute"), WIDE_RC_FWD,
                  "recompute: K3 pools-only, K7 wide")):
             cpu_model = create_model(
@@ -1322,16 +1379,17 @@ def check_models_224(dev):
                     f"CPU", got, want, MODEL_TOL)
             expect_launches(f"{name} {kw} depth 2 {img}px forward", seen,
                             expected)
-            for k in expected:
-                if k != "selective_scan_fwd":
+            for k, n in expected.items():
+                if k != "selective_scan_fwd" and n:
                     wide[f"{k} d_model={dm}"] = seen[k]
             del cpu_model, gpu_model
     return wide
 
 
 # a forward of a depth-2 FastVim-B/L/H: both layers fused, by default and
-# in the recompute mode
+# in the recompute mode; or both unfused (the route)
 WIDE_FWD = {"pass_a_fwd": 2, "pass_b_fwd": 2, "selective_scan_fwd": 4}
+WIDE_ROUTE = {"pass_a_fwd": 0, "pass_b_fwd": 0, "selective_scan_fwd": 4}
 WIDE_RC_FWD = {"pass_a_fwd": 2, "pass_b_recompute_fwd": 2,
                "selective_scan_fwd": 4}
 
@@ -1356,10 +1414,10 @@ def check_grads_224(dev):
     remat backward, so no K5 or K6 launches. FastVim-B, -L and -H (depth
     2; -H at 448 px), built with ``layer_fused_bwd="fused"`` (fp32's
     "auto" takes the remat backward at these widths on 14- and 16-token
-    lines), fuse both ways: 2
-    K3 + 2 K4 a forward and 2 K5 + 2 K6 a backward, the wide forms of the
-    adjoint. Returns the launches of the
-    wide models' forwards and backwards, and their K5 and K6 launches by
+    lines), fuse both ways: 2 K3 + 2 K4 a forward (a forward that takes
+    a gradient stays fused, ``default_fwd_mode``) and 2 K5 + 2 K6 a
+    backward, the wide forms of the adjoint. Returns the launches of the
+    wide models' forwards and backwards, and their K3-K6 launches by
     d_model."""
     import torch
 
@@ -1410,7 +1468,9 @@ def check_grads_224(dev):
         if what:
             for k, v in kernels.launch_counts().items():
                 total[k] += v
-            by_dm[wide_dm[name]] = {"pass_b_bwd": bwd["pass_b_bwd"],
+            by_dm[wide_dm[name]] = {"pass_a_fwd": fwd["pass_a_fwd"],
+                                    "pass_b_fwd": fwd["pass_b_fwd"],
+                                    "pass_b_bwd": bwd["pass_b_bwd"],
                                     "pass_a_bwd": bwd["pass_a_bwd"]}
         (want_loss, want), (got_loss, got) = results
         compare(f"{name} {kw} fp32 loss{what}, card vs CPU", got_loss,
@@ -4878,6 +4938,106 @@ def run_seq_path(dev, card):
     return total
 
 
+FWD_224_MODELS = ("fastvim_tiny", "fastvim_base")
+
+
+def fwd_224(argv) -> int:
+    """``chip_smoke.py --fwd-224 [ROOT] [MODEL ...]``: the 224 px fp32
+    forward at B = 128 of each model (default ``FWD_224_MODELS``) built
+    with its default fields and the fused layer taken in every forward
+    (where ``default_fwd_mode`` would route it unfused, it is made to
+    answer "fused"; ``auto_launches`` are the launches of the default
+    forward, ``auto_max_abs_diff`` its logits against the unfused ones)
+    and with ``layer_fused="off"``, in turns (fused, off, off, fused;
+    each the median of 2 windows of 2 forwards), their logits against
+    each other, and for
+    ``fastvim_base`` also a train step (cross-entropy, backward; the fused
+    forward takes the remat backward there, as ``finetune_mae
+    finetune_FastVimB`` does) both ways, with the peak memory. The
+    package is imported from the checkout ROOT (default: this one), so
+    that two trees can be timed in turns on one card, one process each.
+    Prints one ``[fwd224]`` JSON line per model."""
+    import os
+
+    import torch
+
+    root = os.path.abspath(argv[0] if argv else os.path.dirname(
+        os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import torch.nn.functional as F
+
+    from fastvim_tpu_torch.models import create_model
+    from fastvim_tpu_torch.models import mixer as mixer_mod
+    from fastvim_tpu_torch.ops import kernels
+    from fastvim_tpu_torch.ops.kernels import _build
+
+    # the forward route (absent from a tree older than it)
+    auto_route = getattr(mixer_mod, "default_fwd_mode", None)
+
+    def always_fused(on):
+        if auto_route is not None:
+            mixer_mod.default_fwd_mode = (lambda *a: "fused") if on \
+                else auto_route
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    batch = 128
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(batch, 224, 224, 3, device=dev, generator=g)
+    y = torch.randint(0, 1000, (batch,), device=dev, generator=g)
+    for name in argv[1:] or FWD_224_MODELS:
+        fused = create_model(name, img_size=224, device=dev)
+        off = copy.deepcopy(fused)
+        for m in off.modules():
+            if hasattr(m, "layer_fused"):
+                m.layer_fused = "off"
+        res = {"root": root, "model": name, "card": card}
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            auto = fused(x)
+            res["auto_launches"] = {k: v for k, v in
+                                    kernels.launch_counts().items() if v}
+            always_fused(True)
+            kernels.reset_launch_counts()
+            got = fused(x)
+            res["launches"] = {k: v for k, v in
+                               kernels.launch_counts().items() if v}
+            want = off(x)
+            res["logits_max_abs_diff"] = (got - want).abs().max().item()
+            res["auto_max_abs_diff"] = (auto - want).abs().max().item()
+            del auto, got, want
+            for tag, m in (("fused", fused), ("off", off), ("off", off),
+                           ("fused", fused)):
+                res.setdefault(f"{tag}_ms", []).append(
+                    cuda_ms(lambda: m(x), 2, windows=2))
+            always_fused(False)
+        if name == "fastvim_base":
+            for tag, m in (("fused", fused), ("off", off), ("off", off),
+                           ("fused", fused)):
+                m.train()  # DropPath 0.1, the model's default
+                m.set_drop_path_generator(
+                    torch.Generator(device=dev).manual_seed(0))
+
+                def step():
+                    loss = F.cross_entropy(m(x), y)
+                    loss.backward()
+                    m.zero_grad(set_to_none=True)
+
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                res.setdefault(f"step_{tag}_ms", []).append(
+                    cuda_ms(step, 1, windows=2))
+                res[f"step_{tag}_peak_gib"] = \
+                    torch.cuda.max_memory_allocated() / 2 ** 30
+        print("[fwd224] " + json.dumps(res), flush=True)
+        del fused, off
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4886,6 +5046,8 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--count-launches"]:
         return count_launches()
+    if sys.argv[1:2] == ["--fwd-224"]:
+        return fwd_224(sys.argv[2:])
     try:
         from fastvim_tpu_torch.ops.kernels import _build
     except ImportError as e:
@@ -4961,15 +5123,26 @@ def main() -> int:
                  for dm, counts in (*bwd_wide.items(), (768, base_step))
                  for k, n in counts.items()
                  if k in ("pass_b_bwd", "pass_a_bwd")})
+    # FastVim-L's K4 from its forward with a gradient: its inference
+    # forward at 224 px takes the unfused route
+    for dm, counts in bwd_wide.items():
+        for k in ("pass_a_fwd", "pass_b_fwd"):
+            wide.setdefault(f"{k} d_model={dm}", counts[k])
     config_counts, base_rc = run_config_path(dev, card)
     wide["pass_b_recompute_fwd d_model=768"] = base_rc["pass_b_recompute_fwd"]
     stamp("phase 6")
     cli_counts = run_cli_path(dev, card)
     stamp("phase 7, train_classification")
-    for counts in (grads_wide, train, config_counts, cli_counts,
-                   run_serving_path(dev, card)):
+    serving = run_serving_path(dev, card)
+    for counts in (grads_wide, train, config_counts, cli_counts, serving):
         for name, count in counts.items():
             launches[name] += count
+    # the fp32 forms' launches: FastVimT.yaml's train_classification and
+    # FastVim-B's test_classification, both fp32 at 224 px
+    wide.update({f"{k} fp32{dm}": counts[k]
+                 for dm, counts in (("", cli_counts), (" d_model=768",
+                                                        serving))
+                 for k in ("pass_a_fwd", "pass_b_fwd")})
     stamp("phase 7")
     for name, count in check_mae_224(dev).items():
         launches[name] += count
@@ -5028,8 +5201,7 @@ def main() -> int:
     # the sequential form, timed at FastVim's L = 128, then the chunked
     # one, which the launcher takes at Vim-T's L = 16,384)
     src = "fastvim_tpu_torch/ops/kernels/csrc/"
-    fwd = ("layer_fused_fwd.cu", "layer_fused_fwd.cuh", "layer_fused.cuh",
-           "wgmma.cuh")
+    fwd = ("layer_fused_fwd.cu", "layer_fused_fwd.cuh", "wgmma.cuh")
     bwd = ("layer_fused_bwd.cu", "layer_fused_bwd.cuh", "layer_fused.cuh",
            "wgmma.cuh")
     table = [
@@ -5065,6 +5237,13 @@ def main() -> int:
     table += [(f"{name} d_model={dm}", main_file, more, tpu)
               for rows in (table[2:4], table[4:6], table[6:7])
               for dm in WIDE_DM for name, main_file, more, tpu in rows]
+    # the fp32 K3 and K4 (3xTF32 on the tensor cores) at FastVim-T's and
+    # -B's widths, 224 px
+    table += [(f"{name} fp32{dm}", "layer_fused_fwd_tf32.cu", fwd, tpu)
+              for dm in ("", " d_model=768")
+              for name, tpu in (
+                  ("pass_a_fwd", "fastvim_tpu/ops/pallas/layer_fused.py:303"),
+                  ("pass_b_fwd", "fastvim_tpu/ops/pallas/layer_fused.py:409"))]
     # K1 with the gate and the final state at the LM prefill's shapes
     # (phase 14: launches of one B = 2 prefill, times at B = 4, L = 2048,
     # fp32, the chunked form)

@@ -18,7 +18,10 @@ Dispatch, in this order (``forward``):
 1. ``layer_fused`` "auto" or "on" (the same here: the fused layer runs on
    every device), on a grid and at widths that
    :func:`~fastvim_tpu_torch.ops.kernels.layer_fused.fusable` accepts: the
-   whole layer runs as pass A (K3) → pooled scans (K1) → pass B (K4).
+   whole layer runs as pass A (K3) → pooled scans (K1) → pass B (K4),
+   except where ``default_fwd_mode`` sends a forward that takes no
+   gradient to the unfused path (fp32 FastVim-L and -H on lines of up to
+   16 tokens, where the fused forward measured slower).
    ``layer_fused="recompute"`` (the JAX package's
    ``FASTVIM_LF_RECOMPUTE=1``) is the same layer with pass A writing the
    pools only and pass B computing the conv stage again (K7). K3, K4
@@ -115,6 +118,7 @@ from fastvim_tpu_torch.ops.kernels import fused_block, merge_gate
 from fastvim_tpu_torch.ops.kernels.layer_fused import (
     FusedParams,
     default_bwd_mode,
+    default_fwd_mode,
     fusable,
     fused_mixer_core,
     proj_scan,
@@ -352,7 +356,10 @@ class MambaMixer(nn.Module):
         if shard is None and row_ids is None and self.layer_fused != "off" \
                 and fusable(
                 grid_shape, pool_axes, transposed, self.d_model, self.d_inner,
-                self.d_conv, self.collapse_method, recompute=recompute):
+                self.d_conv, self.collapse_method, recompute=recompute) \
+                and (recompute or default_fwd_mode(
+                    self.d_model, dtype, grid_shape[0 if transposed else 1],
+                    self._needs_grad(x)) == "fused"):
             bwd = self.layer_fused_bwd
             if bwd == "auto":
                 bwd = default_bwd_mode(self.d_model, self.d_inner, dtype,
@@ -367,6 +374,12 @@ class MambaMixer(nn.Module):
         if self.gamma is not None:
             out = out * self.gamma.to(dtype)
         return out
+
+    def _needs_grad(self, x: torch.Tensor) -> bool:
+        """Whether this call will be differentiated: grad mode on and the
+        input or a parameter requiring grad."""
+        return torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for p in self.parameters()))
 
     def _decode_step(self, x, cache):
         """One causal decode step of (batch, 1, d_model) x; see

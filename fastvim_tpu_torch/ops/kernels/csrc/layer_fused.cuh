@@ -1,9 +1,9 @@
-// Device code shared by the fp32 forward (layer_fused_fwd.cu), backward
-// (layer_fused_bwd.cu) and recompute (layer_fused_recompute.cu) passes of
-// the fused FastVim mixer layer: the line a pass A block owns, the x-half
-// GEMM of a line plus its halo into a shared fp32 tile, and the
-// 32-token-tile FMA GEMMs of pass B. See layer_fused_fwd.cu for the
-// design notes.
+// Device code shared by the fp32 backward (layer_fused_bwd.cu) and
+// recompute (layer_fused_recompute.cu) passes of the fused FastVim mixer
+// layer: the line a pass A adjoint block owns, the x-half GEMM of a line
+// plus its halo into a shared fp32 tile, and the 32-token-tile FMA GEMMs
+// of pass B. (The fp32 forward, layer_fused_fwd_tf32.cu, has its own
+// tensor-core tiles.)
 #pragma once
 
 #include <type_traits>
@@ -28,17 +28,6 @@ constexpr int kAPass = 16 * kARows;  // FMA: tokens per GEMM pass
 
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-
-// shared memory of pass A's fp32 kernel for a line of `ln` tokens, in
-// bytes
-__host__ __device__ inline size_t pass_a_smem(int ln, int dm) {
-  const int ntok = ln + 2 * kPad;
-  const size_t red = 2 * 4 * kACh * sizeof(float);  // pooled partials
-  return (static_cast<size_t>(ntok) * kACh +
-          static_cast<size_t>(kAKc) * (kAPass + 1) +
-          static_cast<size_t>(kAKc) * (kACh + 1)) * sizeof(float) +
-         red;
-}
 
 struct Line {  // the line a pass A block owns
   int H, W, P, ln, p;
@@ -173,7 +162,6 @@ constexpr int kBTok = 32;            // tokens per block (4 per warp)
 constexpr int kBKc = 16;             // K chunk of the FMA GEMMs
 constexpr int kBCols = 12;           // FMA: output channels per thread
 constexpr int kBSlab = 32 * kBCols;  // output columns per slab: 384
-constexpr int kBMaxDi = 768;         // per-lane merge registers: / 32
 
 // FMA: acc[r][j] = Σ_k sA[(kR·warp + r)·lda + k] · Wt[(n0 + lane + 32j)·ldw
 // + k] for k < K, j < ncols: an (8·kR × K) fp32 tile in shared memory

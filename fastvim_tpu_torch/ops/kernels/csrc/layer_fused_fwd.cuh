@@ -1,6 +1,7 @@
-// The bf16 forward kernels of the fused layer (K3, K4:
-// layer_fused_fwd_wgmma.cu; K7: layer_fused_recompute_wgmma.cu), called by
-// the C entry points in layer_fused_fwd.cu and layer_fused_recompute.cu.
+// The forward kernels of the fused layer that the C entry points in
+// layer_fused_fwd.cu and layer_fused_recompute.cu call: K3 and K4 in bf16
+// (layer_fused_fwd_wgmma.cu) and fp32 (layer_fused_fwd_tf32.cu), K7 in
+// bf16 (layer_fused_recompute_wgmma.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,6 +33,23 @@ cudaError_t pass_b_fwd_bf16(const void* x, const void* xc_f,
                             const void* b_out, void* out, int batch, int H,
                             int W, int dm, int di, bool transposed,
                             bool use_ln, float eps, cudaStream_t stream);
+
+// K3 and K4 in fp32 (layer_fused_fwd_tf32.cu), the same contracts, lines
+// of any length. One launch each.
+cudaError_t pass_a_fwd_f32(const void* x, const void* w_x, const void* b_x,
+                           const void* w_cf, const void* b_cf,
+                           const void* w_ab, const void* b_ab, void* xc_f,
+                           void* xc_b, void* pf, void* pb, int batch, int H,
+                           int W, int dm, int di, bool transposed,
+                           float scaling, cudaStream_t stream);
+cudaError_t pass_b_fwd_f32(const void* x, const void* xc_f, const void* xc_b,
+                           const void* yf, const void* yb, const void* w_z,
+                           const void* b_z, const void* d_f, const void* d_b,
+                           const void* ln_w, const void* ln_b,
+                           const void* w_out, const void* b_out, void* out,
+                           int batch, int H, int W, int dm, int di,
+                           bool transposed, bool use_ln, float eps,
+                           cudaStream_t stream);
 
 // K7: dm, di % 32 == 0, dm <= 1280, di <= 2560, H, W >= 4. One launch.
 cudaError_t pass_b_recompute_fwd_bf16(

@@ -1,6 +1,7 @@
 """K3-K7: the two passes of the fused FastVim mixer layer, forward
-(``csrc/layer_fused_fwd_wgmma.cu`` in bf16, ``csrc/layer_fused_fwd.cu`` in
-fp32 and for the entry points), backward (``csrc/layer_fused_bwd_wgmma.cu``
+(``csrc/layer_fused_fwd_wgmma.cu`` in bf16, ``csrc/layer_fused_fwd_tf32.cu``
+in fp32 on the tensor cores in split precision, ``csrc/layer_fused_fwd.cu``
+for the entry points), backward (``csrc/layer_fused_bwd_wgmma.cu``
 in bf16, ``csrc/layer_fused_bwd.cu`` in fp32 and for the entry points) and
 pass B in its recompute form (``csrc/layer_fused_recompute_wgmma.cu`` in
 bf16, ``csrc/layer_fused_recompute.cu`` in fp32 and for the entry point),
@@ -52,6 +53,8 @@ BWD_NARROW_DM = 384     # past these K5 / K6 take their wide forms
 BWD_NARROW_DI = 768     # (fvb::kNarrowDm, kNarrowDi; fp32 K5 past 384)
 BWD_SHORT_LINE = 16     # fp32 K5's wide form takes 16-token tiles up to it
 A_BWD_WINDOW = 58       # tokens a K6 block of the bf16 path owns (kAWin)
+FWD_ROUTE_DM = 768      # past it fp32 forwards on short lines run unfused
+FWD_ROUTE_LINE = 16     # ... on lines of up to it: FastVim-H's at 224 px
 RECOMPUTE_MAX_DM = 1280  # widest d_model K7 takes (kRcMaxDm in both of
 RECOMPUTE_MAX_DI = 2560  # its files), and d_inner (kRcMaxDi): FastVim-H's
 RC_CONV_SLAB = 64       # d_inner channels of a K7 conv slab in bf16 (kCS)
@@ -60,7 +63,8 @@ RC_CONV_SLAB = 64       # d_inner channels of a K7 conv slab in bf16 (kCS)
 def pass_a_widths_ok(d_model: int, d_inner: int) -> bool:
     """The widths K3's launcher takes: d_model in multiples of 32 (zero-
     padded to 64 in bf16) up to 1280, d_inner in slabs of 64 channels up
-    to 2560."""
+    to 2560. Lines may be of any length of 4 tokens or more, in both
+    dtypes: a line longer than a block's tile is walked in segments."""
     return (0 < d_model <= FWD_MAX_DM and d_model % 32 == 0
             and 0 < d_inner <= FWD_MAX_DI and d_inner % 64 == 0)
 
@@ -112,6 +116,29 @@ def default_bwd_mode(d_model: int, d_inner: int, dtype: torch.dtype,
         return "fused"
     narrow = d_model <= BWD_NARROW_DM and d_inner <= BWD_NARROW_DI
     return "fused" if narrow else "remat"
+
+
+def default_fwd_mode(d_model: int, dtype: torch.dtype, line: int,
+                     grad: bool) -> str:
+    """The forward a mixer whose ``layer_fused`` is "auto" (or "on", the
+    same here) takes, from what it sees before the forward: its widths,
+    its dtype, the tokens of each of its lines (the grid's columns, its
+    rows when transposed) and whether a gradient will be taken. "fused"
+    (K3 → K1 → K4) everywhere but one case: "off", the unfused path (which
+    the JAX package takes on 14 × 14 grids), for fp32 past FastVim-B's
+    widths (d_model > ``FWD_ROUTE_DM``: FastVim-L and -H) on lines of up
+    to ``FWD_ROUTE_LINE`` tokens (FastVim-L's 14 and FastVim-H's 16 at
+    224 px) with no gradient, where the fused forward measured slower at
+    224 px, B = 128 on an H100 80GB HBM3 at 700 W (``chip_smoke.py
+    --fwd-224``; FastVim-B's fused forward measured faster; the numbers
+    and their runs in PERF.md §2 and §6; other batch sizes unmeasured).
+    With a gradient the fused forward stays: its remat backward keeps the
+    unfused activations out of memory between the passes (FastVim-B's
+    step at B = 128 peaks at 8.76 GiB fused against 56.85 unfused)."""
+    if (dtype == torch.float32 and line <= FWD_ROUTE_LINE and not grad
+            and d_model > FWD_ROUTE_DM):
+        return "off"
+    return "fused"
 
 
 def _check_bwd_widths(name: str, dm: int, di: int) -> None:
@@ -174,6 +201,32 @@ def pass_a_plain(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling: float,
     line_axis, ln = (1, H) if transposed else (2, W)
     pool = lambda xc: (xc.sum(line_axis) * (scaling / ln)).to(dtype)
     return xcf.to(dtype), xcb.to(dtype), pool(xcf), pool(xcb)
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero: the 13 low bits of the fp32 pattern cleared after adding
+    half of their weight, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32x3_matmul_plain(a: torch.Tensor, w: torch.Tensor,
+                        terms: int = 3) -> torch.Tensor:
+    """a @ wᵀ (a: (M, K), w: (N, K), fp32) as the fp32 K3 and K4 form their
+    products on the tensor cores: each operand split into hi = tf32(v) and
+    lo = tf32(v − hi), and lo·hi + hi·lo + hi·hi summed in fp32 (``terms``
+    3), or hi·hi alone (``terms`` 1, one TF32 product). Products of TF32
+    values are exact in fp32. A model of the kernels' precision for the
+    tests; nothing on the main path calls it."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    a_hi, w_hi = tf32_round(a), tf32_round(w)
+    out = a_hi @ w_hi.t()
+    if terms == 3:
+        a_lo, w_lo = tf32_round(a.float() - a_hi), tf32_round(w.float() - w_hi)
+        out = (a_lo @ w_hi.t() + a_hi @ w_lo.t()) + out
+    return out
 
 
 def pass_a(x4, w_x, b_x, w_cf, b_cf, w_ab, b_ab, scaling: float,

@@ -427,6 +427,16 @@ def _pass_a_args(g, dtype, batch, H, W, dm, di, bias, transposed):
     ((4, 65), False, 2, 128, 192, True),
     ((65, 4), True, 2, 128, 192, False),
     ((4, 200), False, 1, 384, 768, True),  # two segments at FastVim-S widths
+    # runs of whole lines (fp32: up to 122 tokens a block) over 3-4 images:
+    # 224 px (runs of 8 + 6 lines), 256 px (7 + 7 + 2), lines of 4 and 7
+    ((14, 14), False, 3, 192, 384, True),
+    ((14, 14), True, 3, 192, 384, False),
+    ((16, 16), False, 3, 96, 192, True),
+    ((16, 16), True, 4, 192, 384, False),
+    ((4, 4), False, 3, 64, 128, True),
+    ((9, 7), True, 3, 64, 128, True),
+    ((40, 7), False, 2, 64, 128, False),   # 17 + 17 + 6 lines of 7
+    ((7, 40), True, 2, 160, 320, True),
 ])
 def test_pass_a_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
                               bias):
@@ -466,6 +476,8 @@ def _pass_b_args(g, dtype, batch, H, W, dm, di, bias, use_ln, transposed):
     ((40, 1), True, 2, 64, 128, False, True),
     ((3, 65), False, 2, 128, 192, True, True),   # lines of 65 tokens
     ((65, 3), True, 2, 128, 192, False, False),
+    ((14, 14), False, 3, 192, 384, True, True),  # 224 px, tiles across images
+    ((16, 16), True, 3, 96, 192, False, True),
 ])
 def test_pass_b_matches_plain(dev, dtype, grid, transposed, batch, dm, di,
                               bias, use_ln):
@@ -488,6 +500,9 @@ REGISTRY_WIDE = [(768, 1536), (1024, 2048), (1280, 2560)]
     ((4, 200), False, 1, 768, 1536, True),   # two streamed segments
     ((6, 10), True, 2, 800, 1600, False),    # d_model zero-padded to 832
     ((8, 8), False, 2, 384, 1536, True),     # K3's whole tile, wide d_inner
+    ((14, 14), False, 3, 1024, 2048, True),  # runs across 3 images
+    ((16, 16), True, 3, 768, 1536, False),
+    ((14, 14), True, 3, 1280, 2560, True),
 ])
 def test_pass_a_wide_matches_plain(dev, dtype, grid, transposed, batch, dm,
                                    di, bias):
@@ -506,6 +521,9 @@ def test_pass_a_wide_matches_plain(dev, dtype, grid, transposed, batch, dm,
     ((6, 10), True, 2, 800, 1600, True, True),    # a 32-column last group
     ((8, 8), False, 2, 384, 1536, False, True),   # one group, d_inner 1536
     ((5, 13), False, 1, 1024, 2080, True, True),  # 65 tokens, a 32-wide slab
+    ((14, 14), True, 3, 1024, 2048, True, True),  # 224 px, 3 images
+    ((16, 16), False, 3, 768, 1536, False, True),
+    ((14, 14), False, 3, 1280, 2560, True, False),
 ])
 def test_pass_b_wide_matches_plain(dev, dtype, grid, transposed, batch, dm,
                                    di, bias, use_ln):
@@ -538,18 +556,21 @@ def test_wide_fwd_kernels_repeat_bitwise(dev, dtype, dm, di):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("grid,transposed,dm,di", [
-    ((6, 10), False, 64, 128),
-    ((128, 128), True, 192, 384),
-    ((200, 4), True, 384, 768),
-    ((5, 63), False, 96, 192),
+@pytest.mark.parametrize("grid,transposed,dm,di,batch", [
+    ((6, 10), False, 64, 128, 2),
+    ((128, 128), True, 192, 384, 2),
+    ((200, 4), True, 384, 768, 2),
+    ((5, 63), False, 96, 192, 2),
+    ((14, 14), False, 192, 384, 3),    # runs of whole lines across images
+    ((16, 16), True, 768, 1536, 3),
+    ((14, 14), True, 1280, 2560, 3),
 ])
 def test_pass_a_pools_only_matches_plain(dev, dtype, grid, transposed, dm,
-                                         di):
+                                         di, batch):
     """K3 without the xc stores (the recompute mode's pass A): no xc, and
     the pools of pass_a_plain."""
     g = torch.Generator(device=dev).manual_seed(dm + grid[1])
-    args = _pass_a_args(g, dtype, 2, *grid, dm, di, True, transposed)
+    args = _pass_a_args(g, dtype, batch, *grid, dm, di, True, transposed)
     with torch.no_grad():
         got = lf.pass_a(*args, write_xc=False)
         want = lf.pass_a_plain(*args)

@@ -142,6 +142,10 @@ def test_width_limits_are_the_kernels():
     assert (lf.RECOMPUTE_MAX_DM, lf.RECOMPUTE_MAX_DI) == tuple(
         int(re.search(rf"constexpr int {n} = (\d+);", rc).group(1))
         for n in ("kRcMaxDm", "kRcMaxDi"))
+    # lines: the C entry refuses only lines of fewer than 4 tokens, in
+    # both dtypes, as fusable does (H, W >= 4): a long fp32 line is walked
+    # in segments, with no shared-memory limit of its own
+    assert "ln < 4 ||" in fwd and "pass_a_smem" not in fwd
     dm, di = lf.FWD_MAX_DM, lf.FWD_MAX_DI
     assert lf.pass_a_widths_ok(dm, di) and lf.pass_b_widths_ok(dm, di)
     assert not lf.pass_a_widths_ok(dm + 32, di)
@@ -163,3 +167,73 @@ def test_registry_widths_fuse(dm, grid):
         assert lf.fusable(grid, pool, transposed, dm, di, 4, "mean",
                           recompute=True)
     assert lf.fused_bwd_route(dm, di, "fused") == "fused"
+
+
+@pytest.mark.parametrize("dm,dtype,line,grad,want", [
+    (1280, torch.float32, 14, False, "off"),    # FastVim-H, 224 px
+    (1280, torch.float32, 16, False, "off"),    # ... patch 14
+    (1280, torch.float32, 17, False, "fused"),  # just past FWD_ROUTE_LINE
+    (1280, torch.float32, 32, False, "fused"),  # FastVim-H, 448 px
+    (1280, torch.float32, 14, True, "fused"),   # training: remat backward
+    (1280, torch.bfloat16, 14, False, "fused"),
+    (1024, torch.float32, 14, False, "off"),    # FastVim-L
+    (1024, torch.float32, 14, True, "fused"),
+    (768, torch.float32, 14, False, "fused"),   # FastVim-B: fused wins
+    (192, torch.float32, 14, False, "fused"),   # FastVim-T
+])
+def test_auto_fwd_mode(dm, dtype, line, grad, want):
+    """``default_fwd_mode``: the fused forward everywhere but fp32 past
+    FastVim-B's widths on lines of up to 16 tokens with no gradient, where
+    it measured slower than the unfused path."""
+    assert lf.default_fwd_mode(dm, dtype, line, grad) == want
+
+
+@pytest.fixture(scope="module")
+def huge_mixer():
+    from fastvim_tpu_torch.models.mixer import MambaMixer
+
+    mixer = MambaMixer(1280, d_state=4)
+    mixer.reset_parameters(torch.Generator().manual_seed(0))
+    return mixer
+
+
+@pytest.mark.parametrize("grid,transposed,grad,fused", [
+    ((14, 14), False, False, False),
+    ((14, 14), True, False, False),
+    ((14, 14), False, True, True),
+    ((8, 20), False, False, True),    # 20-token rows
+    ((8, 20), True, False, False),    # 8-token columns
+])
+def test_auto_fwd_mode_dispatch(monkeypatch, huge_mixer, grid, transposed,
+                                grad, fused):
+    """An fp32 FastVim-H mixer with its default fields resolves the route
+    in each forward from its line length and from whether it is
+    differentiated; ``layer_fused="recompute"`` stays fused. Both paths
+    compute the same function."""
+    from fastvim_tpu_torch.models import mixer as mixer_mod
+
+    calls = []
+
+    def counted(*a, _f=mixer_mod.fused_mixer_core, **k):
+        calls.append(1)
+        return _f(*a, **k)
+
+    monkeypatch.setattr(mixer_mod, "fused_mixer_core", counted)
+    mixer = huge_mixer
+    mixer.layer_fused = "auto"
+    mixer.requires_grad_(grad)
+    x = torch.randn(1, grid[0] * grid[1], 1280,
+                    generator=torch.Generator().manual_seed(1))
+    pool = (0,) if transposed else (1,)
+    out = mixer(x, grid, pool, transposed)
+    assert len(calls) == int(fused)
+    calls.clear()
+    mixer.layer_fused = "off"
+    with torch.no_grad():
+        want = mixer(x, grid, pool, transposed)
+    np.testing.assert_allclose(out.detach().numpy(), want.numpy(),
+                               rtol=1e-4, atol=1e-5)
+    mixer.layer_fused = "recompute"
+    with torch.no_grad():
+        mixer(x, grid, pool, transposed)
+    assert calls == [1]
