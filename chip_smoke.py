@@ -38,7 +38,12 @@ Phases, each of which raises on failure (exit code non-zero):
    ``FP32_FWD_SHAPES`` (224 px and B = 128 at FastVim-T's and -B's
    widths, timed in both orientations beside their plain versions, the
    fp32 SGEMM of the same products and their bound; lines of 4, 7 and
-   16 tokens), K3 also pools-only; K8, K9 and K10
+   16 tokens), K3 also pools-only; K5 and K6 in fp32 (every product as
+   three TF32 products on the tensor cores) at each of K5/K6's shapes and
+   at ``FP32_BWD_SHAPES`` (224 px and B = 128 at FastVim-T's and -B's
+   widths, timed in the even orientation beside their plain versions,
+   the fp32 SGEMMs of the same products, their 3xTF32 bound and the FMA
+   units' bound); K8, K9 and K10
    at FastVim-T's and FastVim-S's widths (K10 in both orientations), each
    with its share of the bound; the lanes scan at L = 128 and 16,384,
    beside K1; and K1 and K2 in fp32 at the MAE slice's shapes (batch,
@@ -140,8 +145,9 @@ Phases, each of which raises on failure (exit code non-zero):
    finetune_FastVimB`` from its newest checkpoint for one epoch
    (``fastvim_base``, every layer fused: the printed counts show the
    sin-cos ``pos_embed`` and the kept-init head; a step 24 K3 + 24 K4 +
-   96 K1 + 48 K2, the fused forward and fp32's default remat backward
-   on 14-token lines, an eval batch 24 K3 + 24 K4 + 48 K1; img/s and peak memory);
+   48 K1 + 24 K5 + 24 K6 + 48 K2, the fused forward and the fused
+   adjoint, fp32's default there, an eval batch 24 K3 + 24 K4 + 48 K1;
+   img/s and peak memory);
    ``linear_probe --config_name linear_FastVimL model=fastvim_base batch_size=128`` from
    the same checkpoint (24 K3 + 24 K4 + 48 K1 a step and an eval batch,
    the frozen backbone fused; bitwise as loaded, the BatchNorm statistics
@@ -293,7 +299,13 @@ from phase 6's FastVim-B recompute forward and phase 3's -L and -H
 recompute forwards), K3 and K4 in fp32 (``"pass_a_fwd fp32"`` at
 FastVim-T's widths, ``"pass_a_fwd fp32 d_model=768"`` at -B's, 224 px,
 B = 128; launches from phase 7's fp32 ``train_classification
-FastVimT`` and ``test_classification FastVimB``), and K1 once more with
+FastVimT`` and ``test_classification FastVimB``), K5 and K6 in fp32
+(``"pass_b_bwd fp32"``, ``"pass_b_bwd fp32 d_model=768"``, the same
+shapes, 3xTF32 on the tensor cores; launches from phase 7's
+``train_classification FastVimT`` and phase 10's ``train_segmentation
+upernet_FastVimB_ade20k``; ``max_abs_err`` of their per-token outputs,
+``summed_rel_err`` of the gradients they sum over every token, over
+max(1, the largest entry)), and K1 once more with
 the gate and the final state at the LM
 prefill's shapes (``"selective_scan_fwd lm"``: B = 4, L = 2048, fp32;
 launches from phase 14's prefill); the last line is ``{"ok": true,
@@ -544,11 +556,11 @@ def launches_per_call() -> dict:
     one kernel; K3, K4 and K7 (also at FastVim-B's widths, ``"pass_a_fwd
     d_model=768"``), K8, K9 and K10 one kernel in either dtype; K5 and
     K6 at FastVim-T's widths 3 kernels in bf16 (the main kernel, the
-    weight-gradient product, the fixed-order sums), in fp32 K5 the same
-    and K6 one more (dx̂), and at FastVim-B's (``"pass_b_bwd
-    d_model=768"``), their wide forms, 4 in either dtype (the dx̂ product
-    after the main kernel); in fp32 each beside the wrapper's weight
-    transposes (K5 two, K6 one), which the graph counts too."""
+    weight-gradient product, the fixed-order sums), and at FastVim-B's
+    (``"pass_b_bwd
+    d_model=768"``), their wide forms, 4 (the dx̂ product after the main
+    kernel); in fp32 K5 6 and K6 4 at both widths
+    (``BWD_KERNELS_A_CALL``)."""
     run = subprocess.run([sys.executable, __file__, "--count-launches"],
                          capture_output=True, text=True, timeout=300)
     if run.returncode != 0:
@@ -581,15 +593,16 @@ def launches_per_call() -> dict:
     return counts
 
 
-# device kernels one call of K5 and of K6 launches (the main kernel, the
-# weight-gradient product, the fixed-order sums; the wide forms past
-# d_model 384 or d_inner 768, and fp32's K6, also the dx̂ product), with
-# the fp32 wrapper's weight transposes (K5: w_z and w_out, K6: w_x)
+# device kernels one call of K5 and of K6 launches: in bf16 the main
+# kernel, the weight-gradient product and the fixed-order sums, and the
+# dx̂ product in the wide forms past d_model 384 or d_inner 768; in fp32
+# (3xTF32) at every width K5's z, dgated, middle, dx̂, weight gradients and
+# sums, K6's xin with the conv adjoint, dx̂, weight gradient and sums
 BWD_KERNELS_A_CALL = {
-    "pass_b_bwd": {"torch.bfloat16": 3, "torch.float32": 3 + 2},
-    "pass_a_bwd": {"torch.bfloat16": 3, "torch.float32": 4 + 1},
-    "pass_b_bwd d_model=768": {"torch.bfloat16": 4, "torch.float32": 4 + 2},
-    "pass_a_bwd d_model=768": {"torch.bfloat16": 4, "torch.float32": 4 + 1},
+    "pass_b_bwd": {"torch.bfloat16": 3, "torch.float32": 6},
+    "pass_a_bwd": {"torch.bfloat16": 3, "torch.float32": 4},
+    "pass_b_bwd d_model=768": {"torch.bfloat16": 4, "torch.float32": 6},
+    "pass_a_bwd d_model=768": {"torch.bfloat16": 4, "torch.float32": 4},
 }
 
 # K3-K6 at FastVim-B's, -L's and -H's widths in phase 2: (d_model,
@@ -598,6 +611,10 @@ WIDE_SHAPES = ((768, 1536, (((128, 128), 2), ((14, 14), 8))),
                (1024, 2048, (((14, 14), 8),)),
                (1280, 2560, (((32, 32), 8),)))
 WIDE_DM = tuple(dm for dm, _, _ in WIDE_SHAPES)
+
+# K5 and K6 in fp32 alone in phase 2, timed: 224 px at B = 128 (K5's
+# blocks of 4 lines, K6's of 8 + 6), by d_model
+FP32_BWD_SHAPES = {192: (((14, 14), 128),), 768: (((14, 14), 128),)}
 
 # K3 and K4 in fp32 alone in phase 2 (their tensor-core forms: runs of
 # whole lines, up to 122 tokens a block), by d_model: 224 px at B = 128,
@@ -807,12 +824,19 @@ def check_kernels(dev, card, per_call):
     return errs, times
 
 
-def compare_all(name, got, want, tol, n_per_token):
+def compare_all(name, got, want, tol, n_per_token, parts=False):
     """compare() over two tuples of tensors, the first ``n_per_token`` of
     them per token or step and the rest summed over all of them; returns
-    the largest error."""
-    return max(compare(f"{name} [{i}]", g, w, tol, summed=i >= n_per_token)
-               for i, (g, w) in enumerate(zip(got, want)))
+    the largest error, or with ``parts`` (the largest error of the
+    per-token tensors, the largest of the summed ones over max(1, their
+    largest entry): the quantities the tolerance holds to tol)."""
+    errs = [compare(f"{name} [{i}]", g, w, tol, summed=i >= n_per_token)
+            for i, (g, w) in enumerate(zip(got, want))]
+    if not parts:
+        return max(errs)
+    return max(errs[:n_per_token]), max(
+        e / max(1.0, w.float().abs().max().item())
+        for e, w in zip(errs[n_per_token:], want[n_per_token:]))
 
 
 def check_bwd_kernels(dev, card, per_call):
@@ -915,13 +939,19 @@ def check_bwd_kernels(dev, card, per_call):
     # K5 / K6 at FastVim-T's widths (the main path: 2048 px, batch 3) and
     # FastVim-S's (batch 2): grid 128×128 (2048 px) and 14×14 (224 px);
     # then FastVim-B's, -L's and -H's (the wide forms) at phase 2's wide
-    # shapes. The kernels line takes FastVim-T's times under the kernel's
-    # name and each wide width's first shape under "<name> d_model=<dm>"
+    # shapes; then fp32 alone at FP32_BWD_SHAPES. The kernels line takes
+    # FastVim-T's times under the kernel's name and each wide width's
+    # first shape under "<name> d_model=<dm>"; the fp32 forms' at 224 px,
+    # B = 128 (their even orientation) under "<name> fp32" and "<name>
+    # fp32 d_model=768", timed beside the fp32 SGEMMs of the same products
+    # (TF32 off: a yardstick the port never calls), their bound max(bytes
+    # / 3.35 TB/s, 3 × FLOP / 495 TFLOP/s) and the FMA units' bound
     for dm, di, shapes in ((192, 384, (((128, 128), 3), ((14, 14), 8))),
                            (384, 768, (((128, 128), 2), ((14, 14), 8))),
                            *WIDE_SHAPES):
         wide = dm in WIDE_DM
-        key = lambda name: f"{name} d_model={dm}" if wide else name
+        f32_only = FP32_BWD_SHAPES.get(dm, ())
+        shapes = shapes + f32_only
         w_in = uni(2 * di, dm, bound=dm ** -0.5)
         conv = [uni(di, 4, bound=0.5) for _ in range(2)]
         cbias = [uni(di, bound=0.5) for _ in range(2)]
@@ -937,8 +967,13 @@ def check_bwd_kernels(dev, card, per_call):
                 P = W if transposed else H
                 pooled = dict(yf=rnd(batch, P, di), yb=rnd(batch, P, di),
                               dpf=rnd(batch, P, di), dpb=rnd(batch, P, di))
-                for dtype in (torch.float32, torch.bfloat16):
+                timed_f32 = ((H, W), batch) in f32_only
+                for dtype in (torch.float32,) + (
+                        () if timed_f32 else (torch.bfloat16,)):
                     bf = dtype == torch.bfloat16
+                    key = lambda name: (name + ("" if bf else " fp32")
+                                        * timed_f32
+                                        + (f" d_model={dm}" if wide else ""))
                     t = {k: v.to(dtype)
                          for k, v in {**base, **pooled}.items()}
                     wx, wz = w_in[:di].to(dtype), w_in[di:].to(dtype)
@@ -952,7 +987,12 @@ def check_bwd_kernels(dev, card, per_call):
                     got_b = lf.pass_b_bwd(*b_args)
                     tol = BF16_TOL if bf else FP32_TOL
                     e = compare_all(f"pass_b_bwd {tag}", got_b,
-                                    lf.pass_b_bwd_plain(*b_args), tol, 4)
+                                    lf.pass_b_bwd_plain(*b_args), tol, 4,
+                                    parts=timed_f32)
+                    if timed_f32:  # the kernels line: per token, summed
+                        e, es = e
+                        errs[key("pass_b_bwd") + " summed"] = max(
+                            errs.get(key("pass_b_bwd") + " summed", 0.0), es)
                     errs[key("pass_b_bwd")] = max(
                         errs.get(key("pass_b_bwd"), 0.0), e)
                     # K6: dx per token; 6 gradients summed over every token
@@ -961,33 +1001,56 @@ def check_bwd_kernels(dev, card, per_call):
                               cbias[1], 1.0, transposed)
                     got_a = lf.pass_a_bwd(*a_args)
                     e = compare_all(f"pass_a_bwd {tag}", got_a,
-                                    lf.pass_a_bwd_plain(*a_args), tol, 1)
+                                    lf.pass_a_bwd_plain(*a_args), tol, 1,
+                                    parts=timed_f32)
+                    if timed_f32:  # the kernels line: per token, summed
+                        e, es = e
+                        errs[key("pass_a_bwd") + " summed"] = max(
+                            errs.get(key("pass_a_bwd") + " summed", 0.0), es)
                     errs[key("pass_a_bwd")] = max(
                         errs.get(key("pass_a_bwd"), 0.0), e)
-                    if not (bf and (wide or (H, W) == (128, 128))):
+                    if not (bf and (wide or (H, W) == (128, 128))
+                            or timed_f32 and not transposed):
                         continue
                     gemm = 2.0 * batch * H * W * dm * di  # one GEMM's FLOP
                     # the child counted the wide forms at FastVim-B's widths
                     per = "" if not wide else f" d_model={WIDE_DM[0]}"
+                    T = batch * H * W
+                    xm, gm = t["x"].reshape(T, dm), t["g"].reshape(T, dm)
+                    zm = t["xc_f"].reshape(T, di)  # a (T, d_inner) operand
+                    # the same products alone: K5's z, dgated, dx̂, dW_out,
+                    # dW_z; K6's xin, dx̂, dW_x
+                    sgemms = {"pass_b_bwd": lambda: (
+                        xm @ wz.t(), gm @ b_args[12], zm @ wz, zm.t() @ gm,
+                        zm.t() @ xm),
+                        "pass_a_bwd": lambda: (xm @ wx.t(), zm @ wx,
+                                               zm.t() @ xm)}
                     for name, kern, plain, args, outs, flops in (
                             ("pass_b_bwd", lf.pass_b_bwd, lf.pass_b_bwd_plain,
                              b_args, got_b, 5 * gemm),
                             ("pass_a_bwd", lf.pass_a_bwd, lf.pass_a_bwd_plain,
                              a_args, got_a, 3 * gemm)):
                         k_ms = cuda_ms(lambda: kern(*args), 10)
-                        p_ms = cuda_ms(lambda: plain(*args), 5)
+                        p_ms = cuda_ms(lambda: plain(*args), 5 if bf else 3)
                         b_ms, by = bound(
                             nbytes(*(a for a in args
                                      if isinstance(a, torch.Tensor)), *outs),
-                            flops, "bf16")
-                        n = per_call[name + per]["torch.bfloat16"]
-                        log(f"[time] {name} bf16 {tag}: kernel {k_ms:.4f} "
-                            f"ms in {n:g} launches, plain {p_ms:.4f} ms, "
-                            f"bound {b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} "
-                            f"of the bound ({card})")
+                            flops, "bf16" if bf else "tf32x3")
+                        n = per_call[name + per][str(dtype)]
+                        more = ("" if bf else
+                                f", SGEMMs {cuda_ms(sgemms[name], 5):.4f} ms")
+                        fma = ("" if bf else
+                               f"; FMA bound "
+                               f"{flops / PEAK_FLOPS['fp32'] * 1e3:.4f} ms")
+                        log(f"[time] {name} {'bf16' if bf else 'fp32'} "
+                            f"{tag}: kernel {k_ms:.4f} ms in {n:g} launches, "
+                            f"plain {p_ms:.4f} ms{more}, bound {b_ms:.4f} ms "
+                            f"({by}{'' if bf else '; 3xTF32'}), "
+                            f"{b_ms / k_ms:.1%} of the bound{fma} ({card})")
                         # the kernels line takes the main path's widths,
                         # and each wide width's first shape
                         times.setdefault(key(name), (k_ms, p_ms, b_ms, by))
+                    del xm, gm, zm
             del base, dx_b, t
             torch.cuda.empty_cache()
     return errs, times
@@ -1413,7 +1476,7 @@ def check_grads_224(dev):
     model fuses forward (K3, K4) but not backward: its layers take the
     remat backward, so no K5 or K6 launches. FastVim-B, -L and -H (depth
     2; -H at 448 px), built with ``layer_fused_bwd="fused"`` (fp32's
-    "auto" takes the remat backward at these widths on 14- and 16-token
+    "auto" takes the remat backward at -H's widths on 14- and 16-token
     lines), fuse both ways: 2 K3 + 2 K4 a forward (a forward that takes
     a gradient stays fused, ``default_fwd_mode``) and 2 K5 + 2 K6 a
     backward, the wide forms of the adjoint. Returns the launches of the
@@ -2274,12 +2337,10 @@ def check_mae_224(dev):
 
 
 # a forward of a 24-layer fused FastVim, and a train step of FastVim-B in
-# fp32 at 224 px: the fused forward and the remat backward ("auto" past
-# FastVim-S's widths on lines of up to 16 tokens in fp32), which runs
-# each layer's two scans again
+# fp32 at 224 px: the fused forward and the fused adjoint ("auto" there)
 FUSED_FWD = {"pass_a_fwd": 24, "pass_b_fwd": 24, "selective_scan_fwd": 48}
-FUSED_REMAT_STEP = {**FUSED_FWD, "selective_scan_fwd": 96,
-                    "selective_scan_bwd": 48}
+FUSED_ADJOINT_STEP = {**FUSED_FWD, "selective_scan_bwd": 48,
+                      "pass_b_bwd": 24, "pass_a_bwd": 24}
 
 
 def run_mae_cli_path(dev, card):
@@ -2293,11 +2354,10 @@ def run_mae_cli_path(dev, card):
     --config_name
     finetune_FastVimB`` from its newest checkpoint for one epoch (the
     sin-cos ``pos_embed`` and the kept-init head in the printed counts;
-    every layer fused forward, fp32's default remat backward on 14-token
-    lines: a step 24
-    K3 + 24 K4 + 96 K1 + 48 K2, an eval batch 24 K3 + 24 K4 + 48 K1; its
-    img/s and peak memory beside the fused adjoint's and the unfused
-    run's); ``linear_probe
+    every layer fused forward and, fp32's default on its 14-token lines,
+    the fused adjoint: a step 24 K3 + 24 K4 + 48 K1 + 24 K5 + 24 K6 + 48
+    K2, an eval batch 24 K3 + 24 K4 + 48 K1; its img/s and peak memory
+    beside the unfused run's); ``linear_probe
     --config_name linear_FastVimL model=fastvim_base batch_size=128`` from
     the same checkpoint (24 K3 + 24 K4 + 48 K1 a step and an eval batch;
     the backbone bitwise as loaded, the BatchNorm statistics moved).
@@ -2423,8 +2483,8 @@ def run_mae_cli_path(dev, card):
         ckpt = os.path.join(tmp, "native", "ckpt", f"step_{2 * steps}")
 
         # 2. finetune fastvim_base from it: 24 fused layers (K3, 2 K1, K4)
-        # whose backward is fp32's default, the remat one (2 K1, 2 K2), and
-        # each eval batch the fused forward
+        # whose backward is fp32's default there, the adjoint (K5, 2 K2,
+        # K6), and each eval batch the fused forward
         ft = os.path.join(tmp, "finetune")
         torch.cuda.reset_peak_memory_stats()
         state, text = run(
@@ -2433,7 +2493,7 @@ def run_mae_cli_path(dev, card):
              "--synthetic_samples", str(samples), "--device", str(dev),
              "training_epochs=1", f"pretrained_checkpoint_path={ckpt}"],
             scaled({k: v + FUSED_FWD.get(k, 0)
-                    for k, v in FUSED_REMAT_STEP.items()}, steps))
+                    for k, v in FUSED_ADJOINT_STEP.items()}, steps))
         n = len(state.model.state_dict())
         if counts(text) != (n - 3, 2, 1):
             raise AssertionError(f"finetune_mae: counts {counts(text)}, "
@@ -2442,14 +2502,14 @@ def run_mae_cli_path(dev, card):
         log(f"[cli] finetune_mae: load_pretrained_backbone loaded, kept-init, "
             f"sincos-filled {counts(text)} (pos_embed the sin-cos table, the"
             f" head its init); peak memory {peak:.2f} GiB (PERF.md §2: the "
-            f"fused adjoint 16.83 GiB, unfused 57.60 GiB)")
+            f"remat backward 9.60 GiB, unfused 57.60 GiB)")
         del state
         rates(os.path.join(ft, "log.csv"), "finetune_mae finetune_FastVimB."
-              "yaml (fastvim_base)", "; a step 24 K3 + 24 K4 + 96 K1 + 48 K2"
-              " (the fused forward, the remat backward), an eval batch 24 K3"
-              f" + 24 K4 + 48 K1; peak {peak:.2f} GiB (PERF.md §2: the fused "
-              "adjoint 46.33-53.39 img/s, 16.83 GiB; unfused 114.51 img/s, "
-              "57.60 GiB)")
+              "yaml (fastvim_base)", "; a step 24 K3 + 24 K4 + 48 K1 + 24 "
+              "K5 + 24 K6 + 48 K2 (the fused forward, the fused adjoint), "
+              "an eval batch 24 K3 + 24 K4 + 48 K1; peak "
+              f"{peak:.2f} GiB (PERF.md §2: the remat backward 99.87-106.06 "
+              "img/s, 9.60 GiB; unfused 114.51 img/s, 57.60 GiB)")
 
         # 3. the linear probe of the same checkpoint on fastvim_base: its
         # frozen backbone runs without gradients, fused, in steps and evals
@@ -4939,6 +4999,7 @@ def run_seq_path(dev, card):
 
 
 FWD_224_MODELS = ("fastvim_tiny", "fastvim_base")
+STEP_224_MODELS = ("fastvim_tiny", "fastvim_base", "fastvim_large")
 
 
 def fwd_224(argv) -> int:
@@ -4950,10 +5011,14 @@ def fwd_224(argv) -> int:
     forward, ``auto_max_abs_diff`` its logits against the unfused ones)
     and with ``layer_fused="off"``, in turns (fused, off, off, fused;
     each the median of 2 windows of 2 forwards), their logits against
-    each other, and for
-    ``fastvim_base`` also a train step (cross-entropy, backward; the fused
-    forward takes the remat backward there, as ``finetune_mae
-    finetune_FastVimB`` does) both ways, with the peak memory. The
+    each other, and for the models of ``STEP_224_MODELS`` (FastVim-L only
+    when named) also a train step (cross-entropy, backward) three ways in
+    turns (adjoint, remat, off, off, remat, adjoint; each the median of 2
+    windows of one step): the fused forward with the fused adjoint
+    (``layer_fused_bwd="fused"``: K5 and K6) and with the remat backward,
+    and ``layer_fused="off"``, with the peak memory and the launches of
+    three steps (a way that runs out of memory reads null, with the
+    error). The
     package is imported from the checkout ROOT (default: this one), so
     that two trees can be timed in turns on one card, one process each.
     Prints one ``[fwd224]`` JSON line per model."""
@@ -5014,9 +5079,17 @@ def fwd_224(argv) -> int:
                 res.setdefault(f"{tag}_ms", []).append(
                     cuda_ms(lambda: m(x), 2, windows=2))
             always_fused(False)
-        if name == "fastvim_base":
-            for tag, m in (("fused", fused), ("off", off), ("off", off),
-                           ("fused", fused)):
+        if name in STEP_224_MODELS:
+            # the fused forward with the fused adjoint (K5, K6) and with
+            # the remat backward, and layer_fused="off", in turns
+            ways = {"adjoint": (fused, "fused"), "remat": (fused, "remat"),
+                    "off": (off, "auto")}
+            for tag in ("adjoint", "remat", "off", "off", "remat",
+                        "adjoint"):
+                m, bwd = ways[tag]
+                for mod in m.modules():
+                    if hasattr(mod, "layer_fused_bwd"):
+                        mod.layer_fused_bwd = bwd
                 m.train()  # DropPath 0.1, the model's default
                 m.set_drop_path_generator(
                     torch.Generator(device=dev).manual_seed(0))
@@ -5028,10 +5101,19 @@ def fwd_224(argv) -> int:
 
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
-                res.setdefault(f"step_{tag}_ms", []).append(
-                    cuda_ms(step, 1, windows=2))
+                kernels.reset_launch_counts()
+                try:  # FastVim-L's unfused step does not fit B = 128
+                    ms = cuda_ms(step, 1, windows=2)
+                except torch.cuda.OutOfMemoryError as e:
+                    m.zero_grad(set_to_none=True)
+                    ms = None
+                    res[f"step_{tag}_error"] = str(e).splitlines()[0]
+                res.setdefault(f"step_{tag}_ms", []).append(ms)
                 res[f"step_{tag}_peak_gib"] = \
                     torch.cuda.max_memory_allocated() / 2 ** 30
+                # three steps: the warm-up and two windows of one
+                res[f"step_{tag}_launches_3_steps"] = {
+                    k: v for k, v in kernels.launch_counts().items() if v}
         print("[fwd224] " + json.dumps(res), flush=True)
         del fused, off
         torch.cuda.empty_cache()
@@ -5158,11 +5240,17 @@ def main() -> int:
             launches[name] += count
     stamp("phase 9")
     t0 = time.perf_counter()
-    for counts in (check_seg_512(dev), run_seg_cli_path(dev, card),
-                   run_seg_base_cli(dev, card),
+    seg_base = run_seg_base_cli(dev, card)
+    for counts in (check_seg_512(dev), run_seg_cli_path(dev, card), seg_base,
                    time_seg_base_routes(dev, card)):
         for name, count in counts.items():
             launches[name] += count
+    # the fp32 K5 and K6: FastVimT.yaml's train_classification (phase 7)
+    # and upernet_FastVimB_ade20k's train_segmentation, both fp32
+    wide.update({f"{k} fp32{dm}": counts[k]
+                 for dm, counts in (("", cli_counts), (" d_model=768",
+                                                        seg_base))
+                 for k in ("pass_b_bwd", "pass_a_bwd")})
     log(f"[time] phase 10 (segmentation) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for what, fn in (("fp32 card against CPU", check_det_1024),
@@ -5202,8 +5290,7 @@ def main() -> int:
     # one, which the launcher takes at Vim-T's L = 16,384)
     src = "fastvim_tpu_torch/ops/kernels/csrc/"
     fwd = ("layer_fused_fwd.cu", "layer_fused_fwd.cuh", "wgmma.cuh")
-    bwd = ("layer_fused_bwd.cu", "layer_fused_bwd.cuh", "layer_fused.cuh",
-           "wgmma.cuh")
+    bwd = ("layer_fused_bwd.cu", "layer_fused_bwd.cuh", "wgmma.cuh")
     table = [
         ("selective_scan_fwd", "selective_scan_fwd.cu",
          ("selective_scan_fwd_chunked.cu", "scan_chunked.cuh"),
@@ -5239,11 +5326,19 @@ def main() -> int:
               for dm in WIDE_DM for name, main_file, more, tpu in rows]
     # the fp32 K3 and K4 (3xTF32 on the tensor cores) at FastVim-T's and
     # -B's widths, 224 px
-    table += [(f"{name} fp32{dm}", "layer_fused_fwd_tf32.cu", fwd, tpu)
+    table += [(f"{name} fp32{dm}", "layer_fused_fwd_tf32.cu",
+               fwd + ("tf32.cuh",), tpu)
               for dm in ("", " d_model=768")
               for name, tpu in (
                   ("pass_a_fwd", "fastvim_tpu/ops/pallas/layer_fused.py:303"),
                   ("pass_b_fwd", "fastvim_tpu/ops/pallas/layer_fused.py:409"))]
+    # the fp32 K5 and K6 (3xTF32 on the tensor cores) likewise
+    table += [(f"{name} fp32{dm}", "layer_fused_bwd_tf32.cu",
+               bwd + ("tf32.cuh",), tpu)
+              for dm in ("", " d_model=768")
+              for name, tpu in (
+                  ("pass_b_bwd", "fastvim_tpu/ops/pallas/layer_fused.py:453"),
+                  ("pass_a_bwd", "fastvim_tpu/ops/pallas/layer_fused.py:555"))]
     # K1 with the gate and the final state at the LM prefill's shapes
     # (phase 14: launches of one B = 2 prefill, times at B = 4, L = 2048,
     # fp32, the chunked form)
@@ -5257,7 +5352,10 @@ def main() -> int:
     print(card, flush=True)
     # library_ms: no single PyTorch call computes any of these functions.
     # ms is a call's time by CUDA events for every kernel; device_ms, where
-    # timed, the device time a call from CUDA-graph replays
+    # timed, the device time a call from CUDA-graph replays. The fp32 K5
+    # and K6 rows' max_abs_err is that of their per-token outputs, and
+    # summed_rel_err that of their gradients summed over every token over
+    # max(1, the largest entry): both held to 1e-4
     entries = []
     for name, main_file, more, tpu in table:
         ms, plain_ms, bound_ms, bound_by, *dev_ms = times[name]
@@ -5269,6 +5367,8 @@ def main() -> int:
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
         if dev_ms and dev_ms[0] is not None:
             entries[-1]["device_ms"] = dev_ms[0]
+        if name + " summed" in errs:
+            entries[-1]["summed_rel_err"] = errs[name + " summed"]
     print(json.dumps({"native": native_entries}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

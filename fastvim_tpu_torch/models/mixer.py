@@ -78,10 +78,9 @@ is needed, ``layer_fused_bwd`` picks the fused layer's backward: "fused"
 (the K5 and K6 adjoint kernels, scans by K2), "remat" (autograd through
 the unfused math, recomputed; always so in the recompute mode) or "auto"
 (the default), which each forward resolves from the widths, the dtype
-and the grid (``default_bwd_mode``): "fused" in bf16, in fp32 at
-FastVim-T/S widths and on lines of more than 16 tokens; "remat" for fp32
-FastVim-B/L/H on shorter lines (224 px), where the fused adjoint measured
-slower and does not fit FastVim-H at B = 128. A fused
+and the grid (``default_bwd_mode``): "fused" but for fp32 FastVim-H on
+lines of up to 16 tokens (224 px), where the fused adjoint does not fit
+B = 128 on an 80 GB card; elsewhere the adjoint measured faster. A fused
 layer whose widths the adjoint kernels do not take (d_model not a
 multiple of 64 or > d_inner; ``fused_bwd_route``) takes "remat" whatever
 the field says, so every width that fuses trains. K5 and K6 take every
@@ -362,7 +361,7 @@ class MambaMixer(nn.Module):
                     self._needs_grad(x)) == "fused"):
             bwd = self.layer_fused_bwd
             if bwd == "auto":
-                bwd = default_bwd_mode(self.d_model, self.d_inner, dtype,
+                bwd = default_bwd_mode(self.d_model, dtype,
                                        grid_shape[0 if transposed else 1])
             out = fused_mixer_core(
                 x, self.fused_params(), grid_shape, transposed,

@@ -1,6 +1,7 @@
-// What the two translation units of the fused layer's backward share:
-// layer_fused_bwd.cu (the C entry points and the fp32 kernels on FMA
-// tiles) and layer_fused_bwd_wgmma.cu (the bf16 kernels on `wgmma`).
+// What the translation units of the fused layer's backward share:
+// layer_fused_bwd.cu (the C entry points), layer_fused_bwd_wgmma.cu (the
+// bf16 kernels on `wgmma`) and layer_fused_bwd_tf32.cu (the fp32 kernels,
+// 3xTF32 on `mma.sync`).
 #pragma once
 
 #include "common.cuh"
@@ -17,10 +18,11 @@ constexpr int kCVec = 11;  // K6: dw_cf[4], dw_ab[4], db_cf, db_ab, db_x
 constexpr int kBwdMaxDm = 1280;
 constexpr int kBwdMaxDi = 2560;
 
-// Up to these widths (FastVim-T/S) the kernels keep a tile's dx̂ on chip
-// and add dz·W_z (K5) or dxin·W_x (K6) to it slab by slab. Past them
-// (FastVim-B/L/H) the wide forms store dz and dxin, which the weight
-// gradients read anyway, and one more launch forms dx̂ from them.
+// Up to these widths (FastVim-T/S) the bf16 kernels keep a tile's dx̂ on
+// chip and add dz·W_z (K5) or dxin·W_x (K6) to it slab by slab. Past them
+// (FastVim-B/L/H) their wide forms store dz and dxin, which the weight
+// gradients read anyway, and one more launch forms dx̂ from them. (The
+// fp32 path forms dx̂ in a launch of its own at every width.)
 constexpr int kNarrowDm = 384;
 constexpr int kNarrowDi = 768;
 inline bool wide_form(int dm, int di) {
@@ -94,6 +96,25 @@ cudaError_t pass_b_bwd_bf16(
     bool use_ln, int nsplit, float eps, cudaStream_t stream);
 
 cudaError_t pass_a_bwd_bf16(
+    const void* x, const void* dx_b, const void* dxc_f, const void* dxc_b,
+    const void* dpf, const void* dpb, const void* w_x, const void* b_x,
+    const void* w_cf, const void* b_cf, const void* w_ab, const void* b_ab,
+    void* dx, void* dxin, void* c_part, void* c_vec, void* w_part, void* dw_x,
+    int batch, int H, int W, int dm, int di, bool transposed, int nsplit,
+    float scaling, cudaStream_t stream);
+
+// the fp32 paths (layer_fused_bwd_tf32.cu), the same arguments: six
+// launches a call of K5, four of K6, at every width.
+cudaError_t pass_b_bwd_f32(
+    const void* g, const void* x, const void* xc_f, const void* xc_b,
+    const void* yf, const void* yb, const void* w_z, const void* b_z,
+    const void* d_f, const void* d_b, const void* ln_w, const void* ln_b,
+    const void* w_out, void* dx, void* dxc_f, void* dxc_b, void* dy, void* mg,
+    void* dz, void* vec_part, void* vec, void* w_part, void* dw_out,
+    void* dw_z, int batch, int H, int W, int dm, int di, bool transposed,
+    bool use_ln, int nsplit, float eps, cudaStream_t stream);
+
+cudaError_t pass_a_bwd_f32(
     const void* x, const void* dx_b, const void* dxc_f, const void* dxc_b,
     const void* dpf, const void* dpb, const void* w_x, const void* b_x,
     const void* w_cf, const void* b_cf, const void* w_ab, const void* b_ab,

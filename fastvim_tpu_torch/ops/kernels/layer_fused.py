@@ -2,7 +2,8 @@
 (``csrc/layer_fused_fwd_wgmma.cu`` in bf16, ``csrc/layer_fused_fwd_tf32.cu``
 in fp32 on the tensor cores in split precision, ``csrc/layer_fused_fwd.cu``
 for the entry points), backward (``csrc/layer_fused_bwd_wgmma.cu``
-in bf16, ``csrc/layer_fused_bwd.cu`` in fp32 and for the entry points) and
+in bf16, ``csrc/layer_fused_bwd_tf32.cu`` in fp32 on the tensor cores in
+split precision, ``csrc/layer_fused_bwd.cu`` for the entry points) and
 pass B in its recompute form (``csrc/layer_fused_recompute_wgmma.cu`` in
 bf16, ``csrc/layer_fused_recompute.cu`` in fp32 and for the entry point),
 and ``fused_mixer_core``, which chains pass A → the pooled scans → pass B
@@ -49,9 +50,12 @@ FWD_MAX_DM = 1280       # widest d_model K3 / K4 take (fvf::kFwdMaxDm)
 FWD_MAX_DI = 2560       # ... and d_inner (fvf::kFwdMaxDi): FastVim-H's
 BWD_MAX_DM = 1280       # widest d_model K5 / K6 take (fvb::kBwdMaxDm)
 BWD_MAX_DI = 2560       # ... and d_inner (fvb::kBwdMaxDi): FastVim-H's
-BWD_NARROW_DM = 384     # past these K5 / K6 take their wide forms
-BWD_NARROW_DI = 768     # (fvb::kNarrowDm, kNarrowDi; fp32 K5 past 384)
-BWD_SHORT_LINE = 16     # fp32 K5's wide form takes 16-token tiles up to it
+BWD_NARROW_DM = 384     # past these the bf16 K5 / K6 take their wide
+BWD_NARROW_DI = 768     # forms (fvb::kNarrowDm, kNarrowDi)
+BWD_ROUTE_DM = 1024     # past it fp32 training on short lines takes remat
+BWD_ROUTE_LINE = 16     # ... on lines of up to it: FastVim-H's at 224 px
+BWD_RUN_B = 64          # tokens a block of the fp32 K5's middle (kMRun)
+BWD_RUN_A = 122         # own tokens a block of the fp32 K6 (kAM - 2·kPad)
 A_BWD_WINDOW = 58       # tokens a K6 block of the bf16 path owns (kAWin)
 FWD_ROUTE_DM = 768      # past it fp32 forwards on short lines run unfused
 FWD_ROUTE_LINE = 16     # ... on lines of up to it: FastVim-H's at 224 px
@@ -100,22 +104,26 @@ def fused_bwd_route(d_model: int, d_inner: int, bwd_mode: str) -> str:
     return bwd_mode if pass_bwd_widths_ok(d_model, d_inner) else "remat"
 
 
-def default_bwd_mode(d_model: int, d_inner: int, dtype: torch.dtype,
-                     line: int) -> str:
+def default_bwd_mode(d_model: int, dtype: torch.dtype, line: int) -> str:
     """The backward a mixer whose ``layer_fused_bwd`` is "auto" takes,
-    from what it sees before the forward: its widths, its dtype and the
+    from what it sees before the forward: its width, its dtype and the
     tokens of each of its lines (the grid's columns, its rows when
-    transposed). "fused" in bf16, and in fp32 up to FastVim-S's widths or
-    on lines of more than ``BWD_SHORT_LINE`` tokens; "remat" for fp32 past
-    FastVim-S's widths on shorter lines (224 px: 14 tokens), where the FMA
-    tiles of the wide forms made a FastVim-B step slower than the remat
-    backward, and the conv outputs they keep a layer do not fit FastVim-H
-    at B = 128 on an 80 GB card; at 512 px (32-token lines) the fused
-    adjoint is the faster (PERF.md §6)."""
-    if dtype != torch.float32 or line > BWD_SHORT_LINE:
-        return "fused"
-    narrow = d_model <= BWD_NARROW_DM and d_inner <= BWD_NARROW_DI
-    return "fused" if narrow else "remat"
+    transposed). "fused" (the K5 and K6 adjoint) everywhere but one case:
+    "remat" for fp32 past d_model ``BWD_ROUTE_DM`` (FastVim-H) on lines of
+    up to ``BWD_ROUTE_LINE`` tokens (224 px), where the conv outputs the
+    adjoint keeps a layer do not fit B = 128 on an 80 GB card (ROADMAP §3
+    fault 5). The fp32 adjoint (3xTF32, csrc/layer_fused_bwd_tf32.cu)
+    measured faster than remat at 224 px, B = 128 on an NVIDIA H100 80GB
+    HBM3 at 700 W (``chip_smoke.py --fwd-224``, a step in turns with the
+    fused forward): FastVim-B 570.1-570.3 ms against 894.8-898.2 remat
+    (and 745.8-748.4 ``layer_fused="off"``), peak 16.10 GiB against 8.76;
+    FastVim-T 100.9-128.5 against 211.3-252.0; FastVim-L 2034.9-2037.2
+    against 2819.1-2819.2 (41.67 GiB against 20.01; its unfused step does
+    not fit). Other batch sizes unmeasured (PERF.md §2, §6)."""
+    if dtype == torch.float32 and line <= BWD_ROUTE_LINE \
+            and d_model > BWD_ROUTE_DM:
+        return "remat"
+    return "fused"
 
 
 def default_fwd_mode(d_model: int, dtype: torch.dtype, line: int,
@@ -132,9 +140,10 @@ def default_fwd_mode(d_model: int, dtype: torch.dtype, line: int,
     224 px, B = 128 on an H100 80GB HBM3 at 700 W (``chip_smoke.py
     --fwd-224``; FastVim-B's fused forward measured faster; the numbers
     and their runs in PERF.md §2 and §6; other batch sizes unmeasured).
-    With a gradient the fused forward stays: its remat backward keeps the
-    unfused activations out of memory between the passes (FastVim-B's
-    step at B = 128 peaks at 8.76 GiB fused against 56.85 unfused)."""
+    With a gradient the fused forward stays: its backward, the adjoint or
+    remat, keeps the unfused activations out of memory between the passes
+    (FastVim-B's step at B = 128 peaks at 16.10 GiB through the adjoint,
+    8.76 through remat, against 56.85 unfused)."""
     if (dtype == torch.float32 and line <= FWD_ROUTE_LINE and not grad
             and d_model > FWD_ROUTE_DM):
         return "off"
@@ -487,14 +496,15 @@ def _dsilu(v: torch.Tensor) -> torch.Tensor:
 def _wgrad_splits(ntokens: int, dm: int, di: int, jobs: int,
                   bf16: bool) -> int:
     """Token slices the weight-gradient GEMMs are split into: enough
-    blocks over the launch's output tiles to fill an H100's 132 SMs (one
-    block each of 128 x 192 tiles on wgmma, four each of 64 x 64 FMA
-    tiles), each slice with at least ~512 tokens. More slices only add
-    partials to write and to add up."""
+    blocks over the launch's output tiles to fill an H100's 132 SMs (bf16:
+    one wave of 128 x 192 tiles on wgmma, a block an SM; fp32: four waves
+    of 128 x 128 tiles of 3xTF32 products, two blocks an SM, so that the
+    last wave's idle share is small), each slice with at least ~512
+    tokens. More slices only add partials to write and to add up."""
     if bf16:
         blocks, tiles = 132, -(-di // 128) * -(-dm // 192)
     else:
-        blocks, tiles = 528, (di // 64) * (dm // 64)
+        blocks, tiles = 4 * 2 * 132, -(-di // 128) * -(-dm // 128)
     return max(1, min(ntokens // 512, round(blocks / (tiles * jobs))))
 
 
@@ -563,8 +573,10 @@ def pass_b_bwd(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
     On CUDA the widths must pass :func:`pass_bwd_widths_ok`. The sums
     over all tokens (weight and vector gradients) are written as
     per-block partials and added by one more kernel in a fixed order;
-    a call is three launches, four past d_model 384 or d_inner 768 (fp32:
-    d_inner 384), where dx̂ = dz·W_z is a product of its own."""
+    a call is three launches in bf16, four past d_model 384 or d_inner
+    768, where dx̂ = dz·W_z is a product of its own; six in fp32 (z,
+    dgated, the elementwise middle, dx̂, the weight gradients, the sums).
+    Both dtypes read the weights as they lie."""
     if x4.device.type == "cpu":
         return pass_b_bwd_plain(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f,
                                 d_b, ln_w, ln_b, w_out, eps, use_ln,
@@ -596,11 +608,6 @@ def pass_b_bwd(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
     if use_ln and (ln_w is None or ln_b is None):
         raise ValueError(f"{name}: use_ln needs ln_w and ln_b")
     _check_bwd_widths(name, dm, di)
-    # the fp32 kernel (FMA tiles) reads the weights of its transposed
-    # products row-major; the bf16 kernel reads them through wgmma's
-    # descriptor as they lie
-    w_z_t = w_z.t().contiguous() if code == 0 else None      # (dm, di)
-    w_out_t = w_out.t().contiguous() if code == 0 else None  # (di, dm)
     kernels.check_aligned(name, g4=g4, x4=x4, xc_f=xc_f, xc_b=xc_b, yf=yf,
                           yb=yb, w_z=w_z, w_out=w_out)
     T = B * H * W
@@ -617,8 +624,8 @@ def pass_b_bwd(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
     dw_out = torch.empty(dm, di, **f32)
     dw_z = torch.empty(di, dm, **f32)
     err = _build.library().fv_pass_b_bwd(
-        *map(kernels.ptr, (g4, x4, xc_f, xc_b, yf, yb, w_z, w_z_t, b_z, d_f,
-                           d_b, ln_w, ln_b, w_out, w_out_t, dx, dxc_f, dxc_b,
+        *map(kernels.ptr, (g4, x4, xc_f, xc_b, yf, yb, w_z, None, b_z, d_f,
+                           d_b, ln_w, ln_b, w_out, None, dx, dxc_f, dxc_b,
                            dy, mg, dz, vec_part, vec, w_part, dw_out, dw_z)),
         B, H, W, dm, di, int(transposed), code, int(use_ln), nsplit,
         float(eps), kernels.stream_ptr(x4.device))
@@ -694,7 +701,8 @@ def pass_a_bwd(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, b_cf, w_ab,
     On CUDA the widths must pass :func:`pass_bwd_widths_ok`. The sums
     over all tokens are per-block partials added by one more kernel in a
     fixed order; a call is three launches in bf16 up to d_model 384 and
-    d_inner 768, else four."""
+    d_inner 768, else four; four in fp32 (xin again with the conv
+    adjoint, dx̂, the weight gradient, the sums)."""
     if x4.device.type == "cpu":
         return pass_a_bwd_plain(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x,
                                 w_cf, b_cf, w_ab, b_ab, scaling, transposed)
@@ -724,8 +732,6 @@ def pass_a_bwd(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, b_cf, w_ab,
     _check_bwd_widths(name, dm, di)
     if min(H, W) < 4:
         raise ValueError(f"{name}: needs H, W >= 4, got grid=({H}, {W})")
-    # only the fp32 kernel reads a transposed copy (see pass_b_bwd)
-    w_x_t = w_x.t().contiguous() if code == 0 else None  # (dm, di)
     kernels.check_aligned(name, x4=x4, dx_b=dx_b, dxc_f=dxc_f, dxc_b=dxc_b,
                           w_x=w_x)
     T = B * H * W
@@ -733,14 +739,15 @@ def pass_a_bwd(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, b_cf, w_ab,
     f32 = dict(dtype=torch.float32, device=x4.device)
     dx = torch.empty(B, H, W, dm, **f32)
     dxin = x4.new_empty(T, di)  # GEMM operand
-    # a partial per block: a line in fp32, a window of the conv order in bf16
+    # a partial per block: at most a line in fp32 (a run of whole lines,
+    # or one line), a window of the conv order in bf16
     nblk = P if code == 0 else -(-H * W // A_BWD_WINDOW)
     c_part = torch.empty(B * nblk, 11 * di, **f32)
     c_vec = torch.empty(11, di, **f32)
     w_part = torch.empty(nsplit, di * dm, **f32)
     dw_x = torch.empty(di, dm, **f32)
     err = _build.library().fv_pass_a_bwd(
-        *map(kernels.ptr, (x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, w_x_t, b_x,
+        *map(kernels.ptr, (x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, None, b_x,
                            w_cf, b_cf, w_ab, b_ab, dx, dxin, c_part, c_vec,
                            w_part, dw_x)),
         B, H, W, dm, di, int(transposed), code, nsplit, float(scaling),
@@ -750,6 +757,204 @@ def pass_a_bwd(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, b_cf, w_ab,
     # c_vec rows: dw_cf[:, 0..3], dw_ab[:, 0..3], db_cf, db_ab, db_x
     return (dx, dw_x, c_vec[10], c_vec[0:4].t(), c_vec[8], c_vec[4:8].t(),
             c_vec[9])
+
+
+# ----------------------------------------------------------------------
+# K5 and K6 in fp32: their products and order of sums, in tensor ops
+# ----------------------------------------------------------------------
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_runs(P: int, ln: int, cap: int) -> Tuple[int, int]:
+    """(lines, tokens a segment) of a block of the fp32 K5 (``cap``
+    ``BWD_RUN_B``) or K6 (``BWD_RUN_A``), as ``runs_of`` in
+    csrc/layer_fused_bwd_tf32.cu: whole lines, as many as fit ``cap``
+    tokens, in one segment; a longer line alone, in balanced segments."""
+    if ln <= cap:
+        nl = min(P, cap // ln)
+        return nl, nl * ln
+    return 1, _cdiv(ln, _cdiv(ln, cap))
+
+
+def _segment_sum(parts: torch.Tensor) -> torch.Tensor:
+    """Σ over axis 0 in the order of ``sum_segments_kernel``
+    (csrc/layer_fused_bwd.cuh): partial s into running sum s % 8, in
+    order, then the 8 sums one after another."""
+    sums = [torch.zeros_like(parts[0]) for _ in range(8)]
+    for i, part in enumerate(parts):
+        sums[i % 8] = sums[i % 8] + part
+    out = sums[0]
+    for t in sums[1:]:
+        out = out + t
+    return out
+
+
+def tf32x3_steps_plain(a: torch.Tensor, b: torch.Tensor, nsplit: int = 1,
+                       terms: int = 3) -> torch.Tensor:
+    """a @ b (a: (M, K), b: (K, N), fp32) as the fp32 K5 and K6 form their
+    products (csrc/layer_fused_bwd_tf32.cu): K in ``nsplit`` slices of
+    whole 32-deep stages (the weight gradients' token slices), each walked
+    in k-steps of 8 whose products (``terms`` 3: lo·hi + hi·lo + hi·hi of
+    :func:`tf32_round`'s split; 1: hi·hi) are summed in a fresh tile and
+    added to the slice's running sum in fp32; the slices added in
+    ``sum_segments``' order. A model of the kernels' precision and order of
+    sums for the tests; nothing on the main path calls it."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    K = a.shape[1]
+    kper = _cdiv(_cdiv(K, nsplit), 32) * 32
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a.float() - a_hi), tf32_round(b.float() - b_hi)
+    parts = []
+    for k_beg in range(0, nsplit * kper, kper):
+        acc = a_hi.new_zeros(a.shape[0], b.shape[1])
+        for k0 in range(k_beg, min(K, k_beg + kper), 8):
+            k = slice(k0, k0 + 8)
+            t = a_hi[:, k] @ b_hi[k]
+            if terms == 3:
+                t = (a_lo[:, k] @ b_hi[k] + a_hi[:, k] @ b_lo[k]) + t
+            acc = acc + t
+        parts.append(acc)
+    return _segment_sum(torch.stack(parts))
+
+
+def _run_sums(t: torch.Tensor, P: int, ln: int, cap: int,
+              halves: bool = False) -> torch.Tensor:
+    """t: (B, P·ln, c) in line order. The sums of each block's tokens in
+    the order its kernel takes them (:func:`bwd_runs` of ``cap``): each
+    segment's tokens one after another, the segments' sums added in order
+    (K5); with ``halves`` a thread sums each segment's first half, another
+    its second half, across the block's segments, and the two are added at
+    the end (K6). Returns (B·blocks, c), block b·blocks + run."""
+    nl, seg = bwd_runs(P, ln, cap)
+    out = []
+    for f0 in range(0, P * ln, nl * ln):
+        f1 = min(P * ln, f0 + nl * ln)
+        run = [torch.zeros_like(t[:, 0]) for _ in range(2)]
+        for s0 in range(f0, f1, seg):
+            n = min(seg, f1 - s0)
+            if halves:
+                cut = s0 + (n + 1) // 2
+                for f in range(s0, s0 + n):
+                    run[f >= cut] = run[f >= cut] + t[:, f]
+            else:
+                acc = torch.zeros_like(run[0])
+                for f in range(s0, s0 + n):
+                    acc = acc + t[:, f]
+                run[0] = run[0] + acc
+        out.append(run[0] + run[1])
+    return torch.stack(out, 1).reshape(-1, t.shape[2])
+
+
+def pass_b_bwd_tf32_plain(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b,
+                          ln_w, ln_b, w_out, eps: float, use_ln: bool,
+                          transposed: bool):
+    """:func:`pass_b_bwd_plain` (fp32) in the products and the order of
+    sums of the fp32 K5 (csrc/layer_fused_bwd_tf32.cu): every product
+    through :func:`tf32x3_steps_plain`, the weight gradients over
+    :func:`_wgrad_splits`' token slices, the column sums per block
+    (:func:`_run_sums`, ``BWD_RUN_B``) added over the blocks in
+    ``sum_segments``' order, each line's dy summed token by token. The
+    plain mirror of that order, held against the JAX package by the CPU
+    tests; the same contract."""
+    B, H, W, dm = x4.shape
+    di = w_z.shape[0]
+    P, ln = (W, H) if transposed else (H, W)
+    T = B * H * W
+    x, g = x4.reshape(T, dm).float(), g4.reshape(T, dm).float()
+    z = tf32x3_steps_plain(x, w_z.float().t())
+    if b_z is not None:
+        z = z + b_z.float()
+    dmg = tf32x3_steps_plain(g, w_out.float())
+    bshape = (B, 1, W, di) if transposed else (B, H, 1, di)
+    xcf, xcb = xc_f.float(), xc_b.float()
+    m0 = ((yf.float().reshape(bshape) + d_f.float() * xcf
+           + yb.float().reshape(bshape) + d_b.float() * xcb)
+          * 0.5).reshape(T, di)
+    sig = torch.sigmoid(z)
+    if use_ln:
+        mu = m0.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((m0 * m0).mean(-1, keepdim=True) - mu * mu + eps)
+        mhat = (m0 - mu) * rstd
+        mln = mhat * ln_w.float() + ln_b.float()
+    else:
+        mhat = mln = m0
+    dmln = dmg * (z * sig)
+    dz = dmg * mln * sig * (1 + z * (1 - sig))
+    mg = mln * (z * sig)
+    if use_ln:
+        dmh = dmln * ln_w.float()
+        dm0 = rstd * (dmh - dmh.mean(-1, keepdim=True)
+                      - mhat * (dmh * mhat).mean(-1, keepdim=True))
+        dln = (dmln * mhat, dmln)
+    else:
+        dm0 = dmln
+        dln = (torch.zeros_like(dmln),) * 2
+    h = (dm0 * 0.5).reshape(B, H, W, di)
+    lines = lambda t4: _to_lines(t4, transposed)  # (B, P·ln, c)
+    cols = torch.cat([lines(v.reshape(B, H, W, -1)) for v in (
+        dz, *dln, h * xcf, h * xcb, g)], -1)
+    vec = _segment_sum(_run_sums(cols, P, ln, BWD_RUN_B))
+    dy = torch.zeros(B, P, di)
+    for i, hi in enumerate(lines(h).reshape(B, P, ln, di).unbind(2)):
+        dy = dy + hi
+    nsplit = _wgrad_splits(T, dm, di, 2, False)
+    return (tf32x3_steps_plain(dz, w_z.float()).reshape(B, H, W, dm),
+            h * d_f.float(), h * d_b.float(), dy,
+            tf32x3_steps_plain(mg.t(), g, nsplit).t(), vec[5 * di:],
+            tf32x3_steps_plain(dz.t(), x, nsplit),
+            *vec[:5 * di].reshape(5, di).unbind(0))
+
+
+def pass_a_bwd_tf32_plain(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf,
+                          b_cf, w_ab, b_ab, scaling: float, transposed: bool):
+    """:func:`pass_a_bwd_plain` (fp32) in the products and the order of
+    sums of the fp32 K6 (csrc/layer_fused_bwd_tf32.cu): xin, dxin·W_x and
+    the weight gradient through :func:`tf32x3_steps_plain` (dW_x over
+    :func:`_wgrad_splits`' token slices), the conv sums per block and half
+    (:func:`_run_sums`, ``BWD_RUN_A``) added over the blocks in
+    ``sum_segments``' order. The plain mirror of that order, held against
+    the JAX package by the CPU tests; the same contract."""
+    B, H, W, dm = x4.shape
+    di = w_x.shape[0]
+    P, ln = (W, H) if transposed else (H, W)
+    T = B * H * W
+    x = x4.reshape(T, dm).float()
+    xin = tf32x3_steps_plain(x, w_x.float().t())
+    if b_x is not None:
+        xin = xin + b_x.float()
+    xp = F.pad(_to_lines(xin.reshape(B, H, W, di), transposed), (0, 0, 3, 3))
+    wc, wa = w_cf.float(), w_ab.float()
+    L = H * W
+    yc = sum(xp[:, k:k + L] * wc[:, k] for k in range(4))
+    ya = sum(xp[:, 3 + k:3 + k + L] * wa[:, 3 - k] for k in range(4))
+    if b_cf is not None:
+        yc = yc + b_cf.float()
+    if b_ab is not None:
+        ya = ya + b_ab.float()
+    bshape = (B, 1, W, di) if transposed else (B, H, 1, di)
+    s = scaling / ln
+    dyc = _to_lines(dxc_f.float() + dpf.float().reshape(bshape) * s,
+                    transposed) * _dsilu(yc)
+    dya = _to_lines(dxc_b.float() + dpb.float().reshape(bshape) * s,
+                    transposed) * _dsilu(ya)
+    dycp, dyap = F.pad(dyc, (0, 0, 3, 3)), F.pad(dya, (0, 0, 3, 3))
+    dxin = sum(dycp[:, 6 - k:6 - k + L] * wc[:, k]
+               + dyap[:, 3 - k:3 - k + L] * wa[:, 3 - k] for k in range(4))
+    terms = torch.cat([xp[:, k:k + L] * dyc for k in range(4)]
+                      + [xp[:, 6 - k:6 - k + L] * dya for k in range(4)]
+                      + [dyc, dya, dxin], -1)
+    c_vec = _segment_sum(_run_sums(terms, P, ln, BWD_RUN_A, halves=True))
+    c_vec = c_vec.reshape(11, di)
+    if transposed:  # back to raster order
+        dxin = dxin.reshape(B, W, H, di).transpose(1, 2)
+    dxr = dxin.reshape(T, di)
+    dx = dx_b.reshape(T, dm).float() + tf32x3_steps_plain(dxr, w_x.float())
+    nsplit = _wgrad_splits(T, dm, di, 1, False)
+    return (dx.reshape(B, H, W, dm), tf32x3_steps_plain(dxr.t(), x, nsplit),
+            c_vec[10], c_vec[0:4].t(), c_vec[8], c_vec[4:8].t(), c_vec[9])
 
 
 # ----------------------------------------------------------------------

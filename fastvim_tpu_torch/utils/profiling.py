@@ -15,8 +15,12 @@ the host's launches in the way (``--layer-fused recompute`` for the
 recompute configuration, ``--fused-kernels always`` for K8 and K9,
 ``--fused-merge`` for K10). With
 ``--fwd-times`` / ``--bwd-times`` it instead times K3 and K4 / K5 and K6
-alone (bf16, CUDA events, both orientations) at the model's widths and
-grid, with ``--rc-times`` K7 and K3's pools-only form (the recompute
+alone (``--dtype``, bf16 unless given; CUDA events, both orientations) at
+the widths and grid of each model of ``--model`` (a comma-separated list:
+``--bwd-times --dtype float32 --model
+fastvim_tiny,fastvim_small,fastvim_base --img 224 --batch 128`` for the
+fp32 adjoint of the 224 px CLIs), with ``--rc-times`` K7 and K3's
+pools-only form (the recompute
 configuration's two passes), with ``--fb-times`` K8 and K9, with
 ``--mg-times`` K10 at FastVim-T's and FastVim-S's widths, both
 orientations, and
@@ -58,10 +62,12 @@ KERNEL_GROUPS = (
     ("K2 scan bwd", "scan_bwd_kernel"),
     ("K2 scan bwd, chunked (phase 1)", "bwd_lam_chunk_kernel"),
     ("K2 scan bwd, chunked (phase 3)", "bwd_grad_chunk_kernel"),
+    ("K5 pass B bwd, fp32 (middle)", "pass_b_bwd_mid"),
+    ("K6 pass A bwd, fp32 (xin + conv adjoint)", "pass_a_bwd_tf32"),
+    ("K5/K6 fp32 products (3xTF32)", "gemm_tf32"),
     ("K5 pass B bwd (main)", "pass_b_bwd"),
     ("K6 pass A bwd (main)", "pass_a_bwd_wgmma"),
-    ("K6 pass A bwd, fp32 (conv adjoint)", "pass_a_bwd_conv"),
-    ("K6 pass A bwd, fp32 (dx GEMM)", "pass_a_bwd_dx"),
+    ("K5/K6 dx̂ product", "dx_wgmma"),
     ("K5/K6 weight-gradient GEMMs", "wgrad_"),
     ("K5/K6 partial sums", "sum_segments_kernel"),
     ("K2 partial sums", "sum_partials_kernel"),
@@ -617,7 +623,9 @@ def captured_forward(model, image: torch.Tensor) -> Callable[[], object]:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="fastvim_tiny")
+    ap.add_argument("--model", default="fastvim_tiny",
+                    help="a registered model; with the --*-times options "
+                         "a comma-separated list of them")
     ap.add_argument("--img", type=int, default=2048)
     ap.add_argument("--batch", type=int, default=None,
                     help="default 3; with --det the config's")
@@ -693,17 +701,21 @@ def main() -> None:
             or args.fb_times):
         from fastvim_tpu_torch.models.registry import _SIZES
 
-        size = _SIZES[args.model.split("_", 1)[1]]
-        dm = size["embed_dim"]  # d_inner = 2 · d_model in every registry model
-        shape = (dm, 2 * dm, args.img // size["patch_size"], args.batch)
-        if args.bwd_phases:
-            return bwd_phase_cycles(*shape)
-        if args.fb_times:
+        if args.fb_times or args.bwd_times or args.fwd_times:
             print(card_line(), flush=True)
-            return block_times(*shape[1:])
-        return kernel_times(*shape, fwd=args.fwd_times or args.rc_times,
-                            recompute=args.rc_times,
-                            dtype=getattr(torch, args.dtype))
+        for name in args.model.split(","):
+            size = _SIZES[name.split("_", 1)[1]]
+            dm = size["embed_dim"]  # d_inner = 2 · d_model in every model
+            shape = (dm, 2 * dm, args.img // size["patch_size"], args.batch)
+            if args.bwd_phases:
+                bwd_phase_cycles(*shape)
+            elif args.fb_times:
+                block_times(*shape[1:])
+            else:
+                kernel_times(*shape, fwd=args.fwd_times or args.rc_times,
+                             recompute=args.rc_times,
+                             dtype=getattr(torch, args.dtype))
+        return None
 
     from fastvim_tpu_torch.models import create_model
     from fastvim_tpu_torch.train import (

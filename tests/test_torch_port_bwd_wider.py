@@ -106,7 +106,7 @@ def test_wide_layer_grads_match_jax(dm, di, transposed):
 def test_base_model_trains_fused_and_matches_jax(monkeypatch):
     """A depth-2 ``fastvim_base`` at 128 px (an 8 × 8 grid), weights made
     by the port and carried into the JAX model: with
-    ``layer_fused_bwd="fused"`` (fp32's default at these widths is remat,
+    ``layer_fused_bwd="fused"`` (fp32's default at these widths too,
     ``test_auto_bwd_mode``) both layers take ``FusedMixerCoreFn`` (the K5
     and K6 adjoint), and the
     smoothed cross entropy and every parameter's gradient agree with
@@ -156,10 +156,12 @@ def test_base_model_trains_fused_and_matches_jax(monkeypatch):
 @pytest.mark.parametrize("dm,dtype,line,want", [
     (192, torch.float32, 14, "fused"),    # FastVim-T, 224 px
     (384, torch.float32, 14, "fused"),    # FastVim-S
-    (768, torch.float32, 14, "remat"),    # FastVim-B, 224 px
-    (1024, torch.float32, 14, "remat"),   # FastVim-L
+    (768, torch.float32, 14, "fused"),    # FastVim-B, 224 px
+    (1024, torch.float32, 14, "fused"),   # FastVim-L
     (1280, torch.float32, 16, "remat"),   # FastVim-H, 224 px (patch 14)
-    (768, torch.float32, 17, "fused"),    # just past BWD_SHORT_LINE
+    (1280, torch.float32, 14, "remat"),   # ... patch 16
+    (768, torch.float32, 17, "fused"),    # lines past BWD_ROUTE_LINE
+    (1280, torch.float32, 17, "fused"),
     (768, torch.float32, 32, "fused"),    # FastVim-B, 512 px
     (1280, torch.float32, 32, "fused"),   # FastVim-H, 448 px
     (192, torch.bfloat16, 14, "fused"),
@@ -169,10 +171,11 @@ def test_base_model_trains_fused_and_matches_jax(monkeypatch):
 def test_auto_bwd_mode(dm, dtype, line, want):
     """``layer_fused_bwd="auto"`` (the default) takes the backward
     ``default_bwd_mode`` picks from the widths, the dtype and the line
-    length: the fused adjoint in bf16, in fp32 up to FastVim-S's widths
-    and on lines of more than 16 tokens, the remat backward for fp32
-    FastVim-B/L/H on shorter lines."""
-    assert lf.default_bwd_mode(dm, 2 * dm, dtype, line) == want
+    length: the fused adjoint, but for fp32 FastVim-H (d_model past
+    ``BWD_ROUTE_DM``) on lines of up to ``BWD_ROUTE_LINE`` tokens, where
+    it does not fit B = 128 and the remat backward runs."""
+    assert (lf.BWD_ROUTE_DM, lf.BWD_ROUTE_LINE) == (1024, 16)
+    assert lf.default_bwd_mode(dm, dtype, line) == want
 
 
 @pytest.mark.parametrize("grid,transposed,want", [
@@ -182,7 +185,7 @@ def test_auto_bwd_mode(dm, dtype, line, want):
     ((20, 8), True, "FusedMixerCoreFn"),
 ])
 def test_auto_bwd_mode_dispatch(monkeypatch, grid, transposed, want):
-    """An fp32 FastVim-B mixer with its default field resolves "auto" in
+    """An fp32 FastVim-H mixer with its default field resolves "auto" in
     each forward from the length of its lines (rows, or columns when
     transposed) and takes that backward; "fused" and "remat" stay as
     given, and other values raise."""
@@ -194,10 +197,10 @@ def test_auto_bwd_mode_dispatch(monkeypatch, grid, transposed, want):
             calls.append(_name)
             return _apply(*a)
         monkeypatch.setattr(cls, "apply", counted)
-    mixer = MambaMixer(768)
+    mixer = MambaMixer(1280)
     mixer.reset_parameters(torch.Generator().manual_seed(0))
     assert mixer.layer_fused_bwd == "auto"
-    x = torch.zeros(1, grid[0] * grid[1], 768, requires_grad=True)
+    x = torch.zeros(1, grid[0] * grid[1], 1280, requires_grad=True)
     pool = (0,) if transposed else (1,)
     for mode, name in (("auto", want), ("fused", "FusedMixerCoreFn"),
                        ("remat", "FusedMixerCoreRematFn")):
@@ -205,25 +208,29 @@ def test_auto_bwd_mode_dispatch(monkeypatch, grid, transposed, want):
         mixer(x, grid, pool, transposed)
         assert calls.pop() == name, mode
     with pytest.raises(ValueError, match="auto|fused|remat"):
-        MambaMixer(768, layer_fused_bwd="on")
+        MambaMixer(1280, layer_fused_bwd="on")
 
 
-def _c_limit(name):
-    text = (CSRC / "layer_fused_bwd.cuh").read_text()
+def _c_limit(name, file="layer_fused_bwd.cuh"):
+    text = (CSRC / file).read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
 def test_bwd_width_limits_are_the_kernels():
     """BWD_MAX_DM and BWD_MAX_DI are fvb::kBwdMaxDm and kBwdMaxDi, which
-    both C entry points check, and BWD_NARROW_DM / _DI, past which the
-    wide forms run and fp32's "auto" takes remat, are kNarrowDm /
-    kNarrowDi; every registry width (d_inner = 2·d_model)
-    passes the predicate and takes the fused route, and a width just past
-    either limit does neither."""
+    both C entry points check, BWD_NARROW_DM / _DI, past which the bf16
+    wide forms run, are kNarrowDm / kNarrowDi, and BWD_RUN_B / _A, the
+    tokens a block of the fp32 K5's middle and of the fp32 K6 owns, are
+    kMRun and kAM - 2·kPad of layer_fused_bwd_tf32.cu; every registry
+    width (d_inner = 2·d_model) passes the predicate and takes the fused
+    route, and a width just past either limit does neither."""
     assert (lf.BWD_MAX_DM, lf.BWD_MAX_DI) == (_c_limit("kBwdMaxDm"),
                                               _c_limit("kBwdMaxDi"))
     assert (lf.BWD_NARROW_DM, lf.BWD_NARROW_DI) == (_c_limit("kNarrowDm"),
                                                     _c_limit("kNarrowDi"))
+    tf32 = "layer_fused_bwd_tf32.cu"
+    assert lf.BWD_RUN_B == _c_limit("kMRun", tf32)
+    assert lf.BWD_RUN_A == _c_limit("kAM", tf32) - 2 * _c_limit("kPad", tf32)
     bwd = (CSRC / "layer_fused_bwd.cu").read_text()
     assert bwd.count("dm > fvb::kBwdMaxDm") == 2
     assert bwd.count("di > fvb::kBwdMaxDi") == 2

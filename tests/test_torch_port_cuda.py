@@ -759,16 +759,81 @@ def test_pass_a_bwd_wide_matches_plain(dev, dtype, grid, transposed, batch,
 def test_wide_bwd_kernels_repeat_bitwise(dev, dtype, dm, di):
     """The wide forms add their cross-block sums in a fixed order (no
     atomics): two calls on the same inputs agree bit for bit. A call is
-    four launches (the main kernel, the dx̂ product, the weight-gradient
-    product, the sums), and in fp32 the wrapper's weight transposes: two
-    for K5, one for K6."""
+    four launches in bf16 (the main kernel, the dx̂ product, the
+    weight-gradient product, the sums); in fp32 (3xTF32) six for K5 (z,
+    dgated, the middle, dx̂, the weight gradients, the sums) and four for
+    K6 (xin with the conv adjoint, dx̂, the weight gradient, the sums), and
+    no weight transposes."""
     g = torch.Generator(device=dev).manual_seed(dm + 1)
     b_args = _pass_b_bwd_args(g, dtype, 2, 10, 70, dm, di, True, True, False)
     a_args = _pass_a_bwd_args(g, dtype, 2, 10, 70, dm, di, True, True)
     fp32 = dtype == torch.float32
     with torch.no_grad():
         for fn, args, n in ((lf.pass_b_bwd, b_args, 4 + 2 * fp32),
-                            (lf.pass_a_bwd, a_args, 4 + fp32)):
+                            (lf.pass_a_bwd, a_args, 4)):
+            first = [t.clone() for t in fn(*args)]
+            for a, b in zip(first, fn(*args)):
+                assert torch.equal(a, b)
+            assert kernels_a_call(lambda: fn(*args)) == n
+
+
+# the fp32 K5 and K6 (3xTF32, csrc/layer_fused_bwd_tf32.cu): every
+# registry width at 224 px (14 × 14, B = 1), then lines of 4, 16, 17, 31,
+# 32 and 130 tokens (K5's blocks hold 64 tokens, K6's 122: whole lines,
+# ragged last blocks, a line in segments), both orientations
+TF32_BWD_CASES = [
+    *[((14, 14), tr, 1, dm, di) for dm, di in ((192, 384), (384, 768),
+                                               *REGISTRY_WIDE)
+      for tr in (False, True)],
+    ((9, 4), False, 2, 64, 128),      # lines of 4: one block an image
+    ((4, 9), True, 2, 64, 128),
+    ((20, 16), False, 3, 64, 128),    # 4-line blocks; K6 7 + 7 + 6 lines
+    ((17, 17), True, 2, 192, 384),    # 3 + ... + 2 and 7 + 7 + 3 lines
+    ((31, 10), True, 1, 128, 256),    # 31-token columns
+    ((6, 32), False, 2, 64, 128),     # 32-token lines (512 px)
+    ((32, 6), True, 2, 448, 896),
+    ((4, 130), False, 1, 64, 128),    # lines longer than a block
+    ((130, 4), True, 2, 128, 192),
+]
+
+
+@pytest.mark.parametrize("grid,transposed,batch,dm,di", TF32_BWD_CASES)
+def test_tf32_pass_b_bwd_matches_plain(dev, grid, transposed, batch, dm,
+                                       di):
+    g = torch.Generator(device=dev).manual_seed(dm + grid[0] + 3)
+    args = _pass_b_bwd_args(g, torch.float32, batch, *grid, dm, di, True,
+                            True, transposed)
+    with torch.no_grad():
+        _close_all(lf.pass_b_bwd(*args), lf.pass_b_bwd_plain(*args),
+                   TOL[torch.float32], 4)
+
+
+@pytest.mark.parametrize("grid,transposed,batch,dm,di", TF32_BWD_CASES)
+def test_tf32_pass_a_bwd_matches_plain(dev, grid, transposed, batch, dm,
+                                       di):
+    g = torch.Generator(device=dev).manual_seed(dm + grid[1] + 5)
+    args = _pass_a_bwd_args(g, torch.float32, batch, *grid, dm, di, True,
+                            transposed)
+    with torch.no_grad():
+        _close_all(lf.pass_a_bwd(*args), lf.pass_a_bwd_plain(*args),
+                   TOL[torch.float32], 1)
+
+
+@pytest.mark.parametrize("grid,transposed,dm,di", [
+    ((14, 14), False, 192, 384), ((14, 14), True, 768, 1536),
+    ((130, 4), True, 64, 128), ((4, 130), False, 1280, 2560)])
+def test_tf32_bwd_kernels_repeat_bitwise(dev, grid, transposed, dm, di):
+    """The fp32 K5 and K6 add every sum over tokens in a fixed order (no
+    atomics): two calls agree bit for bit, with ragged blocks and a line
+    in segments; a call is six device kernels of K5 and four of K6."""
+    g = torch.Generator(device=dev).manual_seed(di + 7)
+    b_args = _pass_b_bwd_args(g, torch.float32, 3, *grid, dm, di, True, True,
+                              transposed)
+    a_args = _pass_a_bwd_args(g, torch.float32, 3, *grid, dm, di, True,
+                              transposed)
+    with torch.no_grad():
+        for fn, args, n in ((lf.pass_b_bwd, b_args, 6),
+                            (lf.pass_a_bwd, a_args, 4)):
             first = [t.clone() for t in fn(*args)]
             for a, b in zip(first, fn(*args)):
                 assert torch.equal(a, b)
