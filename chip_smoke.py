@@ -33,8 +33,13 @@ Phases, each of which raises on failure (exit code non-zero):
    seven gradients; K7 at FastVim-T's and FastVim-S's widths, both
    orientations, beside its pass A, K3's pools-only form, and its wide
    forms at K3-K6's wide shapes (FastVim-B, -L, -H) in both dtypes, each
-   timed beside its bound; K3 and K4 in fp32 (products as three TF32
-   products on the tensor cores) at each of those shapes and at
+   timed beside its bound, fp32 (3xTF32 on the tensor cores, clusters of
+   1-4 CTAs that split d_inner) also at 224 px and B = 128 at
+   ``FP32_RC_WIDTHS`` (FastVim-T's, -S's and -B's widths, both
+   orientations, beside its plain version, the three fp32 SGEMMs alone,
+   its 3xTF32 bound and the FMA units' bound); K3 and K4 in fp32
+   (products as three TF32 products on the tensor cores) at each of
+   those shapes and at
    ``FP32_FWD_SHAPES`` (224 px and B = 128 at FastVim-T's and -B's
    widths, timed in both orientations beside their plain versions, the
    fp32 SGEMM of the same products and their bound; lines of 4, 7 and
@@ -296,10 +301,14 @@ forward and -L's forward with a gradient), and so K5 and K6 (``"pass_b_bwd d_mod
 launches from phase 5's FastVim-B train step and phase 3's -L and -H
 backwards) and K7 (``"pass_b_recompute_fwd d_model=768"``; launches
 from phase 6's FastVim-B recompute forward and phase 3's -L and -H
-recompute forwards), K3 and K4 in fp32 (``"pass_a_fwd fp32"`` at
-FastVim-T's widths, ``"pass_a_fwd fp32 d_model=768"`` at -B's, 224 px,
-B = 128; launches from phase 7's fp32 ``train_classification
-FastVimT`` and ``test_classification FastVimB``), K5 and K6 in fp32
+recompute forwards), K7 in fp32 (``"pass_b_recompute_fwd fp32"`` at
+FastVim-T's widths, ``"... fp32 d_model=768"`` at -B's, 224 px, B = 128;
+launches from phase 3's fp32 recompute forwards of ``fastvim_tiny``
+(24) and the depth-2 ``fastvim_base`` (2)), K3 and K4 in fp32
+(``"pass_a_fwd fp32"`` at FastVim-T's widths, ``"pass_a_fwd fp32
+d_model=768"`` at -B's, 224 px, B = 128; launches from phase 7's fp32
+``train_classification FastVimT`` and ``test_classification
+FastVimB``), K5 and K6 in fp32
 (``"pass_b_bwd fp32"``, ``"pass_b_bwd fp32 d_model=768"``, the same
 shapes, 3xTF32 on the tensor cores; launches from phase 7's
 ``train_classification FastVimT`` and phase 10's ``train_segmentation
@@ -611,6 +620,10 @@ WIDE_SHAPES = ((768, 1536, (((128, 128), 2), ((14, 14), 8))),
                (1024, 2048, (((14, 14), 8),)),
                (1280, 2560, (((32, 32), 8),)))
 WIDE_DM = tuple(dm for dm, _, _ in WIDE_SHAPES)
+
+# the fp32 K7 alone in phase 2, timed at 224 px, B = 128: FastVim-T's,
+# -S's and -B's widths (one, one and two CTAs a cluster)
+FP32_RC_WIDTHS = ((192, 384), (384, 768), (768, 1536))
 
 # K5 and K6 in fp32 alone in phase 2, timed: 224 px at B = 128 (K5's
 # blocks of 4 lines, K6's of 8 + 6), by d_model
@@ -1077,6 +1090,71 @@ def timed(name, tag, kern, plain, n_bytes, flops, kind, card, iters=20,
     return k_ms, p_ms, b_ms, by, dev_ms
 
 
+def check_fp32_recompute(dev, card, per_call, errs, times):
+    """Phase 2, the fp32 K7 (3xTF32, clusters of ``lf.rc_tf32_ranks`` CTAs)
+    at the 224 px CLIs' shape, B = 128, at ``FP32_RC_WIDTHS``
+    (FastVim-T's, -S's and -B's widths), both orientations: against its
+    plain version, timed beside it, the three fp32 SGEMMs alone (TF32 off:
+    a yardstick the port never calls), the 3xTF32 bound and the FMA
+    units' bound. The kernels line takes the even orientation at
+    FastVim-T's widths (``"pass_b_recompute_fwd fp32"``) and at -B's
+    (``"... fp32 d_model=768"``); ``errs`` and ``times`` are filled in."""
+    import torch
+
+    from fastvim_tpu_torch.ops.kernels import layer_fused as lf
+
+    g = torch.Generator(device=dev).manual_seed(27)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    uni = lambda *s, bound: (torch.rand(*s, generator=g, device=dev) * 2
+                             - 1) * bound
+    tensors = lambda args: [a for a in args if isinstance(a, torch.Tensor)]
+    batch, (H, W) = 128, (14, 14)
+    for dm, di in FP32_RC_WIDTHS:
+        w_in = uni(2 * di, dm, bound=dm ** -0.5)
+        w_out = uni(dm, di, bound=di ** -0.5 / 24 ** 0.5)
+        conv = [uni(di, 4, bound=0.5) for _ in range(2)]
+        cbias = [uni(di, bound=0.5) for _ in range(2)]
+        vec = [uni(di, bound=1.0), uni(di, bound=1.0),
+               1 + uni(di, bound=0.1), uni(di, bound=0.1)]
+        x4 = rnd(batch, H, W, dm)
+        key = "pass_b_recompute_fwd fp32" + (
+            "" if dm == FP32_RC_WIDTHS[0][0] else f" d_model={dm}")
+        for transposed in (False, True):
+            ys = rnd(batch, W if transposed else H, di)
+            args = (x4, ys, ys.flip(-1), w_in[:di], None, conv[0],
+                    cbias[0], conv[1], cbias[1], w_in[di:], None, *vec,
+                    w_out, None, 1e-5, True, transposed)
+            tag = (f"d_model={dm} d_inner={di} grid={H}x{W} B={batch} "
+                   f"torch.float32 transposed={transposed}")
+            got = lf.pass_b_recompute(*args)
+            want = lf.pass_b_recompute_plain(*args)
+            e = compare(f"pass_b_recompute_fwd {tag}", got, want, FP32_TOL)
+            errs[key] = max(errs.get(key, 0.0), e)
+            del want
+            flops = 3 * 2.0 * batch * H * W * dm * di
+            k_ms, p_ms, b_ms, by, _ = timed(
+                "pass_b_recompute_fwd", f"{tag} in "
+                f"{per_call['pass_b_recompute_fwd']['torch.float32']:g} "
+                f"launches ({lf.rc_tf32_ranks(dm, di)} CTAs a cluster)",
+                lambda: lf.pass_b_recompute(*args),
+                lambda: lf.pass_b_recompute_plain(*args),
+                nbytes(*tensors(args), got), flops, "tf32x3", card, iters=10,
+                plain_iters=3)
+            xm = x4.reshape(-1, dm)
+            gm = got.new_empty(batch * H * W, di).normal_(generator=g)
+            sgemm = cuda_ms(lambda: (xm @ args[3].t(), xm @ args[9].t(),
+                                     gm @ w_out.t()), 10)
+            log(f"[time] pass_b_recompute_fwd fp32 {tag}: SGEMMs alone "
+                f"{sgemm:.4f} ms, {b_ms / k_ms:.1%} of the 3xTF32 bound, "
+                f"FMA bound {flops / PEAK_FLOPS['fp32'] * 1e3:.4f} ms "
+                f"({card})")
+            if not transposed:
+                times[key] = (k_ms, p_ms, b_ms, by)
+            del got, gm, args
+        del x4, w_in, w_out
+        torch.cuda.empty_cache()
+
+
 def check_config_kernels(dev, card, per_call):
     """Phase 2, the kernels of the other configurations: K7, K8, K9, K10
     and lanes against their plain versions on the card, at FastVim-T's
@@ -1292,8 +1370,8 @@ def check_config_kernels(dev, card, per_call):
                         lambda: lf.pass_b_recompute_plain(*args),
                         nbytes(*tensors(args), got),
                         3 * 2.0 * batch_ * H_ * W_ * dm_ * di_,
-                        "bf16" if bf else "fp32", card,
-                        iters=10 if bf else 3, plain_iters=10 if bf else 3)
+                        "bf16" if bf else "tf32x3", card,
+                        iters=10 if bf else 5, plain_iters=10 if bf else 3)
                     log(f"[time] pass_b_recompute_fwd {tag}: "
                         f"{b_ms / k_ms:.1%} of the bound ({card})")
                     if not bf:
@@ -1308,6 +1386,8 @@ def check_config_kernels(dev, card, per_call):
                 del x4, got, args
             del base_x
             torch.cuda.empty_cache()
+
+    check_fp32_recompute(dev, card, per_call, errs, times)
 
     # lanes: the pooled scan's length and Vim-T's, beside K1 on the same
     # inputs
@@ -1389,6 +1469,7 @@ def check_models_224(dev):
     # fastvim_tiny at d_inner 4096 with fused_merge: K10 at the widest d
     # its fusable accepts (2 launches)
     recompute_s = dict(depth=2, layer_fused="recompute")
+    launches_rc = {}
     merge_widest = dict(depth=2, embed_dim=merge_gate.MAX_D // 2,
                         **CONFIGS["fused_merge"][0])
     models = [("fastvim_tiny", {}), ("vim_tiny", {}),
@@ -1405,6 +1486,10 @@ def check_models_224(dev):
         seen = kernels.launch_counts()
         compare(f"{name} {kw} 224px fp32 logits, card vs CPU", got, want,
                 MODEL_TOL)
+        if kw is CONFIGS["layer_fused=recompute"][0]:
+            # the fp32 K7's launches at FastVim-T's widths
+            launches_rc["pass_b_recompute_fwd fp32"] = \
+                seen["pass_b_recompute_fwd"]
         if kw is merge_widest and seen["merge_ln_gate_fwd"] != 2:
             raise AssertionError(f"{name} {kw}: {seen['merge_ln_gate_fwd']} "
                                  "K10 launches, expected 2")
@@ -1445,7 +1530,11 @@ def check_models_224(dev):
             for k, n in expected.items():
                 if k != "selective_scan_fwd" and n:
                     wide[f"{k} d_model={dm}"] = seen[k]
+            if kw and dm == WIDE_DM[0]:  # the fp32 K7 at FastVim-B's widths
+                launches_rc["pass_b_recompute_fwd fp32 d_model=768"] = \
+                    seen["pass_b_recompute_fwd"]
             del cpu_model, gpu_model
+    wide.update(launches_rc)
     return wide
 
 
@@ -5008,10 +5097,13 @@ def fwd_224(argv) -> int:
     with its default fields and the fused layer taken in every forward
     (where ``default_fwd_mode`` would route it unfused, it is made to
     answer "fused"; ``auto_launches`` are the launches of the default
-    forward, ``auto_max_abs_diff`` its logits against the unfused ones)
-    and with ``layer_fused="off"``, in turns (fused, off, off, fused;
-    each the median of 2 windows of 2 forwards), their logits against
-    each other, and for the models of ``STEP_224_MODELS`` (FastVim-L only
+    forward, ``auto_max_abs_diff`` its logits against the unfused ones),
+    with ``layer_fused="off"`` and with ``layer_fused="recompute"`` (K3's
+    pools-only form and K7; ``recompute_launches``,
+    ``recompute_max_abs_diff`` against the unfused logits; a tree without
+    an fp32 K7 of its own would take it too), in turns (fused, off,
+    recompute, recompute, off, fused; each the median of 2 windows of 2
+    forwards), their logits against each other, and for the models of ``STEP_224_MODELS`` (FastVim-L only
     when named) also a train step (cross-entropy, backward) three ways in
     turns (adjoint, remat, off, off, remat, adjoint; each the median of 2
     windows of one step): the fused forward with the fused adjoint
@@ -5055,10 +5147,11 @@ def fwd_224(argv) -> int:
     y = torch.randint(0, 1000, (batch,), device=dev, generator=g)
     for name in argv[1:] or FWD_224_MODELS:
         fused = create_model(name, img_size=224, device=dev)
-        off = copy.deepcopy(fused)
-        for m in off.modules():
-            if hasattr(m, "layer_fused"):
-                m.layer_fused = "off"
+        off, rc = copy.deepcopy(fused), copy.deepcopy(fused)
+        for copy_, mode in ((off, "off"), (rc, "recompute")):
+            for m in copy_.modules():
+                if hasattr(m, "layer_fused"):
+                    m.layer_fused = mode
         res = {"root": root, "model": name, "card": card}
         with torch.inference_mode():
             kernels.reset_launch_counts()
@@ -5073,8 +5166,14 @@ def fwd_224(argv) -> int:
             want = off(x)
             res["logits_max_abs_diff"] = (got - want).abs().max().item()
             res["auto_max_abs_diff"] = (auto - want).abs().max().item()
-            del auto, got, want
-            for tag, m in (("fused", fused), ("off", off), ("off", off),
+            kernels.reset_launch_counts()
+            got_rc = rc(x)
+            res["recompute_launches"] = {k: v for k, v in
+                                         kernels.launch_counts().items() if v}
+            res["recompute_max_abs_diff"] = (got_rc - want).abs().max().item()
+            del auto, got, want, got_rc
+            for tag, m in (("fused", fused), ("off", off), ("recompute", rc),
+                           ("recompute", rc), ("off", off),
                            ("fused", fused)):
                 res.setdefault(f"{tag}_ms", []).append(
                     cuda_ms(lambda: m(x), 2, windows=2))
@@ -5115,7 +5214,7 @@ def fwd_224(argv) -> int:
                 res[f"step_{tag}_launches_3_steps"] = {
                     k: v for k, v in kernels.launch_counts().items() if v}
         print("[fwd224] " + json.dumps(res), flush=True)
-        del fused, off
+        del fused, off, rc
         torch.cuda.empty_cache()
     return 0
 
@@ -5307,8 +5406,7 @@ def main() -> int:
         ("pass_a_bwd", "layer_fused_bwd_wgmma.cu", bwd,
          "fastvim_tpu/ops/pallas/layer_fused.py:555"),
         ("pass_b_recompute_fwd", "layer_fused_recompute_wgmma.cu",
-         ("layer_fused_recompute.cu", "layer_fused_fwd.cuh",
-          "layer_fused.cuh", "wgmma.cuh"),
+         ("layer_fused_recompute.cu", "layer_fused_fwd.cuh", "wgmma.cuh"),
          "fastvim_tpu/ops/pallas/layer_fused.py:374"),
         ("conv_pool_fwd", "fused_block.cu", (),
          "fastvim_tpu/ops/pallas/fused_block.py:130"),
@@ -5339,6 +5437,12 @@ def main() -> int:
               for name, tpu in (
                   ("pass_b_bwd", "fastvim_tpu/ops/pallas/layer_fused.py:453"),
                   ("pass_a_bwd", "fastvim_tpu/ops/pallas/layer_fused.py:555"))]
+    # the fp32 K7 (3xTF32 on the tensor cores, clusters splitting d_inner)
+    # at FastVim-T's and -B's widths, 224 px
+    table += [(f"pass_b_recompute_fwd fp32{dm}", "layer_fused_recompute_tf32.cu",
+               ("layer_fused_recompute.cu", "layer_fused_fwd.cuh", "tf32.cuh",
+                "wgmma.cuh"), "fastvim_tpu/ops/pallas/layer_fused.py:374")
+              for dm in ("", " d_model=768")]
     # K1 with the gate and the final state at the LM prefill's shapes
     # (phase 14: launches of one B = 2 prefill, times at B = 4, L = 2048,
     # fp32, the chunked form)

@@ -1,7 +1,8 @@
 // The forward kernels of the fused layer that the C entry points in
 // layer_fused_fwd.cu and layer_fused_recompute.cu call: K3 and K4 in bf16
 // (layer_fused_fwd_wgmma.cu) and fp32 (layer_fused_fwd_tf32.cu), K7 in
-// bf16 (layer_fused_recompute_wgmma.cu).
+// bf16 (layer_fused_recompute_wgmma.cu) and fp32
+// (layer_fused_recompute_tf32.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,6 +54,16 @@ cudaError_t pass_b_fwd_f32(const void* x, const void* xc_f, const void* xc_b,
 
 // K7: dm, di % 32 == 0, dm <= 1280, di <= 2560, H, W >= 4. One launch.
 cudaError_t pass_b_recompute_fwd_bf16(
+    const void* x, const void* yf, const void* yb, const void* w_x,
+    const void* b_x, const void* w_cf, const void* b_cf, const void* w_ab,
+    const void* b_ab, const void* w_z, const void* b_z, const void* d_f,
+    const void* d_b, const void* ln_w, const void* ln_b, const void* w_out,
+    const void* b_out, void* out, int batch, int H, int W, int dm, int di,
+    bool transposed, bool use_ln, float eps, cudaStream_t stream);
+
+// K7 in fp32 (layer_fused_recompute_tf32.cu), the same contract. One
+// launch: a cluster of 1-4 CTAs a tile of 32 tokens.
+cudaError_t pass_b_recompute_fwd_f32(
     const void* x, const void* yf, const void* yb, const void* w_x,
     const void* b_x, const void* w_cf, const void* b_cf, const void* w_ab,
     const void* b_ab, const void* w_z, const void* b_z, const void* d_f,

@@ -5,7 +5,8 @@ for the entry points), backward (``csrc/layer_fused_bwd_wgmma.cu``
 in bf16, ``csrc/layer_fused_bwd_tf32.cu`` in fp32 on the tensor cores in
 split precision, ``csrc/layer_fused_bwd.cu`` for the entry points) and
 pass B in its recompute form (``csrc/layer_fused_recompute_wgmma.cu`` in
-bf16, ``csrc/layer_fused_recompute.cu`` in fp32 and for the entry point),
+bf16, ``csrc/layer_fused_recompute_tf32.cu`` in fp32 on the tensor cores in
+split precision, ``csrc/layer_fused_recompute.cu`` for the entry point),
 and ``fused_mixer_core``, which chains pass A → the pooled scans → pass B
 and differentiates through ``FusedMixerCoreFn``.
 
@@ -62,6 +63,10 @@ FWD_ROUTE_LINE = 16     # ... on lines of up to it: FastVim-H's at 224 px
 RECOMPUTE_MAX_DM = 1280  # widest d_model K7 takes (kRcMaxDm in both of
 RECOMPUTE_MAX_DI = 2560  # its files), and d_inner (kRcMaxDi): FastVim-H's
 RC_CONV_SLAB = 64       # d_inner channels of a K7 conv slab in bf16 (kCS)
+RC_TF32_TOKENS = 32     # tokens a tile of the fp32 K7 (kRcTok)
+RC_TF32_SLICE = 768     # widest d_inner slice a CTA of its cluster keeps
+RC_TF32_COLS = 384      # ... and widest group of out columns (kRcSlice,
+                        # kRcCols in csrc/layer_fused_recompute_tf32.cu)
 
 
 def pass_a_widths_ok(d_model: int, d_inner: int) -> bool:
@@ -426,14 +431,91 @@ def pass_b_recompute_slabs_plain(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab,
                         slab_stats=True)
 
 
+def rc_tf32_ranks(d_model: int, d_inner: int) -> int:
+    """CTAs in a cluster of the fp32 K7 (``rc_ranks`` in
+    csrc/layer_fused_recompute_tf32.cu): enough that each keeps the m of
+    at most ``RC_TF32_SLICE`` channels and forms at most ``RC_TF32_COLS``
+    columns of out. 1 at FastVim-T and -S, 2 at -B, 3 at -L, 4 at -H."""
+    return max(_cdiv(d_inner, RC_TF32_SLICE), _cdiv(d_model, RC_TF32_COLS))
+
+
+def _rc_shares(width: int, ranks: int):
+    """[start, end) of each rank's share of ``width`` in whole 32s, as the
+    kernel splits d_inner into slices and d_model into column groups."""
+    units = width // 32
+    return [(32 * (units * r // ranks), 32 * (units * (r + 1) // ranks))
+            for r in range(ranks)]
+
+
+def _warp_sums(v: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis as a warp of the fp32 K7 takes it: lane l adds
+    channels l, l + 32, ... in order, then a butterfly over the lanes
+    (xor 16, 8, 4, 2, 1). An empty axis sums to 0."""
+    lanes = v.new_zeros(*v.shape[:-1], 32)
+    for k in range(0, v.shape[-1], 32):
+        lanes = lanes + v[..., k:k + 32]
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ o]
+    return lanes[..., 0]
+
+
+def pass_b_recompute_tf32_plain(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab,
+                                w_z, b_z, d_f, d_b, ln_w, ln_b, w_out, b_out,
+                                eps: float, use_ln: bool, transposed: bool,
+                                ranks: Optional[int] = None):
+    """:func:`pass_b_recompute_plain` (fp32) in the products and the order
+    of sums of the fp32 K7 (csrc/layer_fused_recompute_tf32.cu): xin, z
+    and out through :func:`tf32x3_steps_plain` (k-steps of 8 in order over
+    d_model, and over all of d_inner for out); the dual conv and the merge
+    as the plain version takes them; each token's Σm and Σm² over each
+    rank's slice of d_inner as a warp adds them (:func:`_warp_sums`), the
+    ``ranks`` partials (:func:`rc_tf32_ranks` unless given) added in rank
+    order. The tile of 32 tokens changes no sum. The plain mirror of the
+    kernel, held against the JAX package by the CPU tests; the same
+    contract."""
+    B, H, W, dm = x4.shape
+    di = w_x.shape[0]
+    ranks = ranks or rc_tf32_ranks(dm, di)
+    T = B * H * W
+    x = x4.reshape(T, dm).float()
+    xin = tf32x3_steps_plain(x, w_x.float().t())
+    if b_x is not None:
+        xin = xin + b_x.float()
+    xcf, xcb = grid_dual_conv1d(xin.reshape(B, H * W, di), w_cf.float().t(),
+                                b_cf, w_ab.float().t(), b_ab, (H, W),
+                                axis=0 if transposed else 1)
+    bshape = (B, 1, W, di) if transposed else (B, H, 1, di)
+    m = ((yf.float().reshape(bshape) + d_f.float() * xcf.reshape(B, H, W, di)
+          + yb.float().reshape(bshape) + d_b.float()
+          * xcb.reshape(B, H, W, di)) * 0.5).reshape(T, di)
+    z = tf32x3_steps_plain(x, w_z.float().t())
+    if b_z is not None:
+        z = z + b_z.float()
+    if use_ln:
+        total = total_sq = torch.zeros(T)
+        for lo, hi in _rc_shares(di, ranks):
+            total = total + _warp_sums(m[:, lo:hi])
+            total_sq = total_sq + _warp_sums(m[:, lo:hi] * m[:, lo:hi])
+        mu = (total / di).unsqueeze(-1)
+        rstd = torch.rsqrt(total_sq.unsqueeze(-1) / di - mu * mu + eps)
+        m = (m - mu) * rstd * ln_w.float() + ln_b.float()
+    out = tf32x3_steps_plain(m * F.silu(z), w_out.float().t())
+    if b_out is not None:
+        out = out + b_out.float()
+    return out.reshape(B, H, W, dm)
+
+
 def pass_b_recompute(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab, b_ab, w_z, b_z,
                      d_f, d_b, ln_w, ln_b, w_out, b_out, eps: float,
                      use_ln: bool, transposed: bool):
     """Pass B in its recompute form (K7); same contract as
     :func:`pass_b_recompute_plain`. On CUDA the widths must pass
     :func:`pass_b_widths_ok` with ``recompute`` (d_model <= 1280, d_inner
-    <= 2560, multiples of 32) and H, W >= 4; a call is one launch (past
-    d_model 384 or d_inner 768 the kernels' wide forms)."""
+    <= 2560, multiples of 32) and H, W >= 4; a call is one launch (in bf16
+    past d_model 384 or d_inner 768 the wide form; in fp32 the 3xTF32
+    kernel, a cluster of :func:`rc_tf32_ranks` CTAs a tile). A failed
+    build or launch raises."""
     if x4.device.type == "cpu":
         return pass_b_recompute_plain(x4, yf, yb, w_x, b_x, w_cf, b_cf, w_ab,
                                       b_ab, w_z, b_z, d_f, d_b, ln_w, ln_b,

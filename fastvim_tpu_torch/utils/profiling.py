@@ -701,7 +701,7 @@ def main() -> None:
             or args.fb_times):
         from fastvim_tpu_torch.models.registry import _SIZES
 
-        if args.fb_times or args.bwd_times or args.fwd_times:
+        if not args.bwd_phases:
             print(card_line(), flush=True)
         for name in args.model.split(","):
             size = _SIZES[name.split("_", 1)[1]]

@@ -1295,6 +1295,52 @@ def test_pass_b_recompute_repeats_bitwise(dev, dm, di):
     assert kernels.launch_counts()["pass_b_recompute_fwd"] == 4
 
 
+@pytest.mark.parametrize("grid,transposed,batch,dm,di,bias,use_ln", [
+    ((9, 4), False, 3, 192, 384, True, True),     # FastVim-T, 4-token lines
+    ((5, 7), True, 2, 192, 384, False, False),    # 5-token lines, no LN
+    ((14, 14), False, 2, 384, 768, True, True),   # FastVim-S, 224 px
+    ((16, 16), True, 1, 384, 768, False, True),   # 16-token lines
+    ((14, 14), True, 2, 768, 1536, True, True),   # FastVim-B: 2 ranks
+    ((7, 32), False, 1, 768, 1536, False, False),  # 32-token lines
+    ((14, 14), False, 1, 1024, 2048, True, True),  # FastVim-L: 3 ranks
+    ((4, 128), False, 1, 1024, 2048, False, True),  # 128-token lines
+    ((16, 16), True, 1, 1280, 2560, True, True),  # FastVim-H: 4 ranks
+    ((5, 6), False, 2, 1280, 2560, True, False),
+    ((6, 10), False, 2, 800, 1600, True, True),   # 3 ranks, uneven shares
+    ((6, 5), True, 2, 1280, 64, True, True),      # ranks with no channels
+])
+def test_pass_b_recompute_fp32_matches_plain(dev, grid, transposed, batch,
+                                             dm, di, bias, use_ln):
+    """The fp32 K7 (3xTF32, a cluster of rc_tf32_ranks CTAs a tile of 32
+    tokens in conv order) at every registry width, on lines of 4-128
+    tokens, tiles that end mid-image and tiles that hold two images'
+    tokens (batch > 1), with and without LayerNorm and the biases."""
+    g = torch.Generator(device=dev).manual_seed(dm + di + grid[0])
+    args = _recompute_args(g, torch.float32, batch, *grid, dm, di, bias,
+                           use_ln, transposed)
+    with torch.no_grad():
+        _close(lf.pass_b_recompute(*args), lf.pass_b_recompute_plain(*args),
+               TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dm,di", [(192, 384), (768, 1536), (1280, 2560)])
+def test_pass_b_recompute_fp32_repeats_bitwise(dev, dm, di):
+    """The fp32 K7 with 1, 2 and 4 CTAs a cluster gives the same bits from
+    call to call: one launch, one device kernel, no atomics, the
+    LayerNorm partials added in rank order."""
+    g = torch.Generator(device=dev).manual_seed(dm + 1)
+    args = _recompute_args(g, torch.float32, 2, 14, 14, dm, di, True, True,
+                           True)
+    fn = lambda: lf.pass_b_recompute(*args)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        first = fn()
+        for _ in range(3):
+            assert torch.equal(fn(), first)
+        assert kernels.launch_counts()["pass_b_recompute_fwd"] == 4
+        assert kernels_a_call(fn) == 1
+
+
 def test_fastvim_small_recompute_fuses(dev):
     """create_model("fastvim_small", layer_fused="recompute") fuses on the
     card, as the JAX package's recompute mode does at d_inner 768: 24 K3

@@ -42,7 +42,8 @@ from fastvim_tpu_torch.utils import to_jax_params
 from test_torch_port_fused_wide import _assert_close, _layer_params
 
 CSRC = Path(lf.__file__).parent / "csrc"
-K7_FILES = ("layer_fused_recompute.cu", "layer_fused_recompute_wgmma.cu")
+K7_FILES = ("layer_fused_recompute.cu", "layer_fused_recompute_wgmma.cu",
+            "layer_fused_recompute_tf32.cu")
 
 
 def _case(dm, di, transposed):
@@ -124,13 +125,21 @@ def test_base_model_recompute_fuses_and_matches_jax(monkeypatch):
 def test_k7_limits_are_the_c_constants(name):
     """RECOMPUTE_MAX_DM / RECOMPUTE_MAX_DI are kRcMaxDm / kRcMaxDi of each
     K7 file, each file checks them, and pass_b_widths_ok(recompute=True)
-    takes exactly up to them: FastVim-H's widths, as K3 and K4 do."""
+    takes exactly up to them: FastVim-H's widths, as K3 and K4 do. The
+    fp32 kernel's tile and cluster constants (kRcTok, kRcSlice, kRcCols)
+    are RC_TF32_TOKENS, RC_TF32_SLICE and RC_TF32_COLS."""
     text = (CSRC / name).read_text()
     limits = tuple(int(re.search(rf"constexpr int {n} = (\d+);",
                                  text).group(1))
                    for n in ("kRcMaxDm", "kRcMaxDi"))
     assert (lf.RECOMPUTE_MAX_DM, lf.RECOMPUTE_MAX_DI) == limits
     assert "dm > kRcMaxDm" in text and "di > kRcMaxDi" in text
+    for const, twin in (("kRcTok", lf.RC_TF32_TOKENS),
+                        ("kRcSlice", lf.RC_TF32_SLICE),
+                        ("kRcCols", lf.RC_TF32_COLS)):
+        found = re.search(rf"constexpr int {const} = (\d+);", text)
+        assert bool(found) == name.endswith("_tf32.cu"), const
+        assert not found or int(found.group(1)) == twin, const
     assert limits == (lf.FWD_MAX_DM, lf.FWD_MAX_DI)
     dm, di = limits
     assert lf.pass_b_widths_ok(dm, di, recompute=True)
