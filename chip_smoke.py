@@ -567,8 +567,10 @@ def launches_per_call() -> dict:
     K6 at FastVim-T's widths 3 kernels in bf16 (the main kernel, the
     weight-gradient product, the fixed-order sums), and at FastVim-B's
     (``"pass_b_bwd
-    d_model=768"``), their wide forms, 4 (the dx̂ product after the main
-    kernel); in fp32 K5 6 and K6 4 at both widths
+    d_model=768"``), their wide forms, K5 6 (the LayerNorm statistics, z
+    and dgated with the gate epilogue, the second pass, dx̂, the weight
+    gradients, the sums) and K6 4 (xin with the conv adjoint, dx̂, the
+    weight gradient, the sums); in fp32 K5 6 and K6 4 at both widths
     (``BWD_KERNELS_A_CALL``)."""
     run = subprocess.run([sys.executable, __file__, "--count-launches"],
                          capture_output=True, text=True, timeout=300)
@@ -603,14 +605,17 @@ def launches_per_call() -> dict:
 
 
 # device kernels one call of K5 and of K6 launches: in bf16 the main
-# kernel, the weight-gradient product and the fixed-order sums, and the
-# dx̂ product in the wide forms past d_model 384 or d_inner 768; in fp32
-# (3xTF32) at every width K5's z, dgated, middle, dx̂, weight gradients and
-# sums, K6's xin with the conv adjoint, dx̂, weight gradient and sums
+# kernel, the weight-gradient product and the fixed-order sums; past
+# d_model 384 or d_inner 768 the wide forms (csrc/layer_fused_bwd_wide.cu):
+# K5's LayerNorm statistics, z and dgated with the gate epilogue, second
+# pass, dx̂, weight gradients and sums, K6's xin with the conv adjoint,
+# dx̂, weight gradient and sums; in fp32 (3xTF32) at every width
+# K5's z, dgated, middle, dx̂, weight gradients and sums, K6's xin with
+# the conv adjoint, dx̂, weight gradient and sums
 BWD_KERNELS_A_CALL = {
     "pass_b_bwd": {"torch.bfloat16": 3, "torch.float32": 6},
     "pass_a_bwd": {"torch.bfloat16": 3, "torch.float32": 4},
-    "pass_b_bwd d_model=768": {"torch.bfloat16": 4, "torch.float32": 6},
+    "pass_b_bwd d_model=768": {"torch.bfloat16": 6, "torch.float32": 6},
     "pass_a_bwd d_model=768": {"torch.bfloat16": 4, "torch.float32": 4},
 }
 

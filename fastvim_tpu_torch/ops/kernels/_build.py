@@ -76,6 +76,8 @@ SIGNATURES = {
     "fv_selective_scan_fwd_lanes": [_P] * 9 + [_I] * 6 + [_P],
     # out (32 x uint64 on the host): cycles per phase of K5 / K6 in bf16
     "fv_bwd_phase_cycles": [_P],
+    # out (8 x uint64 on the host): the same for their wide forms
+    "fv_bwd_wide_phase_cycles": [_P],
 }
 
 _lock = threading.Lock()

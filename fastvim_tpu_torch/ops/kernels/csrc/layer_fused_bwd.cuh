@@ -20,9 +20,9 @@ constexpr int kBwdMaxDi = 2560;
 
 // Up to these widths (FastVim-T/S) the bf16 kernels keep a tile's dx̂ on
 // chip and add dz·W_z (K5) or dxin·W_x (K6) to it slab by slab. Past them
-// (FastVim-B/L/H) their wide forms store dz and dxin, which the weight
-// gradients read anyway, and one more launch forms dx̂ from them. (The
-// fp32 path forms dx̂ in a launch of its own at every width.)
+// (FastVim-B/L/H) the wide forms (layer_fused_bwd_wide.cu) cut the work
+// into products on 128-token tiles of their own launches. (The fp32 path
+// forms dx̂ in a launch of its own at every width.)
 constexpr int kNarrowDm = 384;
 constexpr int kNarrowDi = 768;
 inline bool wide_form(int dm, int di) {
@@ -83,9 +83,18 @@ inline cudaError_t sum_segments(const SumSegs& segs, cudaStream_t stream) {
 // which the first and last 3 are halo.
 constexpr int kAWin = 58;
 
+// The wide forms (layer_fused_bwd_wide.cu): tiles of kWideTM tokens ×
+// kWideTN channels of d_inner; K6's windows of kWideTM conv-order rows own
+// kAWinWide tokens. ops/kernels/layer_fused.py sizes their scratch from
+// the same numbers.
+constexpr int kWideTM = 128;
+constexpr int kWideTN = 128;
+constexpr int kAWinWide = kWideTM - 6;
+constexpr int kWideStatRows = 16;  // tokens a block of K5's LN statistics
+
 // the bf16 paths (layer_fused_bwd_wgmma.cu); arguments as in the C entry
-// points of layer_fused_bwd.cu. Three launches a call, four in the wide
-// forms.
+// points of layer_fused_bwd.cu. Three launches a call; past the narrow
+// widths they hand over to the wide forms below.
 cudaError_t pass_b_bwd_bf16(
     const void* g, const void* x, const void* xc_f, const void* xc_b,
     const void* yf, const void* yb, const void* w_z, const void* b_z,
@@ -96,6 +105,26 @@ cudaError_t pass_b_bwd_bf16(
     bool use_ln, int nsplit, float eps, cudaStream_t stream);
 
 cudaError_t pass_a_bwd_bf16(
+    const void* x, const void* dx_b, const void* dxc_f, const void* dxc_b,
+    const void* dpf, const void* dpb, const void* w_x, const void* b_x,
+    const void* w_cf, const void* b_cf, const void* w_ab, const void* b_ab,
+    void* dx, void* dxin, void* c_part, void* c_vec, void* w_part, void* dw_x,
+    int batch, int H, int W, int dm, int di, bool transposed, int nsplit,
+    float scaling, cudaStream_t stream);
+
+// the bf16 wide forms (layer_fused_bwd_wide.cu), the same arguments: six
+// launches a call of K5, four of K6; vec_part and c_part are sized by
+// ops/kernels/layer_fused.py for them
+cudaError_t pass_b_bwd_wide(
+    const void* g, const void* x, const void* xc_f, const void* xc_b,
+    const void* yf, const void* yb, const void* w_z, const void* b_z,
+    const void* d_f, const void* d_b, const void* ln_w, const void* ln_b,
+    const void* w_out, void* dx, void* dxc_f, void* dxc_b, void* dy, void* mg,
+    void* dz, void* vec_part, void* vec, void* w_part, void* dw_out,
+    void* dw_z, int batch, int H, int W, int dm, int di, bool transposed,
+    bool use_ln, int nsplit, float eps, cudaStream_t stream);
+
+cudaError_t pass_a_bwd_wide(
     const void* x, const void* dx_b, const void* dxc_f, const void* dxc_b,
     const void* dpf, const void* dpb, const void* w_x, const void* b_x,
     const void* w_cf, const void* b_cf, const void* w_ab, const void* b_ab,

@@ -20,20 +20,13 @@
 //   dx̂ += dz·W_z (K6: dxin·W_x) accumulates in registers across slabs
 //   (the warpgroups split d_model). Nothing of d_inner's whole width lives
 //   in registers, so d_inner <= 768 with d_model <= 384 fits (FastVim-S).
-// - Past those widths (fvb::wide_form: FastVim-B/L/H, up to fvb::kBwdMaxDm
-//   and kBwdMaxDi) the wide forms, template argument 0. The tile's x̂ and
-//   g (2 × 160 KB at d_model 1280) and a d_model-wide dx̂ accumulator (320
-//   floats a thread) no longer fit, so: x̂'s and g's K blocks come through
-//   the ring beside the weight blocks of the same K step, once a slab
-//   (from L2: the tile's rows are 64 × d_model), as K3's streamed form
-//   takes x̂; and the dx̂ products leave the kernel. K5 stores dz and K6
-//   dxin for the weight gradients anyway, so `dx_wgmma_kernel` forms dx̂ =
-//   dz·W_z (K6: dx̂(K5) + dxin·W_x) from them in one more launch, a
-//   128-token × 192-column tile a block with the weight read MN-major as
-//   it lies: no d_model-wide state on chip and nothing computed twice,
-//   for 2·d_inner bytes a token more through device memory. The
-//   LayerNorm's second pass walks channel groups in turn where d_inner/8
-//   exceeds the block's threads.
+// - Past those widths (fvb::wide_form: FastVim-B/L/H) a call hands over to
+//   the wide forms of layer_fused_bwd_wide.cu. Template argument 0 (kWide,
+//   x̂'s and g's K blocks streamed through the ring) is no longer
+//   instantiated; its branches stay because taking them out of the source
+//   changes how ptxas allocates the narrow instantiations (K6 up to 4 more
+//   registers a thread, FastVim-S's K5 and K6 2-3 % slower on an NVIDIA
+//   H100 80GB HBM3).
 // - Weights stream through a ring of four 16 KB stages filled by cp.async
 //   three stages ahead of the products that read them. The transposed
 //   operands (W_out, and W_z / W_x in the dx̂ product) are read MN-major
@@ -48,7 +41,7 @@
 //   row-major arrays, 128 × 192 output tiles per block, split over token
 //   slices; one launch does both of K5's. One `sum_segments` launch adds
 //   every partial of a call in a fixed order. No atomics anywhere.
-// A K5 or K6 call is three launches, four in the wide forms.
+// A K5 or K6 call here is three launches.
 
 #include "layer_fused_bwd.cuh"
 #include "wgmma.cuh"
@@ -864,118 +857,6 @@ cudaError_t wgrad_wgmma(const WgradJobs& jobs, float* part, long T, int di,
 }
 
 // =====================================================================
-// dx̂ of the wide forms: out (T × dm, fp32) = add + A·W
-// =====================================================================
-// A (T, di) bf16 (dz of K5, dxin of K6), W (di, dm) bf16 (W_z or W_x as it
-// lies, read MN-major), add (T, dm) fp32 or null (K6: dx̂ of K5). A block
-// owns 128 tokens (64 a warpgroup) × up to 3 blocks of 64 columns and walks
-// d_inner in K steps of 64 through a ring of 40 KB stages (the tokens' A
-// block, then the W blocks). grid: token tiles × column tiles.
-constexpr int kDxM = 128;
-__global__ void __launch_bounds__(kThreads, 1)
-dx_wgmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Wm,
-                const float* __restrict__ add, float* __restrict__ out,
-                long T, int di, int dm, int ntile_n, int nb_per) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wg = warp / 4, w4 = warp % 4, q = lane % 4, rq = lane / 4;
-  const long t0 = static_cast<long>(blockIdx.x / ntile_n) * kDxM;
-  const int nb0 = blockIdx.x % ntile_n * nb_per;
-  const int nb = imin(nb_per, dm / 64 - nb0);  // column blocks of this tile
-  const int nk = di / 64;
-
-  auto fetch = [&](int s, uint32_t dst) {
-    if (s >= nk) return;
-    const int k0 = 64 * s;
-    for (int i = tid; i < 8 * (kDxM + 64 * nb); i += kThreads) {
-      const int r = i / 8, ch = i % 8;
-      if (r < kDxM) {
-        const bool ok = t0 + r < T;  // masked before the load
-        cp_async16(dst + (r / kTM) * kBlkBytes + swz(r % kTM, 8 * ch),
-                   A + (ok ? (t0 + r) * di + k0 + 8 * ch : 0), ok);
-      } else {
-        const int j = (r - kDxM) / 64, kr = (r - kDxM) % 64;
-        cp_async16(dst + (2 + j) * kBlkBytes + swz(kr, 8 * ch),
-                   Wm + static_cast<size_t>(k0 + kr) * dm + 64 * (nb0 + j) +
-                       8 * ch);
-      }
-    }
-  };
-  int cons = 0;
-  auto slot = [&](int s) { return base + (s % kStages) * kWgStage; };
-  for (int s = 0; s < kStages - 1; ++s) {
-    fetch(s, slot(s));
-    fv::cp_async_commit();
-  }
-  float acc[32 * kWgNB];
-#pragma unroll
-  for (int i = 0; i < 32 * kWgNB; ++i) acc[i] = 0.f;
-  for (int k = 0; k < nk; ++k) {
-    fv::cp_async_wait<kStages - 2>();
-    fv::fence_async_smem();
-    __syncthreads();
-    fetch(cons + kStages - 1, slot(cons + kStages - 1));
-    fv::cp_async_commit();
-    const uint32_t st = slot(cons++);
-    fv::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t da = gmma_desc(st + wg * kBlkBytes + 32 * kk);
-#pragma unroll
-      for (int j = 0; j < kWgNB; ++j)
-        if (j < nb)
-          fv::wgmma_n64<0, 1>(acc + 32 * j, da,
-                              gmma_desc(st + (2 + j) * kBlkBytes + 2048 * kk),
-                              1);
-    }
-    fv::wgmma_commit();
-    fv::wgmma_wait();
-  }
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const long row = t0 + 64 * wg + 16 * w4 + rq + 8 * e;
-    if (row >= T) continue;
-#pragma unroll
-    for (int j = 0; j < kWgNB; ++j)
-      if (j < nb)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const size_t o =
-              static_cast<size_t>(row) * dm + 64 * (nb0 + j) + 8 * i + 2 * q;
-          float2 v = make_float2(acc[32 * j + 4 * i + 2 * e],
-                                 acc[32 * j + 4 * i + 2 * e + 1]);
-          if (add) {
-            const float2 a = __ldg(reinterpret_cast<const float2*>(add + o));
-            v.x += a.x;
-            v.y += a.y;
-          }
-          *reinterpret_cast<float2*>(out + o) = v;
-        }
-  }
-}
-
-cudaError_t dx_wgmma(const void* A, const void* Wm, const void* add,
-                     void* out, long T, int di, int dm, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      dx_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kWgSmem));
-  if (attr != cudaSuccess) return attr;
-  const int nblk = dm / 64;
-  const int ntile_n = (nblk + kWgNB - 1) / kWgNB;
-  const int nb_per = (nblk + ntile_n - 1) / ntile_n;
-  const long tiles = (T + kDxM - 1) / kDxM * ntile_n;
-  if (tiles > 0x7fffffffL) return cudaErrorInvalidValue;
-  dx_wgmma_kernel<<<static_cast<unsigned>(tiles), kThreads, kWgSmem,
-                    stream>>>(static_cast<const bf16*>(A),
-                              static_cast<const bf16*>(Wm),
-                              static_cast<const float*>(add),
-                              static_cast<float*>(out), T, di, dm, ntile_n,
-                              nb_per);
-  return cudaGetLastError();
-}
-
-// =====================================================================
 // K6: pass A backward
 // =====================================================================
 constexpr int kXinLd = kSlab + 4;  // fp32 row of the xin slab, skewed
@@ -1379,13 +1260,16 @@ cudaError_t pass_b_bwd_bf16(
     void* dz, void* vec_part, void* vec, void* w_part, void* dw_out,
     void* dw_z, int batch, int H, int W, int dm, int di, bool transposed,
     bool use_ln, int nsplit, float eps, cudaStream_t stream) {
+  if (wide_form(dm, di))
+    return pass_b_bwd_wide(g, x, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w,
+                           ln_b, w_out, dx, dxc_f, dxc_b, dy, mg, dz, vec_part,
+                           vec, w_part, dw_out, dw_z, batch, H, W, dm, di,
+                           transposed, use_ln, nsplit, eps, stream);
   cudaError_t err;
 #define FV_B(n) launch_b<n>(g, x, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, \
     ln_w, ln_b, w_out, dx, dxc_f, dxc_b, dy, mg, dz, vec_part, batch, H, W, \
     dm, di, transposed, use_ln, eps, stream)
-  const bool wide = wide_form(dm, di);
-  switch (wide ? 0 : dm / 64) {
-    case 0: err = FV_B(0); break;
+  switch (dm / 64) {
     case 1: err = FV_B(1); break;
     case 2: err = FV_B(2); break;
     case 3: err = FV_B(3); break;
@@ -1397,10 +1281,6 @@ cudaError_t pass_b_bwd_bf16(
 #undef FV_B
   if (err != cudaSuccess) return err;
   const long T = static_cast<long>(batch) * H * W;
-  if (wide) {  // dx̂ (z half) = dz·W_z
-    err = dx_wgmma(dz, w_z, nullptr, dx, T, di, dm, stream);
-    if (err != cudaSuccess) return err;
-  }
   const size_t wn = static_cast<size_t>(di) * dm;
   auto* wp = static_cast<float*>(w_part);
   // dW_outᵀ (di, dm) = mgᵀ·g;  dW_z (di, dm) = dzᵀ·x̂
@@ -1427,13 +1307,16 @@ cudaError_t pass_a_bwd_bf16(
     void* dx, void* dxin, void* c_part, void* c_vec, void* w_part, void* dw_x,
     int batch, int H, int W, int dm, int di, bool transposed, int nsplit,
     float scaling, cudaStream_t stream) {
+  if (wide_form(dm, di))
+    return pass_a_bwd_wide(x, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf,
+                           b_cf, w_ab, b_ab, dx, dxin, c_part, c_vec, w_part,
+                           dw_x, batch, H, W, dm, di, transposed, nsplit,
+                           scaling, stream);
   cudaError_t err;
 #define FV_A(n) launch_a<n>(x, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, \
     b_cf, w_ab, b_ab, dx, dxin, c_part, batch, H, W, dm, di, transposed, \
     scaling, stream)
-  const bool wide = wide_form(dm, di);
-  switch (wide ? 0 : dm / 64) {
-    case 0: err = FV_A(0); break;
+  switch (dm / 64) {
     case 1: err = FV_A(1); break;
     case 2: err = FV_A(2); break;
     case 3: err = FV_A(3); break;
@@ -1446,10 +1329,6 @@ cudaError_t pass_a_bwd_bf16(
   if (err != cudaSuccess) return err;
   const long Ltok = static_cast<long>(H) * W;
   const long T = batch * Ltok;
-  if (wide) {  // dx̂ = dx̂(K5) + dxin·W_x
-    err = dx_wgmma(dxin, w_x, dx_b, dx, T, di, dm, stream);
-    if (err != cudaSuccess) return err;
-  }
   const int nwin = static_cast<int>((Ltok + kAWin - 1) / kAWin);
   WgradJobs jobs{{static_cast<const bf16*>(dxin), nullptr},
                  {static_cast<const bf16*>(x), nullptr}, 1};

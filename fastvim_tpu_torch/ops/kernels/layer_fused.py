@@ -58,6 +58,9 @@ BWD_ROUTE_LINE = 16     # ... on lines of up to it: FastVim-H's at 224 px
 BWD_RUN_B = 64          # tokens a block of the fp32 K5's middle (kMRun)
 BWD_RUN_A = 122         # own tokens a block of the fp32 K6 (kAM - 2·kPad)
 A_BWD_WINDOW = 58       # tokens a K6 block of the bf16 path owns (kAWin)
+BWD_WIDE_TM = 128       # tokens a tile of the bf16 wide forms (kWideTM)
+BWD_WIDE_TN = 128       # d_inner channels a K5 / K6 tile of them (kWideTN)
+A_BWD_WINDOW_WIDE = 122  # tokens a wide K6 window owns (kAWinWide)
 FWD_ROUTE_DM = 768      # past it fp32 forwards on short lines run unfused
 FWD_ROUTE_LINE = 16     # ... on lines of up to it: FastVim-H's at 224 px
 RECOMPUTE_MAX_DM = 1280  # widest d_model K7 takes (kRcMaxDm in both of
@@ -590,6 +593,47 @@ def _wgrad_splits(ntokens: int, dm: int, di: int, jobs: int,
     return max(1, min(ntokens // 512, round(blocks / (tiles * jobs))))
 
 
+def _wide_wgrad_splits(ntokens: int, dm: int, di: int, jobs: int) -> int:
+    """Token slices the weight-gradient products of the bf16 wide forms
+    are split into (csrc/layer_fused_bwd_wide.cu): tiles of 128 rows ×
+    64·nb columns (nb = 4, 2 or 1: the widest that divides d_model and
+    d_inner in 64s), one block an SM of an H100's 132. The fewest slices,
+    each of at least 256 tokens, whose blocks fill 90 % of their waves;
+    else the fullest. One slice writes the gradients as they are, with no
+    partials to add up."""
+    nb = next(n for n in (4, 2, 1) if dm % (64 * n) == di % (64 * n) == 0)
+    tiles = max(_cdiv(dm, 128) * (di // (64 * nb)),
+                _cdiv(di, 128) * (dm // (64 * nb)))
+    best, best_eff = 1, 0.0
+    for n in range(1, 33):
+        if n > 1 and ntokens < 256 * n:
+            break
+        blocks = tiles * jobs * n
+        eff = blocks / (132 * _cdiv(blocks, 132))
+        if eff >= 0.9:
+            return n
+        if eff > best_eff:
+            best, best_eff = n, eff
+    return best
+
+
+def _wide_b_scratch(B: int, P: int, T: int, dm: int, di: int) -> int:
+    """fp32 words of the bf16 wide K5's scratch (``vec_part``), as
+    ``fvb::pass_b_bwd_wide`` lays it out: the column sums of each token
+    tile (3·di), dD_f, dD_b and db_out of each line (2·di + dm), the
+    LayerNorm statistics (2 a token), the rows' sums of each channel tile
+    (2 a token)."""
+    ntt, nct = _cdiv(T, BWD_WIDE_TM), _cdiv(di, BWD_WIDE_TN)
+    return ntt * 3 * di + B * P * (2 * di + dm) + 2 * T + 2 * T * nct
+
+
+def bwd_wide(d_model: int, d_inner: int, dtype: torch.dtype) -> bool:
+    """Whether K5 and K6 take their wide forms: bf16 past d_model 384 or
+    d_inner 768 (fvb::wide_form)."""
+    return dtype == torch.bfloat16 and (d_model > BWD_NARROW_DM
+                                        or d_inner > BWD_NARROW_DI)
+
+
 def pass_b_bwd_plain(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w,
                      ln_b, w_out, eps: float, use_ln: bool, transposed: bool):
     """The adjoint of :func:`pass_b_plain`, written out in tensor ops
@@ -655,10 +699,11 @@ def pass_b_bwd(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
     On CUDA the widths must pass :func:`pass_bwd_widths_ok`. The sums
     over all tokens (weight and vector gradients) are written as
     per-block partials and added by one more kernel in a fixed order;
-    a call is three launches in bf16, four past d_model 384 or d_inner
-    768, where dx̂ = dz·W_z is a product of its own; six in fp32 (z,
-    dgated, the elementwise middle, dx̂, the weight gradients, the sums).
-    Both dtypes read the weights as they lie."""
+    a call is three launches in bf16; six past d_model 384 or d_inner
+    768 (the wide form: the LayerNorm statistics, z and dgated with the
+    gate epilogue, the per-line second pass, dx̂, the weight gradients, the
+    sums) and in fp32 (z, dgated, the elementwise middle, dx̂, the weight
+    gradients, the sums). Both dtypes read the weights as they lie."""
     if x4.device.type == "cpu":
         return pass_b_bwd_plain(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f,
                                 d_b, ln_w, ln_b, w_out, eps, use_ln,
@@ -693,16 +738,21 @@ def pass_b_bwd(g4, x4, xc_f, xc_b, yf, yb, w_z, b_z, d_f, d_b, ln_w, ln_b,
     kernels.check_aligned(name, g4=g4, x4=x4, xc_f=xc_f, xc_b=xc_b, yf=yf,
                           yb=yb, w_z=w_z, w_out=w_out)
     T = B * H * W
-    nsplit = _wgrad_splits(T, dm, di, 2, code == 1)
+    wide = bwd_wide(dm, di, x4.dtype)
+    nsplit = (_wide_wgrad_splits(T, dm, di, 2) if wide
+              else _wgrad_splits(T, dm, di, 2, code == 1))
     f32 = dict(dtype=torch.float32, device=x4.device)
     dx = torch.empty(B, H, W, dm, **f32)
     dxc_f, dxc_b = torch.empty_like(xc_f), torch.empty_like(xc_b)
     dy = x4.new_empty(B, P, di)
     mg, dz = x4.new_empty(T, di), x4.new_empty(T, di)  # GEMM operands
     nvec = 5 * di + dm
-    vec_part = torch.empty(B * P, nvec, **f32)
+    vec_part = (torch.empty(_wide_b_scratch(B, P, T, dm, di), **f32) if wide
+                else torch.empty(B * P, nvec, **f32))
     vec = torch.empty(nvec, **f32)
-    w_part = torch.empty(2, nsplit, di * dm, **f32)
+    # the wide form writes one slice's gradients as they are
+    w_part = torch.empty(2, nsplit, di * dm if nsplit > 1 or not wide else 1,
+                         **f32)
     dw_out = torch.empty(dm, di, **f32)
     dw_z = torch.empty(di, dm, **f32)
     err = _build.library().fv_pass_b_bwd(
@@ -783,8 +833,9 @@ def pass_a_bwd(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, b_cf, w_ab,
     On CUDA the widths must pass :func:`pass_bwd_widths_ok`. The sums
     over all tokens are per-block partials added by one more kernel in a
     fixed order; a call is three launches in bf16 up to d_model 384 and
-    d_inner 768, else four; four in fp32 (xin again with the conv
-    adjoint, dx̂, the weight gradient, the sums)."""
+    d_inner 768, else four (xin on 128-row conv windows with the conv
+    adjoint, dx̂, the weight gradient, the sums); four in fp32 (xin again
+    with the conv adjoint, dx̂, the weight gradient, the sums)."""
     if x4.device.type == "cpu":
         return pass_a_bwd_plain(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x,
                                 w_cf, b_cf, w_ab, b_ab, scaling, transposed)
@@ -817,16 +868,20 @@ def pass_a_bwd(x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, b_x, w_cf, b_cf, w_ab,
     kernels.check_aligned(name, x4=x4, dx_b=dx_b, dxc_f=dxc_f, dxc_b=dxc_b,
                           w_x=w_x)
     T = B * H * W
-    nsplit = _wgrad_splits(T, dm, di, 1, code == 1)
+    wide = bwd_wide(dm, di, x4.dtype)
+    nsplit = (_wide_wgrad_splits(T, dm, di, 1) if wide
+              else _wgrad_splits(T, dm, di, 1, code == 1))
     f32 = dict(dtype=torch.float32, device=x4.device)
     dx = torch.empty(B, H, W, dm, **f32)
     dxin = x4.new_empty(T, di)  # GEMM operand
     # a partial per block: at most a line in fp32 (a run of whole lines,
     # or one line), a window of the conv order in bf16
-    nblk = P if code == 0 else -(-H * W // A_BWD_WINDOW)
+    nblk = (P if code == 0 else
+            _cdiv(H * W, A_BWD_WINDOW_WIDE if wide else A_BWD_WINDOW))
     c_part = torch.empty(B * nblk, 11 * di, **f32)
     c_vec = torch.empty(11, di, **f32)
-    w_part = torch.empty(nsplit, di * dm, **f32)
+    w_part = torch.empty(nsplit, di * dm if nsplit > 1 or not wide else 1,
+                         **f32)
     dw_x = torch.empty(di, dm, **f32)
     err = _build.library().fv_pass_a_bwd(
         *map(kernels.ptr, (x4, dx_b, dxc_f, dxc_b, dpf, dpb, w_x, None, b_x,

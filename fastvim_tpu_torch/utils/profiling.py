@@ -62,6 +62,14 @@ KERNEL_GROUPS = (
     ("K2 scan bwd", "scan_bwd_kernel"),
     ("K2 scan bwd, chunked (phase 1)", "bwd_lam_chunk_kernel"),
     ("K2 scan bwd, chunked (phase 3)", "bwd_grad_chunk_kernel"),
+    ("K5 wide: LayerNorm statistics", "b_stats_kernel"),
+    ("K5 wide: z, dgated + gate epilogue", "b_main_kernel"),
+    ("K5 wide: second pass", "b_second_kernel"),
+    ("K6 wide: xin + conv adjoint", "a_main_kernel"),
+    # gemm_tma_kernel<nb, wgrad>: dx̂ (false) and the weight gradients
+    ("K5/K6 wide: dx̂ product", "false>((anonymous namespace)::GemmJobs"),
+    ("K5/K6 wide: weight gradients", "true>((anonymous namespace)::GemmJobs"),
+    ("K5/K6 wide: fixed-order sums", "sum_rows_kernel"),
     ("K5 pass B bwd, fp32 (middle)", "pass_b_bwd_mid"),
     ("K6 pass A bwd, fp32 (xin + conv adjoint)", "pass_a_bwd_tf32"),
     ("K5/K6 fp32 products (3xTF32)", "gemm_tf32"),
@@ -142,6 +150,16 @@ K6_PHASES = ((16, "dx̂ store of the window before + wait for x̂"),
              (19, "wait for the cotangents"), (20, "conv adjoint walk"),
              (21, "barrier"), (22, "partials + dxin copy-out"),
              (23, "dx̂ product"))
+# the WPROF marks of csrc/layer_fused_bwd_wide.cu (the wide forms' main
+# kernels), a block's cycles
+K5_WIDE_PHASES = ((0, "z and dgated products (+ wait for the tile's m̂)"),
+                  (8, "the rows' outputs located"),
+                  (1, "gate / LayerNorm epilogue"),
+                  (2, "column sums of the tile"))
+K6_WIDE_PHASES = ((3, "window map, cotangent copies started"),
+                  (4, "xin product"),
+                  (5, "xin and pooled cotangents to shared"),
+                  (6, "conv adjoint walk"), (7, "partials + dxin copy-out"))
 
 
 def _bwd_args(dm: int, di: int, grid: int, batch: int, transposed: bool,
@@ -228,6 +246,39 @@ def kernel_times(dm: int, di: int, grid: int, batch: int, fwd: bool,
         print(f"{str(dtype)[6:]} d_model={dm} d_inner={di} grid={grid}x"
               f"{grid} B={batch} transposed={transposed}: {names[0]} "
               f"{ms[0]:.4f} ms, {names[1]} {ms[1]:.4f} ms")
+        if not (fwd or recompute or transposed):
+            bwd_split(dm, di, batch * grid * grid, args, dtype)
+
+
+def bwd_split(dm: int, di: int, T: int, args, dtype: torch.dtype) -> None:
+    """Print the device time of one K5 and one K6 call by launch (the main
+    kernel, the dx̂ product, the weight gradients, the sums; the profiler's
+    ms a call over 5 calls), and beside them the same products done alone
+    by ``torch.matmul`` in ``dtype`` (bf16: tensor cores; fp32: SGEMMs,
+    TF32 as the caller set it), a yardstick the port never calls."""
+    from fastvim_tpu_torch.ops.kernels import layer_fused as lf
+
+    dev = torch.device("cuda", 0)
+    x = torch.randn(T, dm, device=dev).to(dtype)
+    a = torch.randn(T, di, device=dev).to(dtype)
+    w = torch.randn(di, dm, device=dev).to(dtype) * dm ** -0.5
+    w_out = torch.randn(dm, di, device=dev).to(dtype) * di ** -0.5
+    products = {  # K5: z, dgated, dx̂, dW_out, dW_z; K6: xin, dx̂, dW_x
+        "K5": (lambda: x @ w.t(), lambda: x @ w_out, lambda: a @ w,
+               lambda: a.t() @ x, lambda: a.t() @ x),
+        "K6": (lambda: x @ w.t(), lambda: a @ w, lambda: a.t() @ x)}
+    with torch.no_grad():
+        for name, fn, fargs in (("K5", lf.pass_b_bwd, args[0]),
+                                ("K6", lf.pass_a_bwd, args[1])):
+            rows, busy, _ = device_time_by_kernel(lambda: fn(*fargs),
+                                                  iters=5)
+            split = "; ".join(f"{k} {ms:.4f} ms ({n})" for k, (ms, n)
+                              in group_rows(rows).items())
+            mm = sum(_event_ms(p, (), 10) for p in products[name])
+            print(f"  {name} by launch, device busy {busy:.4f} ms a call: "
+                  f"{split}; the same {len(products[name])} products alone "
+                  f"(torch.matmul, {str(dtype)[6:]}) {mm:.4f} ms",
+                  flush=True)
 
 
 def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
@@ -465,7 +516,9 @@ def scan_times(lengths=(128, 256, 512, 1024, 4096, 16384), batch: int = 2,
 def bwd_phase_cycles(dm: int, di: int, grid: int, batch: int) -> None:
     """Print the cycles per block and phase of one K5 and one K6 call in
     bf16 on random inputs (thread 0's clock; the kernels are built with
-    -DFV_PROFILE, so call this before anything else builds them)."""
+    -DFV_PROFILE, so call this before anything else builds them). For the
+    wide forms (FastVim-B/L/H) the marks are those of their main kernels,
+    and the call's device time by launch comes first."""
     import ctypes
 
     from fastvim_tpu_torch.ops.kernels import _build
@@ -474,19 +527,32 @@ def bwd_phase_cycles(dm: int, di: int, grid: int, batch: int) -> None:
     _build.NVCC_FLAGS.append("-DFV_PROFILE")
     lib = _build.library()
     dev = torch.device("cuda", 0)
+    wide = lf.bwd_wide(dm, di, torch.bfloat16)
+    entry = "fv_bwd_wide_phase_cycles" if wide else "fv_bwd_phase_cycles"
 
     def read():
         buf = (ctypes.c_uint64 * 32)()
-        _build.check(lib.fv_bwd_phase_cycles(buf), "fv_bwd_phase_cycles")
+        _build.check(getattr(lib, entry)(buf), entry)
         return list(buf)
 
     b_args, a_args = _bwd_args(dm, di, grid, batch, False)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    windows = batch * -(-grid * grid // lf.A_BWD_WINDOW)
+    T = batch * grid * grid
+    if wide:
+        bwd_split(dm, di, T, (b_args, a_args), torch.bfloat16)
+        tiles = -(-T // lf.BWD_WIDE_TM) * -(-di // lf.BWD_WIDE_TN)
+        windows = batch * -(-grid * grid // lf.A_BWD_WINDOW_WIDE)
+        runs = (("K5", lf.pass_b_bwd, b_args, K5_WIDE_PHASES,
+                 min(sms, tiles)),
+                ("K6", lf.pass_a_bwd, a_args, K6_WIDE_PHASES,
+                 windows * -(-di // lf.BWD_WIDE_TN)))
+    else:
+        windows = batch * -(-grid * grid // lf.A_BWD_WINDOW)
+        runs = (("K5", lf.pass_b_bwd, b_args, K5_PHASES, batch * grid),
+                ("K6", lf.pass_a_bwd, a_args, K6_PHASES,
+                 min(sms, windows)))
     with torch.no_grad():
-        for name, fn, args, phases, nblk in (
-                ("K5", lf.pass_b_bwd, b_args, K5_PHASES, batch * grid),
-                ("K6", lf.pass_a_bwd, a_args, K6_PHASES, min(sms, windows))):
+        for name, fn, args, phases, nblk in runs:
             fn(*args)  # warm-up
             read()
             fn(*args)

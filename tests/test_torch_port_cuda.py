@@ -758,23 +758,73 @@ def test_pass_a_bwd_wide_matches_plain(dev, dtype, grid, transposed, batch,
 @pytest.mark.parametrize("dm,di", [(768, 1536), (1280, 2560)])
 def test_wide_bwd_kernels_repeat_bitwise(dev, dtype, dm, di):
     """The wide forms add their cross-block sums in a fixed order (no
-    atomics): two calls on the same inputs agree bit for bit. A call is
-    four launches in bf16 (the main kernel, the dx̂ product, the
-    weight-gradient product, the sums); in fp32 (3xTF32) six for K5 (z,
-    dgated, the middle, dx̂, the weight gradients, the sums) and four for
-    K6 (xin with the conv adjoint, dx̂, the weight gradient, the sums), and
-    no weight transposes."""
+    atomics): two calls on the same inputs agree bit for bit. A call of K5
+    is six launches in either dtype (bf16: the LayerNorm statistics, z and
+    dgated with the gate epilogue, the second pass, dx̂, the weight
+    gradients, the sums; fp32 (3xTF32): z, dgated, the middle, dx̂, the
+    weight gradients, the sums), of K6 four (xin with the conv adjoint,
+    dx̂, the weight gradient, the sums), and no weight transposes."""
     g = torch.Generator(device=dev).manual_seed(dm + 1)
     b_args = _pass_b_bwd_args(g, dtype, 2, 10, 70, dm, di, True, True, False)
     a_args = _pass_a_bwd_args(g, dtype, 2, 10, 70, dm, di, True, True)
-    fp32 = dtype == torch.float32
     with torch.no_grad():
-        for fn, args, n in ((lf.pass_b_bwd, b_args, 4 + 2 * fp32),
+        for fn, args, n in ((lf.pass_b_bwd, b_args, 6),
                             (lf.pass_a_bwd, a_args, 4)):
             first = [t.clone() for t in fn(*args)]
             for a, b in zip(first, fn(*args)):
                 assert torch.equal(a, b)
             assert kernels_a_call(lambda: fn(*args)) == n
+
+
+# the bf16 wide forms as redesigned on 128-token tiles
+# (csrc/layer_fused_bwd_wide.cu), at FastVim-B's, -L's and -H's widths on
+# lines of 14 (224 px), 32 (-H at 448 px) and 128 tokens (2048 px), both
+# orientations: token tiles that span images (B = 3, 588 tokens) with a
+# ragged last tile, K6 windows with a ragged last window in each image
+WIDE_REDESIGN_CASES = [
+    ((14, 14), False, 3, 768, 1536), ((14, 14), True, 3, 768, 1536),
+    ((14, 14), False, 3, 1024, 2048), ((14, 14), True, 3, 1024, 2048),
+    ((32, 32), False, 2, 1280, 2560), ((32, 32), True, 2, 1280, 2560),
+    ((128, 128), False, 1, 768, 1536), ((128, 128), True, 1, 768, 1536),
+]
+
+
+@pytest.mark.parametrize("grid,transposed,batch,dm,di", WIDE_REDESIGN_CASES)
+def test_wide_bwd_redesign_matches_plain_and_repeats(dev, grid, transposed,
+                                                     batch, dm, di):
+    """K5's and K6's bf16 wide forms against their plain versions (2e-2),
+    two calls bit for bit equal, six and four launches a call. K5's dy is
+    a sum over a line's tokens (128 of them at 2048 px), so it is held as
+    a summed output: its per-token bound fails by one bf16 ulp in the
+    form before this one too, on the same inputs."""
+    g = torch.Generator(device=dev).manual_seed(dm + grid[0] + batch)
+    b_args = _pass_b_bwd_args(g, torch.bfloat16, batch, *grid, dm, di, True,
+                              True, transposed)
+    a_args = _pass_a_bwd_args(g, torch.bfloat16, batch, *grid, dm, di, True,
+                              transposed)
+    with torch.no_grad():
+        for fn, plain, args, n_tok, launches in (
+                (lf.pass_b_bwd, lf.pass_b_bwd_plain, b_args, 3, 6),
+                (lf.pass_a_bwd, lf.pass_a_bwd_plain, a_args, 1, 4)):
+            first = [t.clone() for t in fn(*args)]
+            _close_all(first, plain(*args), TOL[torch.bfloat16], n_tok)
+            for a, b in zip(first, fn(*args)):
+                assert torch.equal(a, b)
+            assert kernels_a_call(lambda: fn(*args)) == launches
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_wide_bwd_redesign_without_layernorm_or_bias(dev, transposed):
+    """The wide K5 without the LayerNorm (m0 itself in the epilogue, no
+    row sums) and without b_z, at a d_inner with a half channel tile (832)
+    and a d_model that takes 64-column products (448)."""
+    g = torch.Generator(device=dev).manual_seed(832 + transposed)
+    for dm, di in ((448, 896), (512, 832)):
+        args = _pass_b_bwd_args(g, torch.bfloat16, 2, 9, 7, dm, di, False,
+                                False, transposed)
+        with torch.no_grad():
+            _close_all(lf.pass_b_bwd(*args), lf.pass_b_bwd_plain(*args),
+                       TOL[torch.bfloat16], 4)
 
 
 # the fp32 K5 and K6 (3xTF32, csrc/layer_fused_bwd_tf32.cu): every
